@@ -1,0 +1,173 @@
+"""Build, bind and count the port's hand-written CUDA kernels.
+
+Each kernel is one ``*.cu`` file beside this module with a plain
+``extern "C"`` entry. It is compiled at first use with ``nvcc`` for
+``sm_90a`` into ``build/torch_kernels/`` at the repository root (listed in
+``.gitignore``), under a name keyed by the source and flags, and loaded with
+``ctypes``. Entries take raw device pointers and PyTorch's current stream
+and return ``cudaGetLastError()``; the wrappers here raise when it is not 0.
+
+No fallback: a failed build or launch raises. The plain torch versions
+live beside the callers (``ops/neighbor.py``) and run only for CPU tensors.
+
+Each wrapper adds one to ``LAUNCHES`` where it launches its kernel, so a
+run can show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from collections import Counter
+from typing import Dict, Iterable, List, Tuple
+
+import torch
+
+_SRC_DIR = os.path.dirname(os.path.abspath(__file__))
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_SRC_DIR)))
+BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
+
+# -fmad=false: no multiply-add contraction, so float32 distance tests round
+# exactly as the plain torch versions do
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+
+KERNELS = ("ball_query",)
+
+
+class LaunchLog:
+    """Launch counts per kernel, and the shapes each was launched at."""
+
+    def __init__(self) -> None:
+        self.counts: Counter = Counter()
+        self.shapes: Dict[str, Counter] = {}
+
+    def add(self, name: str, shape: Tuple[int, ...]) -> None:
+        self.counts[name] += 1
+        self.shapes.setdefault(name, Counter())[shape] += 1
+
+    def reset(self) -> None:
+        self.counts.clear()
+        self.shapes.clear()
+
+
+LAUNCHES = LaunchLog()
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``$CUDA_HOME/bin/nvcc``, else ``nvcc`` on PATH,
+    else the toolkit's usual ``/usr/local/cuda``."""
+    cands: List[str] = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        cands.append(found)
+    cands.append("/usr/local/cuda/bin/nvcc")
+    for path in cands:
+        if os.path.isfile(path) and os.access(path, os.X_OK):
+            return path
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit "
+                       "(set CUDA_HOME)")
+
+
+def library_path(name: str) -> str:
+    """Where kernel ``name``'s shared library lives once built."""
+    with open(os.path.join(_SRC_DIR, f"{name}.cu"), "rb") as f:
+        key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return os.path.join(BUILD_DIR, f"libmc_{name}-{key}.so")
+
+
+def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
+    """Compile every kernel in ``names`` that is not built yet, one ``nvcc``
+    per source, all started together. Returns {name: seconds} of the builds
+    that ran; raises with the compiler's output if any fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(_SRC_DIR, f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                        text=True), tmp, out, time.perf_counter())
+    seconds: Dict[str, float] = {}
+    errors = []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+            continue
+        os.replace(tmp, out)  # atomic: a half-written library is never loaded
+        seconds[name] = time.perf_counter() - t0
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The bound library of kernel ``name`` (built on first use)."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(library_path(name))
+        _bind(name, lib)
+        _LIBS[name] = lib
+    return lib
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    if name == "ball_query":
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.mc_ball_query.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, p]
+        lib.mc_ball_query.restype = ctypes.c_int
+
+
+def _check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def ball_query_cuda(query: torch.Tensor, candidates: torch.Tensor,
+                    query_lengths: torch.Tensor, candidate_lengths: torch.Tensor,
+                    *, k: int, radius: float) -> torch.Tensor:
+    """The CUDA ball query: (B, P, k) int32, -1 padded (see ``ball_query.cu``)."""
+    dev = query.device
+    _check(dev.type == "cuda", f"ball_query_cuda needs CUDA tensors, got {dev}")
+    for t in (candidates, query_lengths, candidate_lengths):
+        _check(t.device == dev, "ball_query_cuda: all inputs must be on one device")
+    _check(query.dim() == 3 and query.shape[2] == 3,
+           f"query must be (B, P, 3), got {tuple(query.shape)}")
+    b, p, _ = query.shape
+    _check(candidates.dim() == 3 and candidates.shape[0] == b and candidates.shape[2] == 3,
+           f"candidates must be ({b}, S, 3), got {tuple(candidates.shape)}")
+    s = candidates.shape[1]
+    for t in (query, candidates):
+        _check(t.dtype == torch.float32 and t.is_contiguous(),
+               "ball_query_cuda: points must be contiguous float32")
+    for t in (query_lengths, candidate_lengths):
+        _check(t.dtype == torch.int32 and t.is_contiguous() and tuple(t.shape) == (b,),
+               f"ball_query_cuda: lengths must be contiguous int32 of shape ({b},)")
+    _check(k >= 1 and radius > 0, f"need k >= 1 and radius > 0, got k={k}, radius={radius}")
+    _check(b <= 65535, f"ball_query_cuda: at most 65535 batch rows (grid y), got {b}")
+
+    out = torch.full((b, p, k), -1, dtype=torch.int32, device=dev)
+    if b == 0 or p == 0:
+        return out
+    lib = load("ball_query")
+    r2 = float(radius) * float(radius)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mc_ball_query(query.data_ptr(), candidates.data_ptr(),
+                                query_lengths.data_ptr(), candidate_lengths.data_ptr(),
+                                b, p, s, k, ctypes.c_float(r2), out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"ball_query kernel launch failed: CUDA error {err}")
+    LAUNCHES.add("ball_query", (b, p, s))
+    return out
