@@ -8,15 +8,20 @@ Imports nothing of JAX or of the JAX package. In order:
 1. card: its name and power limit (nvidia-smi) and torch's device name;
 2. build: every CUDA kernel of the port, from the sources in this checkout;
 3. kernels against their plain torch versions on the card, bit-equal, on
-   edge cases (ragged lengths with empty rows, a single candidate, scan
-   order rather than nearest, batches larger than the TPU's batch chunk,
-   full rows that stop early, k above every row's hit count);
+   the edge cases of ``ops/neighbor_cases.py`` (ragged lengths with empty
+   rows, scan order rather than nearest, rows that fill in the middle of a
+   warp step or exactly, k = 1, partial warps and blocks, S not a multiple
+   of 4, partial last steps, no candidates, many tiles through the ring of
+   buffers, blocks that stop with copies in flight);
 4. the slice at full size through ``models.run_scene``: a 480x640 synthetic
    scan of 371,180 points, 32 frames, 2 mm depth noise, scannet thresholds,
    the reference radius 0.01, exact ball-query association, host
-   post-process, on ``cuda``; every kernel of the path must have launched;
-5. each kernel timed with CUDA events at the largest shape the full-size
-   run gave it, beside its plain version and its bound;
+   post-process, on ``cuda``; every kernel of the path must have launched.
+   The padded inputs of every ball-query group it launched are kept;
+5. the ball-query kernel bit-equal to its plain version on every one of
+   those groups; timed with CUDA events at the largest group beside its
+   plain version, its bound and the no-FMA ceiling, and summed over the
+   scene's groups;
 6. a mid-size scene on ``cuda`` and on ``cpu``: equal artifact digests.
 
 Any mismatch or failure exits non-zero. The last three lines are the card
@@ -25,6 +30,7 @@ line, the per-kernel JSON and the result JSON.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -37,6 +43,9 @@ PEAK_HBM_BYTES = 3.35e12
 # per ball-query pair test: 3 subtractions, 3 multiplications, 2 additions
 # and the radius comparison
 BALL_QUERY_OPS_PER_PAIR = 9
+# the share of that bound a kernel without fused multiply-adds can reach:
+# the FP32 peak above counts an FMA as two operations
+NO_FMA_CEILING = 0.5
 
 
 def _say(msg: str) -> None:
@@ -66,46 +75,15 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def ball_query_edge_cases():
-    """(name, q, c, ql, cl, k, radius) numpy cases of the kernel contract."""
-    import numpy as np
-
-    rng = np.random.default_rng(1)
-    cases = []
-    b, p, s = 4, 70, 260
-    cases.append(("ragged, ql=0 and cl=1",
-                  rng.uniform(-1, 1, (b, p, 3)).astype(np.float32),
-                  rng.uniform(-1, 1, (b, s, 3)).astype(np.float32),
-                  np.array([70, 33, 0, 64], np.int32), np.array([260, 100, 50, 1], np.int32),
-                  6, 0.4))
-    cases.append(("scan order, not nearest", np.zeros((1, 1, 3), np.float32),
-                  np.array([[[0.3, 0, 0], [0.1, 0, 0], [0.2, 0, 0]]], np.float32),
-                  np.array([1], np.int32), np.array([3], np.int32), 2, 0.5))
-    b, p, s = 10, 16, 40
-    cases.append(("batch above the TPU batch chunk",
-                  rng.uniform(-1, 1, (b, p, 3)).astype(np.float32),
-                  rng.uniform(-1, 1, (b, s, 3)).astype(np.float32),
-                  np.full(b, p, np.int32), np.full(b, s, np.int32), 4, 0.5))
-    b, p, s = 3, 300, 2000
-    cases.append(("full rows stop early, several candidate tiles",
-                  rng.uniform(0, 0.2, (b, p, 3)).astype(np.float32),
-                  rng.uniform(0, 0.2, (b, s, 3)).astype(np.float32),
-                  np.array([300, 129, 255], np.int32), np.array([2000, 700, 257], np.int32),
-                  20, 0.05))
-    cases.append(("k above every row's hit count",
-                  rng.uniform(-1, 1, (2, 50, 3)).astype(np.float32),
-                  rng.uniform(-1, 1, (2, 90, 3)).astype(np.float32),
-                  np.array([50, 20], np.int32), np.array([90, 90], np.int32), 64, 0.2))
-    return cases
-
-
 def check_ball_query_edges(dev) -> None:
     import numpy as np
     import torch
 
     from maskclustering_tpu_torch.ops.neighbor import ball_query, ball_query_reference
+    from maskclustering_tpu_torch.ops.neighbor_cases import BALL_QUERY_CASES, ball_query_case
 
-    for name, q, c, ql, cl, k, r in ball_query_edge_cases():
+    for name in BALL_QUERY_CASES:
+        q, c, ql, cl, k, r = ball_query_case(name)
         args = [torch.from_numpy(a).to(dev) for a in (q, c, ql, cl)]
         got = ball_query(*args, k=k, radius=r)
         want = ball_query_reference(*args, k=k, radius=r)
@@ -120,67 +98,99 @@ def check_ball_query_edges(dev) -> None:
         _say(f"  ball_query == plain on '{name}' {tuple(q.shape)}x{tuple(c.shape)} k={k}")
 
 
-def largest_group_inputs(tensors, cfg, shape):
-    """The real padded inputs of the first ball-query group of ``shape``
-    (B, P_pad, S_pad) that the scene's association builds."""
+@contextlib.contextmanager
+def recording_ball_query_groups(groups: list):
+    """Keep, in ``groups``, the padded host inputs ``(q, c, ql, cl, k,
+    radius)`` of every ball-query group the exact association launches
+    while the context is open."""
+    from maskclustering_tpu_torch.models import exact_backprojection
+
+    launch = exact_backprojection._ball_query_group
+
+    def record(q, c, ql, cl, k, radius, device):
+        groups.append((q, c, ql, cl, k, radius))
+        return launch(q, c, ql, cl, k, radius, device)
+
+    exact_backprojection._ball_query_group = record
+    try:
+        yield groups
+    finally:
+        exact_backprojection._ball_query_group = launch
+
+
+def pair_tests(out, ql, cl, k: int, s: int) -> int:
+    """The pair tests these inputs need: each valid row scans candidates up
+    to its k-th hit (the candidate index in slot k-1, plus one) or to the
+    end of its candidates."""
+    total = 0
+    for bi in range(out.shape[0]):
+        rows = out[bi, : max(0, min(int(ql[bi]), out.shape[1]))]
+        full = rows[:, k - 1] >= 0
+        total += (int((rows[full, k - 1].astype("int64") + 1).sum())
+                  + int((~full).sum()) * max(0, min(int(cl[bi]), s)))
+    return total
+
+
+def bound(pairs: int, nbytes: int):
+    """(least ms on the card, what bounds it) for ``pairs`` pair tests
+    moving ``nbytes``."""
+    t_ops = pairs * BALL_QUERY_OPS_PER_PAIR / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def check_and_time_groups(dev, groups):
+    """Phase 5 over the scene's ball-query groups: the kernel bit-equal to
+    the plain version on every group; its time at the largest group (20
+    launches) beside the plain version's (3) and the bound; its time summed
+    over all groups (3 launches each after one warm-up)."""
     import numpy as np
-
-    from maskclustering_tpu_torch.models.exact_backprojection import (
-        ball_query_groups,
-        frame_mask_candidates,
-    )
-
-    pts = np.asarray(tensors.scene_points, dtype=np.float64)
-    for fi in range(tensors.num_frames):
-        if not tensors.frame_valid[fi]:
-            continue
-        cands = frame_mask_candidates(
-            pts, tensors.depths[fi], tensors.segmentations[fi], tensors.intrinsics[fi],
-            tensors.cam_to_world[fi], distance_threshold=cfg.distance_threshold,
-            depth_trunc=cfg.depth_trunc, few_points_threshold=cfg.few_points_threshold,
-            denoise_eps=cfg.denoise_eps, denoise_min_points=cfg.denoise_min_points)
-        if not cands:
-            continue
-        for _, q, c, ql, cl in ball_query_groups([x[1] for x in cands], [x[2] for x in cands]):
-            if (q.shape[0], q.shape[1], c.shape[1]) == tuple(shape):
-                return fi, q, c, ql, cl
-    raise AssertionError(f"no ball-query group of shape {shape} found on a second pass")
-
-
-def time_ball_query(dev, q, c, ql, cl, k, radius):
-    """Kernel and plain-version times, bound and agreement at one real group."""
     import torch
 
     from maskclustering_tpu_torch.ops.cuda import ball_query_cuda
     from maskclustering_tpu_torch.ops.neighbor import ball_query_reference
 
-    args = [torch.from_numpy(a).to(dev) for a in (q, c, ql, cl)]
-    got = ball_query_cuda(*args, k=k, radius=radius)
-    want = ball_query_reference(*args, k=k, radius=radius)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"ball_query kernel != plain version at {tuple(q.shape)}: "
-                             f"{int((got != want).sum())} slots differ")
-    max_abs_err = float((got.long() - want.long()).abs().max()) if got.numel() else 0.0
-    ms = cuda_time_ms(lambda: ball_query_cuda(*args, k=k, radius=radius), reps=20)
-    plain_ms = cuda_time_ms(lambda: ball_query_reference(*args, k=k, radius=radius), reps=3,
-                            warmup=1)
+    on_card = []
+    pairs_sum = bytes_sum = 0
+    max_abs_err = 0.0
+    for gi, (q, c, ql, cl, k, r) in enumerate(groups):
+        args = [torch.from_numpy(a).to(dev) for a in (q, c, ql, cl)]
+        got = ball_query_cuda(*args, k=k, radius=r)
+        want = ball_query_reference(*args, k=k, radius=r)
+        if not torch.equal(got, want):
+            raise AssertionError(f"ball_query kernel != plain version on scene group {gi} "
+                                 f"{tuple(q.shape)}x{tuple(c.shape)}: "
+                                 f"{int((got != want).sum())} slots differ")
+        if got.numel():
+            max_abs_err = max(max_abs_err, float((got.long() - want.long()).abs().max()))
+        out = want.cpu().numpy()
+        pairs = pair_tests(out, ql, cl, k, c.shape[1])
+        nbytes = q.nbytes + c.nbytes + ql.nbytes + cl.nbytes + out.nbytes
+        pairs_sum += pairs
+        bytes_sum += nbytes
+        on_card.append((args, k, r, pairs, nbytes))
+    # the largest group by padded shape; the heaviest in pair tests may be
+    # another, and the scene sum below times every group
+    big = max(range(len(groups)), key=lambda i: int(np.prod(groups[i][0].shape[:2]))
+              * groups[i][1].shape[1])
 
-    # work these inputs need: each valid row scans candidates up to its k-th
-    # hit (the candidate index of slot k-1, plus one) or to the end
-    out = want.cpu().long()
-    b, p, _ = q.shape
-    pairs = 0
-    for bi in range(b):
-        rows = out[bi, : int(ql[bi])]
-        full = rows[:, k - 1] >= 0
-        pairs += int((rows[full, k - 1] + 1).sum()) + int((~full).sum()) * int(cl[bi])
-    ops = pairs * BALL_QUERY_OPS_PER_PAIR
-    nbytes = q.nbytes + c.nbytes + ql.nbytes + cl.nbytes + b * p * k * 4
-    t_ops, t_bytes = ops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-    return {"ms": ms, "plain_ms": plain_ms, "max_abs_err": max_abs_err,
-            "bound_ms": max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-            "pair_tests": pairs, "bytes": nbytes}
+    def kernel(i):
+        args, k, r = on_card[i][:3]
+        return lambda: ball_query_cuda(*args, k=k, radius=r)
+
+    args, k, r, pairs, nbytes = on_card[big]
+    res = {"group": big, "shape": tuple(args[0].shape[:2]) + (args[1].shape[1],),
+           "ms": cuda_time_ms(kernel(big), reps=20),
+           "plain_ms": cuda_time_ms(lambda: ball_query_reference(*args, k=k, radius=r), reps=3,
+                                    warmup=1),
+           "scene_ms": sum(cuda_time_ms(kernel(i), reps=3, warmup=1)
+                           for i in range(len(on_card))),
+           "max_abs_err": max_abs_err,
+           "pair_tests": pairs, "bytes": nbytes, "scene_pair_tests": pairs_sum,
+           "scene_bytes": bytes_sum}
+    res["bound_ms"], res["bound_by"] = bound(pairs, nbytes)
+    res["scene_bound_ms"], res["scene_bound_by"] = bound(pairs_sum, bytes_sum)
+    return res
 
 
 def main() -> int:
@@ -235,12 +245,14 @@ def main() -> int:
          f"N={tensors.num_points} F={tensors.num_frames} HxW={tensors.depths.shape[1:]}")
     cfg = load_config("scannet", config_name="chip_smoke", distance_threshold=0.01,
                       use_exact_ball_query=True, device_postprocess=False)
-    kernels.LAUNCHES.reset()
-    torch.cuda.reset_peak_memory_stats(dev)
-    t0 = time.perf_counter()
-    res = run_scene(tensors, cfg, k_max=63, seq_name="chip_smoke_full", device=dev)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    groups = []
+    with recording_ball_query_groups(groups):
+        kernels.LAUNCHES.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = run_scene(tensors, cfg, k_max=63, seq_name="chip_smoke_full", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES.counts)
     shapes = {k: dict(v) for k, v in kernels.LAUNCHES.shapes.items()}
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
@@ -266,14 +278,25 @@ def main() -> int:
     if not np.isfinite(tensors.scene_points).all():
         raise AssertionError("non-finite scene points")
 
-    # 5. kernels timed at the largest shape the main path gave them
-    big = max(shapes["ball_query"], key=lambda s: s[0] * s[1] * s[2])
-    fi, q, c, ql, cl = largest_group_inputs(tensors, cfg, big)
-    bq = time_ball_query(dev, q, c, ql, cl, k=20, radius=cfg.distance_threshold)
-    _say(f"[kernels] ball_query at {big} (frame {fi}): kernel {bq['ms']:.4f} ms, "
-         f"plain {bq['plain_ms']:.4f} ms, bound {bq['bound_ms']:.5f} ms ({bq['bound_by']}: "
-         f"{bq['pair_tests']} pair tests, {bq['bytes']} bytes), "
-         f"{launches['ball_query']} launches per scene")
+    if len(groups) != launches["ball_query"]:
+        raise AssertionError(f"{len(groups)} ball-query groups kept, "
+                             f"{launches['ball_query']} launched")
+
+    # 5. the kernel on every group of the scene, timed
+    t0 = time.perf_counter()
+    bq = check_and_time_groups(dev, groups)
+    share = bq["bound_ms"] / bq["ms"]
+    _say(f"[kernels] ball_query == plain on all {len(groups)} groups of the scene "
+         f"({time.perf_counter() - t0:.1f} s)")
+    _say(f"[kernels] ball_query at its largest group {bq['shape']} (group {bq['group']}): "
+         f"kernel {bq['ms']:.4f} ms, plain {bq['plain_ms']:.4f} ms, bound {bq['bound_ms']:.5f} ms "
+         f"({bq['bound_by']}: {bq['pair_tests']} pair tests, {bq['bytes']} bytes), "
+         f"{100 * share:.1f} % of the bound; without FMA the ceiling is "
+         f"{100 * NO_FMA_CEILING:.0f} % of it, {bq['bound_ms'] / NO_FMA_CEILING:.5f} ms")
+    _say(f"[kernels] ball_query summed over the scene's {len(groups)} groups: kernel "
+         f"{bq['scene_ms']:.4f} ms, bound {bq['scene_bound_ms']:.5f} ms ({bq['scene_bound_by']}: "
+         f"{bq['scene_pair_tests']} pair tests, {bq['scene_bytes']} bytes), "
+         f"{100 * bq['scene_bound_ms'] / bq['scene_ms']:.1f} % of the bound")
 
     # 6. card against cpu on a mid-size scene
     mid = to_scene_tensors(make_scene(num_boxes=4, num_frames=12, image_hw=(240, 320), seed=1))
@@ -298,7 +321,7 @@ def main() -> int:
         "replaces": "maskclustering_tpu/ops/pallas/ball_query.py:127",
         "launches": launches["ball_query"], "max_abs_err": bq["max_abs_err"],
         "ms": bq["ms"], "plain_ms": bq["plain_ms"], "bound_ms": bq["bound_ms"],
-        "bound_by": bq["bound_by"], "library_ms": None}]}))
+        "bound_by": bq["bound_by"], "library_ms": None, "scene_kernel_ms": bq["scene_ms"]}]}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))
     return 0

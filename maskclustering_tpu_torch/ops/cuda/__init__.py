@@ -134,6 +134,21 @@ def _check(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
+def bulk_copy_ready(candidates: torch.Tensor, candidate_lengths: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Candidates as the ball-query kernel's bulk copies take them: a
+    16-byte aligned start and S % 4 == 0, so every tile of whole groups of 4
+    candidates is a multiple of 16 bytes. Returns the inputs themselves when
+    they already are; else a zero-padded copy with the lengths clamped to
+    the old S, which leaves the answer unchanged."""
+    s = candidates.shape[1]
+    if s % 4 == 0 and candidates.data_ptr() % 16 == 0:
+        return candidates, candidate_lengths
+    padded = candidates.new_zeros((candidates.shape[0], -(-s // 4) * 4, 3))
+    padded[:, :s] = candidates
+    return padded, candidate_lengths.clamp(max=s)
+
+
 def ball_query_cuda(query: torch.Tensor, candidates: torch.Tensor,
                     query_lengths: torch.Tensor, candidate_lengths: torch.Tensor,
                     *, k: int, radius: float) -> torch.Tensor:
@@ -163,10 +178,12 @@ def ball_query_cuda(query: torch.Tensor, candidates: torch.Tensor,
     lib = load("ball_query")
     r2 = float(radius) * float(radius)
     with torch.cuda.device(dev):
+        cand, cand_lengths = bulk_copy_ready(candidates, candidate_lengths)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mc_ball_query(query.data_ptr(), candidates.data_ptr(),
-                                query_lengths.data_ptr(), candidate_lengths.data_ptr(),
-                                b, p, s, k, ctypes.c_float(r2), out.data_ptr(), stream)
+        err = lib.mc_ball_query(query.data_ptr(), cand.data_ptr(),
+                                query_lengths.data_ptr(), cand_lengths.data_ptr(),
+                                b, p, cand.shape[1], k, ctypes.c_float(r2), out.data_ptr(),
+                                stream)
     if err != 0:
         raise RuntimeError(f"ball_query kernel launch failed: CUDA error {err}")
     LAUNCHES.add("ball_query", (b, p, s))

@@ -2,12 +2,14 @@
 
 The plain torch version (what ``ops.neighbor.ball_query`` runs on CPU
 tensors) must equal, int for int, the Pallas kernel in interpret mode, the
-jnp version and the brute-force oracle, on the JAX tests' cases
-(tests/test_exact_backprojection.py:20-59) plus k above every row's hit
-count. The CUDA kernel is held against the plain version in the ``gpu``
-test, which skips without a card. The JAX package is imported inside the
-tests that compare with it, so that on a machine with a card and no JAX the
-``gpu`` tests run alone:
+jnp version and the brute-force oracle, on the cases of
+``ops/neighbor_cases.py``: the JAX tests' cases
+(tests/test_exact_backprojection.py:20-59), k above every row's hit count,
+and cases aimed at the CUDA kernel's warp steps, rows per warp and block,
+tiles and bulk copies. The CUDA kernel is held against the plain version on
+the same cases in the ``gpu`` tests, which skip without a card. The JAX
+package is imported inside the tests that compare with it, so that on a
+machine with a card and no JAX the ``gpu`` tests run alone:
 
     python -m pytest -m gpu --noconftest tests/test_torch_ball_query.py
 """
@@ -21,40 +23,15 @@ from maskclustering_tpu_torch.ops.neighbor import (
     ball_query_brute,
     ball_query_reference,
 )
+from maskclustering_tpu_torch.ops.neighbor_cases import BALL_QUERY_CASES, ball_query_case
 
 
 def _case(name):
     """(q, c, ql, cl, k, radius, batch_chunk) of one named case."""
-    rng = np.random.default_rng({"ragged": 1, "chunked": 2, "wide_k": 3, "full_rows": 4}
-                                .get(name, 0))
-    if name == "ragged":  # ql = 0 and cl = 1 rows included
-        b, p, s = 4, 70, 260
-        return (rng.uniform(-1, 1, (b, p, 3)).astype(np.float32),
-                rng.uniform(-1, 1, (b, s, 3)).astype(np.float32),
-                np.array([70, 33, 0, 64], np.int32), np.array([260, 100, 50, 1], np.int32),
-                6, 0.4, 8)
-    if name == "scan_order":  # first k by index, not the nearest k
-        return (np.zeros((1, 1, 3), np.float32),
-                np.array([[[0.3, 0, 0], [0.1, 0, 0], [0.2, 0, 0]]], np.float32),
-                np.array([1], np.int32), np.array([3], np.int32), 2, 0.5, 8)
-    if name == "chunked":  # b above the Pallas batch chunk
-        b, p, s = 10, 16, 40
-        return (rng.uniform(-1, 1, (b, p, 3)).astype(np.float32),
-                rng.uniform(-1, 1, (b, s, 3)).astype(np.float32),
-                np.full(b, p, np.int32), np.full(b, s, np.int32), 4, 0.5, 4)
-    if name == "wide_k":  # k larger than any row's hit count
-        return (rng.uniform(-1, 1, (2, 50, 3)).astype(np.float32),
-                rng.uniform(-1, 1, (2, 90, 3)).astype(np.float32),
-                np.array([50, 20], np.int32), np.array([90, 90], np.int32), 64, 0.2, 8)
-    if name == "full_rows":  # dense hits: rows fill and stop early
-        return (rng.uniform(0, 0.2, (3, 40, 3)).astype(np.float32),
-                rng.uniform(0, 0.2, (3, 600, 3)).astype(np.float32),
-                np.array([40, 17, 33], np.int32), np.array([600, 300, 257], np.int32),
-                20, 0.05, 8)
-    raise KeyError(name)
+    return (*ball_query_case(name), 4 if name == "chunked" else 8)
 
 
-CASES = ["ragged", "scan_order", "chunked", "wide_k", "full_rows"]
+CASES = list(BALL_QUERY_CASES)
 
 
 def _jax():
@@ -119,6 +96,19 @@ def test_cuda_wrapper_refuses_cpu_tensors():
         ball_query_cuda(*map(torch.from_numpy, (q, c, ql, cl)), k=k, radius=r)
 
 
+def test_bulk_copy_ready_pads_s_to_a_multiple_of_4():
+    from maskclustering_tpu_torch.ops.cuda import bulk_copy_ready
+
+    c = torch.arange(2 * 6 * 3, dtype=torch.float32).reshape(2, 6, 3)
+    cl = torch.tensor([9, 4], dtype=torch.int32)
+    padded, padded_cl = bulk_copy_ready(c, cl)
+    assert tuple(padded.shape) == (2, 8, 3)
+    assert torch.equal(padded[:, :6], c) and not padded[:, 6:].any()
+    assert padded_cl.tolist() == [6, 4]  # no candidate past the old S becomes valid
+    aligned = torch.zeros((2, 8, 3))
+    assert bulk_copy_ready(aligned, cl)[0] is aligned
+
+
 def test_dispatch_refuses_other_devices():
     q = torch.zeros((1, 1, 3), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
@@ -142,3 +132,20 @@ def test_cuda_kernel_matches_plain(name):
     want = ball_query_reference(*args, k=k, radius=r)
     assert torch.equal(got, want)
     np.testing.assert_array_equal(got.cpu().numpy(), ball_query_brute(q, c, ql, cl, k, r))
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_takes_misaligned_candidates():
+    # a contiguous view 4 bytes into its storage: the bulk copies need 16
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA ball-query kernel needs a CUDA card")
+    q, c, ql, cl, k, r, _ = _case("ragged")
+    dev = torch.device("cuda", 0)
+    flat = torch.zeros(c.size + 1, dtype=torch.float32, device=dev)
+    flat[1:] = torch.from_numpy(c.reshape(-1)).to(dev)
+    shifted = flat[1:].view(c.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    args = [torch.from_numpy(q).to(dev), shifted, torch.from_numpy(ql).to(dev),
+            torch.from_numpy(cl).to(dev)]
+    got = ball_query(*args, k=k, radius=r)
+    assert torch.equal(got, ball_query_reference(*args, k=k, radius=r))
