@@ -1,8 +1,11 @@
-from maskclustering_tpu_torch.models.clustering import ClusterResult, iterative_clustering
-from maskclustering_tpu_torch.models.exact_backprojection import (
+from maskclustering_tpu_torch.models.backprojection import (
+    FrameAssociation,
     SceneAssociation,
-    associate_scene_exact,
+    associate_frame,
+    associate_scene,
 )
+from maskclustering_tpu_torch.models.clustering import ClusterResult, iterative_clustering
+from maskclustering_tpu_torch.models.exact_backprojection import associate_scene_exact
 from maskclustering_tpu_torch.models.graph import (
     GraphStats,
     MaskTable,
@@ -15,11 +18,19 @@ from maskclustering_tpu_torch.models.postprocess import (
     export_artifacts,
     postprocess_scene,
 )
+from maskclustering_tpu_torch.models.postprocess_device import (
+    PostprocessCapacityError,
+    postprocess_scene_device,
+    run_postprocess,
+)
 
 __all__ = [
+    "FrameAssociation",
+    "SceneAssociation",
+    "associate_frame",
+    "associate_scene",
     "ClusterResult",
     "iterative_clustering",
-    "SceneAssociation",
     "associate_scene_exact",
     "GraphStats",
     "MaskTable",
@@ -30,4 +41,7 @@ __all__ = [
     "SceneObjects",
     "export_artifacts",
     "postprocess_scene",
+    "PostprocessCapacityError",
+    "postprocess_scene_device",
+    "run_postprocess",
 ]

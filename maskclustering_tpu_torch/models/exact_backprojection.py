@@ -21,27 +21,17 @@ no fallback. The scene planes are built on the host and uploaded once.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
+from maskclustering_tpu_torch.models.backprojection import SceneAssociation
 from maskclustering_tpu_torch.ops.dbscan import dbscan_labels
 from maskclustering_tpu_torch.ops.geometry import backproject_depth_np, voxel_downsample_np
 from maskclustering_tpu_torch.ops.neighbor import ball_query
-
-
-class SceneAssociation(NamedTuple):
-    """Stacked (F, ...) association tensors for a scene (``backprojection.py:129``)."""
-
-    mask_of_point: torch.Tensor  # (F, N) int32 — the reference's point_in_mask_matrix
-    first_id: torch.Tensor  # (F, N) int16
-    last_id: torch.Tensor  # (F, N) int16
-    point_visible: torch.Tensor  # (F, N) bool — the reference's point_frame_matrix
-    boundary: torch.Tensor  # (N,) bool — global boundary points
-    mask_valid: torch.Tensor  # (F, K_max+1) bool
 
 
 def statistical_outlier_mask(points: np.ndarray, nb_neighbors: int = 20,

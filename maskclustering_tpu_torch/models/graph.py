@@ -24,17 +24,7 @@ import numpy as np
 import torch
 
 from maskclustering_tpu_torch.ops import counting
-
-
-def bucket_size(value: int, multiple: int) -> int:
-    """Geometric shape bucket: the multiple count rounded up to two
-    significant bits (2^k or 3*2^(k-1)); copy of
-    ``maskclustering_tpu/utils/compile_cache.py:70``, so ``M_pad`` is the
-    JAX package's."""
-    m = max(1, -(-value // multiple))
-    bit = max(m.bit_length() - 2, 0)
-    m = -(-m >> bit) << bit
-    return m * multiple
+from maskclustering_tpu_torch.utils.compile_cache import bucket_size
 
 
 class MaskTable(NamedTuple):
@@ -217,8 +207,11 @@ def observer_schedule_device(observer_hist: torch.Tensor, max_len: int = 20) -> 
     Reference construction.py:80-96: percentiles 95..0 step -5 of the
     positive observer counts, linearly interpolated; a value <= 1 becomes 1
     while the percentile is >= 50 and ends the schedule below 50. Entries
-    past the end are +inf. Same integer-rank split and the same float32
-    expression order as the JAX package, so the values are bit-equal.
+    past the end are +inf. Same integer-rank split and float32 expressions
+    as the JAX pipeline's jitted schedule, rounded as XLA:CPU compiles
+    them: the division by the constant 100 becomes a product with its
+    float32 reciprocal, and the interpolation's first product contracts
+    into an FMA. So the values are bit-equal to the jitted program.
     """
     dev = observer_hist.device
     hist = observer_hist.to(torch.int32)
@@ -234,15 +227,45 @@ def observer_schedule_device(observer_hist: torch.Tensor, max_len: int = 20) -> 
     rq = r * qs_i
     lo = (total - cnt) + d * qs_i + rq // 100
     frac = (rq % 100).to(torch.float32)
-    frac = frac / torch.full_like(frac, 100.0)
+    frac = frac * torch.full_like(frac, float(np.float32(1) / np.float32(100)))
     lo = torch.minimum(torch.clamp(lo, min=0), total - 1)
     hi = torch.minimum(lo + 1, total - 1)
     v_lo = torch.searchsorted(cum, (lo + 1).contiguous(), side="left").to(torch.float32)
     v_hi = torch.searchsorted(cum, (hi + 1).contiguous(), side="left").to(torch.float32)
     one = torch.ones_like(frac)
-    interp = v_lo * (one - frac) + torch.where(hi > lo, v_hi, v_lo) * frac
+    interp = torch.addcmul(torch.where(hi > lo, v_hi, v_lo) * frac, v_lo, one - frac)
     le1 = interp <= 1.0
     clipped = torch.where(le1, one, interp)
     dead = (le1 & (qs < 50)) | (cnt == 0)
     stopped = torch.cumsum(dead.to(torch.int32), dim=0) > 0
     return torch.where(stopped, torch.full_like(clipped, float("inf")), clipped)
+
+
+def observer_schedule(observer_hist, max_len: int = 20) -> np.ndarray:
+    """Host float64 form of the schedule (``graph.py:338-376``): np.percentile
+    semantics (linear interpolation) of the positive observer counts at
+    95..0 step -5, padded to ``max_len`` with +inf."""
+    hist = np.asarray(observer_hist, dtype=np.int64)
+    cum = np.cumsum(hist)
+    total = int(cum[-1])
+    cnt_pos = total - int(hist[0])
+    out = []
+    if cnt_pos > 0:
+        qs = list(range(95, -5, -5))
+        pos = (total - cnt_pos) + (cnt_pos - 1) * (np.asarray(qs) / 100.0)
+        lo = np.minimum(np.floor(pos).astype(np.int64), total - 1)
+        hi = np.minimum(lo + 1, total - 1)
+        v_lo = np.searchsorted(cum, lo + 1, side="left").astype(np.float64)
+        v_hi = np.searchsorted(cum, hi + 1, side="left").astype(np.float64)
+        frac = pos - lo
+        interp = v_lo * (1.0 - frac) + np.where(hi > lo, v_hi, v_lo) * frac
+        for q, val in zip(qs, interp):
+            val = float(val)
+            if val <= 1:
+                if q < 50:
+                    break
+                val = 1.0
+            out.append(val)
+    sched = np.full(max_len, np.inf, dtype=np.float32)
+    sched[: len(out)] = out[:max_len]
+    return sched

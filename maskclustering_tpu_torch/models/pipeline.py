@@ -1,24 +1,26 @@
 """Per-scene pipeline: association -> graph -> clustering -> post-process.
 
-Counterpart of ``maskclustering_tpu/models/pipeline.py:59-404`` for the
-configuration this port runs so far: the exact-parity association
-(``use_exact_ball_query=True``) and the host post-process
-(``device_postprocess=False``), single device, whole scenes. Any other
-configuration raises ``NotImplementedError`` naming the ROADMAP item that
-will port it; nothing is substituted silently.
+Counterpart of ``maskclustering_tpu/models/pipeline.py:59-404``, single
+device, whole scenes. Two associations: the dense projective association
+(the default, ``use_exact_ball_query=False``), which pads the scene to the
+JAX package's (F_pad, N_pad) shape bucket and runs on the device, and the
+exact-parity one (``use_exact_ball_query=True``), host numpy around the
+ball-query kernel. Two post-process rungs: on the device (the default,
+``device_postprocess=True``) or on the host. Streaming and multi-device
+meshes raise ``NotImplementedError`` naming the ROADMAP item that will
+port them; nothing is substituted silently.
 
-Device traffic per scene: the association planes are built on the host and
-uploaded once; ``mask_valid`` comes back once, to build the mask table (the
-pipeline's one sanctioned mid-program pull); the 20-float schedule is read
-once by the clustering loop; and the host post-process pulls ``first``,
-``last``, ``node_visible``, ``active`` and ``assignment``, as the JAX host
-rung does. The ball queries of the association return their neighbour
-lists to the host, where the reference's per-mask logic runs. The pulls
-are counted in ``timings``.
+Device traffic per scene: ``mask_valid`` comes back once, to build the
+mask table (the pipeline's one mid-program pull); the 20-float schedule is
+read once by the clustering loop; then the post-process rung pulls what it
+needs (the device rung a few scalars per phase and the survivors' bit
+planes; the host rung the claim planes). The pulls are counted in
+``timings``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Dict, NamedTuple, Optional, Sequence
@@ -29,6 +31,7 @@ import torch
 from maskclustering_tpu_torch.config import PipelineConfig
 from maskclustering_tpu_torch.datasets.base import SceneTensors
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device, synchronize
+from maskclustering_tpu_torch.models.backprojection import associate_scene_tensors
 from maskclustering_tpu_torch.models.clustering import iterative_clustering
 from maskclustering_tpu_torch.models.exact_backprojection import associate_scene_exact
 from maskclustering_tpu_torch.models.graph import (
@@ -37,11 +40,9 @@ from maskclustering_tpu_torch.models.graph import (
     compute_graph_stats,
     observer_schedule_device,
 )
-from maskclustering_tpu_torch.models.postprocess import (
-    SceneObjects,
-    export_artifacts,
-    postprocess_scene,
-)
+from maskclustering_tpu_torch.models.postprocess import SceneObjects, export_artifacts
+from maskclustering_tpu_torch.models.postprocess_device import run_postprocess
+from maskclustering_tpu_torch.utils.compile_cache import max_seg_id, scene_pads
 
 log = logging.getLogger("maskclustering_tpu_torch")
 
@@ -64,34 +65,22 @@ class DeviceHandoff(NamedTuple):
     node_visible: torch.Tensor  # (M_pad, F) bool
     first_id: torch.Tensor  # (F, N) int16
     last_id: torch.Tensor  # (F, N) int16
-    scene_points: np.ndarray  # (N, 3) f32, host
-    frame_ids: Sequence
+    scene_points: np.ndarray  # (N_pad, 3) f32, host (padded on the dense path)
+    frame_ids: Sequence  # padded frame identifiers
     k_max: int
+    n_real: int  # true (pre-pad) point count
     seq_name: Optional[str]
     timings: Dict[str, float]  # associate/graph/cluster stage walls
 
 
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not run yet."""
-    if not cfg.use_exact_ball_query:
-        raise NotImplementedError(
-            "the dense projective association (use_exact_ball_query=False) is not "
-            "ported yet: ROADMAP.md queue A, item A1")
-    if cfg.device_postprocess:
-        raise NotImplementedError(
-            "the device post-process (device_postprocess=True) is not ported yet: "
-            "ROADMAP.md queue A, item A2; set device_postprocess=False")
     if cfg.streaming_chunk > 0:
         raise NotImplementedError(
             "streaming (streaming_chunk > 0) is not ported yet: ROADMAP.md queue A, item A6")
     if cfg.mesh_shape:
         raise NotImplementedError(
             "multi-device meshes (mesh_shape) are not ported yet: ROADMAP.md queue A, item A7")
-
-
-def max_seg_id(segmentations) -> int:
-    """Largest mask id in a scene's id-maps (0 for an empty stack)."""
-    return int(np.max(segmentations)) if np.size(segmentations) else 0
 
 
 def bucket_k_max(max_id: int, minimum: int = 63, ceiling: int = K_MAX_CEILING) -> int:
@@ -122,6 +111,37 @@ class _Stage:
         return False
 
 
+def pad_scene_tensors(tensors: SceneTensors, f_pad: int, n_pad: int) -> SceneTensors:
+    """Pad a scene to a (F_pad, N_pad) shape bucket (``pipeline.py:111-149``).
+
+    Padded frames are invalid (no claims); padded points sit at the far
+    sentinel coordinate 1.0e4, which no frustum reaches within depth_trunc.
+    """
+    f, n = tensors.num_frames, tensors.num_points
+    if f == f_pad and n == n_pad:
+        return tensors
+    if f_pad < f or n_pad < n:
+        raise ValueError(f"bucket ({f_pad}, {n_pad}) smaller than scene ({f}, {n})")
+    pts = np.full((n_pad, 3), 1.0e4, dtype=np.float32)
+    pts[:n] = tensors.scene_points
+    df = f_pad - f
+
+    def pad_frames(arr, constant_values=0.0):
+        widths = ((0, df),) + ((0, 0),) * (np.ndim(arr) - 1)
+        return np.pad(np.asarray(arr), widths, constant_values=constant_values)
+
+    return dataclasses.replace(
+        tensors,
+        scene_points=pts,
+        depths=pad_frames(tensors.depths),
+        segmentations=pad_frames(tensors.segmentations),
+        intrinsics=pad_frames(tensors.intrinsics, constant_values=1.0),
+        cam_to_world=pad_frames(tensors.cam_to_world, constant_values=0.0),
+        frame_valid=np.concatenate([np.asarray(tensors.frame_valid), np.zeros(df, dtype=bool)]),
+        frame_ids=list(tensors.frame_ids) + [None] * df,
+    )
+
+
 def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
                      k_max: Optional[int] = None, seq_name: Optional[str] = None,
                      device: DeviceLike = None) -> DeviceHandoff:
@@ -131,10 +151,17 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
     timings: Dict[str, float] = {}
     if k_max is None:
         k_max = bucket_k_max(max_seg_id(tensors.segmentations))
+    n_real = tensors.num_points
 
     with _Stage(timings, "associate", device):
-        assoc = associate_scene_exact(tensors, cfg, k_max=k_max, device=device,
-                                      timings=timings)
+        if cfg.use_exact_ball_query:
+            assoc = associate_scene_exact(tensors, cfg, k_max=k_max, device=device,
+                                          timings=timings)
+        else:
+            # the JAX package's shape bucket: the padded point count decides
+            # the spacing sample, hence the coverage voxel size
+            tensors = pad_scene_tensors(tensors, *scene_pads(cfg, tensors.num_frames, n_real))
+            assoc = associate_scene_tensors(tensors, cfg, k_max=k_max, device=device)
 
     with _Stage(timings, "graph", device):
         # the one mid-program pull: M_pad depends on the valid-mask count
@@ -170,36 +197,31 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
         table=table, assignment=result.assignment, active=active,
         node_visible=result.node_visible, first_id=assoc.first_id,
         last_id=assoc.last_id, scene_points=np.asarray(tensors.scene_points),
-        frame_ids=tensors.frame_ids, k_max=k_max, seq_name=seq_name, timings=timings)
+        frame_ids=tensors.frame_ids, k_max=k_max, n_real=n_real, seq_name=seq_name,
+        timings=timings)
 
 
 def run_scene_host(handoff: DeviceHandoff, cfg: PipelineConfig, *,
                    export: bool = False, object_dict_dir: Optional[str] = None,
                    prediction_root: str = "data/prediction") -> SceneResult:
-    """Host phase of one scene: post-process (host rung) + artifact export."""
-    timings = dict(handoff.timings)
-    t0 = time.perf_counter()
-    # the host rung pulls the claim planes, as postprocess_device.py:150-163
-    first = handoff.first_id.cpu().numpy()
-    last = handoff.last_id.cpu().numpy()
-    node_visible = handoff.node_visible.cpu().numpy()
-    active = handoff.active.cpu().numpy()
-    assignment = handoff.assignment.cpu().numpy()
-    timings["pulls"] = timings.get("pulls", 0) + 5
-    timings["post.host_pull"] = time.perf_counter() - t0
+    """Host phase of one scene: post-process (device or host rung) + export.
 
+    A ``PostprocessCapacityError`` of the device rung propagates: retrying
+    on the host rung is the batch runner's decision, not this function's.
+    """
+    timings = dict(handoff.timings)
     post_timings: Dict[str, float] = {}
-    objects = postprocess_scene(
-        handoff.scene_points, first, last, first > 0, handoff.table.frame,
-        handoff.table.mask_id, active, assignment, node_visible, handoff.frame_ids,
-        k_max=handoff.k_max,
-        point_filter_threshold=cfg.point_filter_threshold,
-        dbscan_eps=cfg.dbscan_split_eps,
-        dbscan_min_points=cfg.dbscan_split_min_points,
-        overlap_merge_ratio=cfg.overlap_merge_ratio,
-        min_masks_per_object=cfg.min_masks_per_object,
-        timings=post_timings,
-    )
+    pulls = [0]
+    t0 = time.perf_counter()
+    objects = run_postprocess(
+        cfg, handoff.scene_points, handoff.first_id, handoff.last_id, handoff.table.frame,
+        handoff.table.mask_id, handoff.active, handoff.assignment, handoff.node_visible,
+        handoff.frame_ids, k_max=handoff.k_max, timings=post_timings, n_real=handoff.n_real,
+        pulls=pulls)
+    assignment = handoff.assignment.cpu().numpy()
+    if cfg.device_postprocess:
+        pulls[0] += 1  # the host rung pulled the assignment with the claim planes
+    timings["pulls"] = timings.get("pulls", 0) + pulls[0]
     timings["postprocess"] = time.perf_counter() - t0
     for k, v in post_timings.items():
         timings[f"post.{k}"] = v

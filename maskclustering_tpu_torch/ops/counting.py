@@ -40,3 +40,37 @@ def count_dot(a: torch.Tensor, b: torch.Tensor, *, count_dtype: str = "bf16",
         raise ValueError("count_dot: contraction too deep for exact float32 counts")
     out = torch.matmul(a.to(torch.float32), b.to(torch.float32))
     return out.to(acc if out_dtype is None else out_dtype)
+
+
+def count_dot_general(a: torch.Tensor, b: torch.Tensor, dimension_numbers, *,
+                      count_dtype: str = "bf16", out_dtype=torch.float32) -> torch.Tensor:
+    """``lax.dot_general`` form of :func:`count_dot`: contract
+    ``((lhs_contract, rhs_contract), (lhs_batch, rhs_batch))``, output axes
+    ordered batch, lhs free, rhs free, as in JAX."""
+    (lc, rc), (lb, rb) = dimension_numbers
+    acc = accumulator_dtype(count_dtype)
+    letters = iter("abcdefghijklmnopqrstuvwxyz")
+    la = [next(letters) for _ in range(a.dim())]
+    lb_ = [next(letters) for _ in range(b.dim())]
+    for i, j in zip(lc, rc):
+        lb_[j] = la[i]
+    for i, j in zip(lb, rb):
+        lb_[j] = la[i]
+    depth = 1
+    for i in lc:
+        depth *= a.shape[i]
+    if depth >= 2**24:
+        raise ValueError("count_dot_general: contraction too deep for exact float32 counts")
+    out = ([la[i] for i in lb] + [la[i] for i in range(a.dim()) if i not in lc and i not in lb]
+           + [lb_[j] for j in range(b.dim()) if j not in rc and j not in rb])
+    spec = f"{''.join(la)},{''.join(lb_)}->{''.join(out)}"
+    res = torch.einsum(spec, a.to(torch.float32), b.to(torch.float32))
+    return res.to(acc if out_dtype is None else out_dtype)
+
+
+def count_onehot(ids: torch.Tensor, num: int, *, axis: int = -1) -> torch.Tensor:
+    """``jax.nn.one_hot`` as float32 {0, 1}: out-of-range ids (negative
+    sentinels, padded slots) give all-zero rows; the class axis sits at
+    ``axis`` of the output."""
+    oh = (ids.unsqueeze(-1) == torch.arange(num, device=ids.device, dtype=ids.dtype))
+    return torch.movedim(oh.to(torch.float32), -1, axis)

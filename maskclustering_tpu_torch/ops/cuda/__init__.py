@@ -8,10 +8,12 @@ Each kernel is one ``*.cu`` file beside this module with a plain
 and return ``cudaGetLastError()``; the wrappers here raise when it is not 0.
 
 No fallback: a failed build or launch raises. The plain torch versions
-live beside the callers (``ops/neighbor.py``) and run only for CPU tensors.
+live beside the callers (``ops/neighbor.py``, ``models/backprojection.py``)
+and run only for CPU tensors.
 
-Each wrapper adds one to ``LAUNCHES`` where it launches its kernel, so a
-run can show that its main path went through the kernels.
+Each wrapper adds one to ``LAUNCHES`` under its entry's name
+(``ENTRIES``) where it launches its kernel, so a run can show that its
+main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -31,12 +33,16 @@ _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_SRC_DIR)))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
 
-# -fmad=false: no multiply-add contraction, so float32 distance tests round
-# exactly as the plain torch versions do
+# -fmad=false: no multiply-add contraction the source does not state, so
+# float32 arithmetic rounds exactly as the plain torch versions do (the
+# association states its FMAs with __fmaf_rn)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-KERNELS = ("ball_query",)
+# one shared library per source file
+KERNELS = ("ball_query", "associate")
+# the launch counts' names: one per kernel entry
+ENTRIES = ("ball_query", "associate_claim", "associate_assign")
 
 
 class LaunchLog:
@@ -123,10 +129,15 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
     if name == "ball_query":
-        p, i = ctypes.c_void_p, ctypes.c_int
         lib.mc_ball_query.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, p]
         lib.mc_ball_query.restype = ctypes.c_int
+    elif name == "associate":
+        lib.mc_associate_claim.argtypes = [p, i, p, p, i, i, p, i, i, p, p, p]
+        lib.mc_associate_claim.restype = ctypes.c_int
+        lib.mc_associate_assign.argtypes = [p, i, i, p, i, p, p, p, p]
+        lib.mc_associate_assign.restype = ctypes.c_int
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -188,3 +199,75 @@ def ball_query_cuda(query: torch.Tensor, candidates: torch.Tensor,
         raise RuntimeError(f"ball_query kernel launch failed: CUDA error {err}")
     LAUNCHES.add("ball_query", (b, p, s))
     return out
+
+
+# windows the claim kernel is instantiated for (associate.cu)
+ASSOCIATE_MAX_WINDOW = 3
+
+
+def associate_claim_cuda(scene_points: torch.Tensor, depth: torch.Tensor, seg: torch.Tensor,
+                         params: torch.Tensor, *, k_max: int, window: int):
+    """The CUDA claim step of one frame (see ``associate.cu``): returns the
+    (N, (2w+1)^2) int16 candidate plane and the (k_max + 1,) int32 distinct
+    claim counts, as ``models.backprojection.claim_candidates_reference``."""
+    dev = scene_points.device
+    _check(dev.type == "cuda", f"associate_claim_cuda needs CUDA tensors, got {dev}")
+    for t in (depth, seg, params):
+        _check(t.device == dev, "associate_claim_cuda: all inputs must be on one device")
+    _check(scene_points.dim() == 2 and scene_points.shape[1] == 3
+           and scene_points.dtype == torch.float32 and scene_points.is_contiguous(),
+           f"scene_points must be contiguous float32 (N, 3), got {tuple(scene_points.shape)}")
+    _check(depth.dim() == 2 and depth.dtype == torch.float32 and depth.is_contiguous(),
+           "depth must be a contiguous float32 (H, W) map")
+    _check(seg.shape == depth.shape and seg.dtype == torch.int32 and seg.is_contiguous(),
+           "seg must be a contiguous int32 map of the depth's shape")
+    _check(params.shape == (18,) and params.dtype == torch.float32 and params.is_contiguous(),
+           "params must be the 18 contiguous float32 values of claim_params")
+    _check(0 <= window <= ASSOCIATE_MAX_WINDOW,
+           f"associate_claim_cuda takes windows 0..{ASSOCIATE_MAX_WINDOW}, got {window}")
+    _check(1 <= k_max <= 1023, f"k_max must be in 1..1023 (int16 ids), got {k_max}")
+    n = scene_points.shape[0]
+    h, w = depth.shape
+    k = (2 * window + 1) ** 2
+    cand = torch.empty((n, k), dtype=torch.int16, device=dev)
+    n_claimed = torch.zeros(k_max + 1, dtype=torch.int32, device=dev)
+    if n == 0:
+        return cand, n_claimed
+    lib = load("associate")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mc_associate_claim(scene_points.data_ptr(), n, depth.data_ptr(),
+                                     seg.data_ptr(), h, w, params.data_ptr(), k_max, window,
+                                     cand.data_ptr(), n_claimed.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"associate_claim kernel launch failed: CUDA error {err}")
+    LAUNCHES.add("associate_claim", (n, h, w, k))
+    return cand, n_claimed
+
+
+def associate_assign_cuda(cand: torch.Tensor, mask_valid: torch.Tensor, *, k_max: int):
+    """The CUDA assignment step (see ``associate.cu``): returns
+    ``(mask_of_point int32, first int16, last int16)``, as
+    ``models.backprojection.assign_claims_reference``."""
+    dev = cand.device
+    _check(dev.type == "cuda", f"associate_assign_cuda needs CUDA tensors, got {dev}")
+    _check(mask_valid.device == dev, "associate_assign_cuda: all inputs must be on one device")
+    _check(cand.dim() == 2 and cand.dtype == torch.int16 and cand.is_contiguous(),
+           "cand must be a contiguous int16 (N, K) plane")
+    _check(mask_valid.shape == (k_max + 1,) and mask_valid.dtype == torch.bool
+           and mask_valid.is_contiguous(), f"mask_valid must be contiguous bool ({k_max + 1},)")
+    n, k = cand.shape
+    mop = torch.empty(n, dtype=torch.int32, device=dev)
+    first = torch.empty(n, dtype=torch.int16, device=dev)
+    last = torch.empty(n, dtype=torch.int16, device=dev)
+    if n == 0:
+        return mop, first, last
+    lib = load("associate")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mc_associate_assign(cand.data_ptr(), n, k, mask_valid.data_ptr(), k_max,
+                                      mop.data_ptr(), first.data_ptr(), last.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"associate_assign kernel launch failed: CUDA error {err}")
+    LAUNCHES.add("associate_assign", (n, k))
+    return mop, first, last

@@ -1,14 +1,95 @@
-"""Host-side (float64 numpy) camera geometry of the exact-parity path.
+"""Camera geometry: torch tensor ops of the dense path, host numpy of the exact path.
 
-Copies of ``maskclustering_tpu/ops/geometry.py:89-137``. Pinhole
-conventions match Open3D: pixel (u, v) at depth z unprojects to
-x = (u - cx) z / fx, y = (v - cy) z / fy (no half-pixel offset), and the
-camera-to-world extrinsic applies as p_world = R p_cam + t.
+Counterpart of ``maskclustering_tpu/ops/geometry.py``. Pinhole conventions
+match Open3D: pixel (u, v) at depth z unprojects to x = (u - cx) z / fx,
+y = (v - cy) z / fy (no half-pixel offset), and the camera-to-world
+extrinsic applies as p_world = R p_cam + t.
+
+The tensor functions (``geometry.py:19-86``) round exactly as the JAX
+package's jitted code does on the CPU, where XLA contracts a multiply
+feeding an add into one fused multiply-add (FMA) inside a fusion. Its 3x3
+products are loops in index order whose multiply-adds contract, so
+``p @ M.T`` is ``fma(p2, M[i,2], fma(p1, M[i,1], p0 * M[i,0]))`` per output
+``i``, and the translation is a separate rounded add. :func:`fma` states
+those sites; every other operation rounds on its own, as torch's
+element-wise kernels do.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+
+def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once (``torch.addcmul`` is a true FMA on the
+    CPU and on CUDA)."""
+    if not isinstance(b, torch.Tensor):
+        b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    return torch.addcmul(c, a, b)
+
+
+def rotate(points: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """``points @ mat[:3, :3].T`` for (..., 3) float32 points as XLA:CPU's
+    dot loop computes it: an index-order FMA chain per output coordinate."""
+    cols = []
+    for i in range(3):
+        acc = points[..., 0] * mat[i, 0]
+        acc = fma(points[..., 1], mat[i, 1], acc)
+        cols.append(fma(points[..., 2], mat[i, 2], acc))
+    return torch.stack(cols, dim=-1)
+
+
+def invert_se3(mat: torch.Tensor) -> torch.Tensor:
+    """Invert a (4, 4) rigid transform without a general solve."""
+    rt = mat[:3, :3].T
+    t = mat[:3, 3]
+    out = torch.zeros_like(mat)
+    out[:3, :3] = rt
+    out[:3, 3] = -rotate(t, rt)
+    out[3, 3] = 1.0
+    return out
+
+
+def transform_points(points: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """Apply a (4, 4) rigid transform to (..., 3) points."""
+    return rotate(points, mat) + mat[:3, 3]
+
+
+def project_points(points: torch.Tensor, intrinsics: torch.Tensor,
+                   world_to_cam: torch.Tensor):
+    """Project world points into a pinhole camera: ``((..., 2) continuous
+    pixel coordinates (u = column, v = row), (...,) camera-frame depth)``."""
+    cam = transform_points(points, world_to_cam)
+    z = cam[..., 2]
+    safe_z = torch.where(z != 0, z, torch.ones_like(z))
+    u = fma(cam[..., 0] / safe_z, intrinsics[0, 0], intrinsics[0, 2].expand_as(z))
+    v = fma(cam[..., 1] / safe_z, intrinsics[1, 1], intrinsics[1, 2].expand_as(z))
+    return torch.stack([u, v], dim=-1), z
+
+
+def unproject_depth(depth: torch.Tensor, intrinsics: torch.Tensor,
+                    cam_to_world: torch.Tensor, depth_trunc: float = 20.0):
+    """Dense depth-map unprojection: ``(world points (H, W, 3), valid (H, W))``,
+    valid = depth in (0, depth_trunc]; points are garbage where invalid."""
+    h, w = depth.shape
+    dev = depth.device
+    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
+    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    u = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    x = (u - cx) * depth / fx
+    y = (v - cy) * depth / fy
+    world = transform_points(torch.stack([x, y, depth], dim=-1), cam_to_world)
+    trunc = torch.tensor(depth_trunc, dtype=torch.float32, device=dev)
+    return world, (depth > 0) & (depth <= trunc)
+
+
+def voxel_keys(points: torch.Tensor, voxel_size, origin: torch.Tensor) -> torch.Tensor:
+    """Integer voxel coordinates for each point (floor grid, Open3D-style)."""
+    if not isinstance(voxel_size, torch.Tensor):
+        voxel_size = torch.tensor(voxel_size, dtype=torch.float32, device=points.device)
+    return torch.floor((points - origin) / voxel_size).to(torch.int32)
 
 
 def backproject_depth_np(depth: np.ndarray, intrinsics: np.ndarray,

@@ -25,6 +25,11 @@ from maskclustering_tpu_torch.ops.neighbor import (
 )
 from maskclustering_tpu_torch.ops.neighbor_cases import BALL_QUERY_CASES, ball_query_case
 
+# one intra-op thread: the suite runs in parallel worker processes, where
+# torch's CPU thread pool oversubscribes the cores and each of the many
+# small ops waits at a barrier for descheduled threads
+torch.set_num_threads(1)
+
 
 def _case(name):
     """(q, c, ql, cl, k, radius, batch_chunk) of one named case."""

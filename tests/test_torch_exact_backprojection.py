@@ -12,6 +12,7 @@ import dataclasses
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 import maskclustering_tpu.models.exact_backprojection as jax_exact
 from maskclustering_tpu.config import PipelineConfig
@@ -23,6 +24,11 @@ from maskclustering_tpu_torch.models import exact_backprojection as port_exact
 from maskclustering_tpu_torch.ops.dbscan import dbscan_labels
 from maskclustering_tpu_torch.utils.synthetic import make_scene as port_make_scene
 from maskclustering_tpu_torch.utils.synthetic import to_scene_tensors as port_to_scene_tensors
+
+# one intra-op thread: the suite runs in parallel worker processes, where
+# torch's CPU thread pool oversubscribes the cores and each of the many
+# small ops waits at a barrier for descheduled threads
+torch.set_num_threads(1)
 
 
 def _jnp_group(q, c, ql, cl, k, radius):

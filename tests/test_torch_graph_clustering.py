@@ -6,6 +6,7 @@ of a fixture scene, passed as numpy), so each stage is compared on its own.
 """
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -18,6 +19,11 @@ from maskclustering_tpu.ops.neighbor import ball_query as jax_ball_query
 from maskclustering_tpu.utils.synthetic import make_scene, to_scene_tensors
 from maskclustering_tpu_torch.models import clustering as port_clustering
 from maskclustering_tpu_torch.models import graph as port_graph
+
+# one intra-op thread: the suite runs in parallel worker processes, where
+# torch's CPU thread pool oversubscribes the cores and each of the many
+# small ops waits at a barrier for descheduled threads
+torch.set_num_threads(1)
 
 K_MAX = 31
 SCENES = {"seed4": dict(num_boxes=3, num_frames=10, image_hw=(60, 80), seed=4),
@@ -112,11 +118,17 @@ def _hists():
     return hists
 
 
+# the JAX pipeline runs the schedule jitted (pipeline.py:98), where XLA turns
+# the division by 100 into a product with its reciprocal and contracts an FMA;
+# op-by-op dispatch of the same function rounds otherwise
+_jax_schedule = jax.jit(jax_graph.observer_schedule_device, static_argnames="max_len")
+
+
 @pytest.mark.parametrize("idx", range(len(_hists())))
 def test_observer_schedule_bit_equal(idx):
     hist = _hists()[idx]
     for max_len in (20, 7):
-        want = np.asarray(jax_graph.observer_schedule_device(jnp.asarray(hist), max_len=max_len))
+        want = np.asarray(_jax_schedule(jnp.asarray(hist), max_len=max_len))
         got = port_graph.observer_schedule_device(torch.from_numpy(hist), max_len=max_len).numpy()
         assert got.dtype == want.dtype == np.float32
         np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
@@ -124,10 +136,20 @@ def test_observer_schedule_bit_equal(idx):
 
 def test_observer_schedule_of_fixture_matches_jax(planes):
     _, want, got = _both_stats(planes, "bf16")
-    w = np.asarray(jax_graph.observer_schedule_device(want.observer_hist, max_len=20))
+    w = np.asarray(_jax_schedule(want.observer_hist, max_len=20))
     g = port_graph.observer_schedule_device(got.observer_hist, max_len=20).numpy()
     np.testing.assert_array_equal(g.view(np.uint32), w.view(np.uint32))
     assert np.isfinite(g[0])
+
+
+@pytest.mark.parametrize("idx", range(len(_hists())))
+def test_host_observer_schedule_matches_jax(idx):
+    hist = _hists()[idx]
+    for max_len in (20, 7):
+        want = jax_graph.observer_schedule(hist, max_len=max_len)
+        got = port_graph.observer_schedule(hist, max_len=max_len)
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 @pytest.mark.parametrize("count_dtype", ["bf16", "int8"])

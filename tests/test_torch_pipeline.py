@@ -1,11 +1,14 @@
-"""The port's slice end to end against the JAX package, plus its isolation.
+"""The port's pipeline end to end against the JAX package, plus its isolation.
 
 ``run_scene`` of the port (``device="cpu"``) against the JAX ``run_scene``
-with ``use_exact_ball_query=True, device_postprocess=False`` on two fixture
-scenes under both ``count_dtype`` values: the artifact digest, the
-assignment, the mask table and the exported files must be bit-equal. The
-JAX side answers its ball queries with the jnp f32 version (the Pallas
-contract) instead of its float64 CPU KD-tree.
+on two fixture scenes under both ``count_dtype`` values, in the
+exact-parity configuration (``use_exact_ball_query=True,
+device_postprocess=False``) and in the default one (dense association,
+device post-process), plus each mixed configuration and ``frame_batch=2``:
+the artifact digest, the assignment, the mask table and the exported files
+must be bit-equal. The committed canary goldens (``canary_goldens.json``)
+are reproduced. The JAX exact path answers its ball queries with the jnp
+f32 version (the Pallas contract) instead of its float64 CPU KD-tree.
 """
 
 import dataclasses
@@ -30,6 +33,11 @@ from maskclustering_tpu_torch.models import run_scene
 from maskclustering_tpu_torch.obs.digest import artifact_digest
 from maskclustering_tpu_torch.utils.synthetic import make_scene as port_make_scene
 from maskclustering_tpu_torch.utils.synthetic import to_scene_tensors as port_to_scene_tensors
+
+# one intra-op thread: the suite runs in parallel worker processes, where
+# torch's CPU thread pool oversubscribes the cores and each of the many
+# small ops waits at a barrier for descheduled threads
+torch.set_num_threads(1)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCENES = {"seed4": dict(num_boxes=3, num_frames=10, image_hw=(60, 80), seed=4),
@@ -111,8 +119,6 @@ def test_run_scene_defaults_to_cuda():
 
 
 @pytest.mark.parametrize("override,item", [
-    (dict(use_exact_ball_query=False), "A1"),
-    (dict(device_postprocess=True), "A2"),
     (dict(mesh_shape=(1, 2)), "A7"),
 ])
 def test_unported_configurations_raise(override, item):
@@ -120,6 +126,83 @@ def test_unported_configurations_raise(override, item):
     tensors = port_to_scene_tensors(port_make_scene(**SCENES["seed4"]))
     with pytest.raises(NotImplementedError, match=item):
         run_scene(tensors, cfg, k_max=31, device="cpu")
+
+
+def _compare_with_jax(scene, cfg, k_max=31):
+    """Run both packages on one fixture scene under ``cfg`` (a JAX config);
+    assert equal digests, assignments and mask tables; return the port's
+    result."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_exact, "_ball_query_group", _jnp_group)
+        want = jax_run_scene(to_scene_tensors(make_scene(**SCENES[scene])), cfg, k_max=k_max,
+                             seq_name=scene)
+    got = run_scene(port_to_scene_tensors(port_make_scene(**SCENES[scene])),
+                    from_jax_config(dataclasses.asdict(cfg)), k_max=k_max, seq_name=scene,
+                    device="cpu")
+    assert artifact_digest(got.objects) == jax_artifact_digest(want.objects)
+    assert len(got.objects.point_ids_list) >= 3
+    np.testing.assert_array_equal(got.assignment, np.asarray(want.assignment))
+    for field in want.table._fields:
+        np.testing.assert_array_equal(np.asarray(getattr(got.table, field)),
+                                      np.asarray(getattr(want.table, field)), err_msg=field)
+    return got
+
+
+@pytest.mark.parametrize("scene,count_dtype", [(s, d) for s in sorted(SCENES)
+                                               for d in ("bf16", "int8")])
+def test_default_configuration_matches_jax(scene, count_dtype):
+    """The default configuration: dense association, device post-process."""
+    cfg = _cfg(count_dtype).replace(use_exact_ball_query=False, device_postprocess=True)
+    got = _compare_with_jax(scene, cfg)
+    # mask_valid, schedule, 15 device post-process pulls, the assignment
+    assert got.timings["pulls"] == 18
+
+
+def test_dense_association_with_host_rung_matches_jax():
+    """The configuration the A1 refusal covered: dense association."""
+    _compare_with_jax("seed21", _cfg("int8").replace(use_exact_ball_query=False))
+
+
+def test_exact_association_with_device_rung_matches_jax():
+    """The configuration the A2 refusal covered: the device post-process."""
+    _compare_with_jax("seed4", _cfg("bf16").replace(device_postprocess=True))
+
+
+def test_frame_batch_2_matches_jax():
+    _compare_with_jax("seed4", _cfg("bf16").replace(
+        use_exact_ball_query=False, device_postprocess=True, association_frame_batch=2,
+        association_window=2))
+
+
+def test_scannet_config_runs_with_no_overrides():
+    cfg = load_config("scannet")
+    assert not cfg.use_exact_ball_query and cfg.device_postprocess
+    res = run_scene(port_to_scene_tensors(port_make_scene(**SCENES["seed4"])), cfg,
+                    device="cpu")
+    assert res.objects.num_points == 59877 and res.assignment.dtype == np.int32
+
+
+@pytest.mark.parametrize("idx,frames,points,max_id,golden", [
+    (0, 10, 16000, 14, "0ae5783a"), (1, 34, 60000, 100, "742bb72e")])
+def test_canary_goldens_reproduced(idx, frames, points, max_id, golden):
+    """The committed canary scenes (built as ``serve/router.py:158-188``
+    does, under ``obs/canary.goldens_config()``) give the goldens'
+    artifact digests."""
+    import json
+
+    from maskclustering_tpu.obs.canary import goldens_config
+    from maskclustering_tpu.serve.router import fit_tensors_to_bucket
+    from maskclustering_tpu_torch.datasets.base import SceneTensors
+
+    goldens = json.load(open(os.path.join(REPO, "canary_goldens.json")))["goldens"]
+    assert golden in {g["artifact"] for g in goldens.values()}
+    t = fit_tensors_to_bucket(
+        to_scene_tensors(make_scene(num_boxes=3, num_frames=frames, image_hw=(60, 80),
+                                    spacing=0.06, seed=1000 + idx)), frames, points, max_id)
+    tensors = SceneTensors(**{f.name: getattr(t, f.name) for f in dataclasses.fields(t)})
+    res = run_scene(tensors, from_jax_config(dataclasses.asdict(goldens_config())),
+                    device="cpu")
+    assert artifact_digest(res.objects) == golden
 
 
 def test_streaming_configuration_raises():
