@@ -23,21 +23,28 @@ Imports nothing of JAX or of the JAX package. In order:
    plain version, its bound and the no-FMA ceiling, and summed over the
    scene's groups;
 6. a mid-size scene on ``cuda`` and on ``cpu``: equal artifact digests;
-7. the association kernels (``ops/cuda/associate.cu``) bit-equal to their
-   plain versions on the edge cases of ``ops/association_cases.py`` (points
-   behind the camera, footprints off every border, pixel centres on .5,
-   claim distances at and a few ulps around r2, windows 0-3, k_max 63 and
-   1023, an invalid frame, N not a multiple of the block), and the whole
-   frame on ``cuda`` equal to ``cpu``; ``torch.addcmul`` on the card rounds
-   once, as on the CPU;
+7. the association's three scene entries (``ops/cuda/associate.cu``: the
+   pixel table, the claim and the assignment, one launch each over a stack
+   of frames) bit-equal to their plain scene versions on
+   the edge cases of ``ops/association_cases.py``: every one-frame case as
+   a scene of one frame (points behind the camera, footprints off every
+   border, pixel centres on .5, claim distances at and a few ulps around
+   r2, windows 0-3, k_max 63 and 1023, an invalid frame, N not a multiple
+   of the block) and the multi-frame cases (an invalid frame and a padded
+   all-zero pose, a frame with every point behind the camera, every lane
+   claiming one id, a different id on every lane at k_max 1023, N not a
+   multiple of the block); the frame or scene on ``cuda`` equal to
+   ``cpu``; ``torch.addcmul`` on the card rounds once, as on the CPU;
 8. the default configuration (dense association, device post-process) at
    full size through ``models.run_scene``: the scene of phase 4,
    ``distance_threshold`` 0.01, ``k_max`` 63, ``post_neighbor_cap`` raised
    to the smallest power of two that holds the scene's largest DBSCAN
-   degree (printed). Every frame's kernel inputs are kept; both kernels
-   must have launched on every padded frame, and are bit-equal to their
-   plain versions on every frame and timed per frame with CUDA events,
-   beside the plain versions and the bound. One more run under
+   degree (printed). The scene entries' inputs and outputs are kept; each
+   must have launched once for the scene, and all three are bit-equal to
+   their plain versions on all frames and timed per scene with CUDA
+   events, beside the plain versions and the bound. The association stage alone
+   is timed and its host synchronisations counted
+   (``torch.cuda.set_sync_debug_mode``). One more run under
    ``torch.profiler`` gives the card's busy share of the scene and the
    kernels that take most of it (trace in ``build/dense_trace.json``);
 9. the default configuration on the mid-size scene of phase 6 on ``cuda``
@@ -65,14 +72,19 @@ BALL_QUERY_OPS_PER_PAIR = 9
 # the share of that bound a kernel without fused multiply-adds can reach:
 # the FP32 peak above counts an FMA as two operations
 NO_FMA_CEILING = 0.5
-# FP32 operations of the claim kernel (associate.cu), an FMA counted as two
-# and comparisons not at all: per point the rotation (3 multiplies, 6 FMAs,
-# 3 additions = 18) and the projection (2 divisions, 2 FMAs = 6); per
-# window pixel the backprojection (2 subtractions, 2 multiplies, 2
-# divisions), the difference (3 subtractions) and the squared distance (a
-# multiply and 2 FMAs) = 14
+# FP32 operations of the association kernels (associate.cu), an FMA
+# counted as two and comparisons not at all. The pixel table, per pixel:
+# the backprojection (2 subtractions, 2 multiplies, 2 divisions) = 6. The
+# window walk, the same in the claim and the assignment: per point and
+# frame the rotation (3 multiplies, 6 FMAs, 3 additions = 18) and the
+# projection (2 divisions, 2 FMAs = 6); per window pixel that can claim (in
+# front, in the image and the window, depth and id set) the difference (3
+# subtractions) and the squared distance (a multiply and 2 FMAs) = 8
+TABLE_OPS_PER_PIXEL = 6
 CLAIM_OPS_PER_POINT = 24
-CLAIM_OPS_PER_PIXEL = 14
+CLAIM_OPS_PER_PIXEL = 8
+# the association kernels, in the order the path launches them
+ASSOCIATION_KERNELS = ("associate_table", "associate_claim", "associate_assign")
 # phase 8's DBSCAN neighbour table: the smallest power of two holding the
 # full-size scene's largest same-rep degree (the default, 256, does not)
 FULL_NEIGHBOR_CAP = 1024
@@ -251,133 +263,287 @@ def _frame_tensors(case, dev):
     return (*t, torch.tensor(case["frame_valid"]).to(dev))
 
 
+def _scene_tensors(case, dev):
+    import numpy as np
+    import torch
+
+    return [torch.from_numpy(np.asarray(case[k])).to(dev)
+            for k in ("points", "depths", "segs", "intrinsics", "cam_to_world", "frame_valid")]
+
+
+ASSOCIATION_KW = ("k_max", "window", "distance_threshold", "depth_trunc", "few_points_threshold",
+                  "coverage_threshold")
+
+
 def check_association_edges(dev) -> None:
-    """Phase 7: both association kernels bit-equal to their plain versions
-    on the card, and the whole frame on the card equal to the CPU."""
+    """Phase 7: both scene entries bit-equal to their plain scene versions
+    on the card, on every one-frame case as a scene of one frame and on the
+    multi-frame cases; the frame or scene on the card equal to the CPU."""
     import torch
 
     from maskclustering_tpu_torch.models import backprojection as bp
-    from maskclustering_tpu_torch.ops.association_cases import CASES, association_case
-    from maskclustering_tpu_torch.ops.cuda import associate_assign_cuda, associate_claim_cuda
+    from maskclustering_tpu_torch.ops.association_cases import (
+        CASES,
+        SCENE_CASES,
+        as_scene,
+        association_case,
+        association_scene_case,
+    )
+    from maskclustering_tpu_torch.ops.cuda import (
+        associate_assign_scene_cuda,
+        associate_claim_scene_cuda,
+        associate_table_cuda,
+    )
     from maskclustering_tpu_torch.ops.geometry import invert_se3
 
-    kw_names = ("k_max", "window", "distance_threshold", "depth_trunc",
-                "few_points_threshold", "coverage_threshold")
-    for name in CASES:
-        case = association_case(name)
-        pts, depth, seg, intr, c2w, fv = _frame_tensors(case, dev)
+    cases = ([(n, association_case(n), True) for n in CASES]
+             + [(n, association_scene_case(n), False) for n in SCENE_CASES])
+    for name, case, one_frame in cases:
+        scene = as_scene(case) if one_frame else case
+        pts, depths, segs, intr, c2w, fv = _scene_tensors(scene, dev)
         prm = bp.claim_params(intr, invert_se3(c2w), distance_threshold=case["distance_threshold"],
                               depth_trunc=case["depth_trunc"])
         k_max, window = case["k_max"], case["window"]
-        cand, n_claimed = associate_claim_cuda(pts, depth, seg, prm, k_max=k_max, window=window)
-        want_cand, want_n = bp.claim_candidates_reference(pts, depth, seg, prm, k_max=k_max,
-                                                          window=window)
-        mask_valid = torch.rand(k_max + 1, device=dev) < 0.7
-        got = associate_assign_cuda(cand, mask_valid, k_max=k_max)
-        want = bp.assign_claims_reference(cand, mask_valid, k_max=k_max)
+        table = associate_table_cuda(depths, segs, prm, k_max=k_max)
+        want_table = bp.pixel_table_reference(depths, segs, prm, k_max=k_max)
+        n_claimed = associate_claim_scene_cuda(pts, table, prm, k_max=k_max, window=window)
+        want_n = bp.claim_scene_reference(pts, table, prm, k_max=k_max, window=window)
+        mask_valid = torch.rand((depths.shape[0], k_max + 1), device=dev) < 0.7
+        got = associate_assign_scene_cuda(pts, table, prm, mask_valid, k_max=k_max,
+                                          window=window)
+        want = bp.assign_scene_reference(pts, table, prm, mask_valid, k_max=k_max, window=window)
         torch.cuda.synchronize()
-        bad = [what for what, g, w in zip(("cand", "n_claimed", "mask_of_point", "first", "last"),
-                                          (cand, n_claimed, *got), (want_cand, want_n, *want))
-               if not torch.equal(g, w)]
-        kw = {k: case[k] for k in kw_names}
-        on_card = bp.associate_frame(pts, depth, seg, intr, c2w, fv, None, **kw)
-        on_cpu = bp.associate_frame(*_frame_tensors(case, "cpu"), None, **kw)
-        bad += [f"frame {f}" for f in on_cpu._fields
+        bad = [what for what, g, w in zip(
+            ("table", "n_claimed", "mask_of_point", "first", "last"),
+            (table, n_claimed, *got), (want_table, want_n, *want)) if not torch.equal(g, w)]
+        kw = {k: case[k] for k in ASSOCIATION_KW}
+        if one_frame:
+            on_card = bp.associate_frame(*_frame_tensors(case, dev), None, **kw)
+            on_cpu = bp.associate_frame(*_frame_tensors(case, "cpu"), None, **kw)
+        else:
+            on_card = bp.associate_scene(pts, depths, segs, intr, c2w, fv, **kw)
+            on_cpu = bp.associate_scene(*_scene_tensors(scene, "cpu"), **kw)
+        bad += [f"on cuda != cpu: {f}" for f in on_cpu._fields
                 if not torch.equal(getattr(on_card, f).cpu(), getattr(on_cpu, f))]
         if bad:
             raise AssertionError(f"association kernels != plain version on '{name}': {bad}")
-        _say(f"  associate_claim/assign == plain on '{name}' N={pts.shape[0]} "
-             f"HxW={tuple(depth.shape)} window={window} k_max={k_max}; frame cuda == cpu")
+        _say(f"  associate_table/claim/assign == plain on '{name}' F={depths.shape[0]} "
+             f"N={pts.shape[0]} HxW={tuple(depths.shape[1:])} window={window} k_max={k_max}; "
+             f"{'frame' if one_frame else 'scene'} cuda == cpu")
 
 
 @contextlib.contextmanager
-def recording_association_frames(frames: list):
-    """Keep, in ``frames``, the inputs of every claim and assignment step
-    the dense association runs while the context is open (one dict a
-    frame), and the DBSCAN degrees of the post-process."""
+def recording_association_frames(calls: list):
+    """Keep, in ``calls``, the inputs and outputs of the scene entries
+    (pixel table, claim and assignment over every frame) that the dense
+    association runs while the context is open, one dict a scene, and the
+    DBSCAN degrees of the post-process."""
     from maskclustering_tpu_torch.models import backprojection as bp
     from maskclustering_tpu_torch.ops import grid_dbscan as gd
 
-    claim, assign, pack = bp.claim_candidates, bp.assign_claims, gd.pack_neighbors
+    table_of, claim, assign = bp.pixel_table, bp.claim_scene, bp.assign_scene
+    pack = gd.pack_neighbors
 
-    def rec_claim(scene_points, depth, seg, params, *, k_max, window=1):
-        frames.append({"claim": (scene_points, depth, seg, params, k_max, window)})
-        return claim(scene_points, depth, seg, params, k_max=k_max, window=window)
+    def rec_table(depths, segs, params, *, k_max):
+        table = table_of(depths, segs, params, k_max=k_max)
+        calls.append({"table": (depths, segs, params, k_max), "table_out": table})
+        return table
 
-    def rec_assign(cand, mask_valid, *, k_max):
-        frames[-1]["assign"] = (cand, mask_valid, k_max)
-        return assign(cand, mask_valid, k_max=k_max)
+    def rec_claim(scene_points, table, params, *, k_max, window=1):
+        n_claimed = claim(scene_points, table, params, k_max=k_max, window=window)
+        calls[-1].update(claim=(scene_points, table, params, k_max, window), n_claimed=n_claimed)
+        return n_claimed
+
+    def rec_assign(scene_points, table, params, mask_valid, *, k_max, window=1):
+        out = assign(scene_points, table, params, mask_valid, k_max=k_max, window=window)
+        calls[-1].update(mask_valid=mask_valid, assigned=out)
+        return out
 
     def rec_pack(*args, **kw):
         nb, degree = pack(*args, **kw)
-        frames.append({"degree": degree.max()})
+        calls.append({"degree": degree.max()})
         return nb, degree
 
-    bp.claim_candidates, bp.assign_claims, gd.pack_neighbors = rec_claim, rec_assign, rec_pack
+    bp.pixel_table, bp.claim_scene, bp.assign_scene = rec_table, rec_claim, rec_assign
+    gd.pack_neighbors = rec_pack
     try:
-        yield frames
+        yield calls
     finally:
-        bp.claim_candidates, bp.assign_claims, gd.pack_neighbors = claim, assign, pack
+        bp.pixel_table, bp.claim_scene, bp.assign_scene = table_of, claim, assign
+        gd.pack_neighbors = pack
 
 
-def check_and_time_frames(frames):
-    """Phase 8 over the scene's frames: both kernels bit-equal to their
-    plain versions on every frame, timed per frame (10 launches after a
-    warm-up; the plain versions 2), with each frame's bound."""
+def claiming_pixels(pts, depths, segs, params, *, k_max: int, window: int) -> int:
+    """Window pixels of this scene that reach the claim's distance test:
+    in front of the camera, in the image and the window, with a depth and
+    an id (the plain claim's own tests, in torch)."""
     import torch
 
     from maskclustering_tpu_torch.models import backprojection as bp
-    from maskclustering_tpu_torch.ops.cuda import associate_assign_cuda, associate_claim_cuda
+    from maskclustering_tpu_torch.ops.geometry import fma, rotate
 
-    rows = {"associate_claim": [], "associate_assign": []}
-    max_abs_err = 0
-    for fi, fr in enumerate(frames):
-        pts, depth, seg, prm, k_max, window = fr["claim"]
-        cand_in, mask_valid, _ = fr["assign"]
-        cand, n_claimed = associate_claim_cuda(pts, depth, seg, prm, k_max=k_max, window=window)
-        want_cand, want_n = bp.claim_candidates_reference(pts, depth, seg, prm, k_max=k_max,
-                                                          window=window)
-        got = associate_assign_cuda(cand_in, mask_valid, k_max=k_max)
-        want = bp.assign_claims_reference(cand_in, mask_valid, k_max=k_max)
-        bad = [what for what, g, w in zip(("cand", "n_claimed", "mask_of_point", "first", "last"),
-                                          (cand, n_claimed, *got), (want_cand, want_n, *want))
-               if not torch.equal(g, w)]
-        if not torch.equal(cand, cand_in):
-            bad.append("cand of the main path")
-        for g, w in zip((cand, n_claimed, *got), (want_cand, want_n, *want)):
-            if g.numel():
-                max_abs_err = max(max_abs_err, int((g.long() - w.long()).abs().max()))
-        if bad:
-            raise AssertionError(f"association kernels != plain version on frame {fi}: {bad}")
-        n, (h, w), k = pts.shape[0], depth.shape, cand.shape[1]
-        claim_bytes = (pts.numel() * 4 + depth.numel() * 4 + seg.numel() * 4 + prm.numel() * 4
-                       + cand.numel() * 2 + n_claimed.numel() * 4)
-        claim_ops = n * (CLAIM_OPS_PER_POINT + k * CLAIM_OPS_PER_PIXEL)
-        assign_bytes = cand.numel() * 2 + mask_valid.numel() + n * (4 + 2 + 2)
-        rows["associate_claim"].append({
-            "ms": cuda_time_ms(lambda: associate_claim_cuda(pts, depth, seg, prm, k_max=k_max,
-                                                            window=window), reps=10),
-            "plain_ms": cuda_time_ms(lambda: bp.claim_candidates_reference(
-                pts, depth, seg, prm, k_max=k_max, window=window), reps=2, warmup=1),
-            "bound": bound_ms(claim_ops, claim_bytes), "ops": claim_ops, "bytes": claim_bytes})
-        rows["associate_assign"].append({
-            "ms": cuda_time_ms(lambda: associate_assign_cuda(cand_in, mask_valid, k_max=k_max),
-                               reps=10),
-            "plain_ms": cuda_time_ms(lambda: bp.assign_claims_reference(
-                cand_in, mask_valid, k_max=k_max), reps=2, warmup=1),
-            "bound": bound_ms(0, assign_bytes), "ops": 0, "bytes": assign_bytes})
+    total = 0
+    h, w = depths.shape[1:]
+    for f in range(depths.shape[0]):
+        prm = params[f]
+        cam = rotate(pts, prm[:9].reshape(3, 3)) + prm[9:12]
+        in_front = cam[:, 2] > 1e-6
+        safe_z = torch.where(in_front, cam[:, 2], torch.ones_like(cam[:, 2]))
+        ui = bp._round_to_int32(fma(cam[:, 0] / safe_z, prm[12], prm[14].expand_as(safe_z)))
+        vi = bp._round_to_int32(fma(cam[:, 1] / safe_z, prm[13], prm[15].expand_as(safe_z)))
+        uc, vc = ui.clamp(0, w - 1), vi.clamp(0, h - 1)
+        live = ((depths[f] > 0) & (depths[f] <= prm[17]) & (segs[f] > 0)
+                & (segs[f] <= k_max)).reshape(-1)
+        for dv in range(-window, window + 1):
+            for du in range(-window, window + 1):
+                uu, vv = uc + du, vc + dv
+                ok = (in_front & (uu >= 0) & (uu < w) & (vv >= 0) & (vv < h)
+                      & ((uu.long() - ui.long()).abs() <= window)
+                      & ((vv.long() - vi.long()).abs() <= window))
+                idx = (vv.clamp(0, h - 1) * w + uu.clamp(0, w - 1)).long()
+                total += int((ok & live[idx]).sum())
+    return total
+
+
+def association_bounds(call):
+    """The least time of each association kernel on this scene's inputs, as
+    {name: (ms, bound_by, bytes, ops)}: each input of the function read
+    once, each output written once, and the FP32 operations this data
+    needs. The claim and the assignment are counted as functions of the
+    scene's depth and id stacks, not of the pixel table they read, which
+    the table's own count holds as an output."""
+    depths, segs, prm, k_max = call["table"]
+    pts, _, _, _, window = call["claim"]
+    f, n = depths.shape[0], pts.shape[0]
+    maps = depths.numel() * 4 + segs.numel() * 4 + prm.numel() * 4
+    table_bytes = maps + call["table_out"].numel() * 4
+    table_ops = depths.numel() * TABLE_OPS_PER_PIXEL
+    reads = pts.numel() * 4 + maps
+    ops = (f * n * CLAIM_OPS_PER_POINT
+           + claiming_pixels(pts, depths, segs, prm, k_max=k_max, window=window)
+           * CLAIM_OPS_PER_PIXEL)
+    claim_bytes = reads + call["n_claimed"].numel() * 4
+    assign_bytes = reads + call["mask_valid"].numel() + f * n * (4 + 2 + 2)
+    return {"associate_table": (*bound_ms(table_ops, table_bytes), table_bytes, table_ops),
+            "associate_claim": (*bound_ms(ops, claim_bytes), claim_bytes, ops),
+            "associate_assign": (*bound_ms(ops, assign_bytes), assign_bytes, ops)}
+
+
+def check_and_time_scene(call):
+    """Phase 8 over the scene's one call of each entry: the three kernels
+    bit-equal to their plain scene versions on every frame and to what the
+    main path returned, each fed the inputs the main path gave it; timed
+    per scene (10 launches after a warm-up; the plain versions once after
+    one), with the bound."""
+    import torch
+
+    from maskclustering_tpu_torch.models import backprojection as bp
+    from maskclustering_tpu_torch.ops.cuda import (
+        associate_assign_scene_cuda,
+        associate_claim_scene_cuda,
+        associate_table_cuda,
+    )
+
+    depths, segs, prm, k_max = call["table"]
+    pts, table, _, _, window = call["claim"]
+    mask_valid = call["mask_valid"]
+    kw = dict(k_max=k_max, window=window)
+    runs = {"associate_table": (
+        lambda: (associate_table_cuda(depths, segs, prm, k_max=k_max),),
+        lambda: (bp.pixel_table_reference(depths, segs, prm, k_max=k_max),)),
+        "associate_claim": (
+        lambda: (associate_claim_scene_cuda(pts, table, prm, **kw),),
+        lambda: (bp.claim_scene_reference(pts, table, prm, **kw),)),
+        "associate_assign": (
+        lambda: associate_assign_scene_cuda(pts, table, prm, mask_valid, **kw),
+        lambda: bp.assign_scene_reference(pts, table, prm, mask_valid, **kw))}
+    main = {"associate_table": (call["table_out"],), "associate_claim": (call["n_claimed"],),
+            "associate_assign": call["assigned"]}
+    bounds = association_bounds(call)
     out = {}
-    for name, rs in rows.items():
-        f = len(rs)
-        scene_bound = bound_ms(sum(r["ops"] for r in rs), sum(r["bytes"] for r in rs))
-        out[name] = {
-            "ms": sum(r["ms"] for r in rs) / f, "plain_ms": sum(r["plain_ms"] for r in rs) / f,
-            "bound_ms": sum(r["bound"][0] for r in rs) / f, "bound_by": rs[0]["bound"][1],
-            "scene_ms": sum(r["ms"] for r in rs), "scene_plain_ms": sum(r["plain_ms"] for r in rs),
-            "scene_bound_ms": scene_bound[0], "max_frame_ms": max(r["ms"] for r in rs),
-            "bytes_per_frame": rs[0]["bytes"], "ops_per_frame": rs[0]["ops"], "frames": f,
-            "max_abs_err": float(max_abs_err)}
+    for name in ASSOCIATION_KERNELS:
+        kernel, plain = runs[name]
+        got, want = kernel(), plain()
+        bad = [i for i, (g, w, m) in enumerate(zip(got, want, main[name]))
+               if not (torch.equal(g, w) and torch.equal(m, w))]
+        if bad:
+            raise AssertionError(f"{name} != plain version on the full-size scene (outputs {bad})")
+        err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
+                  for g, w in zip(got, want))
+        ms_, by, nbytes, ops = bounds[name]
+        out[name] = {"ms": cuda_time_ms(kernel, reps=10),
+                     "plain_ms": cuda_time_ms(plain, reps=1, warmup=1),
+                     "bound_ms": ms_, "bound_by": by, "bytes": nbytes, "ops": ops,
+                     "frames": depths.shape[0], "max_abs_err": float(err)}
     return out
+
+
+def count_syncs(fn):
+    """(``fn()``, {"file:line": times}): where ``fn`` made the host wait for
+    the card, from ``torch.cuda.set_sync_debug_mode``'s warnings, each at
+    the innermost frame of this repository's code."""
+    import traceback
+    import warnings
+    from collections import Counter
+
+    import torch
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    where = Counter()
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" in str(message):
+            ours = [fr for fr in traceback.extract_stack()[:-1] if fr.filename.startswith(here)]
+            fr = ours[-1] if ours else None
+            where[f"{os.path.relpath(fr.filename, here)}:{fr.lineno}" if fr
+                  else f"{filename}:{lineno}"] += 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, where
+
+
+def association_stage(dev, tensors, cfg, k_max: int = 63):
+    """The dense association stage alone, as ``run_scene`` runs it: its
+    warm wall (best of 3), its host synchronisations from the host arrays,
+    and those on tensors already on the card."""
+    import numpy as np
+    import torch
+
+    from maskclustering_tpu_torch.models.backprojection import (
+        associate_scene,
+        associate_scene_tensors,
+    )
+    from maskclustering_tpu_torch.models.pipeline import pad_scene_tensors
+    from maskclustering_tpu_torch.utils.compile_cache import scene_pads
+
+    padded = pad_scene_tensors(tensors, *scene_pads(cfg, tensors.num_frames,
+                                                    tensors.num_points))
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        associate_scene_tensors(padded, cfg, k_max=k_max, device=dev)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _, syncs = count_syncs(lambda: associate_scene_tensors(padded, cfg, k_max=k_max, device=dev))
+    arrays = [torch.as_tensor(np.asarray(a)).to(dev) for a in (
+        padded.scene_points, padded.depths, padded.segmentations, padded.intrinsics,
+        padded.cam_to_world, padded.frame_valid)]
+    torch.cuda.synchronize()
+    _, resident = count_syncs(lambda: associate_scene(
+        *arrays, k_max=k_max, window=cfg.association_window,
+        distance_threshold=cfg.distance_threshold, depth_trunc=cfg.depth_trunc,
+        few_points_threshold=cfg.few_points_threshold,
+        coverage_threshold=cfg.coverage_threshold))
+    return {"wall_s": min(walls), "walls_s": walls, "syncs": syncs, "syncs_resident": resident,
+            "uploads": len(arrays)}
 
 
 def dense_default_full(dev, tensors, distance_threshold: float = 0.01):
@@ -406,8 +572,8 @@ def dense_default_full(dev, tensors, distance_threshold: float = 0.01):
         wall = time.perf_counter() - t0
         launches = dict(kernels.LAUNCHES.counts)
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
-    frames = [fr for fr in recorded if "claim" in fr]
-    degrees = [int(fr["degree"]) for fr in recorded if "degree" in fr]
+    calls = [c for c in recorded if "table" in c]
+    degrees = [int(c["degree"]) for c in recorded if "degree" in c]
     n_obj = len(res.objects.point_ids_list)
     digest = artifact_digest(res.objects)
     _say(f"[dense] N={tensors.num_points} N_pad={n_pad} F={tensors.num_frames} F_pad={f_pad} "
@@ -417,14 +583,14 @@ def dense_default_full(dev, tensors, distance_threshold: float = 0.01):
     _say(f"[dense] DBSCAN: largest same-rep degree {max(degrees, default=0)} (post_neighbor_cap "
          f"{FULL_NEIGHBOR_CAP}, default {load_config('scannet').post_neighbor_cap})")
     _say(f"[dense] kernel launches: {json.dumps(launches)}")
-    for name in ("associate_claim", "associate_assign"):
-        if launches.get(name, 0) != f_pad:
-            raise AssertionError(f"{name} launched {launches.get(name, 0)} times, not on every "
-                                 f"one of the {f_pad} padded frames")
+    for name in ASSOCIATION_KERNELS:
+        if launches.get(name, 0) != 1:
+            raise AssertionError(f"{name} launched {launches.get(name, 0)} times for the scene, "
+                                 f"not once")
     if launches.get("ball_query", 0):
         raise AssertionError("the dense path launched the ball query")
-    if len(frames) != f_pad:
-        raise AssertionError(f"{len(frames)} frames kept, {f_pad} padded frames")
+    if len(calls) != 1 or calls[0]["table"][0].shape[0] != f_pad:
+        raise AssertionError(f"{len(calls)} scene calls kept, not one over the {f_pad} frames")
     if n_obj == 0:
         raise AssertionError("the full-size default configuration produced no objects")
     for pids in res.objects.point_ids_list:
@@ -433,16 +599,21 @@ def dense_default_full(dev, tensors, distance_threshold: float = 0.01):
     if not np.isfinite(tensors.scene_points).all():
         raise AssertionError("non-finite scene points")
     t0 = time.perf_counter()
-    timed = check_and_time_frames(frames)
-    _say(f"[kernels] associate_claim/assign == plain on all {len(frames)} frames of the scene "
+    timed = check_and_time_scene(calls[0])
+    _say(f"[kernels] associate_table/claim/assign == plain on all {f_pad} frames of the scene "
          f"({time.perf_counter() - t0:.1f} s)")
     for name, t in timed.items():
-        _say(f"[kernels] {name} per frame: kernel {t['ms']:.5f} ms (slowest frame "
-             f"{t['max_frame_ms']:.5f}), plain {t['plain_ms']:.4f} ms, bound {t['bound_ms']:.5f} ms "
-             f"({t['bound_by']}: {t['bytes_per_frame']} bytes, {t['ops_per_frame']} FP32 ops), "
-             f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound; summed over the "
-             f"{t['frames']} frames: kernel {t['scene_ms']:.4f} ms, plain "
-             f"{t['scene_plain_ms']:.3f} ms, bound {t['scene_bound_ms']:.5f} ms")
+        _say(f"[kernels] {name} per scene ({t['frames']} frames, one launch): kernel "
+             f"{t['ms']:.5f} ms, plain {t['plain_ms']:.3f} ms, bound {t['bound_ms']:.5f} ms "
+             f"({t['bound_by']}: {t['bytes']} bytes, {t['ops']} FP32 ops), "
+             f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound")
+    stage = association_stage(dev, tensors, cfg)
+    _say(f"[dense] association stage alone: wall {stage['wall_s']:.4f} s (best of 3: "
+         + ", ".join(f"{w:.4f}" for w in stage["walls_s"])
+         + f"); host syncs {sum(stage['syncs'].values())} from host arrays "
+         f"({stage['uploads']} uploads) {json.dumps(stage['syncs'])}, "
+         f"{sum(stage['syncs_resident'].values())} on tensors already on the card "
+         f"{json.dumps(stage['syncs_resident'])}")
     profile_dense(dev, tensors, cfg, wall)
     return {"launches": launches, "timed": timed, "digest": digest, "wall": wall}
 
@@ -501,6 +672,9 @@ def profile_dense(dev, tensors, cfg, wall: float) -> None:
          f"{sum(c for _, c in by_name.values())} kernel launches")
     for name, (ms, cnt) in top:
         _say(f"  {ms:10.3f} ms {cnt:7d} x {name[:110]}")
+    for name, (ms, cnt) in by_name.items():
+        if "scene_kernel" in name or "table_kernel" in name:
+            _say(f"  association: {ms:10.4f} ms {cnt:3d} x {name[:100]}")
 
 
 def dense_default_mid(dev) -> str:
@@ -670,14 +844,18 @@ def main() -> int:
         "launches": launches["ball_query"], "max_abs_err": bq["max_abs_err"],
         "ms": bq["ms"], "plain_ms": bq["plain_ms"], "bound_ms": bq["bound_ms"],
         "bound_by": bq["bound_by"], "library_ms": None, "scene_kernel_ms": bq["scene_ms"]}]
+    # the JAX lines each association kernel computes (associate_frame, :191)
+    replaces = {"associate_table": "maskclustering_tpu/models/backprojection.py:264",
+                "associate_claim": "maskclustering_tpu/models/backprojection.py:229",
+                "associate_assign": "maskclustering_tpu/models/backprojection.py:347"}
     for name, t in dense["timed"].items():
         rows.append({
             "name": name, "route": "cuda", "kind": "xla_program",
             "source": "maskclustering_tpu_torch/ops/cuda/associate.cu",
-            "replaces": "maskclustering_tpu/models/backprojection.py:191",
+            "replaces": replaces[name],
             "launches": dense["launches"][name], "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None, "scene_kernel_ms": t["scene_ms"]})
+            "bound_by": t["bound_by"], "library_ms": None, "scene_kernel_ms": t["ms"]})
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

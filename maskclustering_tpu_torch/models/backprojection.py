@@ -8,20 +8,28 @@ Masks are then filtered by valid-pixel count and by coverage (claimed scene
 points over occupied voxels of the mask's backprojection), and every point
 keeps the smallest and largest valid claiming id of each frame.
 
-The per-point work of a frame is two steps, each with a plain torch version
-here and a hand-written CUDA kernel (``ops/cuda/associate.cu``):
+The per-point work runs over the whole stack of frames at once, in three
+steps, each with a plain torch version here and a hand-written CUDA kernel
+(``ops/cuda/associate.cu``), one launch each a scene:
 
-- :func:`claim_candidates`: the claim test over the window, giving the
-  (N, (2w+1)^2) candidate plane and the per-mask count of distinct claimed
-  points (``backprojection.py:229-300, 319-335``);
-- :func:`assign_claims`: once the valid masks are known, ``first``,
-  ``last`` and ``mask_of_point`` (``:347-353``).
+- :func:`pixel_table`: each pixel's masked depth and id and its
+  backprojection, once a pixel (``backprojection.py:226-227, 246, 264-265``);
+- :func:`claim_scene`: the claim test over the window and, per frame, the
+  count of distinct scene points claimed per mask id
+  (``:229-300, 319-335``);
+- :func:`assign_scene`: once the valid masks are known, the same window
+  walked again for ``first``, ``last`` and ``mask_of_point``
+  (``:347-353``). On the CPU the plain claim's candidates serve the
+  assignment instead.
 
-CUDA tensors launch the kernels, CPU tensors take the plain versions, and
-nothing falls back. Pixel counts, voxel counts and the hash stay plain
-torch on either device.
+The JAX package maps one frame at a time (``_associate_scene_impl``); the
+frame axis here is a batch axis, which changes no value. CUDA tensors
+launch the kernels, CPU tensors take the plain versions, and nothing falls
+back. Pixel counts, voxel counts and the hash are plain torch on either
+device, batched over frames with integer keys that carry the frame, and
+nothing in the stage waits for the card.
 
-Rounding follows XLA:CPU's compiled program exactly, so the planes are bit
+Rounding follows XLA:CPU's compiled program exactly, so every field is bit
 for bit the JAX package's: a multiply feeding an add inside one fusion is
 a fused multiply-add (the pixel coordinate ``px / z * fx + cx``, the claim
 distance, the 3x3 rotations), and a division by a compile-time constant is
@@ -44,7 +52,9 @@ _SPACING_BLOCK = 1 << 24
 
 
 def _f32(value: float, device) -> torch.Tensor:
-    return torch.tensor(value, dtype=torch.float32, device=device)
+    """A float32 scalar filled on the device itself: an upload from the
+    host would make the host wait for the card."""
+    return torch.full((), value, dtype=torch.float32, device=device)
 
 
 def estimate_spacing(points: torch.Tensor, *, sample: int = 2048) -> torch.Tensor:
@@ -79,7 +89,7 @@ def estimate_spacing(points: torch.Tensor, *, sample: int = 2048) -> torch.Tenso
     valid = torch.isfinite(d) & (d < _f32(PAD_DISTANCE_CUTOFF, dev))
     ds = torch.sort(torch.where(valid, d, inf)).values
     cnt = valid.sum()
-    med = ds[torch.clamp(cnt // 2, 0, s - 1)]
+    med = ds.gather(0, torch.clamp(cnt // 2, 0, s - 1).reshape(1))[0]
     return torch.where(cnt > 0, med, torch.zeros_like(med))
 
 
@@ -133,38 +143,44 @@ def _hash_voxel(keys: torch.Tensor, bits: int) -> torch.Tensor:
 
 
 def _counts_by_id(weights: torch.Tensor, ids: torch.Tensor, num_ids: int) -> torch.Tensor:
-    """Per-id counts of 0/1 ``weights``. The JAX package counts with a
-    one-hot product that is exact under either ``count_dtype``, so an
-    integer histogram is the same function."""
-    return torch.bincount(ids.reshape(-1)[weights.reshape(-1).bool()].long(),
-                          minlength=num_ids)[:num_ids].to(torch.int32)
+    """Per-id counts of 0/1 ``weights``, ids in [0, num_ids), as int32. The
+    JAX package counts with a one-hot product that is exact under either
+    ``count_dtype``, so an integer scatter-add is the same function; unlike
+    a boolean select or a CUDA ``bincount`` it never waits for the card."""
+    out = torch.zeros(num_ids, dtype=torch.int32, device=ids.device)
+    return out.index_add_(0, ids.reshape(-1), weights.reshape(-1).to(torch.int32))
 
 
 def _count_distinct_per_mask(ids: torch.Tensor, vox_hash: torch.Tensor, valid: torch.Tensor,
                              num_ids: int, bits: int) -> torch.Tensor:
-    """Distinct (id, voxel-hash) pairs per id via one sort; invalid entries
-    collapse into slot 0 (background), which callers ignore."""
+    """Distinct (id, voxel-hash) pairs per id in each frame of (F, P)
+    entries, via one sort of keys that carry the frame; invalid entries
+    collapse into slot 0 (background) of their frame, which callers
+    ignore. Returns (F, num_ids) int32."""
+    f = ids.shape[0]
+    frame = torch.arange(f, dtype=torch.int64, device=ids.device)[:, None] * num_ids
     zero = torch.zeros_like(ids)
-    key = torch.where(valid, ids, zero).to(torch.int64) * (1 << bits) \
-        + torch.where(valid, vox_hash, zero).to(torch.int64)
-    skey = torch.sort(key).values
+    key = ((frame + torch.where(valid, ids, zero)) << bits) + torch.where(valid, vox_hash, zero)
+    skey = torch.sort(key.reshape(-1)).values
     new = torch.ones_like(skey, dtype=torch.bool)
     new[1:] = skey[1:] != skey[:-1]
-    return _counts_by_id(new, skey >> bits, num_ids)
+    return _counts_by_id(new, skey >> bits, f * num_ids).reshape(f, num_ids)
 
 
 def claim_params(intrinsics: torch.Tensor, w2c: torch.Tensor, *, distance_threshold: float,
                  depth_trunc: float) -> torch.Tensor:
-    """The 18 floats the claim kernel reads: the world-to-camera rotation
-    (row-major) and translation, fx, fy, cx, cy, the squared radius as the
-    JAX package rounds it (the float product, once to float32) and the
-    depth cut-off."""
+    """The 18 floats the claim reads for a frame: the world-to-camera
+    rotation (row-major) and translation, fx, fy, cx, cy, the squared radius
+    as the JAX package rounds it (the float product, once to float32) and
+    the depth cut-off. For stacks (F, 3, 3) and (F, 4, 4), an (F, 18) table
+    whose rows equal the one-frame values."""
     dev = w2c.device
+    lead = tuple(w2c.shape[:-2])
     r2 = float(distance_threshold) * float(distance_threshold)
-    return torch.cat([w2c[:3, :3].reshape(-1), w2c[:3, 3],
-                      intrinsics[0, 0:1], intrinsics[1, 1:2], intrinsics[0, 2:3],
-                      intrinsics[1, 2:3], _f32(r2, dev)[None], _f32(depth_trunc, dev)[None]]
-                     ).to(torch.float32).contiguous()
+    consts = torch.stack([_f32(r2, dev), _f32(depth_trunc, dev)]).expand(*lead, 2)
+    return torch.cat([w2c[..., :3, :3].reshape(*lead, 9), w2c[..., :3, 3],
+                      intrinsics[..., 0, 0:1], intrinsics[..., 1, 1:2], intrinsics[..., 0, 2:3],
+                      intrinsics[..., 1, 2:3], consts], dim=-1).to(torch.float32).contiguous()
 
 
 def _round_to_int32(x: torch.Tensor) -> torch.Tensor:
@@ -233,19 +249,6 @@ def claim_candidates_reference(scene_points: torch.Tensor, depth: torch.Tensor,
     return cand.to(torch.int16), n_claimed
 
 
-def claim_candidates(scene_points, depth, seg, params, *, k_max: int, window: int = 1):
-    """The claim step: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors (see :func:`claim_candidates_reference`)."""
-    if scene_points.device.type == "cuda":
-        from maskclustering_tpu_torch.ops.cuda import associate_claim_cuda
-
-        return associate_claim_cuda(scene_points, depth, seg, params, k_max=k_max, window=window)
-    if scene_points.device.type == "cpu":
-        return claim_candidates_reference(scene_points, depth, seg, params, k_max=k_max,
-                                          window=window)
-    raise ValueError(f"claim_candidates runs on cuda or cpu tensors, got {scene_points.device}")
-
-
 def assign_claims_reference(cand: torch.Tensor, mask_valid: torch.Tensor, *, k_max: int):
     """Plain torch assignment (``backprojection.py:347-353``): per point the
     smallest and largest valid claiming id, and the id itself when they
@@ -260,16 +263,193 @@ def assign_claims_reference(cand: torch.Tensor, mask_valid: torch.Tensor, *, k_m
     return mop.to(torch.int32), first.to(torch.int16), last.to(torch.int16)
 
 
-def assign_claims(cand, mask_valid, *, k_max: int):
-    """The assignment step: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors (see :func:`assign_claims_reference`)."""
-    if cand.device.type == "cuda":
-        from maskclustering_tpu_torch.ops.cuda import associate_assign_cuda
+def pixel_table_reference(depths: torch.Tensor, segs: torch.Tensor, params: torch.Tensor, *,
+                          k_max: int) -> torch.Tensor:
+    """Plain version of the pixel table the claim and the assignment read:
+    for each pixel (u, v) of the (F, H, W) stacks, the masked depth ``d``,
+    the masked id ``s`` and the pixel's backprojection ``qx = ((u - cx) *
+    d) / fx``, ``qy = ((v - cy) * d) / fy`` (``backprojection.py:264-265``,
+    not contracted). Returns (F, H, W, 4) int32: the float32 bits of
+    ``qx``, ``qy`` and ``d``, and ``s``."""
+    f, h, w = depths.shape
+    dev = depths.device
+    prm = params[:, :, None, None]
+    fx, fy, cx, cy, trunc = (prm[:, i] for i in (12, 13, 14, 15, 17))
+    d = torch.where((depths > 0) & (depths <= trunc), depths, torch.zeros_like(depths))
+    s = torch.where((segs < 0) | (segs > k_max), torch.zeros_like(segs), segs)
+    u = torch.arange(w, dtype=torch.float32, device=dev)
+    v = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    qx = (u - cx) * d / fx
+    qy = (v - cy) * d / fy
+    return torch.stack([qx.view(torch.int32), qy.view(torch.int32), d.view(torch.int32),
+                        s.to(torch.int32)], dim=-1)
 
-        return associate_assign_cuda(cand, mask_valid, k_max=k_max)
-    if cand.device.type == "cpu":
-        return assign_claims_reference(cand, mask_valid, k_max=k_max)
-    raise ValueError(f"assign_claims runs on cuda or cpu tensors, got {cand.device}")
+
+def scene_candidates_reference(scene_points: torch.Tensor, table: torch.Tensor,
+                               params: torch.Tensor, *, k_max: int, window: int = 1):
+    """:func:`claim_candidates_reference` frame by frame over the
+    :func:`pixel_table_reference` of a stack (its depth and id) and the
+    (F, 18) :func:`claim_params` table. Returns ``(cand, n_claimed)``: a
+    list of each frame's (N, (2w+1)^2) int16 candidates and the
+    (F, k_max + 1) int32 counts."""
+    cand, rows = [], []
+    for f in range(table.shape[0]):
+        c, n = claim_candidates_reference(scene_points, table[f, ..., 2].view(torch.float32),
+                                          table[f, ..., 3], params[f], k_max=k_max,
+                                          window=window)
+        cand.append(c)
+        rows.append(n)
+    if not rows:
+        return cand, torch.zeros((0, k_max + 1), dtype=torch.int32, device=scene_points.device)
+    return cand, torch.stack(rows)
+
+
+def assign_candidates_reference(cand, mask_valid: torch.Tensor, *, k_max: int, n: int):
+    """:func:`assign_claims_reference` of each frame's candidates against its
+    row of the (F, k_max + 1) ``mask_valid``. Returns (F, n)
+    ``(mask_of_point int32, first int16, last int16)``."""
+    outs = [assign_claims_reference(c, mask_valid[f], k_max=k_max) for f, c in enumerate(cand)]
+    if not outs:
+        return tuple(torch.zeros((0, n), dtype=dt, device=mask_valid.device)
+                     for dt in (torch.int32, torch.int16, torch.int16))
+    return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def claim_scene_reference(scene_points: torch.Tensor, table: torch.Tensor, params: torch.Tensor,
+                          *, k_max: int, window: int = 1) -> torch.Tensor:
+    """Plain version of the scene claim (see :func:`scene_candidates_reference`).
+    Returns (F, k_max + 1) int32 counts."""
+    return scene_candidates_reference(scene_points, table, params, k_max=k_max,
+                                      window=window)[1]
+
+
+def assign_scene_reference(scene_points: torch.Tensor, table: torch.Tensor, params: torch.Tensor,
+                           mask_valid: torch.Tensor, *, k_max: int, window: int = 1):
+    """Plain version of the scene assignment: each frame's candidates
+    again, against its row of the (F, k_max + 1) ``mask_valid``. Returns
+    (F, N) ``(mask_of_point int32, first int16, last int16)``."""
+    cand, _ = scene_candidates_reference(scene_points, table, params, k_max=k_max, window=window)
+    return assign_candidates_reference(cand, mask_valid, k_max=k_max, n=scene_points.shape[0])
+
+
+def _device_type(name: str, t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
+    return t.device.type
+
+
+def pixel_table(depths, segs, params, *, k_max: int):
+    """The pixel table: one CUDA launch for CUDA tensors, the plain version
+    for CPU tensors (see :func:`pixel_table_reference`)."""
+    if _device_type("pixel_table", depths) == "cuda":
+        from maskclustering_tpu_torch.ops.cuda import associate_table_cuda
+
+        return associate_table_cuda(depths, segs, params, k_max=k_max)
+    return pixel_table_reference(depths, segs, params, k_max=k_max)
+
+
+def claim_scene(scene_points, table, params, *, k_max: int, window: int = 1):
+    """The scene claim: one CUDA launch for CUDA tensors, the plain version
+    for CPU tensors (see :func:`claim_scene_reference`)."""
+    if _device_type("claim_scene", scene_points) == "cuda":
+        from maskclustering_tpu_torch.ops.cuda import associate_claim_scene_cuda
+
+        return associate_claim_scene_cuda(scene_points, table, params, k_max=k_max,
+                                          window=window)
+    return claim_scene_reference(scene_points, table, params, k_max=k_max, window=window)
+
+
+def assign_scene(scene_points, table, params, mask_valid, *, k_max: int, window: int = 1):
+    """The scene assignment: one CUDA launch for CUDA tensors, the plain
+    version for CPU tensors (see :func:`assign_scene_reference`)."""
+    if _device_type("assign_scene", scene_points) == "cuda":
+        from maskclustering_tpu_torch.ops.cuda import associate_assign_scene_cuda
+
+        return associate_assign_scene_cuda(scene_points, table, params, mask_valid, k_max=k_max,
+                                           window=window)
+    return assign_scene_reference(scene_points, table, params, mask_valid, k_max=k_max,
+                                  window=window)
+
+
+# pixels of the frame stack that one sort-and-count step holds at most
+_COUNT_BLOCK = 1 << 24
+
+
+def _frame_counts(depths: torch.Tensor, segs: torch.Tensor, intrinsics: torch.Tensor,
+                 cam_to_world: torch.Tensor, vox_size: Optional[torch.Tensor], *, k_max: int,
+                 distance_threshold: float, depth_trunc: float):
+    """Per frame and mask id, the valid-depth pixels and the occupied voxels
+    of their backprojection (the coverage denominator): two (F, k_max + 1)
+    int32 tables, computed over blocks of frames. Without a ``vox_size`` the
+    JAX program divides by a constant, which XLA compiles as a product with
+    its float32 reciprocal."""
+    f, h, w = depths.shape
+    num_ids = k_max + 1
+    bits = _hash_bits(num_ids)
+    dev = depths.device
+    trunc = _f32(depth_trunc, dev)
+    n_pixels, n_voxels = [], []
+    step = max(1, _COUNT_BLOCK // max(h * w, 1))
+    for s in range(0, f, step):
+        depth = depths[s:s + step]
+        fb = depth.shape[0]
+        seg = segs[s:s + step].reshape(fb, -1)
+        seg = torch.where((seg < 0) | (seg > k_max), torch.zeros_like(seg), seg)
+        dok = ((depth > 0) & (depth <= trunc)).reshape(fb, -1)
+        pix_ids = torch.where(dok, seg, torch.zeros_like(seg))
+        frame = torch.arange(fb, device=dev)[:, None] * num_ids
+        n_pixels.append(_counts_by_id(torch.ones_like(pix_ids), frame + pix_ids,
+                                      fb * num_ids).reshape(fb, num_ids))
+        world, _ = unproject_depth(depth, intrinsics[s:s + step], cam_to_world[s:s + step],
+                                   depth_trunc)
+        world = world.reshape(fb, -1, 3)
+        if vox_size is None:
+            recip = float(np.float32(1) / np.float32(distance_threshold))
+            vox = torch.floor(world * _f32(recip, dev))
+        else:
+            vox = torch.floor(world / vox_size.to(torch.float32))
+        n_voxels.append(_count_distinct_per_mask(pix_ids, _hash_voxel(vox.to(torch.int32), bits),
+                                                 dok & (seg > 0), num_ids, bits))
+    if not n_pixels:
+        empty = torch.zeros((0, num_ids), dtype=torch.int32, device=dev)
+        return empty, empty.clone()
+    return torch.cat(n_pixels), torch.cat(n_voxels)
+
+
+def _associate_frames(scene_points, depths, segs, intrinsics, cam_to_world, frame_valid,
+                      vox_size, *, k_max: int, window: int, distance_threshold: float,
+                      depth_trunc: float, few_points_threshold: int,
+                      coverage_threshold: float) -> FrameAssociation:
+    """The association of a stack of F frames: every
+    :class:`FrameAssociation` field with a leading frame axis."""
+    dev = scene_points.device
+    params = claim_params(intrinsics, invert_se3(cam_to_world),
+                          distance_threshold=distance_threshold, depth_trunc=depth_trunc)
+    # the counts first: their sort's scratch is freed before the table exists
+    n_pixels, n_voxels = _frame_counts(depths, segs, intrinsics, cam_to_world, vox_size,
+                                      k_max=k_max, distance_threshold=distance_threshold,
+                                      depth_trunc=depth_trunc)
+    table = pixel_table(depths, segs, params, k_max=k_max)
+    if dev.type == "cuda":
+        cand, n_claimed = None, claim_scene(scene_points, table, params, k_max=k_max,
+                                            window=window)
+    else:
+        # the plain claim's candidates serve the assignment as they are
+        cand, n_claimed = scene_candidates_reference(scene_points, table, params, k_max=k_max,
+                                                     window=window)
+    coverage = n_claimed.to(torch.float32) / torch.clamp(n_voxels.to(torch.float32), min=1.0)
+    mask_valid = ((n_pixels >= few_points_threshold) & (n_voxels >= 1)
+                  & (coverage >= _f32(coverage_threshold, dev))
+                  & (torch.arange(k_max + 1, device=dev) > 0) & frame_valid.to(dev)[:, None])
+    if cand is None:
+        mop, first, last = assign_scene(scene_points, table, params, mask_valid, k_max=k_max,
+                                        window=window)
+    else:
+        mop, first, last = assign_candidates_reference(cand, mask_valid, k_max=k_max,
+                                                       n=scene_points.shape[0])
+    return FrameAssociation(mask_of_point=mop, first_id=first, last_id=last,
+                            mask_valid=mask_valid, n_pixels=n_pixels, n_voxels=n_voxels,
+                            n_claimed=n_claimed)
 
 
 def associate_frame(
@@ -289,45 +469,16 @@ def associate_frame(
     coverage_threshold: float = 0.3,
 ) -> FrameAssociation:
     """Associate every scene point with the masks of one frame
-    (``backprojection.py:191-369``). Every count is an exact integer, so
-    the JAX package's ``count_dtype`` changes nothing here and is not
-    taken; nor is its ``full_tile_table``, whose two table forms give the
-    same values."""
-    dev = scene_points.device
-    params = claim_params(intrinsics, invert_se3(cam_to_world),
-                          distance_threshold=distance_threshold, depth_trunc=depth_trunc)
-    cand, n_claimed = claim_candidates(scene_points, depth, seg, params, k_max=k_max,
-                                       window=window)
-
-    seg = torch.where((seg < 0) | (seg > k_max), torch.zeros_like(seg), seg)
-    seg_flat = seg.reshape(-1)
-    dok_flat = ((depth > 0) & (depth <= _f32(depth_trunc, dev))).reshape(-1)
-    pix_ids = torch.where(dok_flat, seg_flat, torch.zeros_like(seg_flat))
-    n_pixels = _counts_by_id(torch.ones_like(pix_ids), pix_ids, k_max + 1)
-
-    # occupied voxels of the mask's backprojected pixels (coverage denominator);
-    # without a vox_size the JAX program divides by a constant, which XLA
-    # compiles as a product with its float32 reciprocal
-    world_pix, _ = unproject_depth(depth, intrinsics, cam_to_world, depth_trunc)
-    world_pix = world_pix.reshape(-1, 3)
-    if vox_size is None:
-        recip = float(np.float32(1) / np.float32(distance_threshold))
-        vox = torch.floor(world_pix * _f32(recip, dev))
-    else:
-        vox = torch.floor(world_pix / vox_size.to(torch.float32))
-    bits = _hash_bits(k_max + 1)
-    n_voxels = _count_distinct_per_mask(pix_ids, _hash_voxel(vox.to(torch.int32), bits),
-                                        dok_flat & (seg_flat > 0), k_max + 1, bits)
-
-    coverage = n_claimed.to(torch.float32) / torch.clamp(n_voxels.to(torch.float32), min=1.0)
-    mask_valid = ((n_pixels >= few_points_threshold) & (n_voxels >= 1)
-                  & (coverage >= _f32(coverage_threshold, dev))
-                  & (torch.arange(k_max + 1, device=dev) > 0) & frame_valid.to(dev))
-
-    mop, first, last = assign_claims(cand, mask_valid, k_max=k_max)
-    return FrameAssociation(mask_of_point=mop, first_id=first, last_id=last,
-                            mask_valid=mask_valid, n_pixels=n_pixels, n_voxels=n_voxels,
-                            n_claimed=n_claimed)
+    (``backprojection.py:191-369``): the scene path with one frame. Every
+    count is an exact integer, so the JAX package's ``count_dtype`` changes
+    nothing here and is not taken; nor is its ``full_tile_table``, whose two
+    table forms give the same values."""
+    fa = _associate_frames(
+        scene_points, depth[None], seg[None], intrinsics[None], cam_to_world[None],
+        frame_valid.reshape(1), vox_size, k_max=k_max, window=window,
+        distance_threshold=distance_threshold, depth_trunc=depth_trunc,
+        few_points_threshold=few_points_threshold, coverage_threshold=coverage_threshold)
+    return FrameAssociation(*(t[0] for t in fa))
 
 
 def associate_scene(
@@ -339,30 +490,21 @@ def associate_scene(
     """Projective association over all frames (``backprojection.py:372-521``).
 
     ``vox_size`` defaults to ``max(distance_threshold, median spacing)``.
-    Frames run one after another, so the JAX package's ``frame_batch``
-    (frames a step of its batched map) has no counterpart: it changes no
-    value.
+    All frames go through each step together, so the JAX package's
+    ``frame_batch`` (frames a step of its batched map) has no counterpart:
+    it changes no value.
     """
     if vox_size is None:
         vox_size = _vox_size_jit(scene_points, distance_threshold=float(distance_threshold))
-    f = depths.shape[0]
-    n = scene_points.shape[0]
-    dev = scene_points.device
-    mop = torch.empty((f, n), dtype=torch.int32, device=dev)
-    first = torch.empty((f, n), dtype=torch.int16, device=dev)
-    last = torch.empty((f, n), dtype=torch.int16, device=dev)
-    mask_valid = torch.empty((f, k_max + 1), dtype=torch.bool, device=dev)
-    for fi in range(f):
-        fa = associate_frame(
-            scene_points, depths[fi], segs[fi], intrinsics[fi], cam_to_world[fi],
-            frame_valid[fi], vox_size, k_max=k_max, window=window,
-            distance_threshold=distance_threshold, depth_trunc=depth_trunc,
-            few_points_threshold=few_points_threshold, coverage_threshold=coverage_threshold)
-        mop[fi], first[fi], last[fi], mask_valid[fi] = (
-            fa.mask_of_point, fa.first_id, fa.last_id, fa.mask_valid)
-    return SceneAssociation(mask_of_point=mop, first_id=first, last_id=last,
-                            point_visible=first > 0, boundary=(first != last).any(dim=0),
-                            mask_valid=mask_valid)
+    fa = _associate_frames(
+        scene_points, depths, segs, intrinsics, cam_to_world, frame_valid, vox_size,
+        k_max=k_max, window=window, distance_threshold=distance_threshold,
+        depth_trunc=depth_trunc, few_points_threshold=few_points_threshold,
+        coverage_threshold=coverage_threshold)
+    return SceneAssociation(mask_of_point=fa.mask_of_point, first_id=fa.first_id,
+                            last_id=fa.last_id, point_visible=fa.first_id > 0,
+                            boundary=(fa.first_id != fa.last_id).any(dim=0),
+                            mask_valid=fa.mask_valid)
 
 
 def associate_scene_tensors(tensors, cfg, k_max: int = 127, *,

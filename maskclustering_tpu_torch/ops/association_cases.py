@@ -1,16 +1,21 @@
-"""Edge cases of one frame's dense association, shared by the port's tests
-and ``chip_smoke.py``.
+"""Edge cases of the dense association, shared by the port's tests and
+``chip_smoke.py``.
 
-Each case is a dict with the inputs of ``models.backprojection.
-associate_frame``: ``points`` (N, 3) f32, ``depth`` (H, W) f32, ``seg``
-(H, W) i32, ``intrinsics`` (3, 3) f32, ``cam_to_world`` (4, 4) f32,
-``frame_valid`` bool and the keywords ``k_max``, ``window``,
-``distance_threshold``, ``depth_trunc``, ``few_points_threshold`` and
-``coverage_threshold``. They are made with numpy from a fixed seed or
+A one-frame case (``CASES``) is a dict with the inputs of
+``models.backprojection.associate_frame``: ``points`` (N, 3) f32,
+``depth`` (H, W) f32, ``seg`` (H, W) i32, ``intrinsics`` (3, 3) f32,
+``cam_to_world`` (4, 4) f32, ``frame_valid`` bool and the keywords
+``k_max``, ``window``, ``distance_threshold``, ``depth_trunc``,
+``few_points_threshold`` and ``coverage_threshold``. A scene case
+(``SCENE_CASES``, and :func:`as_scene` of a one-frame case) holds the
+inputs of ``associate_scene``: the same keys with a leading frame axis,
+``depths``, ``segs``, ``intrinsics``, ``cam_to_world`` and
+``frame_valid`` (F,). They are made with numpy from a fixed seed or
 planted by hand, and aim at the CUDA kernels' structure
-(``ops/cuda/associate.cu``): one thread a point in blocks of 256, the
-window walked in registers, the shared histogram of k_max + 1 bins, and
-the exact rounding of the pixel coordinate and the claim distance.
+(``ops/cuda/associate.cu``): one thread a point in blocks of 256 that walk
+a group of frames, the window walked in registers, lanes that claim one id
+counted together, the shared histogram of k_max + 1 bins a frame, and the
+exact rounding of the pixel coordinate and the claim distance.
 """
 
 from __future__ import annotations
@@ -224,3 +229,105 @@ CASES = {
 def association_case(name: str) -> Case:
     """The named case's inputs, made anew."""
     return CASES[name]()
+
+
+_FRAME_KEYS = {"depth": ("depths", np.float32), "seg": ("segs", np.int32),
+               "intrinsics": ("intrinsics", np.float32),
+               "cam_to_world": ("cam_to_world", np.float32),
+               "frame_valid": ("frame_valid", np.bool_)}
+
+
+def _stack(frames) -> Case:
+    """A scene case from one-frame cases that share their points, map size
+    and keywords (those of the first frame)."""
+    scene = {k: v for k, v in frames[0].items() if k not in _FRAME_KEYS}
+    for key, (stacked, dtype) in _FRAME_KEYS.items():
+        scene[stacked] = np.stack([np.asarray(fr[key], dtype) for fr in frames])
+    return scene
+
+
+def as_scene(case: Case) -> Case:
+    """A one-frame case as a scene case of one frame."""
+    return _stack([case])
+
+
+def _with_pose(case: Case, cam_to_world, **changes) -> Case:
+    return {**case, "cam_to_world": np.asarray(cam_to_world, np.float32), **changes}
+
+
+def _three_frames() -> Case:
+    # a valid frame, an invalid one seen from a nearby pose, and a padded
+    # frame (all-zero pose, as pipeline.pad_scene_tensors pads) over real
+    # maps: the padded pose claims nothing
+    base = _scene(31, 3000, few_points_threshold=5, coverage_threshold=0.1)
+    rng = np.random.default_rng(32)
+    moved = base["cam_to_world"].copy()
+    moved[:3, 3] += rng.normal(0, 0.05, 3).astype(np.float32)
+    second = _with_pose(base, moved, frame_valid=False, seg=rng.integers(0, 16, (120, 160)))
+    padded = _with_pose(base, np.zeros((4, 4)), frame_valid=False,
+                        intrinsics=np.ones((3, 3), np.float32))
+    return _stack([base, second, padded])
+
+
+def _all_behind() -> Case:
+    # the second camera is the first turned half a turn about its x axis:
+    # every point lies behind it
+    base = _scene(33, 2000)
+    flip = base["cam_to_world"] @ np.diag([1.0, -1.0, -1.0, 1.0]).astype(np.float32)
+    return _stack([base, _with_pose(base, flip)])
+
+
+def _grid_plane(h: int, w: int, seg, **kw) -> Case:
+    # one point at the backprojection of every pixel centre of a head-on
+    # plane at z = 2, in row-major order: consecutive points, and so the
+    # lanes of a warp, sit on consecutive pixels
+    v, u = np.mgrid[0:h, 0:w]
+    z = np.full(h * w, 2.0)
+    cam = np.stack([(u.ravel() - _K[0, 2]) * z / _K[0, 0], (v.ravel() - _K[1, 2]) * z / _K[1, 1],
+                    z], 1)
+    return _case(cam, np.full((h, w), 2.0), seg, **kw)
+
+
+def _one_id_block() -> Case:
+    # every pixel holds one id, so every lane of every block claims it
+    h, w = 32, 64
+    frames = [_grid_plane(h, w, np.full((h, w), i), distance_threshold=0.05) for i in (7, 63)]
+    return _stack(frames)
+
+
+def _k1023_lane_ids() -> Case:
+    # k_max 1023 and a different id at every pixel: no two lanes of a warp
+    # claim the same id at the same window slot
+    h, w = 32, 64
+    ids = np.arange(h * w).reshape(h, w) % 1023 + 1
+    frames = [_grid_plane(h, w, (ids + shift - 1) % 1023 + 1, k_max=1023, distance_threshold=0.05)
+              for shift in (0, 500)]
+    return _stack(frames)
+
+
+def _frames_of(seed: int, n: int, f: int, **kw) -> Case:
+    # f frames of one cloud, each seen from a pose near the first
+    base = _scene(seed, n, **kw)
+    rng = np.random.default_rng(seed + 1000)
+    frames = [base]
+    for _ in range(f - 1):
+        pose = base["cam_to_world"].copy()
+        pose[:3, 3] += rng.normal(0, 0.03, 3).astype(np.float32)
+        frames.append(_with_pose(base, pose, depth=rng.uniform(1.0, 3.0, (120, 160)),
+                                 seg=rng.integers(0, 16, (120, 160))))
+    return _stack(frames)
+
+
+SCENE_CASES = {
+    "three_frames_invalid_padded": _three_frames,
+    "all_behind_camera": _all_behind,
+    "one_id_every_lane": _one_id_block,
+    "k_max_1023_id_per_lane": _k1023_lane_ids,
+    "n_not_block_multiple_f5": lambda: _frames_of(34, 300, 5),
+    "one_frame": lambda: _frames_of(35, 1500, 1),
+}
+
+
+def association_scene_case(name: str) -> Case:
+    """The named scene case's inputs, made anew."""
+    return SCENE_CASES[name]()

@@ -42,7 +42,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # one shared library per source file
 KERNELS = ("ball_query", "associate")
 # the launch counts' names: one per kernel entry
-ENTRIES = ("ball_query", "associate_claim", "associate_assign")
+ENTRIES = ("ball_query", "associate_table", "associate_claim", "associate_assign")
 
 
 class LaunchLog:
@@ -134,10 +134,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.mc_ball_query.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, p]
         lib.mc_ball_query.restype = ctypes.c_int
     elif name == "associate":
-        lib.mc_associate_claim.argtypes = [p, i, p, p, i, i, p, i, i, p, p, p]
-        lib.mc_associate_claim.restype = ctypes.c_int
-        lib.mc_associate_assign.argtypes = [p, i, i, p, i, p, p, p, p]
-        lib.mc_associate_assign.restype = ctypes.c_int
+        lib.mc_associate_table.argtypes = [p, p, i, i, i, p, i, p, p]
+        lib.mc_associate_claim_scene.argtypes = [p, i, p, i, i, i, p, i, i, p, p]
+        lib.mc_associate_assign_scene.argtypes = [p, i, p, i, i, i, p, p, i, i, p, p, p, p]
+        for entry in (lib.mc_associate_table, lib.mc_associate_claim_scene,
+                      lib.mc_associate_assign_scene):
+            entry.restype = ctypes.c_int
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -201,73 +203,124 @@ def ball_query_cuda(query: torch.Tensor, candidates: torch.Tensor,
     return out
 
 
-# windows the claim kernel is instantiated for (associate.cu)
+# windows the association kernels are instantiated for (associate.cu)
 ASSOCIATE_MAX_WINDOW = 3
 
 
-def associate_claim_cuda(scene_points: torch.Tensor, depth: torch.Tensor, seg: torch.Tensor,
-                         params: torch.Tensor, *, k_max: int, window: int):
-    """The CUDA claim step of one frame (see ``associate.cu``): returns the
-    (N, (2w+1)^2) int16 candidate plane and the (k_max + 1,) int32 distinct
-    claim counts, as ``models.backprojection.claim_candidates_reference``."""
-    dev = scene_points.device
-    _check(dev.type == "cuda", f"associate_claim_cuda needs CUDA tensors, got {dev}")
-    for t in (depth, seg, params):
-        _check(t.device == dev, "associate_claim_cuda: all inputs must be on one device")
-    _check(scene_points.dim() == 2 and scene_points.shape[1] == 3
-           and scene_points.dtype == torch.float32 and scene_points.is_contiguous(),
-           f"scene_points must be contiguous float32 (N, 3), got {tuple(scene_points.shape)}")
-    _check(depth.dim() == 2 and depth.dtype == torch.float32 and depth.is_contiguous(),
-           "depth must be a contiguous float32 (H, W) map")
-    _check(seg.shape == depth.shape and seg.dtype == torch.int32 and seg.is_contiguous(),
-           "seg must be a contiguous int32 map of the depth's shape")
-    _check(params.shape == (18,) and params.dtype == torch.float32 and params.is_contiguous(),
-           "params must be the 18 contiguous float32 values of claim_params")
-    _check(0 <= window <= ASSOCIATE_MAX_WINDOW,
-           f"associate_claim_cuda takes windows 0..{ASSOCIATE_MAX_WINDOW}, got {window}")
-    _check(1 <= k_max <= 1023, f"k_max must be in 1..1023 (int16 ids), got {k_max}")
-    n = scene_points.shape[0]
-    h, w = depth.shape
-    k = (2 * window + 1) ** 2
-    cand = torch.empty((n, k), dtype=torch.int16, device=dev)
-    n_claimed = torch.zeros(k_max + 1, dtype=torch.int32, device=dev)
-    if n == 0:
-        return cand, n_claimed
+def _on_one_card(name: str, tensors) -> torch.device:
+    dev = tensors[0].device
+    _check(dev.type == "cuda", f"{name} needs CUDA tensors, got {dev}")
+    for t in tensors[1:]:
+        _check(t.device == dev, f"{name}: all inputs must be on one device")
+    return dev
+
+
+def _check_params(name: str, params: torch.Tensor, f: int, k_max: int) -> None:
+    _check(params.shape == (f, 18) and params.dtype == torch.float32 and params.is_contiguous(),
+           f"{name}: params must be the contiguous float32 ({f}, 18) table of claim_params, "
+           f"got {tuple(params.shape)}")
+    _check(1 <= k_max <= 1023, f"{name}: k_max must be in 1..1023 (int16 ids), got {k_max}")
+    _check(f <= 65535, f"{name}: at most 65535 frames (grid y), got {f}")
+
+
+def associate_table_cuda(depths: torch.Tensor, segs: torch.Tensor, params: torch.Tensor, *,
+                         k_max: int) -> torch.Tensor:
+    """The CUDA pixel table of a stack of F frames, one launch (see
+    ``associate.cu``): (F, H, W, 4) int32, the float32 bits of each pixel's
+    backprojection ``qx``, ``qy`` and masked depth, and its masked id, as
+    ``models.backprojection.pixel_table_reference``."""
+    name = "associate_table_cuda"
+    _check(depths.dim() == 3 and depths.dtype == torch.float32 and depths.is_contiguous(),
+           f"{name}: depths must be a contiguous float32 (F, H, W) stack")
+    f, h, w = depths.shape
+    _check(segs.shape == depths.shape and segs.dtype == torch.int32 and segs.is_contiguous(),
+           f"{name}: segs must be a contiguous int32 stack of the depths' shape "
+           f"{tuple(depths.shape)}, got {tuple(segs.shape)}")
+    _check_params(name, params, f, k_max)
+    dev = _on_one_card(name, (depths, segs, params))
+    table = torch.empty((f, h, w, 4), dtype=torch.int32, device=dev)
+    if table.numel() == 0:
+        return table
     lib = load("associate")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mc_associate_claim(scene_points.data_ptr(), n, depth.data_ptr(),
-                                     seg.data_ptr(), h, w, params.data_ptr(), k_max, window,
-                                     cand.data_ptr(), n_claimed.data_ptr(), stream)
+        err = lib.mc_associate_table(depths.data_ptr(), segs.data_ptr(), f, h, w,
+                                     params.data_ptr(), k_max, table.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"associate_table kernel launch failed: CUDA error {err}")
+    LAUNCHES.add("associate_table", (f, h, w))
+    return table
+
+
+def _scene_inputs(name: str, scene_points: torch.Tensor, table: torch.Tensor,
+                  params: torch.Tensor, k_max: int, window: int) -> Tuple[int, int, int]:
+    """Check the inputs the claim and the assignment share; returns (F, H, W)."""
+    _check(scene_points.dim() == 2 and scene_points.shape[1] == 3
+           and scene_points.dtype == torch.float32 and scene_points.is_contiguous(),
+           f"{name}: scene_points must be contiguous float32 (N, 3), "
+           f"got {tuple(scene_points.shape)}")
+    _check(table.dim() == 4 and table.shape[3] == 4 and table.dtype == torch.int32
+           and table.is_contiguous(),
+           f"{name}: table must be the contiguous int32 (F, H, W, 4) pixel table, "
+           f"got {tuple(table.shape)} {table.dtype}")
+    f, h, w = table.shape[:3]
+    _check_params(name, params, f, k_max)
+    _check(0 <= window <= ASSOCIATE_MAX_WINDOW,
+           f"{name} takes windows 0..{ASSOCIATE_MAX_WINDOW}, got {window}")
+    return f, h, w
+
+
+def associate_claim_scene_cuda(scene_points: torch.Tensor, table: torch.Tensor,
+                               params: torch.Tensor, *, k_max: int, window: int) -> torch.Tensor:
+    """The CUDA claim over a stack of F frames, one launch (see
+    ``associate.cu``): the (F, k_max + 1) int32 distinct claim counts, as
+    ``models.backprojection.claim_scene_reference``."""
+    name = "associate_claim_scene_cuda"
+    f, h, w = _scene_inputs(name, scene_points, table, params, k_max, window)
+    dev = _on_one_card(name, (scene_points, table, params))
+    n = scene_points.shape[0]
+    n_claimed = torch.zeros((f, k_max + 1), dtype=torch.int32, device=dev)
+    if n == 0 or f == 0:
+        return n_claimed
+    lib = load("associate")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mc_associate_claim_scene(scene_points.data_ptr(), n, table.data_ptr(), f, h, w,
+                                           params.data_ptr(), k_max, window,
+                                           n_claimed.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"associate_claim kernel launch failed: CUDA error {err}")
-    LAUNCHES.add("associate_claim", (n, h, w, k))
-    return cand, n_claimed
+    LAUNCHES.add("associate_claim", (f, n, h, w, (2 * window + 1) ** 2))
+    return n_claimed
 
 
-def associate_assign_cuda(cand: torch.Tensor, mask_valid: torch.Tensor, *, k_max: int):
-    """The CUDA assignment step (see ``associate.cu``): returns
-    ``(mask_of_point int32, first int16, last int16)``, as
-    ``models.backprojection.assign_claims_reference``."""
-    dev = cand.device
-    _check(dev.type == "cuda", f"associate_assign_cuda needs CUDA tensors, got {dev}")
-    _check(mask_valid.device == dev, "associate_assign_cuda: all inputs must be on one device")
-    _check(cand.dim() == 2 and cand.dtype == torch.int16 and cand.is_contiguous(),
-           "cand must be a contiguous int16 (N, K) plane")
-    _check(mask_valid.shape == (k_max + 1,) and mask_valid.dtype == torch.bool
-           and mask_valid.is_contiguous(), f"mask_valid must be contiguous bool ({k_max + 1},)")
-    n, k = cand.shape
-    mop = torch.empty(n, dtype=torch.int32, device=dev)
-    first = torch.empty(n, dtype=torch.int16, device=dev)
-    last = torch.empty(n, dtype=torch.int16, device=dev)
-    if n == 0:
+def associate_assign_scene_cuda(scene_points: torch.Tensor, table: torch.Tensor,
+                                params: torch.Tensor, mask_valid: torch.Tensor, *, k_max: int,
+                                window: int):
+    """The CUDA assignment over a stack of F frames, one launch (see
+    ``associate.cu``): (F, N) ``(mask_of_point int32, first int16, last
+    int16)``, as ``models.backprojection.assign_scene_reference``."""
+    name = "associate_assign_scene_cuda"
+    f, h, w = _scene_inputs(name, scene_points, table, params, k_max, window)
+    _check(mask_valid.shape == (f, k_max + 1) and mask_valid.dtype == torch.bool
+           and mask_valid.is_contiguous(),
+           f"{name}: mask_valid must be contiguous bool ({f}, {k_max + 1}), "
+           f"got {tuple(mask_valid.shape)}")
+    dev = _on_one_card(name, (scene_points, table, params, mask_valid))
+    n = scene_points.shape[0]
+    mop = torch.empty((f, n), dtype=torch.int32, device=dev)
+    first = torch.empty((f, n), dtype=torch.int16, device=dev)
+    last = torch.empty((f, n), dtype=torch.int16, device=dev)
+    if n == 0 or f == 0:
         return mop, first, last
     lib = load("associate")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mc_associate_assign(cand.data_ptr(), n, k, mask_valid.data_ptr(), k_max,
-                                      mop.data_ptr(), first.data_ptr(), last.data_ptr(), stream)
+        err = lib.mc_associate_assign_scene(
+            scene_points.data_ptr(), n, table.data_ptr(), f, h, w, params.data_ptr(),
+            mask_valid.data_ptr(), k_max, window, mop.data_ptr(), first.data_ptr(),
+            last.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"associate_assign kernel launch failed: CUDA error {err}")
-    LAUNCHES.add("associate_assign", (n, k))
+    LAUNCHES.add("associate_assign", (f, n, h, w, (2 * window + 1) ** 2))
     return mop, first, last

@@ -29,31 +29,43 @@ def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
     return torch.addcmul(c, a, b)
 
 
+def _coef(mat: torch.Tensor, i: int, j: int, nd: int) -> torch.Tensor:
+    """``mat[..., i, j]`` with trailing unit axes, so that a stack of
+    matrices broadcasts over the ``nd`` leading axes of its points."""
+    c = mat[..., i, j]
+    return c.reshape(c.shape + (1,) * (nd - c.dim()))
+
+
 def rotate(points: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
-    """``points @ mat[:3, :3].T`` for (..., 3) float32 points as XLA:CPU's
-    dot loop computes it: an index-order FMA chain per output coordinate."""
+    """``points @ mat[..., :3, :3].T`` for (..., 3) float32 points as
+    XLA:CPU's dot loop computes it: an index-order FMA chain per output
+    coordinate. ``mat`` is one matrix or a stack (B, 3+, 3+) whose leading
+    axis matches the points' first."""
+    nd = points.dim() - 1
     cols = []
     for i in range(3):
-        acc = points[..., 0] * mat[i, 0]
-        acc = fma(points[..., 1], mat[i, 1], acc)
-        cols.append(fma(points[..., 2], mat[i, 2], acc))
+        acc = points[..., 0] * _coef(mat, i, 0, nd)
+        acc = fma(points[..., 1], _coef(mat, i, 1, nd), acc)
+        cols.append(fma(points[..., 2], _coef(mat, i, 2, nd), acc))
     return torch.stack(cols, dim=-1)
 
 
 def invert_se3(mat: torch.Tensor) -> torch.Tensor:
-    """Invert a (4, 4) rigid transform without a general solve."""
-    rt = mat[:3, :3].T
-    t = mat[:3, 3]
+    """Invert a (..., 4, 4) rigid transform without a general solve."""
+    rt = mat[..., :3, :3].transpose(-1, -2)
+    t = mat[..., :3, 3]
     out = torch.zeros_like(mat)
-    out[:3, :3] = rt
-    out[:3, 3] = -rotate(t, rt)
-    out[3, 3] = 1.0
+    out[..., :3, :3] = rt
+    out[..., :3, 3] = -rotate(t, rt)
+    out[..., 3, 3] = 1.0
     return out
 
 
 def transform_points(points: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
-    """Apply a (4, 4) rigid transform to (..., 3) points."""
-    return rotate(points, mat) + mat[:3, 3]
+    """Apply a (4, 4) rigid transform, or a stack of them as in
+    :func:`rotate`, to (..., 3) points."""
+    nd = points.dim() - 1
+    return rotate(points, mat) + torch.stack([_coef(mat, i, 3, nd) for i in range(3)], dim=-1)
 
 
 def project_points(points: torch.Tensor, intrinsics: torch.Tensor,
@@ -70,18 +82,21 @@ def project_points(points: torch.Tensor, intrinsics: torch.Tensor,
 
 def unproject_depth(depth: torch.Tensor, intrinsics: torch.Tensor,
                     cam_to_world: torch.Tensor, depth_trunc: float = 20.0):
-    """Dense depth-map unprojection: ``(world points (H, W, 3), valid (H, W))``,
-    valid = depth in (0, depth_trunc]; points are garbage where invalid."""
-    h, w = depth.shape
+    """Dense depth-map unprojection: ``(world points (..., H, W, 3), valid
+    (..., H, W))``, valid = depth in (0, depth_trunc]; points are garbage
+    where invalid. ``depth`` is one (H, W) map with (3, 3) intrinsics and a
+    (4, 4) pose, or a stack of F of each."""
+    h, w = depth.shape[-2:]
     dev = depth.device
-    fx, fy = intrinsics[0, 0], intrinsics[1, 1]
-    cx, cy = intrinsics[0, 2], intrinsics[1, 2]
+    nd = depth.dim()
+    fx, fy = _coef(intrinsics, 0, 0, nd), _coef(intrinsics, 1, 1, nd)
+    cx, cy = _coef(intrinsics, 0, 2, nd), _coef(intrinsics, 1, 2, nd)
     v = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
     u = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
     x = (u - cx) * depth / fx
     y = (v - cy) * depth / fy
     world = transform_points(torch.stack([x, y, depth], dim=-1), cam_to_world)
-    trunc = torch.tensor(depth_trunc, dtype=torch.float32, device=dev)
+    trunc = torch.full((), depth_trunc, dtype=torch.float32, device=dev)
     return world, (depth > 0) & (depth <= trunc)
 
 

@@ -13,10 +13,13 @@ a multiply into an add (``ops.geometry.fma``). The ``half_pixel`` and
 ``test_cases_see_the_fma`` checks that an unfused version fails them, so a
 misplaced FMA cannot pass unseen.
 
-The CUDA kernels (``ops/cuda/associate.cu``) are held against the plain
-versions on the same cases in the ``gpu`` tests, which skip without a
-card. The JAX package is imported inside the tests that compare with it,
-so that on a machine with a card and no JAX the ``gpu`` tests run alone:
+The CUDA kernels (``ops/cuda/associate.cu``, one launch each over a
+stack of frames) are held against the plain scene versions on the same
+cases, each as a scene of one frame, in the ``gpu`` tests, which skip
+without a card; ``tests/test_torch_associate_scene.py`` adds the
+multi-frame cases. The JAX package is imported inside the tests that
+compare with it, so that on a machine with a card and no JAX the ``gpu``
+tests run alone:
 
     python -m pytest -m gpu --noconftest tests/test_torch_backprojection.py
 """
@@ -316,23 +319,61 @@ def test_scene_pads_and_padding_match_jax(frames, points):
 def test_claim_dispatch_refuses_other_devices():
     p = torch.zeros((1, 3), device="meta")
     with pytest.raises(ValueError, match="cuda or cpu"):
-        bp.claim_candidates(p, p, p, p, k_max=7)
+        bp.pixel_table(p, p, p, k_max=7)
     with pytest.raises(ValueError, match="cuda or cpu"):
-        bp.assign_claims(p, p, k_max=7)
+        bp.claim_scene(p, p, p, k_max=7)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        bp.assign_scene(p, p, p, p, k_max=7)
+
+
+def _scene_args(case, device="cpu"):
+    """A one-frame case as the scene entries take it: the cloud, the
+    (1, H, W) stacks and the (1, 18) parameters."""
+    pts, depth, seg, intr, c2w, _ = _frame_args(case, device)
+    prm = bp.claim_params(intr[None], geometry.invert_se3(c2w[None]),
+                          distance_threshold=case["distance_threshold"],
+                          depth_trunc=case["depth_trunc"])
+    return pts, depth[None], seg[None], prm
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():
-    from maskclustering_tpu_torch.ops.cuda import associate_assign_cuda, associate_claim_cuda
+    from maskclustering_tpu_torch.ops.cuda import (
+        associate_assign_scene_cuda,
+        associate_claim_scene_cuda,
+        associate_table_cuda,
+    )
 
-    case = association_case("n_one")
-    pts, depth, seg, intr, c2w, _ = _frame_args(case)
-    prm = bp.claim_params(intr, geometry.invert_se3(c2w), distance_threshold=0.05,
-                          depth_trunc=20.0)
+    pts, depths, segs, prm = _scene_args(association_case("n_one"))
+    table = bp.pixel_table_reference(depths, segs, prm, k_max=63)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        associate_claim_cuda(pts, depth, seg, prm, k_max=63, window=1)
+        associate_table_cuda(depths, segs, prm, k_max=63)
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        associate_assign_cuda(torch.zeros((1, 9), dtype=torch.int16),
-                              torch.zeros(64, dtype=torch.bool), k_max=63)
+        associate_claim_scene_cuda(pts, table, prm, k_max=63, window=1)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        associate_assign_scene_cuda(pts, table, prm, torch.zeros((1, 64), dtype=torch.bool),
+                                    k_max=63, window=1)
+
+
+def check_kernels_match_plain(pts, depths, segs, prm, *, k_max, window):
+    """The three association kernels against their plain scene versions on
+    the card, bit for bit, one launch each; each kernel fed the inputs its
+    plain version takes."""
+    from maskclustering_tpu_torch.ops.cuda import LAUNCHES
+
+    kw = dict(k_max=k_max, window=window)
+    before = dict(LAUNCHES.counts)
+    table = bp.pixel_table(depths, segs, prm, k_max=k_max)
+    assert torch.equal(table, bp.pixel_table_reference(depths, segs, prm, k_max=k_max))
+    n_claimed = bp.claim_scene(pts, table, prm, **kw)
+    assert torch.equal(n_claimed, bp.claim_scene_reference(pts, table, prm, **kw))
+    mask_valid = torch.rand((depths.shape[0], k_max + 1), device=pts.device) < 0.7
+    got = bp.assign_scene(pts, table, prm, mask_valid, **kw)
+    want = bp.assign_scene_reference(pts, table, prm, mask_valid, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    for name in ("associate_table", "associate_claim", "associate_assign"):
+        assert LAUNCHES.counts[name] == before.get(name, 0) + 1, name
 
 
 @pytest.mark.gpu
@@ -340,27 +381,10 @@ def test_cuda_wrappers_refuse_cpu_tensors():
 def test_cuda_kernels_match_plain(name):
     if not torch.cuda.is_available():
         pytest.skip("the CUDA association kernels need a CUDA card")
-    from maskclustering_tpu_torch.ops.cuda import LAUNCHES
-
     case = association_case(name)
     dev = torch.device("cuda", 0)
-    pts, depth, seg, intr, c2w, _ = _frame_args(case, dev)
-    prm = bp.claim_params(intr, geometry.invert_se3(c2w),
-                          distance_threshold=case["distance_threshold"],
-                          depth_trunc=case["depth_trunc"])
-    kw = dict(k_max=case["k_max"], window=case["window"])
-    before = dict(LAUNCHES.counts)
-    cand, n_claimed = bp.claim_candidates(pts, depth, seg, prm, **kw)
-    want_cand, want_n = bp.claim_candidates_reference(pts, depth, seg, prm, **kw)
-    assert torch.equal(cand, want_cand) and torch.equal(n_claimed, want_n)
-    mask_valid = torch.rand(case["k_max"] + 1, device=dev) < 0.7
-    got = bp.assign_claims(cand, mask_valid, k_max=case["k_max"])
-    want = bp.assign_claims_reference(cand, mask_valid, k_max=case["k_max"])
-    torch.cuda.synchronize()
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype and torch.equal(g, w)
-    assert LAUNCHES.counts["associate_claim"] == before.get("associate_claim", 0) + 1
-    assert LAUNCHES.counts["associate_assign"] == before.get("associate_assign", 0) + 1
+    check_kernels_match_plain(*_scene_args(case, dev), k_max=case["k_max"],
+                              window=case["window"])
     # the whole frame on the card equals the plain version on the CPU
     on_card, on_cpu = _port_frame(case, device=dev), _port_frame(case)
     for field in on_cpu._fields:
