@@ -48,7 +48,24 @@ Imports nothing of JAX or of the JAX package. In order:
    ``torch.profiler`` gives the card's busy share of the scene and the
    kernels that take most of it (trace in ``build/dense_trace.json``);
 9. the default configuration on the mid-size scene of phase 6 on ``cuda``
-   and on ``cpu``: equal artifact digests and assignments.
+   and on ``cpu``: equal artifact digests and assignments;
+10. the batch driver (``run.run_pipeline``) on scans on disk: the scene of
+    phase 4 written in the ScanNet layout by the port's writer under three
+    names and the mid-size scene as a fourth (``build/chip_smoke_scans``;
+    bytes and seconds per scan); each full-size scan loaded back and equal,
+    array for array, to what was written, its depth quantised to
+    millimetres; the uint16 feed engaged and its decode on the card equal
+    to the host float32 bit for bit, its host encode and upload timed
+    beside the plain float32/int32 upload; one 16-bit frame of Paeth rows
+    decoded and timed. The three full-size scans through ``cluster`` and
+    ``eval_ca`` (``post_neighbor_cap`` 1024), overlapped and sequential,
+    into two prediction roots: equal npz arrays, object dicts and AP, every
+    digest equal to ``run_scene`` on the loaded scan, each association
+    entry launched once a scene; scene and loop walls and the overlap
+    ratio printed. The mid-size scan on ``cuda`` and ``cpu``: equal
+    artifacts and AP. The ladder drill: one full-size scan at the default
+    ``post_neighbor_cap`` of 256 must end ``ok`` on the host-postprocess
+    rung at its third attempt, equal to the cap-1024 run.
 
 Any mismatch or failure exits non-zero. The last three lines are the card
 line, the per-kernel JSON and the result JSON.
@@ -88,6 +105,10 @@ ASSOCIATION_KERNELS = ("associate_table", "associate_claim", "associate_assign")
 # phase 8's DBSCAN neighbour table: the smallest power of two holding the
 # full-size scene's largest same-rep degree (the default, 256, does not)
 FULL_NEIGHBOR_CAP = 1024
+# phase 10's scans on disk: the full-size scene under three names, the
+# mid-size one as a fourth
+BATCH_SCANS = ("scene0000_00", "scene0001_00", "scene0002_00")
+MID_SCAN = "scene0003_00"
 
 
 def _say(msg: str) -> None:
@@ -702,6 +723,282 @@ def dense_default_mid(dev) -> str:
     return d_card
 
 
+def _tree_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, files in os.walk(path) for f in files)
+
+
+def write_scans(root: str, scene, mid_scene):
+    """Phase 10's scans on disk, each written by the port's writer: the
+    full-size scene under BATCH_SCANS and the mid-size one as MID_SCAN.
+    Returns {name: (seconds, bytes)}."""
+    import shutil
+
+    from maskclustering_tpu_torch.utils.synthetic import write_scannet_layout
+
+    shutil.rmtree(root, ignore_errors=True)
+    out = {}
+    for name, sc in [(n, scene) for n in BATCH_SCANS] + [(MID_SCAN, mid_scene)]:
+        t0 = time.perf_counter()
+        write_scannet_layout(sc, root, name)
+        out[name] = (time.perf_counter() - t0,
+                     _tree_bytes(os.path.join(root, "scannet", "processed", name)))
+    return out
+
+
+def load_scan(root: str, name: str, scene):
+    """Load one scan with ``ScanNetDataset`` and check it against the scene
+    that was written, array for array, its depth quantised to millimetres
+    as the writer stores it. Returns (tensors, load seconds, PNG decode
+    seconds)."""
+    import numpy as np
+
+    from maskclustering_tpu_torch.datasets import get_dataset
+    from maskclustering_tpu_torch.io.png import read_png
+
+    ds = get_dataset("scannet", name, data_root=root)
+    t0 = time.perf_counter()
+    t = ds.load_scene_tensors(1)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for fid in t.frame_ids:
+        read_png(os.path.join(ds.depth_dir, f"{fid}.png"))
+        read_png(os.path.join(ds.segmentation_dir, f"{fid}.png"))
+    decode_s = time.perf_counter() - t0
+    mm = np.round(scene.depths * 1000.0).astype(np.uint16)
+    want = {"scene_points": scene.scene_points, "segmentations": scene.segmentations,
+            "depths": mm.astype(np.float32) * np.float32(1 / 1000.0),
+            "intrinsics": scene.intrinsics.astype(np.float32),
+            "cam_to_world": scene.cam_to_world.astype(np.float32),
+            "frame_valid": np.ones(scene.depths.shape[0], bool)}
+    for field, w in want.items():
+        got = getattr(t, field)
+        if got.dtype != w.dtype or not np.array_equal(got, w):
+            raise AssertionError(f"scan {name}: loaded {field} differs from what was written")
+    if t.frame_ids != list(range(scene.depths.shape[0])):
+        raise AssertionError(f"scan {name}: frame ids {t.frame_ids}")
+    return t, load_s, decode_s
+
+
+def check_feed(dev, tensors):
+    """The feed on the card: the uint16 branch engages on the loaded depth
+    and its decode equals the host float32 array bit for bit. Returns
+    (bytes uploaded, bytes of the float32 depth and int32 ids, {what: ms})
+    with the host encode alone, the feed's whole upload and decode, and the
+    plain float32/int32 upload, each best of 3 on the host clock."""
+    import numpy as np
+    import torch
+
+    from maskclustering_tpu_torch.io.feed import encode_depth, encode_seg, to_device_frames
+
+    depths, segs = tensors.depths, tensors.segmentations
+    enc, scale = encode_depth(depths)
+    if scale != 1000.0:
+        raise AssertionError(f"the millimetre depth took the feed's {scale} branch, not 1000")
+    d_dev, s_dev = to_device_frames(depths, segs, dev)
+    if not (torch.equal(d_dev.cpu(), torch.from_numpy(depths))
+            and torch.equal(s_dev.cpu(), torch.from_numpy(segs))):
+        raise AssertionError("the feed's decode on the card differs from the host arrays")
+
+    def best_ms(fn):
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize(dev)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return min(times)
+
+    ms = {"encode": best_ms(lambda: (encode_depth(depths), encode_seg(segs))),
+          "feed": best_ms(lambda: to_device_frames(depths, segs, dev)),
+          "plain": best_ms(lambda: (torch.from_numpy(np.ascontiguousarray(depths)).to(dev),
+                                    torch.from_numpy(np.ascontiguousarray(segs)).to(dev)))}
+    return enc.nbytes + encode_seg(segs).nbytes, depths.nbytes + segs.nbytes, ms
+
+
+def paeth_decode_ms(depth_m) -> float:
+    """Decode time of one 16-bit frame whose rows are all Paeth-filtered
+    (best of 3, host clock), checked against the frame."""
+    import numpy as np
+
+    from maskclustering_tpu_torch.io.png import decode_png, encode_png
+
+    mm = np.round(depth_m * 1000.0).astype(np.uint16)
+    data = encode_png(mm, filters=4)
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        out = decode_png(data)
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not np.array_equal(out, mm):
+        raise AssertionError("the Paeth frame decodes wrong")
+    return min(times)
+
+
+def _artifacts_equal(root: str, pred_a: str, cfg_a: str, pred_b: str, cfg_b: str,
+                     names) -> None:
+    """The exported npz arrays and object dicts of two runs are equal."""
+    import numpy as np
+
+    for seq in names:
+        with np.load(os.path.join(pred_a, f"{cfg_a}_class_agnostic", f"{seq}.npz")) as a, \
+                np.load(os.path.join(pred_b, f"{cfg_b}_class_agnostic", f"{seq}.npz")) as b:
+            if sorted(a.files) != sorted(b.files) or not all(
+                    a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a.files):
+                raise AssertionError(f"{seq}: npz of {cfg_a} and {cfg_b} differ")
+        od = os.path.join(root, "scannet", "processed", seq, "output", "object")
+        oa = np.load(os.path.join(od, cfg_a, "object_dict.npy"), allow_pickle=True).item()
+        ob = np.load(os.path.join(od, cfg_b, "object_dict.npy"), allow_pickle=True).item()
+        if sorted(oa) != sorted(ob) or not all(
+                np.array_equal(oa[k]["point_ids"], ob[k]["point_ids"])
+                and oa[k]["mask_list"] == ob[k]["mask_list"]
+                and oa[k]["repre_mask_list"] == ob[k]["repre_mask_list"] for k in oa):
+            raise AssertionError(f"{seq}: object dicts of {cfg_a} and {cfg_b} differ")
+
+
+def _ap_equal(a, b) -> bool:
+    import math
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            _ap_equal(a[k], b[k]) for k in a)
+    return a == b or (math.isnan(a) and math.isnan(b))
+
+
+STAGES = ("associate", "graph", "cluster", "postprocess", "export")
+
+
+def run_batch(dev, root: str, cfg, names, label: str):
+    """``run_pipeline`` over ``names`` (cluster, eval_ca) into a prediction
+    root of its own, the launch counts set to 0 just before and read just
+    after; prints the scene and loop walls."""
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.run import run_pipeline
+
+    pred = os.path.join(root, f"prediction_{label}")
+    kernels.LAUNCHES.reset()
+    rep = run_pipeline(cfg, names, steps=("cluster", "eval_ca"), resume=False, journal=False,
+                       prediction_root=pred, device=dev)
+    launches = dict(kernels.LAUNCHES.counts)
+    if not rep.ok or any(s.status != "ok" for s in rep.scenes):
+        raise AssertionError(f"batch run {label} failed: "
+                             f"{[(s.seq_name, s.status, s.error[-300:]) for s in rep.scenes]} "
+                             f"{rep.step_errors}")
+    loop = rep.step_seconds["cluster"]
+    stage_sum = sum(s.timings.get(k, 0.0) for s in rep.scenes for k in STAGES)
+    ap = rep.evaluation["eval_ca"]
+    _say(f"[batch] {label}: scene walls (s) {[round(s.seconds, 3) for s in rep.scenes]}, "
+         f"loop wall {loop:.3f} s, {loop / len(names):.3f} s/scene, overlap ratio "
+         f"{stage_sum / loop:.3f} (stage walls {stage_sum:.3f} s / loop wall), eval_ca "
+         f"{rep.step_seconds['eval_ca']:.3f} s, AP {ap['all_ap']:.4f} AP50 {ap['all_ap_50%']:.4f} "
+         f"AP25 {ap['all_ap_25%']:.4f}; objects {[s.num_objects for s in rep.scenes]}, digests "
+         f"{[s.digest['artifact'] for s in rep.scenes]}; launches {json.dumps(launches)}")
+    _say(f"[batch] {label}: stage walls per scene (s) " + json.dumps(
+        [{k: s.timings.get(k) for k in STAGES} for s in rep.scenes]))
+    return rep, pred, launches
+
+
+def batch_driver(dev, scene, mid_scene):
+    """Phase 10: the batch driver (``run.run_pipeline``) on scans on disk."""
+    from maskclustering_tpu_torch.config import load_config
+    from maskclustering_tpu_torch.models import run_scene
+    from maskclustering_tpu_torch.obs.digest import artifact_digest
+    from maskclustering_tpu_torch.run import run_pipeline
+    from maskclustering_tpu_torch.utils import faults
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_scans")
+    written = write_scans(root, scene, mid_scene)
+    for name, (sec, nbytes) in written.items():
+        _say(f"[batch] wrote {name}: {nbytes} bytes in {sec:.3f} s")
+    loaded = {}
+    for name in BATCH_SCANS:
+        t, load_s, decode_s = load_scan(root, name, scene)
+        loaded[name] = t
+        _say(f"[batch] loaded {name} == written: {load_s:.3f} s (PNG decode of its "
+             f"{2 * t.num_frames} depth and mask files {decode_s:.3f} s)")
+    up, plain, feed_ms = check_feed(dev, loaded[BATCH_SCANS[0]])
+    _say(f"[batch] feed: uint16 engaged, decode on the card == host float32; h2d {up} bytes "
+         f"a scan against {plain} as float32/int32 ({plain - up} saved, "
+         f"{(plain - up) * len(BATCH_SCANS)} over the {len(BATCH_SCANS)} scans); host encode "
+         f"{feed_ms['encode']:.2f} ms, feed upload + decode {feed_ms['feed']:.2f} ms, plain "
+         f"float32/int32 upload {feed_ms['plain']:.2f} ms (best of 3)")
+    _say(f"[batch] one 480x640 16-bit frame of Paeth rows decodes in "
+         f"{paeth_decode_ms(scene.depths[0]):.1f} ms (host, best of 3)")
+
+    # the three full-size scans, overlapped and sequential
+    # step 1: the synthetic scan's 32 frames stand for a real scan's step-10 frames
+    base = load_config("scannet", data_root=root, step=1, distance_threshold=0.01,
+                       post_neighbor_cap=FULL_NEIGHBOR_CAP)
+    ov_cfg = base.replace(config_name="chip_smoke_overlap")
+    sq_cfg = base.replace(config_name="chip_smoke_sequential", scene_overlap=False)
+    ov, ov_pred, launches = run_batch(dev, root, ov_cfg, BATCH_SCANS, "overlapped")
+    sq, sq_pred, sq_launches = run_batch(dev, root, sq_cfg, BATCH_SCANS, "sequential")
+    for name in ASSOCIATION_KERNELS:
+        for lab, counts in (("overlapped", launches), ("sequential", sq_launches)):
+            if counts.get(name, 0) != len(BATCH_SCANS):
+                raise AssertionError(f"{name} launched {counts.get(name, 0)} times in the "
+                                     f"{lab} run of {len(BATCH_SCANS)} scans, not once a scene")
+    if launches.get("ball_query", 0) or sq_launches.get("ball_query", 0):
+        raise AssertionError("the batch driver's dense path launched the ball query")
+    _artifacts_equal(root, ov_pred, ov_cfg.config_name, sq_pred, sq_cfg.config_name,
+                     BATCH_SCANS)
+    if not _ap_equal(ov.evaluation["eval_ca"], sq.evaluation["eval_ca"]):
+        raise AssertionError("the AP of the overlapped and sequential runs differ")
+    ref = artifact_digest(run_scene(loaded[BATCH_SCANS[0]], ov_cfg, device=dev).objects)
+    for st, st_sq in zip(ov.scenes, sq.scenes):
+        if st.digest != st_sq.digest or st.digest != {"artifact": ref}:
+            raise AssertionError(f"{st.seq_name}: digests {st.digest} / {st_sq.digest}, "
+                                 f"run_scene on the loaded scan {ref}")
+    if not all(s.num_objects > 0 for s in ov.scenes):
+        raise AssertionError("a full-size scan produced no objects")
+    _say(f"[batch] overlapped == sequential (npz, object dicts, AP); every digest == run_scene "
+         f"on the loaded scan ({ref}); each association entry launched once a scene")
+
+    # the mid-size scan on the card and on the CPU
+    mid = {}
+    for d in (dev, "cpu"):
+        cfg = load_config("scannet", data_root=root, step=1, distance_threshold=0.03,
+                          few_points_threshold=10,
+                          config_name=f"chip_smoke_mid_{str(d).split(':')[0]}")
+        mid[str(d)] = (cfg, *run_batch(d, root, cfg, [MID_SCAN], f"mid-{d}")[:2])
+    (c_cfg, c_rep, c_pred), (h_cfg, h_rep, h_pred) = mid[str(dev)], mid["cpu"]
+    _artifacts_equal(root, c_pred, c_cfg.config_name, h_pred, h_cfg.config_name, [MID_SCAN])
+    if (c_rep.scenes[0].digest != h_rep.scenes[0].digest
+            or not _ap_equal(c_rep.evaluation["eval_ca"], h_rep.evaluation["eval_ca"])
+            or c_rep.scenes[0].num_objects == 0):
+        raise AssertionError("the mid-size scan differs between cuda and cpu")
+    _say(f"[batch] mid-size scan: cuda == cpu (npz, object dicts, AP, digest "
+         f"{c_rep.scenes[0].digest['artifact']})")
+
+    # the ladder drill: the default neighbour cap overflows the full-size scan
+    cap = load_config("scannet").post_neighbor_cap
+    ladder_cfg = base.replace(config_name="chip_smoke_ladder", post_neighbor_cap=cap)
+    journal = os.path.join(root, "ladder_journal.jsonl")
+    t0 = time.perf_counter()
+    rep = run_pipeline(ladder_cfg, BATCH_SCANS[:1], steps=("cluster",), resume=False,
+                       journal_path=journal, prediction_root=os.path.join(root, "prediction_ladder"),
+                       device=dev)
+    wall = time.perf_counter() - t0
+    (st,) = rep.scenes
+    rows = [r for r in faults.read_journal(journal) if r.get("event") == "outcome"]
+    for i, r in enumerate(rows):
+        _say(f"[ladder] attempt {i + 1}: rung {r['rung']}, {r['status']}, {r['seconds']} s"
+             + (f", {r['error_class']}: {r.get('error', '')}" if r["status"] != "ok" else ""))
+    _say(f"[ladder] post_neighbor_cap {cap}: {st.status} after {st.attempts} attempts on rung "
+         f"{st.degradation_rung} ({'+'.join(rep.faults['degradations'])}), wall {wall:.2f} s, "
+         f"digest {st.digest}")
+    if (st.status, st.attempts, st.degradation_rung) != ("ok", 3, 2) or list(
+            rep.faults["degradations"]) != ["sequential-executor", "host-postprocess"]:
+        raise AssertionError("the ladder drill did not heal on the host-postprocess rung "
+                             "at the third attempt")
+    if st.digest != ov.scenes[0].digest:
+        raise AssertionError(f"host rung digest {st.digest} != device rung {ov.scenes[0].digest}")
+    _artifacts_equal(root, os.path.join(root, "prediction_ladder"), ladder_cfg.config_name,
+                     ov_pred, ov_cfg.config_name, BATCH_SCANS[:1])
+    _say("[ladder] host-postprocess rung == device rung at cap 1024 (npz, object dict)")
+    return {"launches": launches}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "maskclustering_tpu_torch")):
@@ -835,6 +1132,10 @@ def main() -> int:
     # 9. the default configuration, card against cpu, on the mid-size scene
     dense_default_mid(dev)
 
+    # 10. the batch driver on scans written to disk
+    batch = batch_driver(dev, scene, make_scene(num_boxes=4, num_frames=12,
+                                                image_hw=(240, 320), seed=1))
+
     _say(f"[done] {time.perf_counter() - t_start:.1f} s")
     _say(card)
     rows = [{
@@ -855,7 +1156,8 @@ def main() -> int:
             "replaces": replaces[name],
             "launches": dense["launches"][name], "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None, "scene_kernel_ms": t["ms"]})
+            "bound_by": t["bound_by"], "library_ms": None, "scene_kernel_ms": t["ms"],
+            "batch_launches": batch["launches"][name]})
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

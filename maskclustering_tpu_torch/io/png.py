@@ -1,0 +1,257 @@
+"""PNG codec on the standard library's ``zlib`` and numpy.
+
+The scan layouts store depth and mask id-maps as PNG files. The JAX
+package reads them with cv2 or PIL; the port has neither (the card's
+machine ships only torch, numpy and scipy), so this module decodes and
+encodes the formats the layouts use: 8- and 16-bit samples, grey, grey
+with alpha, RGB and RGBA (colour types 0, 4, 2, 6), not interlaced. A
+palette, a bit depth below 8 or Adam7 interlacing raises ``ValueError``.
+
+The reader undoes all five row filters of the PNG specification (§9).
+None, Sub and Up need nothing but the row or the row above; Average and
+Paeth depend on the reconstructed byte to the left, which makes a row a
+left-to-right recurrence. cv2 (libpng) and PIL choose a filter per row
+adaptively, so real files hold Paeth rows. The reader resolves the
+recurrence as a wavefront: byte (r, x) needs (r, x - bpp), (r - 1, x) and
+(r - 1, x - bpp) only, so every pixel on one anti-diagonal r + p is
+independent of the others. The image is stored skewed (pixel p of row r
+at column r + p) and decoded one diagonal a step, each step one vectorised
+numpy pass over every row: H + W - 1 steps instead of H * W. Files without
+Average or Paeth rows skip the wavefront: Sub rows are a running sum along
+the row, all rows at once, and Up rows add the row above in order (cv2
+writes Sub rows; this module's writer filter 0).
+
+The writer uses filter 0 on every row unless asked for another filter
+(any of the five, or one per row), which the tests and ``chip_smoke.py``
+use to build files of each kind.
+"""
+
+from __future__ import annotations
+
+import struct
+import zlib
+from typing import Iterator, NamedTuple, Tuple
+
+import numpy as np
+
+SIGNATURE = b"\x89PNG\r\n\x1a\n"
+# colour type -> samples a pixel
+_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+_COLOR_TYPE = {1: 0, 2: 4, 3: 2, 4: 6}  # samples a pixel -> colour type
+
+
+class PngHeader(NamedTuple):
+    width: int
+    height: int
+    bit_depth: int
+    color_type: int
+    interlace: int
+
+
+def _chunks(data: bytes) -> Iterator[Tuple[bytes, bytes]]:
+    """(type, payload) of each chunk, CRC checked."""
+    if data[:8] != SIGNATURE:
+        raise ValueError("not a PNG file (bad signature)")
+    pos = 8
+    while pos + 12 <= len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        kind = data[pos + 4:pos + 8]
+        end = pos + 8 + length
+        if end + 4 > len(data):
+            raise ValueError(f"truncated PNG chunk {kind!r}")
+        payload = data[pos + 8:end]
+        (crc,) = struct.unpack(">I", data[end:end + 4])
+        if zlib.crc32(kind + payload) & 0xFFFFFFFF != crc:
+            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        yield kind, payload
+        if kind == b"IEND":
+            return
+        pos = end + 4
+    raise ValueError("PNG file ends before its IEND chunk")
+
+
+def _parse_header(payload: bytes) -> PngHeader:
+    w, h, depth, ctype, comp, filt, interlace = struct.unpack(">IIBBBBB", payload)
+    if comp != 0 or filt != 0:
+        raise ValueError(f"unknown PNG compression {comp} or filter method {filt}")
+    return PngHeader(w, h, depth, ctype, interlace)
+
+
+def read_png_header(path: str) -> PngHeader:
+    """The IHDR fields of a PNG file, reading only its first 33 bytes."""
+    with open(path, "rb") as f:
+        head = f.read(33)
+    if head[:8] != SIGNATURE or head[12:16] != b"IHDR":
+        raise ValueError(f"{path} is not a PNG file")
+    return _parse_header(head[16:29])
+
+
+def png_size(path: str) -> Tuple[int, int]:
+    """(width, height) of a PNG file, from its header."""
+    hdr = read_png_header(path)
+    return hdr.width, hdr.height
+
+
+def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """The Paeth predictor (PNG §9.4) of int16 byte values."""
+    pa = np.abs(b - c)
+    pb = np.abs(a - c)
+    pc = np.abs(a + b - 2 * c)
+    return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+
+
+def unfilter(scanlines: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the row filters: (H, 1 + stride) uint8 scanlines, each led by
+    its filter type, to the (H, stride) uint8 image bytes; ``bpp`` is the
+    bytes of one pixel (the filters' left distance)."""
+    ftype = scanlines[:, 0]
+    data = scanlines[:, 1:]
+    if (ftype > 4).any():
+        raise ValueError(f"unknown PNG filter type {int(ftype.max())}")
+    if not ftype.any():
+        return np.ascontiguousarray(data)
+    h, stride = data.shape
+    w = stride // bpp
+    if not ((ftype == 3) | (ftype == 4)).any():
+        # no left-to-right recurrence: Sub is a running sum of each byte
+        # lane (uint8 wraps mod 256), for every row at once; Up rows then
+        # add the row above, in order
+        out = data.reshape(h, w, bpp).copy()
+        sub = ftype == 1
+        out[sub] = np.cumsum(out[sub], axis=1, dtype=np.uint8)
+        out = out.reshape(h, stride)
+        for r in np.flatnonzero(ftype == 2):
+            if r:
+                out[r] += out[r - 1]
+        return out
+    x = data.reshape(h, w, bpp).astype(np.int16)
+    # skewed layout: byte (r, p) of the image sits at column r + p + 2 of
+    # row r + 1; row 0 and the two leading columns stay 0, which is what
+    # the filters read above the first row and left of the first pixel
+    cols = h + w + 1
+    recon = np.zeros((h + 1, cols, bpp), np.int16)
+    skewed = np.zeros((h, cols, bpp), np.int16)
+    for r in range(h):
+        skewed[r, r + 2:r + 2 + w] = x[r]
+    # one (H, 1, 1) row mask a filter type present
+    masks = [(k, (ftype == k)[:, None, None]) for k in range(1, 5) if (ftype == k).any()]
+    for d in range(h + w - 1):  # the anti-diagonal r + p = d
+        r0, r1 = max(0, d - w + 1), min(h - 1, d)
+        c = d + 2
+        left = recon[r0 + 1:r1 + 2, c - 1]
+        up = recon[r0:r1 + 1, c - 1]
+        pred = 0
+        for k, m in masks:
+            if k == 1:
+                kth = left
+            elif k == 2:
+                kth = up
+            elif k == 3:
+                kth = (left + up) >> 1
+            else:
+                kth = _paeth(left, up, recon[r0:r1 + 1, c - 2])
+            pred = np.where(m[r0:r1 + 1, 0], kth, pred)
+        recon[r0 + 1:r1 + 2, c] = (skewed[r0:r1 + 1, c] + pred) & 255
+    out = np.empty((h, w, bpp), np.uint8)
+    for r in range(h):
+        out[r] = recon[r + 1, r + 2:r + 2 + w]
+    return out.reshape(h, stride)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """A PNG file's pixels: (H, W) for grey, (H, W, C) otherwise; uint8 or
+    uint16 (16-bit samples in native byte order)."""
+    hdr = None
+    idat = []
+    for kind, payload in _chunks(data):
+        if kind == b"IHDR":
+            hdr = _parse_header(payload)
+        elif kind == b"IDAT":
+            idat.append(payload)
+    if hdr is None:
+        raise ValueError("PNG file has no IHDR chunk")
+    if hdr.color_type not in _CHANNELS or hdr.bit_depth not in (8, 16):
+        raise ValueError(f"unsupported PNG format: colour type {hdr.color_type}, "
+                         f"bit depth {hdr.bit_depth} (8- or 16-bit grey, grey+alpha, "
+                         f"RGB or RGBA only)")
+    if hdr.interlace:
+        raise ValueError("interlaced PNG files are not supported")
+    ch = _CHANNELS[hdr.color_type]
+    bpp = ch * hdr.bit_depth // 8
+    stride = hdr.width * bpp
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != hdr.height * (stride + 1):
+        raise ValueError(f"PNG image data holds {raw.size} bytes, expected "
+                         f"{hdr.height * (stride + 1)}")
+    img = unfilter(raw.reshape(hdr.height, stride + 1), bpp)
+    if hdr.bit_depth == 16:
+        img = img.view(">u2").astype(np.uint16)
+    img = img.reshape(hdr.height, hdr.width, ch)
+    return img[:, :, 0] if ch == 1 else img
+
+
+def read_png(path: str) -> np.ndarray:
+    """Decode the PNG file at ``path`` (see :func:`decode_png`)."""
+    with open(path, "rb") as f:
+        return decode_png(f.read())
+
+
+def _chunk(kind: bytes, payload: bytes) -> bytes:
+    return (struct.pack(">I", len(payload)) + kind + payload
+            + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
+
+
+def _filter_rows(raw: np.ndarray, bpp: int, filters) -> np.ndarray:
+    """Apply the row filters: (H, stride) uint8 image bytes to (H, 1 +
+    stride) scanlines; ``filters`` is one type for every row or one a row.
+    Each filter predicts from the unfiltered bytes, so all rows go at once."""
+    h = raw.shape[0]
+    types = np.broadcast_to(np.asarray(filters, np.uint8), (h,))
+    if (types > 4).any():
+        raise ValueError(f"PNG filter types are 0-4, got {sorted(set(types.tolist()))}")
+    x = raw.astype(np.int16)
+    up = np.zeros_like(x)
+    up[1:] = x[:-1]
+    left = np.zeros_like(x)
+    left[:, bpp:] = x[:, :-bpp]
+    upleft = np.zeros_like(x)
+    upleft[1:, bpp:] = x[:-1, :-bpp]
+    t = types[:, None]
+    pred = np.where(t == 1, left, 0)
+    pred = np.where(t == 2, up, pred)
+    pred = np.where(t == 3, (left + up) >> 1, pred)
+    pred = np.where(t == 4, _paeth(left, up, upleft), pred)
+    rows = np.empty((h, raw.shape[1] + 1), np.uint8)
+    rows[:, 0] = types
+    rows[:, 1:] = (x - pred) & 255
+    return rows
+
+
+def encode_png(img: np.ndarray, level: int = 6, filters=0) -> bytes:
+    """PNG file bytes of a uint8 or uint16 image, (H, W) grey or (H, W, C)
+    with C in 1-4; row filter ``filters`` (a type 0-4, or one a row), zlib
+    at ``level``."""
+    img = np.asarray(img)
+    if img.dtype == np.uint8:
+        depth = 8
+    elif img.dtype == np.uint16:
+        depth = 16
+    else:
+        raise ValueError(f"PNG images are uint8 or uint16, got {img.dtype}")
+    if img.ndim == 2:
+        img = img[:, :, None]
+    if img.ndim != 3 or img.shape[2] not in _COLOR_TYPE:
+        raise ValueError(f"PNG images are (H, W) or (H, W, 1-4), got {img.shape}")
+    h, w, ch = img.shape
+    data = img.astype(">u2") if depth == 16 else img
+    raw = np.ascontiguousarray(data).view(np.uint8).reshape(h, -1)
+    rows = _filter_rows(raw, ch * depth // 8, filters)
+    header = struct.pack(">IIBBBBB", w, h, depth, _COLOR_TYPE[ch], 0, 0, 0)
+    return (SIGNATURE + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
+
+
+def write_png(path: str, img: np.ndarray, level: int = 6, filters=0) -> None:
+    """Write ``img`` as a PNG file (see :func:`encode_png`)."""
+    with open(path, "wb") as f:
+        f.write(encode_png(img, level, filters))

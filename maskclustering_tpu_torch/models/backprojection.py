@@ -45,6 +45,7 @@ import torch
 
 from maskclustering_tpu_torch.datasets.base import PAD_DISTANCE_CUTOFF
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
+from maskclustering_tpu_torch.io.feed import to_device_frames
 from maskclustering_tpu_torch.ops.geometry import fma, invert_se3, rotate, unproject_depth
 
 # elements of the (sample, block) distance matrix estimate_spacing holds at once
@@ -509,17 +510,19 @@ def associate_scene(
 
 def associate_scene_tensors(tensors, cfg, k_max: int = 127, *,
                             device: DeviceLike = None) -> SceneAssociation:
-    """Run association from a SceneTensors bundle on ``device``: the cloud,
-    the float32 depth and int32 id-map stacks and the pose tables are
-    uploaded once."""
+    """Run association from a SceneTensors bundle on ``device``: the cloud
+    and the pose tables are uploaded once, the depth and id-map stacks
+    through the compact feed (``io/feed.py``, ``backprojection.py:540-542``):
+    uint16 when that is bit-exact, decoded on the device to the host
+    arrays' float32 and int32 values."""
     dev = resolve_device(device)
 
     def up(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
+    depths, segs = to_device_frames(tensors.depths, tensors.segmentations, dev)
     return associate_scene(
-        up(tensors.scene_points, torch.float32), up(tensors.depths, torch.float32),
-        up(tensors.segmentations, torch.int32), up(tensors.intrinsics, torch.float32),
+        up(tensors.scene_points, torch.float32), depths, segs, up(tensors.intrinsics, torch.float32),
         up(tensors.cam_to_world, torch.float32), up(tensors.frame_valid, torch.bool),
         k_max=k_max, window=cfg.association_window,
         distance_threshold=cfg.distance_threshold, depth_trunc=cfg.depth_trunc,

@@ -13,7 +13,9 @@ and run only for CPU tensors.
 
 Each wrapper adds one to ``LAUNCHES`` under its entry's name
 (``ENTRIES``) where it launches its kernel, so a run can show that its
-main path went through the kernels.
+main path went through the kernels. Building, loading and counting are
+thread-safe: the batch driver's overlapped executor calls in from two
+threads.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from collections import Counter
 from typing import Dict, Iterable, List, Tuple
@@ -51,18 +54,23 @@ class LaunchLog:
     def __init__(self) -> None:
         self.counts: Counter = Counter()
         self.shapes: Dict[str, Counter] = {}
+        self._lock = threading.Lock()
 
     def add(self, name: str, shape: Tuple[int, ...]) -> None:
-        self.counts[name] += 1
-        self.shapes.setdefault(name, Counter())[shape] += 1
+        with self._lock:
+            self.counts[name] += 1
+            self.shapes.setdefault(name, Counter())[shape] += 1
 
     def reset(self) -> None:
-        self.counts.clear()
-        self.shapes.clear()
+        with self._lock:
+            self.counts.clear()
+            self.shapes.clear()
 
 
 LAUNCHES = LaunchLog()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one nvcc per source at a time, and one binding per library
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -121,10 +129,13 @@ def load(name: str) -> ctypes.CDLL:
     """The bound library of kernel ``name`` (built on first use)."""
     lib = _LIBS.get(name)
     if lib is None:
-        build([name])
-        lib = ctypes.CDLL(library_path(name))
-        _bind(name, lib)
-        _LIBS[name] = lib
+        with _LOAD_LOCK:
+            lib = _LIBS.get(name)
+            if lib is None:
+                build([name])
+                lib = ctypes.CDLL(library_path(name))
+                _bind(name, lib)
+                _LIBS[name] = lib
     return lib
 
 

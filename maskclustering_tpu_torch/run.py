@@ -1,0 +1,741 @@
+"""Batch driver (L6): scans on disk through the steps of a run.
+
+Port of ``maskclustering_tpu/run.py:42-1345, 1361-1605``, for one process
+on one device:
+
+    python -m maskclustering_tpu_torch.run --config scannet \\
+        --data_root DATA --seq_name_list a+b --steps masks,cluster,eval_ca
+
+- **masks**: the 2D mask id-maps must exist for every scene (precomputed,
+  or made by ``mask_command``); scenes without them are excluded.
+- **cluster**: the scene queue. Each scene is loaded from disk
+  (``datasets/``, PNG through the port's codec), clustered by
+  ``models.pipeline`` and exported. Loads run ahead on daemon threads
+  (``prefetch_depth``). The overlapped executor (``scene_overlap``, the
+  default) runs scene i's device phase on the main thread while scene
+  i-1's host tail (post-process, export) runs on a worker thread; both
+  issue their device work to the one current stream, so the artifacts are
+  bit-equal to the sequential loop's whatever the interleaving. A
+  ``SceneSupervisor`` retries failed scenes, drops a degradation-ladder
+  rung after a round with device-class failures (overlapped ->
+  sequential executor -> host post-process; a post-process capacity
+  overflow heals on the last), and skips scenes a run journal records as
+  done.
+- **eval_ca** / **eval**: ScanNet-protocol AP of the class-agnostic /
+  class-labelled predictions (``evaluation/``). The class-labelled ones are
+  written by the ``query`` step, which waits for ROADMAP A8, so ``eval``
+  warns that there are none, as the JAX step does.
+
+The other JAX steps raise ``NotImplementedError`` naming their ROADMAP item
+before any scene runs, as do ``workers > 1`` and a mesh (A7). Everything
+runs on the CUDA card unless the caller passes ``device="cpu"``
+(``--device cpu``). Exit codes: 0 ok, 1 a scene or step failed, 143
+stopped by SIGTERM (the report and journal are still written).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import time
+import traceback
+from collections import deque
+from typing import Dict, List, Optional, Sequence
+
+from maskclustering_tpu_torch.config import PipelineConfig, load_config
+from maskclustering_tpu_torch.datasets import get_dataset
+from maskclustering_tpu_torch.device import DeviceLike, resolve_device
+from maskclustering_tpu_torch.models.pipeline import (
+    check_supported,
+    run_scene_device,
+    run_scene_host,
+)
+from maskclustering_tpu_torch.obs.digest import artifact_digest
+from maskclustering_tpu_torch.semantics.vocab import vocab_name
+from maskclustering_tpu_torch.utils import faults
+from maskclustering_tpu_torch.utils.daemon_future import DaemonFuture
+
+log = logging.getLogger("maskclustering_tpu_torch")
+
+# the JAX package's steps (run.py:43-48); the port runs PORTED_STEPS
+ALL_STEPS = ("masks", "cluster", "eval_ca", "features", "label_features",
+             "query", "eval", "vis", "top_images")
+PORTED_STEPS = ("masks", "cluster", "eval_ca", "eval")
+# the JAX default adds features, label_features, query and eval (A8)
+DEFAULT_STEPS = ("masks", "cluster", "eval_ca")
+# steps not ported yet -> the ROADMAP.md queue-A item that ports them
+UNPORTED_STEPS = {"features": "A8", "label_features": "A8", "query": "A8",
+                  "vis": "A14", "top_images": "A14"}
+
+# dataset -> (gt dir, split file) under data_root (run.py:50-59)
+_DATASET_LAYOUT = {
+    "scannet": ("scannet/gt", "scannet.txt"),
+    "scannetpp": ("scannetpp/gt", "scannetpp.txt"),
+    "matterport3d": ("matterport3d/gt", "matterport3d.txt"),
+    "tasmap": ("tasmap/gt", "tasmap.txt"),
+    "demo": ("demo/gt", "demo.txt"),
+}
+
+
+@dataclasses.dataclass
+class SceneStatus:
+    seq_name: str
+    status: str  # "ok" | "skipped" | "failed" | "interrupted"
+    seconds: float = 0.0
+    error: str = ""
+    num_objects: int = -1
+    # per-stage wall seconds (associate/graph/cluster/postprocess + post.*)
+    timings: Dict[str, float] = dataclasses.field(default_factory=dict)
+    # fault attribution: attempts this process made (0 = never ran: a
+    # journal skip or interrupted before dispatch), the ladder rung it last
+    # ran at, and the error class of its last failure ("" = never failed)
+    attempts: int = 1
+    degradation_rung: int = 0
+    error_class: str = ""
+    # {"artifact": artifact_digest} of the exported objects; the JAX
+    # package's plane lane waits for ROADMAP A5
+    digest: Optional[Dict] = None
+
+
+@dataclasses.dataclass
+class RunReport:
+    config_name: str
+    step_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
+    scenes: List[SceneStatus] = dataclasses.field(default_factory=list)
+    step_errors: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # AP summaries of the evaluation steps ({"eval_ca": avgs, "eval": ...};
+    # None where a step found no predictions)
+    evaluation: Dict[str, Optional[Dict]] = dataclasses.field(default_factory=dict)
+    # the JAX report's obs digest: None until ROADMAP A9
+    obs: Optional[Dict] = None
+    # the cluster step's fault digest: scene_retries, device_stalls,
+    # journal_skips, degradations{rung: 1}, final_rung, interrupted
+    faults: Optional[Dict] = None
+
+    @property
+    def failed(self) -> List[SceneStatus]:
+        return [s for s in self.scenes if s.status == "failed"]
+
+    @property
+    def interrupted(self) -> List[SceneStatus]:
+        return [s for s in self.scenes if s.status == "interrupted"]
+
+    @property
+    def ok(self) -> bool:
+        return not self.failed and not self.step_errors and not self.interrupted
+
+    def save(self, path: str) -> None:
+        os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        with open(path, "w") as f:
+            json.dump({
+                "config_name": self.config_name,
+                "step_seconds": self.step_seconds,
+                "scenes": [dataclasses.asdict(s) for s in self.scenes],
+                "step_errors": self.step_errors,
+                "evaluation": self.evaluation,
+                "obs": self.obs,
+                "faults": self.faults,
+            }, f, indent=2)
+
+
+def get_seq_name_list(dataset: str, splits_dir: str = "splits",
+                      seq_name_list: Optional[str] = None) -> List[str]:
+    """Scene list from an explicit +-joined string or the split file."""
+    if seq_name_list:
+        return [s for s in seq_name_list.split("+") if s]
+    _, split_file = _DATASET_LAYOUT[dataset]
+    path = os.path.join(splits_dir, split_file)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"no split file {path}; pass seq_name_list explicitly")
+    with open(path) as f:
+        return [line.strip() for line in f if line.strip()]
+
+
+def check_steps(cfg: PipelineConfig, steps: Sequence[str], workers: int = 1) -> None:
+    """Raise, before any scene runs, for what the port cannot run: an
+    unknown step (``ValueError``), an unported step, ``workers > 1`` or a
+    configuration ``models.pipeline`` refuses (``NotImplementedError``)."""
+    unknown = set(steps) - set(ALL_STEPS)
+    if unknown:
+        raise ValueError(f"unknown steps {sorted(unknown)}; valid: {ALL_STEPS}")
+    for step in steps:
+        if step in UNPORTED_STEPS:
+            raise NotImplementedError(
+                f"step {step!r} is not ported yet: ROADMAP.md queue A, item "
+                f"{UNPORTED_STEPS[step]} (ported steps: {PORTED_STEPS})")
+    if workers > 1:
+        raise NotImplementedError(
+            "workers > 1 (one process per scene shard) is not ported yet: "
+            "ROADMAP.md queue A, item A7")
+    check_supported(cfg)
+
+
+# ---------------------------------------------------------------------------
+# step 1: masks
+# ---------------------------------------------------------------------------
+
+
+def predictor_from_spec(spec: str):
+    """The in-process mask predictor of ``cfg.cropformer_path`` (the JAX
+    ``mask_prediction.predictor_from_spec``): not ported yet."""
+    raise NotImplementedError(
+        f"in-process mask prediction ({spec!r}) is not ported yet: ROADMAP.md "
+        f"queue A, item A13; precompute the masks or pass mask_command")
+
+
+def check_masks(cfg: PipelineConfig, seq_names: Sequence[str],
+                mask_command: Optional[str] = None,
+                predictor_spec: Optional[str] = None) -> List[str]:
+    """Step 1: ensure 2D mask id-maps exist for every scene (``run.py:165-224``).
+
+    The contract is a PNG id-map per frame under ``<scene>/output/mask``.
+    Scenes with missing masks are filled by ``mask_command`` (a template
+    with ``{seq_name}``, one subprocess a scene); returns the scenes still
+    missing. A ``predictor_spec`` is only tried when some scene misses
+    masks, and its failure (not ported: A13) is logged, not raised.
+    """
+    missing = []
+    for seq in seq_names:
+        seg_dir = get_dataset(cfg.dataset, seq, data_root=cfg.data_root).segmentation_dir
+        if not (os.path.isdir(seg_dir) and os.listdir(seg_dir)):
+            missing.append(seq)
+    if missing and predictor_spec:
+        try:
+            predictor_from_spec(predictor_spec)
+        except Exception:  # noqa: BLE001 — a bad spec must not abort the step
+            log.exception("could not build mask predictor from spec %r", predictor_spec)
+    if missing and mask_command:
+        for seq in missing:
+            cmd = mask_command.format(seq_name=seq)
+            log.info("running mask predictor: %s", cmd)
+            if os.system(cmd) != 0:
+                log.error("mask predictor failed for %s", seq)
+        return check_masks(cfg, missing)
+    return missing
+
+
+# ---------------------------------------------------------------------------
+# step 2: cluster
+# ---------------------------------------------------------------------------
+
+
+def _load_for_cluster(cfg: PipelineConfig, seq_name: str, resume: bool,
+                      prediction_root: str):
+    """(dataset, tensors): the host-IO half of one scene; tensors None = skip."""
+    ds = get_dataset(cfg.dataset, seq_name, data_root=cfg.data_root)
+    npz_path = os.path.join(prediction_root, cfg.config_name + "_class_agnostic",
+                            f"{seq_name}.npz")
+    if resume and os.path.exists(npz_path):
+        return ds, None
+    return ds, ds.load_scene_tensors(cfg.step)
+
+
+class _FaultCtx:
+    """Per-round fault bookkeeping shared by the executors: attempt numbers
+    across rounds, each SceneStatus stamped with its attempts / rung, and
+    attempt + outcome journal rows written as they happen."""
+
+    def __init__(self, journal: Optional[faults.RunJournal] = None,
+                 rung: int = 0, attempts: Optional[Dict[str, int]] = None):
+        self.journal = journal
+        self.rung = rung
+        self.attempts = attempts if attempts is not None else {}
+
+    def begin(self, seq: str) -> None:
+        self.attempts[seq] = self.attempts.get(seq, 0) + 1
+        if self.journal is not None:
+            self.journal.attempt(seq, self.attempts[seq], self.rung)
+
+    def finish(self, st: SceneStatus) -> SceneStatus:
+        st.attempts = self.attempts.get(st.seq_name, 0)
+        st.degradation_rung = self.rung
+        if self.journal is not None:
+            self.journal.outcome(
+                st.seq_name, st.status, attempt=st.attempts, rung=st.degradation_rung,
+                error_class=st.error_class, error=st.error,
+                seconds=st.seconds, num_objects=st.num_objects)
+        return st
+
+
+def _ok_status(seq: str, seconds: float, result) -> SceneStatus:
+    return SceneStatus(seq, "ok", seconds, num_objects=len(result.objects.point_ids_list),
+                       timings={k: round(v, 4) for k, v in result.timings.items()},
+                       digest={"artifact": artifact_digest(result.objects)})
+
+
+def _failed_status(seq: str, seconds: float, exc: BaseException) -> SceneStatus:
+    return SceneStatus(seq, "failed", seconds, error=traceback.format_exc(limit=20),
+                       error_class=faults.classify_error(exc))
+
+
+def cluster_scene(cfg: PipelineConfig, seq_name: str, *, resume: bool = True,
+                  prediction_root: Optional[str] = None, device: DeviceLike = None,
+                  _preloaded=None, _ctx: Optional[_FaultCtx] = None) -> SceneStatus:
+    """Step 2 for one scene: load -> device phase -> host phase -> export.
+
+    ``_preloaded``: zero-arg callable returning ``(dataset, tensors)`` (the
+    prefetcher's resolve), so a prefetched scene's load error re-raises
+    here and is that scene's failure. Each phase runs under its watchdog
+    budget (``cfg.watchdog_*_s``; 0 = inline).
+    """
+    prediction_root = prediction_root or os.path.join(cfg.data_root, "prediction")
+    ctx = _ctx if _ctx is not None else _FaultCtx()
+    t0 = time.perf_counter()
+    ctx.begin(seq_name)
+    try:
+        loader = (_preloaded if _preloaded is not None
+                  else lambda: _load_for_cluster(cfg, seq_name, resume, prediction_root))
+        ds, tensors = faults.call_with_deadline(loader, cfg.watchdog_load_s, seam="load",
+                                                scene=seq_name)
+        if tensors is None:
+            return ctx.finish(SceneStatus(seq_name, "skipped"))
+        if faults.stop_requested():
+            return ctx.finish(SceneStatus(seq_name, "interrupted"))
+        handoff = faults.call_with_deadline(
+            lambda: run_scene_device(tensors, cfg, seq_name=seq_name, device=device),
+            cfg.watchdog_device_s, seam="device", scene=seq_name)
+        result = faults.call_with_deadline(
+            lambda: run_scene_host(handoff, cfg, export=True,
+                                   object_dict_dir=ds.object_dict_dir,
+                                   prediction_root=prediction_root),
+            cfg.watchdog_host_s, seam="host", scene=seq_name)
+        return ctx.finish(_ok_status(seq_name, time.perf_counter() - t0, result))
+    except Exception as e:
+        log.exception("scene %s failed", seq_name)
+        return ctx.finish(_failed_status(seq_name, time.perf_counter() - t0, e))
+
+
+def _prefetched_loads(cfg: PipelineConfig, seq_names: Sequence[str], resume: bool,
+                      prediction_root: str, depth: int = 1):
+    """Yield (seq_name, resolve) with a ``depth``-scene disk-prefetch lookahead
+    (``run.py:383-412``).
+
+    Daemon threads load scenes i+1..i+depth while scene i runs; ``depth ==
+    0`` loads inline. Scenes yield in list order, and a failed load
+    re-raises at its own scene's ``resolve()``.
+    """
+    def spawn(seq):
+        return DaemonFuture(lambda: _load_for_cluster(cfg, seq, resume, prediction_root),
+                            name=f"prefetch-{seq}").result
+
+    if depth <= 0:
+        for seq in seq_names:
+            yield seq, (lambda seq=seq: _load_for_cluster(cfg, seq, resume, prediction_root))
+        return
+    pending = deque(spawn(seq_names[i]) for i in range(min(depth, len(seq_names))))
+    for i, seq in enumerate(seq_names):
+        if i + depth < len(seq_names):
+            pending.append(spawn(seq_names[i + depth]))
+        yield seq, pending.popleft()
+
+
+def _cluster_scenes_sequential(cfg: PipelineConfig, seq_names: Sequence[str], *,
+                               resume: bool, prediction_root: str, device,
+                               ctx: _FaultCtx) -> List[SceneStatus]:
+    """The serialised scene loop (disk prefetch is its only overlap): the
+    ``scene_overlap=False`` path and the order the overlapped executor is
+    held to."""
+    out: List[SceneStatus] = []
+    for seq, resolve in _prefetched_loads(cfg, seq_names, resume, prediction_root,
+                                          depth=cfg.prefetch_depth):
+        if faults.stop_requested():
+            out.append(ctx.finish(SceneStatus(seq, "interrupted")))
+            continue
+        out.append(cluster_scene(cfg, seq, resume=resume, prediction_root=prediction_root,
+                                 device=device, _preloaded=resolve, _ctx=ctx))
+    return out
+
+
+def _cluster_scenes_overlapped(cfg: PipelineConfig, seq_names: Sequence[str], *,
+                               resume: bool, prediction_root: str, device,
+                               ctx: _FaultCtx) -> List[SceneStatus]:
+    """Step 2, software-pipelined (``run.py:437-556``): three timelines.
+
+    - **load** (daemon threads): disk IO of scenes i+1..i+depth;
+    - **device** (this thread): upload + associate/graph/cluster of scene i
+      (``run_scene_device``);
+    - **host tail** (one worker thread): scene i-1's post-process and
+      export (``run_scene_host``).
+
+    At most one tail is in flight, so at most two scenes' claim tensors
+    coexist on the device. Both threads enqueue on the device's current
+    stream, so the tail's kernels read the handoff after the kernels that
+    wrote it and the artifacts equal the sequential loop's. A scene's
+    ``seconds`` run from its device phase to the end of its tail; its stage
+    walls each end in a device synchronize, which also waits for the other
+    thread's queued kernels.
+    """
+    statuses: Dict[str, SceneStatus] = {}
+    in_flight = None  # (seq_name, t0, DaemonFuture of the host tail)
+
+    def finish(entry) -> None:
+        # the tail's outcome and end time were taken inside the worker: this
+        # join may come a whole device phase later, which is not the scene's
+        seq, t0, fut = entry
+        try:
+            result, err, t_end = fut.result(
+                cfg.watchdog_host_s if cfg.watchdog_host_s > 0 else None)
+        except TimeoutError:
+            fut.abandon()
+            stall = faults.DeviceStallError("host", seq, cfg.watchdog_host_s)
+            log.error("scene %s failed: %s", seq, stall)
+            statuses[seq] = ctx.finish(SceneStatus(
+                seq, "failed", time.perf_counter() - t0, error=str(stall),
+                error_class="device"))
+            return
+        if err is not None:
+            log.error("scene %s failed\n%s", seq, err.error)
+            err.seconds = t_end - t0
+            statuses[seq] = ctx.finish(err)
+            return
+        statuses[seq] = ctx.finish(_ok_status(seq, t_end - t0, result))
+
+    for seq, resolve in _prefetched_loads(cfg, seq_names, resume, prediction_root,
+                                          depth=cfg.prefetch_depth):
+        if faults.stop_requested():
+            statuses[seq] = ctx.finish(SceneStatus(seq, "interrupted"))
+            continue
+        t0 = time.perf_counter()
+        ctx.begin(seq)
+        try:
+            ds, tensors = faults.call_with_deadline(resolve, cfg.watchdog_load_s,
+                                                    seam="load", scene=seq)
+            if tensors is None:
+                statuses[seq] = ctx.finish(SceneStatus(seq, "skipped"))
+                continue
+            if faults.stop_requested():
+                statuses[seq] = ctx.finish(SceneStatus(seq, "interrupted"))
+                continue
+            handoff = faults.call_with_deadline(
+                lambda: run_scene_device(tensors, cfg, seq_name=seq, device=device),
+                cfg.watchdog_device_s, seam="device", scene=seq)
+        except Exception as e:
+            log.exception("scene %s failed", seq)
+            statuses[seq] = ctx.finish(_failed_status(seq, time.perf_counter() - t0, e))
+            continue
+        # backpressure: the previous tail retires before another handoff
+        # goes live, bounding the device memory to two scenes
+        if in_flight is not None:
+            finish(in_flight)
+
+        def host_tail(handoff=handoff, seq=seq, ds=ds):
+            try:
+                result = run_scene_host(handoff, cfg, export=True,
+                                        object_dict_dir=ds.object_dict_dir,
+                                        prediction_root=prediction_root)
+                return result, None, time.perf_counter()
+            except Exception as e:  # noqa: BLE001 — attributed in finish()
+                return None, _failed_status(seq, 0.0, e), time.perf_counter()
+
+        in_flight = (seq, t0, DaemonFuture(host_tail, name=f"host-tail-{seq}"))
+    if in_flight is not None:
+        finish(in_flight)
+    return [statuses[s] for s in seq_names if s in statuses]
+
+
+def _dispatch_scenes(cfg: PipelineConfig, seq_names: Sequence[str], *, resume: bool,
+                     prediction_root: str, device, ctx: _FaultCtx) -> List[SceneStatus]:
+    """One executor pass over ``seq_names`` at the current ladder rung:
+    overlapped when ``cfg.scene_overlap`` and more than one scene, else
+    sequential. One process only (``workers > 1`` and meshes: A7)."""
+    check_supported(cfg)
+    run = (_cluster_scenes_overlapped if cfg.scene_overlap and len(seq_names) > 1
+           else _cluster_scenes_sequential)
+    return run(cfg, seq_names, resume=resume, prediction_root=prediction_root,
+               device=device, ctx=ctx)
+
+
+class SceneSupervisor:
+    """The fault-supervised scene queue (``run.py:728-891``).
+
+    Each executor pass captures per-scene failures; the supervisor then
+
+    - **retries** failed scenes whose error class is not terminal, up to
+      ``cfg.scene_retries`` extra rounds with exponential backoff
+      (``cfg.retry_backoff_s``); device-class failures keep retrying while
+      the ladder still has a rung to drop, so a deterministic device fault
+      (a post-process capacity overflow) reaches the rung that heals it
+      even at the default retry budget;
+    - **degrades** one ladder rung before each round that follows a
+      device-class failure;
+    - **journal-skips** scenes the journal records as done;
+    - stops retrying once a SIGTERM requested stop.
+    """
+
+    def __init__(self, cfg: PipelineConfig, *, resume: bool = True,
+                 journal: Optional[faults.RunJournal] = None,
+                 prediction_root: Optional[str] = None, device: DeviceLike = None):
+        self.cfg = cfg
+        self.resume = resume
+        self.journal = journal
+        self.prediction_root = prediction_root or os.path.join(cfg.data_root, "prediction")
+        self.device = resolve_device(device)
+        self.ladder = faults.DegradationLadder(cfg)
+        self.stats = {"scene_retries": 0, "device_stalls": 0, "journal_skips": 0}
+
+    def run(self, seq_names: Sequence[str]) -> List[SceneStatus]:
+        cfg, ladder, journal = self.cfg, self.ladder, self.journal
+        policy = faults.RetryPolicy(base_s=cfg.retry_backoff_s,
+                                    cap_s=max(cfg.retry_backoff_s * 8.0, 0.0))
+        statuses: Dict[str, SceneStatus] = {}
+        attempts: Dict[str, int] = {}
+        pending = list(seq_names)
+        if journal is not None and self.resume:
+            done = journal.resume_done()
+            for seq in pending:
+                if seq in done:
+                    statuses[seq] = SceneStatus(seq, "skipped", attempts=0)
+                    journal.outcome(seq, "skipped", attempt=0, rung=0)
+                    self.stats["journal_skips"] += 1
+            pending = [s for s in pending if s not in done]
+        round_no = 1
+        while pending:
+            ctx = _FaultCtx(journal=journal, rung=ladder.rung, attempts=attempts)
+            batch = _dispatch_scenes(ladder.apply(cfg), pending, resume=self.resume,
+                                     prediction_root=self.prediction_root,
+                                     device=self.device, ctx=ctx)
+            retry: List[str] = []
+            saw_device = False
+            for st in batch:
+                statuses[st.seq_name] = st
+                if st.status != "failed":
+                    continue
+                self.stats["device_stalls"] += "DeviceStallError" in st.error
+                saw_device = saw_device or st.error_class == "device"
+                in_budget = round_no <= cfg.scene_retries
+                ladder_can_help = st.error_class == "device" and not ladder.exhausted
+                if (st.error_class != "terminal" and (in_budget or ladder_can_help)
+                        and not faults.stop_requested()):
+                    retry.append(st.seq_name)
+            if not retry:
+                break
+            if saw_device:
+                ladder.degrade(reason=f"device-class failure(s) in round {round_no}")
+            delay = policy.backoff(round_no)
+            self.stats["scene_retries"] += len(retry)
+            log.warning("retrying %d scene(s) in %.2fs (round %d, rung %d%s)",
+                        len(retry), delay, round_no + 1, ladder.rung,
+                        f": {'+'.join(ladder.applied_names)}" if ladder.applied_names else "")
+            if delay > 0:
+                time.sleep(delay)
+            pending = retry
+            round_no += 1
+        return [statuses[s] for s in seq_names if s in statuses]
+
+    def fault_summary(self, scenes: Sequence[SceneStatus]) -> Dict:
+        """The run report's fault digest."""
+        return {**self.stats,
+                "degradations": {name: 1 for name in self.ladder.applied_names},
+                "final_rung": self.ladder.rung,
+                "interrupted": (faults.stop_requested()
+                                or any(s.status == "interrupted" for s in scenes))}
+
+
+def cluster_scenes(cfg: PipelineConfig, seq_names: Sequence[str], *, resume: bool = True,
+                   journal: Optional[faults.RunJournal] = None,
+                   prediction_root: Optional[str] = None,
+                   device: DeviceLike = None) -> List[SceneStatus]:
+    """Step 2: one SceneSupervisor pass over the run's scene list."""
+    return SceneSupervisor(cfg, resume=resume, journal=journal,
+                           prediction_root=prediction_root, device=device).run(seq_names)
+
+
+# ---------------------------------------------------------------------------
+# steps 3 and 7: evaluation
+# ---------------------------------------------------------------------------
+
+
+def evaluate_step(cfg: PipelineConfig, *, no_class: bool,
+                  seq_names: Optional[Sequence[str]] = None,
+                  prediction_root: Optional[str] = None,
+                  device: DeviceLike = None) -> Optional[dict]:
+    """AP evaluation over the run's scenes (``run.py:940-978``); restricted
+    to ``seq_names`` when given so stale predictions cannot skew the AP.
+    A prediction without its GT file raises."""
+    from maskclustering_tpu_torch.evaluation.ap import evaluate_scans
+
+    prediction_root = prediction_root or os.path.join(cfg.data_root, "prediction")
+    suffix = "_class_agnostic" if no_class else ""
+    pred_dir = os.path.join(prediction_root, cfg.config_name + suffix)
+    gt_dir = os.path.join(cfg.data_root, _DATASET_LAYOUT[cfg.dataset][0])
+    if not os.path.isdir(pred_dir):
+        log.warning("no predictions at %s; skipping evaluation", pred_dir)
+        return None
+    names = sorted(f for f in os.listdir(pred_dir) if f.endswith(".npz"))
+    if seq_names is not None:
+        wanted = set(seq_names)
+        names = [n for n in names if n[:-len(".npz")] in wanted]
+    if not names:
+        log.warning("no predictions for this run's scenes in %s", pred_dir)
+        return None
+    pred_files = [os.path.join(pred_dir, n) for n in names]
+    gt_files = [os.path.join(gt_dir, n.replace(".npz", ".txt")) for n in names]
+    missing_gt = [g for g in gt_files if not os.path.isfile(g)]
+    if missing_gt:
+        raise FileNotFoundError(
+            f"missing GT for {len(missing_gt)}/{len(gt_files)} scenes under "
+            f"{gt_dir}, e.g. {missing_gt[:3]}")
+    out = os.path.join(cfg.data_root, "evaluation", cfg.dataset,
+                       f"{cfg.config_name}{suffix}.txt")
+    return evaluate_scans(pred_files, gt_files, vocab_name(cfg.dataset),
+                          no_class=no_class, output_file=out, device=device)
+
+
+# ---------------------------------------------------------------------------
+# pipeline driver
+# ---------------------------------------------------------------------------
+
+
+def run_pipeline(
+    cfg: PipelineConfig,
+    seq_names: Sequence[str],
+    *,
+    steps: Sequence[str] = DEFAULT_STEPS,
+    workers: int = 1,
+    resume: bool = True,
+    mask_command: Optional[str] = None,
+    report_path: Optional[str] = None,
+    journal_path: Optional[str] = None,
+    journal: bool = True,
+    prediction_root: Optional[str] = None,
+    device: DeviceLike = None,
+) -> RunReport:
+    """Run ``steps`` over ``seq_names`` (``run.py:1102-1345``).
+
+    Raises before any scene runs for an unknown or unported step, ``workers
+    > 1``, a refused configuration or a missing card (``device=None``).
+    A failed scene or step is recorded in the report, not raised.
+    ``prediction_root`` defaults to ``<data_root>/prediction``.
+    """
+    check_steps(cfg, steps, workers)
+    device = resolve_device(device)
+    if cfg.debug:
+        log.setLevel(logging.DEBUG)
+    report = RunReport(config_name=cfg.config_name)
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        try:
+            out = fn()
+        except Exception:
+            # a failed step is recorded (and fails the run) without sinking
+            # the steps that can still run
+            log.exception("step %s failed", name)
+            report.step_errors[name] = traceback.format_exc(limit=20)
+            out = None
+        report.step_seconds[name] = time.perf_counter() - t0
+        log.info("step %s: %.1fs", name, report.step_seconds[name])
+        return out
+
+    if "masks" in steps:
+        missing = timed("masks", lambda: check_masks(cfg, seq_names, mask_command,
+                                                     predictor_spec=cfg.cropformer_path))
+        if missing:
+            log.warning("scenes with no 2D masks (excluded): %s", missing)
+            seq_names = [s for s in seq_names if s not in set(missing)]
+
+    if "cluster" in steps:
+        jr = None
+        if journal:
+            jp = journal_path
+            if jp is None and report_path:
+                jp = os.path.join(os.path.dirname(report_path) or ".", "run_journal.jsonl")
+            if jp:
+                jr = faults.RunJournal(jp, cfg.config_name)
+                jr.begin_run()
+        sup = SceneSupervisor(cfg, resume=resume, journal=jr, prediction_root=prediction_root,
+                              device=device)
+        try:
+            report.scenes = timed("cluster", lambda: sup.run(seq_names)) or []
+        finally:
+            report.faults = sup.fault_summary(report.scenes)
+            if jr is not None:
+                jr.end_run(interrupted=report.faults["interrupted"])
+                jr.close()
+        ok = sum(1 for s in report.scenes if s.status != "failed")
+        log.info("clustered %d/%d scenes", ok, len(report.scenes))
+        if report.faults["scene_retries"] or report.faults["degradations"]:
+            log.warning("fault summary: %s", report.faults)
+
+    for step, no_class in (("eval_ca", True), ("eval", False)):
+        if step in steps:
+            report.evaluation[step] = timed(step, lambda no_class=no_class: evaluate_step(
+                cfg, no_class=no_class, seq_names=seq_names, prediction_root=prediction_root,
+                device=device))
+
+    if report_path:
+        report.save(report_path)
+    return report
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(
+        prog="maskclustering_tpu_torch.run",
+        description="mask-clustering batch driver on one CUDA card (PyTorch port)")
+    parser.add_argument("--config", required=True, help="config name under configs/")
+    parser.add_argument("--seq_name_list", default=None,
+                        help="+-joined scene names (default: split file)")
+    parser.add_argument("--splits_dir", default="splits")
+    parser.add_argument("--steps", default=",".join(DEFAULT_STEPS),
+                        help=f"comma-separated subset of {PORTED_STEPS}")
+    parser.add_argument("--prefetch-depth", type=int, default=None,
+                        help="disk-load lookahead of the scene prefetcher (0 = load "
+                             "inline; default: config prefetch_depth)")
+    parser.add_argument("--no-overlap", action="store_true",
+                        help="serialize the scene loop (artifacts are identical)")
+    parser.add_argument("--no-resume", action="store_true",
+                        help="recompute even when artifacts exist")
+    parser.add_argument("--report", default=None, help="run report JSON path")
+    parser.add_argument("--journal", default=None,
+                        help="crash-safe scene journal JSONL (default: "
+                             "run_journal.jsonl next to --report)")
+    parser.add_argument("--no-journal", action="store_true",
+                        help="disable the scene journal (artifact-exists resume only)")
+    parser.add_argument("--scene-retries", type=int, default=None,
+                        help="extra attempts per failed scene (default: config "
+                             "scene_retries; 0 = fail fast)")
+    parser.add_argument("--watchdog-device", type=float, default=None,
+                        help="device-phase watchdog budget in seconds (0 = off)")
+    parser.add_argument("--data_root", default=None, help="override the config's data root")
+    parser.add_argument("--device", default=None,
+                        help="torch device (default: the CUDA card; 'cpu' runs the "
+                             "plain torch path on the CPU)")
+    parser.add_argument("--debug", action="store_true")
+    args = parser.parse_args(argv)
+
+    logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
+                        format="%(asctime)s %(name)s %(levelname)s %(message)s")
+    overrides = {"data_root": args.data_root} if args.data_root else {}
+    if args.prefetch_depth is not None:
+        overrides["prefetch_depth"] = args.prefetch_depth
+    if args.no_overlap:
+        overrides["scene_overlap"] = False
+    if args.scene_retries is not None:
+        overrides["scene_retries"] = args.scene_retries
+    if args.watchdog_device is not None:
+        overrides["watchdog_device_s"] = args.watchdog_device
+    if args.debug:
+        overrides["debug"] = True
+    cfg = load_config(args.config, **overrides)
+    faults.install_sigterm_handler()
+    seq_names = get_seq_name_list(cfg.dataset, args.splits_dir, args.seq_name_list)
+    log.info("there are %d scenes", len(seq_names))
+
+    t0 = time.time()
+    report = run_pipeline(cfg, seq_names, steps=tuple(s for s in args.steps.split(",") if s),
+                          resume=not args.no_resume, report_path=args.report,
+                          journal_path=args.journal, journal=not args.no_journal,
+                          device=args.device)
+    total = time.time() - t0
+    log.info("total time %.1f min (%.1f s/scene)", total / 60, total / max(len(seq_names), 1))
+    if report.interrupted or faults.stop_requested():
+        return 143
+    return 0 if report.ok else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

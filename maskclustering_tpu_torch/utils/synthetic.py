@@ -11,11 +11,15 @@ package's generator, draw for draw.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
 
 from maskclustering_tpu_torch.datasets.base import SceneTensors
+from maskclustering_tpu_torch.io.image import write_depth_png, write_mask_png
+from maskclustering_tpu_torch.io.ply import write_ply_points
+from maskclustering_tpu_torch.io.png import write_png
 
 
 @dataclasses.dataclass
@@ -228,3 +232,39 @@ def to_scene_tensors(scene: SyntheticScene) -> SceneTensors:
         frame_valid=scene.frame_valid,
         frame_ids=scene.frame_ids,
     )
+
+
+def write_scannet_layout(scene: SyntheticScene, data_root: str, seq_name: str,
+                         gt_label_id: int = 3) -> str:
+    """Write a synthetic scene to disk in the ScanNet processed layout
+    (``utils/synthetic.py:435-473``), with the port's PNG and PLY writers.
+
+    Produces what ``ScanNetDataset`` and the batch driver read: depth/
+    (16-bit millimetres), output/mask/ id-maps, pose/, intrinsic/, the
+    vh_clean_2 cloud, color/, and a benchmark GT txt (label * 1000 + inst +
+    1; the unannotated floor = 1) under ``<data_root>/scannet/gt``. The JAX
+    writer stores color frames as JPEG; the port has no JPEG encoder, and
+    the cluster path only lists color/ (``get_frame_list``), never decodes
+    it, so the color frames are PNG files named ``<frame id>.png``, which
+    both packages' loaders list alike.
+    """
+    root = os.path.join(data_root, "scannet", "processed", seq_name)
+    for sub in ("color", "depth", "pose", "intrinsic", os.path.join("output", "mask")):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    intr4 = np.eye(4)
+    intr4[:3, :3] = scene.intrinsics[0]
+    np.savetxt(os.path.join(root, "intrinsic", "intrinsic_depth.txt"), intr4)
+    for f, fid in enumerate(scene.frame_ids):
+        write_depth_png(os.path.join(root, "depth", f"{fid}.png"), scene.depths[f] * 1000.0)
+        seg = scene.segmentations[f]
+        write_mask_png(os.path.join(root, "output", "mask", f"{fid}.png"), seg)
+        write_png(os.path.join(root, "color", f"{fid}.png"),
+                  np.stack([(seg * 40 % 256).astype(np.uint8)] * 3, axis=-1))
+        np.savetxt(os.path.join(root, "pose", f"{fid}.txt"),
+                   scene.cam_to_world[f].astype(np.float64))
+    write_ply_points(os.path.join(root, f"{seq_name}_vh_clean_2.ply"), scene.scene_points)
+    gt_dir = os.path.join(data_root, "scannet", "gt")
+    os.makedirs(gt_dir, exist_ok=True)
+    gt = np.where(scene.gt_instance > 0, gt_label_id * 1000 + scene.gt_instance + 1, 1)
+    np.savetxt(os.path.join(gt_dir, f"{seq_name}.txt"), gt, fmt="%d")
+    return root
