@@ -65,7 +65,19 @@ Imports nothing of JAX or of the JAX package. In order:
     ratio printed. The mid-size scan on ``cuda`` and ``cpu``: equal
     artifacts and AP. The ladder drill: one full-size scan at the default
     ``post_neighbor_cap`` of 256 must end ``ok`` on the host-postprocess
-    rung at its third attempt, equal to the cap-1024 run.
+    rung at its third attempt, equal to the cap-1024 run;
+11. the plane digest lane and the semantic steps. Phase 8's full-size scene
+    on ``cuda`` carries the digest dict (``plane`` lane included) of a
+    ``cpu`` run (on the host post-process rung, whose digest the tests hold
+    equal to the device rung's), and phase 9's mid-size scene the same on
+    both devices; the digest program and its pull are timed on the card.
+    Phase 10's three
+    full-size scans get textured 968x1296 colour frames (ScanNet's colour
+    size; the port's JPEG encoder, quality 90, 4:2:0), then ``features,
+    label_features, query, eval`` with ``--encoder hash:1024`` run on
+    ``cuda`` over the three and on ``cpu`` over the first: equal features
+    (bit for bit), class-aware npz and AP. Printed: one frame's decode
+    time, the step seconds and the distinct frames decoded.
 
 Any mismatch or failure exits non-zero. The last three lines are the card
 line, the per-kernel JSON and the result JSON.
@@ -109,6 +121,12 @@ FULL_NEIGHBOR_CAP = 1024
 # mid-size one as a fourth
 BATCH_SCANS = ("scene0000_00", "scene0001_00", "scene0002_00")
 MID_SCAN = "scene0003_00"
+# phase 11: ScanNet's colour size and a photo-like quality, ViT-H-14's
+# feature width for the hash encoder
+COLOR_HW = (968, 1296)
+COLOR_QUALITY = 90
+SEMANTIC_ENCODER = "hash:1024"
+SEMANTIC_STEPS = ("features", "label_features", "query", "eval")
 
 
 def _say(msg: str) -> None:
@@ -636,7 +654,8 @@ def dense_default_full(dev, tensors, distance_threshold: float = 0.01):
          f"{sum(stage['syncs_resident'].values())} on tensors already on the card "
          f"{json.dumps(stage['syncs_resident'])}")
     profile_dense(dev, tensors, cfg, wall)
-    return {"launches": launches, "timed": timed, "digest": digest, "wall": wall}
+    return {"launches": launches, "timed": timed, "digest": digest, "wall": wall,
+            "scene_digest": res.digest, "cfg": cfg}
 
 
 def busy_seconds(trace_path: str):
@@ -698,9 +717,9 @@ def profile_dense(dev, tensors, cfg, wall: float) -> None:
             _say(f"  association: {ms:10.4f} ms {cnt:3d} x {name[:100]}")
 
 
-def dense_default_mid(dev) -> str:
+def dense_default_mid(dev):
     """Phase 9: the default configuration on the mid-size scene, cuda
-    against cpu."""
+    against cpu. Returns the two runs' digest dicts (held by phase 11)."""
     import numpy as np
 
     from maskclustering_tpu_torch.config import load_config
@@ -720,7 +739,7 @@ def dense_default_mid(dev) -> str:
         raise AssertionError("cuda and cpu runs of the mid-size default configuration differ")
     if not on_card.objects.point_ids_list:
         raise AssertionError("the mid-size default configuration produced no objects")
-    return d_card
+    return on_card.digest, on_cpu.digest
 
 
 def _tree_bytes(path: str) -> int:
@@ -902,7 +921,6 @@ def batch_driver(dev, scene, mid_scene):
     """Phase 10: the batch driver (``run.run_pipeline``) on scans on disk."""
     from maskclustering_tpu_torch.config import load_config
     from maskclustering_tpu_torch.models import run_scene
-    from maskclustering_tpu_torch.obs.digest import artifact_digest
     from maskclustering_tpu_torch.run import run_pipeline
     from maskclustering_tpu_torch.utils import faults
 
@@ -944,15 +962,16 @@ def batch_driver(dev, scene, mid_scene):
                      BATCH_SCANS)
     if not _ap_equal(ov.evaluation["eval_ca"], sq.evaluation["eval_ca"]):
         raise AssertionError("the AP of the overlapped and sequential runs differ")
-    ref = artifact_digest(run_scene(loaded[BATCH_SCANS[0]], ov_cfg, device=dev).objects)
+    ref = run_scene(loaded[BATCH_SCANS[0]], ov_cfg, device=dev).digest
     for st, st_sq in zip(ov.scenes, sq.scenes):
-        if st.digest != st_sq.digest or st.digest != {"artifact": ref}:
+        if st.digest != st_sq.digest or st.digest != ref:
             raise AssertionError(f"{st.seq_name}: digests {st.digest} / {st_sq.digest}, "
                                  f"run_scene on the loaded scan {ref}")
     if not all(s.num_objects > 0 for s in ov.scenes):
         raise AssertionError("a full-size scan produced no objects")
     _say(f"[batch] overlapped == sequential (npz, object dicts, AP); every digest == run_scene "
-         f"on the loaded scan ({ref}); each association entry launched once a scene")
+         f"on the loaded scan ({json.dumps(ref)}); each association entry launched once a "
+         f"scene")
 
     # the mid-size scan on the card and on the CPU
     mid = {}
@@ -996,7 +1015,179 @@ def batch_driver(dev, scene, mid_scene):
     _artifacts_equal(root, os.path.join(root, "prediction_ladder"), ladder_cfg.config_name,
                      ov_pred, ov_cfg.config_name, BATCH_SCANS[:1])
     _say("[ladder] host-postprocess rung == device rung at cap 1024 (npz, object dict)")
-    return {"launches": launches}
+    return {"launches": launches, "root": root, "cfg": ov_cfg, "pred": ov_pred}
+
+
+def textured_frame(seg, frame: int, seed: int = 0):
+    """A seeded textured colour frame at ScanNet's colour size: the id-map
+    nearest-resized to 968x1296 as flat seeded colours, a smooth shading and
+    seeded noise (sigma 5), which at quality 90 gives about 1.5 bits a pixel,
+    a photo's coefficient density."""
+    import numpy as np
+
+    from maskclustering_tpu_torch.io.image import resize_nearest
+
+    h, w = COLOR_HW
+    rng = np.random.default_rng([seed, frame])
+    big = resize_nearest(seg, (w, h))
+    palette = rng.integers(40, 216, (int(seg.max()) + 1, 3)).astype(np.float32)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float32)
+    shade = 18.0 * np.sin(x / 41.0 + frame) * np.cos(y / 29.0 - frame)
+    img = palette[big] + shade[..., None] + rng.normal(0.0, 5.0, (h, w, 3)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_color_frames(root: str, names, scene):
+    """Rewrite the scans' colour frames as textured 968x1296 JPEGs (quality
+    90, 4:2:0) through the port's encoder; the scans are one scene under
+    several names, so each frame is encoded once. Returns (seconds, bytes a
+    frame)."""
+    from maskclustering_tpu_torch.io.jpeg import encode_jpeg
+
+    t0 = time.perf_counter()
+    sizes = []
+    for f in range(scene.segmentations.shape[0]):
+        data = encode_jpeg(textured_frame(scene.segmentations[f], f), COLOR_QUALITY)
+        sizes.append(len(data))
+        for name in names:
+            with open(os.path.join(root, "scannet", "processed", name, "color", f"{f}.jpg"),
+                      "wb") as fh:
+                fh.write(data)
+    return time.perf_counter() - t0, sum(sizes) / len(sizes)
+
+
+def jpeg_decode_ms(path: str) -> float:
+    """Decode time of one colour frame through ``read_rgb`` (host, best of 3)."""
+    from maskclustering_tpu_torch.io.image import read_rgb
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rgb = read_rgb(path)
+        times.append((time.perf_counter() - t0) * 1e3)
+    if rgb.shape != COLOR_HW + (3,):
+        raise AssertionError(f"{path} decodes to {rgb.shape}")
+    return min(times)
+
+
+def plane_digest_lane(dev, tensors, dense, mid_digests) -> None:
+    """Phase 11a: the plane lane. Phase 8's full-size scene on cuda against
+    a cpu run, full digest dicts; phase 9's mid-size dicts; the digest
+    program and its pull timed on the card."""
+    import torch
+
+    from maskclustering_tpu_torch.models import run_scene
+    from maskclustering_tpu_torch.models.pipeline import run_scene_device
+    from maskclustering_tpu_torch.obs.digest import digest_scene_device, vector_host
+
+    cfg = dense["cfg"]
+    # the cpu run takes the host post-process rung: the plane lane reads only
+    # the device phase, and both rungs give the same digest dict (the tests
+    # hold them equal); the device rung's plain torch DBSCAN is the slow part
+    # of a full-size scene on the host
+    t0 = time.perf_counter()
+    on_cpu = run_scene(tensors, cfg.replace(device_postprocess=False), k_max=63,
+                       seq_name="chip_smoke_dense", device="cpu")
+    cpu_s = time.perf_counter() - t0
+    _say(f"[digest] full-size scene: cuda {json.dumps(dense['scene_digest'])}, cpu "
+         f"{json.dumps(on_cpu.digest)} (cpu run, host post-process rung, {cpu_s:.1f} s; stage "
+         f"walls {json.dumps({k: round(v, 3) for k, v in on_cpu.timings.items()})})")
+    if not dense["scene_digest"]["plane"] or dense["scene_digest"] != on_cpu.digest:
+        raise AssertionError("the full-size scene's digest differs between cuda and cpu")
+    card, cpu = mid_digests
+    _say(f"[digest] mid-size scene: cuda {json.dumps(card)}, cpu {json.dumps(cpu)}")
+    if not card["plane"] or card != cpu:
+        raise AssertionError("the mid-size scene's digest differs between cuda and cpu")
+    handoff = run_scene_device(tensors, cfg, k_max=63, device=dev)
+    program_ms = cuda_time_ms(lambda: digest_scene_device(handoff), reps=20)
+    pulls = []
+    for _ in range(5):
+        vec = digest_scene_device(handoff)
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        vector_host(vec)
+        pulls.append((time.perf_counter() - t0) * 1e3)
+    f_pad, n_pad = handoff.first_id.shape
+    _say(f"[digest] scene digest program on the card: {program_ms:.4f} ms (CUDA events, mean of "
+         f"20) over ({f_pad}, {n_pad}) int16 claim planes, M_pad {handoff.table.m_pad}; its "
+         f"(8,) pull {min(pulls):.4f} ms (host clock, best of 5)")
+
+
+def semantic_steps(dev, scene, batch) -> None:
+    """Phase 11b: features, label_features, query and eval over phase 10's
+    full-size scans, their colour frames rewritten at 968x1296, on cuda over
+    all three scans and on cpu over the first; equal features, class-aware
+    npz and AP where both ran."""
+    import shutil
+
+    import numpy as np
+
+    from maskclustering_tpu_torch.run import evaluate_step, run_pipeline
+    from maskclustering_tpu_torch.semantics import representative_mask_index
+
+    root, cfg, pred = batch["root"], batch["cfg"], batch["pred"]
+    sec, per_frame = write_color_frames(root, BATCH_SCANS, scene)
+    color0 = os.path.join(root, "scannet", "processed", BATCH_SCANS[0], "color", "0.jpg")
+    _say(f"[semantic] wrote {scene.segmentations.shape[0]} textured {COLOR_HW[0]}x{COLOR_HW[1]} "
+         f"JPEG frames (quality {COLOR_QUALITY}, 4:2:0, {per_frame:.0f} bytes a frame) into "
+         f"{len(BATCH_SCANS)} scans in {sec:.1f} s; one frame decodes in "
+         f"{jpeg_decode_ms(color0):.1f} ms (host, best of 3)")
+    od = {name: np.load(os.path.join(root, "scannet", "processed", name, "output", "object",
+                                     cfg.config_name, "object_dict.npy"),
+                        allow_pickle=True).item() for name in BATCH_SCANS}
+    frames = {name: len({f for f, _ in representative_mask_index(od[name])})
+              for name in BATCH_SCANS}
+
+    def semantic_run(run_cfg, names, prediction_root, device):
+        rep = run_pipeline(run_cfg, names, steps=SEMANTIC_STEPS, resume=False, journal=False,
+                           prediction_root=prediction_root, encoder_spec=SEMANTIC_ENCODER,
+                           device=device)
+        if not rep.ok:
+            raise AssertionError(f"semantic steps on {device} failed: {rep.step_errors}")
+        return rep
+
+    card = semantic_run(cfg, BATCH_SCANS, pred, dev)
+    card_ap = evaluate_step(cfg, no_class=False, seq_names=BATCH_SCANS[:1], prediction_root=pred,
+                            device=dev)
+    cpu_cfg = cfg.replace(config_name="chip_smoke_semantic_cpu")
+    obj_dir = os.path.join(root, "scannet", "processed", BATCH_SCANS[0], "output", "object")
+    os.makedirs(os.path.join(obj_dir, cpu_cfg.config_name), exist_ok=True)
+    shutil.copy(os.path.join(obj_dir, cfg.config_name, "object_dict.npy"),
+                os.path.join(obj_dir, cpu_cfg.config_name, "object_dict.npy"))
+    cpu_pred = os.path.join(root, "prediction_semantic_cpu")
+    cpu = semantic_run(cpu_cfg, BATCH_SCANS[:1], cpu_pred, "cpu")
+    _say(f"[semantic] cuda over {len(BATCH_SCANS)} scans (encoder {SEMANTIC_ENCODER}): step "
+         f"seconds {json.dumps({k: round(v, 3) for k, v in card.step_seconds.items()})}; "
+         f"distinct colour frames decoded {json.dumps(frames)} "
+         f"({sum(frames.values())} in all, of {scene.segmentations.shape[0]} a scan)")
+    _say(f"[semantic] cpu over {BATCH_SCANS[0]}: step seconds "
+         f"{json.dumps({k: round(v, 3) for k, v in cpu.step_seconds.items()})}")
+
+    name = BATCH_SCANS[0]
+    feats = {}
+    for c in (cfg.config_name, cpu_cfg.config_name):
+        feats[c] = np.load(os.path.join(obj_dir, c, "open-vocabulary_features.npy"),
+                           allow_pickle=True).item()
+    a, b = feats[cfg.config_name], feats[cpu_cfg.config_name]
+    if list(a) != list(b) or not a or not all(
+            a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k]) for k in a):
+        raise AssertionError(f"{name}: the features of the cuda and cpu runs differ")
+    if any(v.shape != (1024,) or not np.isfinite(v).all() for v in a.values()):
+        raise AssertionError(f"{name}: features not finite (1024,) vectors")
+    with np.load(os.path.join(pred, cfg.config_name, f"{name}.npz")) as x, \
+            np.load(os.path.join(cpu_pred, cpu_cfg.config_name, f"{name}.npz")) as y:
+        if sorted(x.files) != sorted(y.files) or not all(
+                x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]) for k in x.files):
+            raise AssertionError(f"{name}: the class-aware npz of the cuda and cpu runs differ")
+        if x["pred_masks"].shape != (scene.scene_points.shape[0], len(od[name])):
+            raise AssertionError(f"{name}: pred_masks {x['pred_masks'].shape}")
+        classes = x["pred_classes"].tolist()
+    if not _ap_equal(card_ap, cpu.evaluation["eval"]):
+        raise AssertionError(f"{name}: the class-aware AP of the cuda and cpu runs differ")
+    ap = card.evaluation["eval"]
+    _say(f"[semantic] {name}: cuda == cpu (features {len(a)} x 1024 bit for bit, class-aware "
+         f"npz, AP table); classes {classes}; AP over the {len(BATCH_SCANS)} scans "
+         f"{ap['all_ap']:.4f} AP50 {ap['all_ap_50%']:.4f} (hash features: classes at random)")
 
 
 def main() -> int:
@@ -1130,11 +1321,15 @@ def main() -> int:
     dense = dense_default_full(dev, tensors)
 
     # 9. the default configuration, card against cpu, on the mid-size scene
-    dense_default_mid(dev)
+    mid_digests = dense_default_mid(dev)
 
     # 10. the batch driver on scans written to disk
     batch = batch_driver(dev, scene, make_scene(num_boxes=4, num_frames=12,
                                                 image_hw=(240, 320), seed=1))
+
+    # 11. the plane digest lane and the semantic steps
+    plane_digest_lane(dev, tensors, dense, mid_digests)
+    semantic_steps(dev, scene, batch)
 
     _say(f"[done] {time.perf_counter() - t_start:.1f} s")
     _say(card)

@@ -90,7 +90,7 @@ class BaseDataset(abc.ABC):
         raise NotImplementedError
 
     def get_label_features(self) -> Dict:
-        """Open-vocab text features, {label: feature} (semantic steps, A8)."""
+        """Open-vocab text features, {label: feature} (the query step)."""
         raise NotImplementedError
 
     def get_label_id(self) -> Tuple[Dict, Dict]:

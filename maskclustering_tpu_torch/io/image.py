@@ -2,15 +2,17 @@
 
 Depth PNGs are 16-bit millimetres (or 0.25 mm for Matterport3D);
 segmentation id-maps are 8- or 16-bit PNGs, resized to the depth
-resolution with nearest-neighbour sampling so ids stay intact. All PNG work
-goes through the port's own codec (``io/png.py``), never PIL or cv2.
+resolution with nearest-neighbour sampling so ids stay intact; colour
+frames are JPEG (or PNG). All of it goes through the port's own codecs
+(``io/png.py``, ``io/jpeg.py``), never PIL or cv2.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from maskclustering_tpu_torch.io.png import SIGNATURE, read_png, write_png
+from maskclustering_tpu_torch.io.jpeg import decode_jpeg
+from maskclustering_tpu_torch.io.png import SIGNATURE, decode_png, read_png, write_png
 
 
 def read_depth_png(path: str, depth_scale: float = 1000.0) -> np.ndarray:
@@ -28,19 +30,20 @@ def read_mask_png(path: str) -> np.ndarray:
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """Read a colour PNG as (H, W, 3) uint8 RGB.
+    """Read a colour frame as (H, W, 3) uint8 RGB (``io/image.py:49-56``).
 
-    The port has no JPEG decoder: the steps that decode colour frames (the
-    semantic steps) wait for ROADMAP A8, and the cluster path only lists
-    the colour directory.
+    JPEG decodes through ``io/jpeg.py``, pixel for pixel what cv2 and PIL
+    give (libjpeg-turbo's defaults); a greyscale file is replicated to three
+    channels, as both do. PNG keeps its route through ``io/png.py``.
     """
     with open(path, "rb") as f:
-        head = f.read(8)
-    if head != SIGNATURE:
-        raise NotImplementedError(
-            f"{path}: only PNG colour frames are decoded; JPEG decoding comes with "
-            f"the semantic steps (ROADMAP.md queue A, item A8)")
-    img = read_png(path)
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        img = decode_jpeg(data, name=path)
+        return img if img.ndim == 3 else np.repeat(img[:, :, None], 3, axis=2)
+    if data[:8] != SIGNATURE:
+        raise ValueError(f"{path}: neither a JPEG nor a PNG file")
+    img = decode_png(data)
     if img.dtype != np.uint8:
         raise ValueError(f"{path}: colour frames are 8-bit, got {img.dtype}")
     if img.ndim == 3 and img.shape[2] >= 3:

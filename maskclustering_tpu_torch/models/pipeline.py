@@ -14,8 +14,9 @@ Device traffic per scene: ``mask_valid`` comes back once, to build the
 mask table (the pipeline's one mid-program pull); the 20-float schedule is
 read once by the clustering loop; then the post-process rung pulls what it
 needs (the device rung a few scalars per phase and the survivors' bit
-planes; the host rung the claim planes). The pulls are counted in
-``timings``.
+planes; the host rung the claim planes), and the scene's digest vector
+(``obs/digest.py``) comes back beside the assignment. The pulls are
+counted in ``timings``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from maskclustering_tpu_torch.models.graph import (
 )
 from maskclustering_tpu_torch.models.postprocess import SceneObjects, export_artifacts
 from maskclustering_tpu_torch.models.postprocess_device import run_postprocess
+from maskclustering_tpu_torch.obs import digest as sentinel
 from maskclustering_tpu_torch.utils.compile_cache import max_seg_id, scene_pads
 
 log = logging.getLogger("maskclustering_tpu_torch")
@@ -54,6 +56,9 @@ class SceneResult(NamedTuple):
     table: MaskTable
     assignment: np.ndarray
     timings: Dict[str, float]
+    # the scene's invariant digest (``obs/digest.py``): both post-process
+    # rungs and both associations carry the plane lane
+    digest: Optional[Dict] = None
 
 
 class DeviceHandoff(NamedTuple):
@@ -213,14 +218,19 @@ def run_scene_host(handoff: DeviceHandoff, cfg: PipelineConfig, *,
     post_timings: Dict[str, float] = {}
     pulls = [0]
     t0 = time.perf_counter()
+    # the plane lane reads the handoff before any post-process kernel runs;
+    # its (8,) vector is pulled after, beside the assignment
+    digest_dev = sentinel.digest_scene_device(handoff)
     objects = run_postprocess(
         cfg, handoff.scene_points, handoff.first_id, handoff.last_id, handoff.table.frame,
         handoff.table.mask_id, handoff.active, handoff.assignment, handoff.node_visible,
         handoff.frame_ids, k_max=handoff.k_max, timings=post_timings, n_real=handoff.n_real,
         pulls=pulls)
     assignment = handoff.assignment.cpu().numpy()
-    if cfg.device_postprocess:
-        pulls[0] += 1  # the host rung pulled the assignment with the claim planes
+    digest_vec = sentinel.vector_host(digest_dev)
+    # the digest vector is one pull on either rung; the host rung pulled the
+    # assignment with the claim planes
+    pulls[0] += 2 if cfg.device_postprocess else 1
     timings["pulls"] = timings.get("pulls", 0) + pulls[0]
     timings["postprocess"] = time.perf_counter() - t0
     for k, v in post_timings.items():
@@ -235,10 +245,12 @@ def run_scene_host(handoff: DeviceHandoff, cfg: PipelineConfig, *,
                          top_k_repre=cfg.num_representative_masks)
         timings["export"] = time.perf_counter() - t1
 
+    digest = sentinel.compose_scene_digest(digest_vec, handoff, assignment, objects,
+                                           count_dtype=cfg.count_dtype)
     log.info("scene %s: %d objects, timings %s", handoff.seq_name,
              len(objects.point_ids_list), {k: round(v, 3) for k, v in timings.items()})
     return SceneResult(objects=objects, table=handoff.table, assignment=assignment,
-                       timings=timings)
+                       timings=timings, digest=digest)
 
 
 def run_scene(tensors: SceneTensors, cfg: PipelineConfig, *, k_max: Optional[int] = None,

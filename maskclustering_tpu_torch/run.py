@@ -4,7 +4,7 @@ Port of ``maskclustering_tpu/run.py:42-1345, 1361-1605``, for one process
 on one device:
 
     python -m maskclustering_tpu_torch.run --config scannet \\
-        --data_root DATA --seq_name_list a+b --steps masks,cluster,eval_ca
+        --data_root DATA --seq_name_list a+b --encoder hash:1024
 
 - **masks**: the 2D mask id-maps must exist for every scene (precomputed,
   or made by ``mask_command``); scenes without them are excluded.
@@ -21,16 +21,22 @@ on one device:
   sequential executor -> host post-process; a post-process capacity
   overflow heals on the last), and skips scenes a run journal records as
   done.
+- **features**: per-mask features of every scene's representative masks
+  (``semantics/features.py``), by the encoder of ``--encoder``: ``hash``
+  or ``hash:<dim>`` (the JAX default, a deterministic stand-in); ``hf:``
+  (CLIP) raises naming ROADMAP A8b before any scene runs;
+- **label_features**: the vocabulary's text features, cached on disk;
+- **query**: the class-aware prediction of every scene
+  (``semantics/query.py``);
 - **eval_ca** / **eval**: ScanNet-protocol AP of the class-agnostic /
-  class-labelled predictions (``evaluation/``). The class-labelled ones are
-  written by the ``query`` step, which waits for ROADMAP A8, so ``eval``
-  warns that there are none, as the JAX step does.
+  class-labelled predictions (``evaluation/``).
 
-The other JAX steps raise ``NotImplementedError`` naming their ROADMAP item
-before any scene runs, as do ``workers > 1`` and a mesh (A7). Everything
-runs on the CUDA card unless the caller passes ``device="cpu"``
-(``--device cpu``). Exit codes: 0 ok, 1 a scene or step failed, 143
-stopped by SIGTERM (the report and journal are still written).
+The defaults are the JAX package's seven steps. ``vis`` and ``top_images``
+raise ``NotImplementedError`` naming ROADMAP A14 before any scene runs, as
+do ``workers > 1`` and a mesh (A7). Everything runs on the CUDA card unless
+the caller passes ``device="cpu"`` (``--device cpu``). Exit codes: 0 ok, 1
+a scene or step failed, 143 stopped by SIGTERM (the report and journal are
+still written).
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ import traceback
 from collections import deque
 from typing import Dict, List, Optional, Sequence
 
+import numpy as np
+
 from maskclustering_tpu_torch.config import PipelineConfig, load_config
 from maskclustering_tpu_torch.datasets import get_dataset
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
@@ -52,22 +60,30 @@ from maskclustering_tpu_torch.models.pipeline import (
     run_scene_device,
     run_scene_host,
 )
-from maskclustering_tpu_torch.obs.digest import artifact_digest
-from maskclustering_tpu_torch.semantics.vocab import vocab_name
+from maskclustering_tpu_torch.obs.digest import digest_coord
+from maskclustering_tpu_torch.semantics import (
+    HashEncoder,
+    HFCLIPEncoder,
+    extract_label_features,
+    extract_mask_features,
+    get_vocab,
+    run_query,
+    save_mask_features,
+    vocab_name,
+)
+from maskclustering_tpu_torch.semantics.encoder import find_local_clip_checkpoint
 from maskclustering_tpu_torch.utils import faults
 from maskclustering_tpu_torch.utils.daemon_future import DaemonFuture
 
 log = logging.getLogger("maskclustering_tpu_torch")
 
 # the JAX package's steps (run.py:43-48); the port runs PORTED_STEPS
-ALL_STEPS = ("masks", "cluster", "eval_ca", "features", "label_features",
-             "query", "eval", "vis", "top_images")
-PORTED_STEPS = ("masks", "cluster", "eval_ca", "eval")
-# the JAX default adds features, label_features, query and eval (A8)
-DEFAULT_STEPS = ("masks", "cluster", "eval_ca")
+DEFAULT_STEPS = ("masks", "cluster", "eval_ca", "features", "label_features",
+                 "query", "eval")
+PORTED_STEPS = DEFAULT_STEPS
+ALL_STEPS = DEFAULT_STEPS + ("vis", "top_images")
 # steps not ported yet -> the ROADMAP.md queue-A item that ports them
-UNPORTED_STEPS = {"features": "A8", "label_features": "A8", "query": "A8",
-                  "vis": "A14", "top_images": "A14"}
+UNPORTED_STEPS = {"vis": "A14", "top_images": "A14"}
 
 # dataset -> (gt dir, split file) under data_root (run.py:50-59)
 _DATASET_LAYOUT = {
@@ -94,9 +110,10 @@ class SceneStatus:
     attempts: int = 1
     degradation_rung: int = 0
     error_class: str = ""
-    # {"artifact": artifact_digest} of the exported objects; the JAX
-    # package's plane lane waits for ROADMAP A5
+    # the scene's invariant digest (obs/digest.py) and the coordinate it
+    # was observed at, ``<bucket>|<count_dtype>|single|r<rung>|c0``
     digest: Optional[Dict] = None
+    digest_coord: str = ""
 
 
 @dataclasses.dataclass
@@ -105,6 +122,8 @@ class RunReport:
     step_seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
     scenes: List[SceneStatus] = dataclasses.field(default_factory=list)
     step_errors: Dict[str, str] = dataclasses.field(default_factory=dict)
+    # the local CLIP checkpoint directory found on disk, or None
+    clip_checkpoint: Optional[str] = None
     # AP summaries of the evaluation steps ({"eval_ca": avgs, "eval": ...};
     # None where a step found no predictions)
     evaluation: Dict[str, Optional[Dict]] = dataclasses.field(default_factory=dict)
@@ -134,6 +153,7 @@ class RunReport:
                 "step_seconds": self.step_seconds,
                 "scenes": [dataclasses.asdict(s) for s in self.scenes],
                 "step_errors": self.step_errors,
+                "clip_checkpoint": self.clip_checkpoint,
                 "evaluation": self.evaluation,
                 "obs": self.obs,
                 "faults": self.faults,
@@ -153,10 +173,23 @@ def get_seq_name_list(dataset: str, splits_dir: str = "splits",
         return [line.strip() for line in f if line.strip()]
 
 
-def check_steps(cfg: PipelineConfig, steps: Sequence[str], workers: int = 1) -> None:
+def make_encoder(spec: str):
+    """Encoder factory (``run.py:148-157``): ``hash[:dim]`` | ``hf:<local path>``
+    (the CLIP encoder, which raises: ROADMAP A8b)."""
+    if spec.startswith("hash"):
+        _, _, dim = spec.partition(":")
+        return HashEncoder(int(dim) if dim else 64)
+    if spec.startswith("hf:"):
+        return HFCLIPEncoder(spec[3:])
+    raise ValueError(f"unknown encoder spec {spec!r} (use hash[:dim] or hf:<path>)")
+
+
+def check_steps(cfg: PipelineConfig, steps: Sequence[str], workers: int = 1,
+                encoder_spec: str = "hash") -> None:
     """Raise, before any scene runs, for what the port cannot run: an
-    unknown step (``ValueError``), an unported step, ``workers > 1`` or a
-    configuration ``models.pipeline`` refuses (``NotImplementedError``)."""
+    unknown step or encoder spec (``ValueError``), an unported step or
+    encoder, ``workers > 1`` or a configuration ``models.pipeline`` refuses
+    (``NotImplementedError``)."""
     unknown = set(steps) - set(ALL_STEPS)
     if unknown:
         raise ValueError(f"unknown steps {sorted(unknown)}; valid: {ALL_STEPS}")
@@ -165,6 +198,8 @@ def check_steps(cfg: PipelineConfig, steps: Sequence[str], workers: int = 1) -> 
             raise NotImplementedError(
                 f"step {step!r} is not ported yet: ROADMAP.md queue A, item "
                 f"{UNPORTED_STEPS[step]} (ported steps: {PORTED_STEPS})")
+    if {"features", "label_features"} & set(steps):
+        make_encoder(encoder_spec)
     if workers > 1:
         raise NotImplementedError(
             "workers > 1 (one process per scene shard) is not ported yet: "
@@ -262,7 +297,15 @@ class _FaultCtx:
 def _ok_status(seq: str, seconds: float, result) -> SceneStatus:
     return SceneStatus(seq, "ok", seconds, num_objects=len(result.objects.point_ids_list),
                        timings={k: round(v, 4) for k, v in result.timings.items()},
-                       digest={"artifact": artifact_digest(result.objects)})
+                       digest=result.digest)
+
+
+def _stamp_coord(st: SceneStatus, cfg: PipelineConfig) -> SceneStatus:
+    """Stamp the digest's coordinate on a rung-attributed SceneStatus
+    (``run.py:272-285``): one device, the rung it ran at, batch (chunk 0)."""
+    st.digest_coord = digest_coord(st.digest, mesh="single", rung=st.degradation_rung,
+                                   chunk=cfg.streaming_chunk)
+    return st
 
 
 def _failed_status(seq: str, seconds: float, exc: BaseException) -> SceneStatus:
@@ -301,7 +344,8 @@ def cluster_scene(cfg: PipelineConfig, seq_name: str, *, resume: bool = True,
                                    object_dict_dir=ds.object_dict_dir,
                                    prediction_root=prediction_root),
             cfg.watchdog_host_s, seam="host", scene=seq_name)
-        return ctx.finish(_ok_status(seq_name, time.perf_counter() - t0, result))
+        return _stamp_coord(ctx.finish(_ok_status(seq_name, time.perf_counter() - t0, result)),
+                            cfg)
     except Exception as e:
         log.exception("scene %s failed", seq_name)
         return ctx.finish(_failed_status(seq_name, time.perf_counter() - t0, e))
@@ -390,7 +434,7 @@ def _cluster_scenes_overlapped(cfg: PipelineConfig, seq_names: Sequence[str], *,
             err.seconds = t_end - t0
             statuses[seq] = ctx.finish(err)
             return
-        statuses[seq] = ctx.finish(_ok_status(seq, t_end - t0, result))
+        statuses[seq] = _stamp_coord(ctx.finish(_ok_status(seq, t_end - t0, result)), cfg)
 
     for seq, resolve in _prefetched_loads(cfg, seq_names, resume, prediction_root,
                                           depth=cfg.prefetch_depth):
@@ -584,6 +628,61 @@ def evaluate_step(cfg: PipelineConfig, *, no_class: bool,
 
 
 # ---------------------------------------------------------------------------
+# steps 4-6: semantics
+# ---------------------------------------------------------------------------
+
+
+def features_step(cfg: PipelineConfig, seq_names: Sequence[str], encoder, *,
+                  resume: bool = True, device: DeviceLike = None) -> None:
+    """Step 4 (``run.py:981-996``): per-mask features of every scene's
+    representative masks. A scene without an object dict is skipped."""
+    device = resolve_device(device)
+    for seq in seq_names:
+        ds = get_dataset(cfg.dataset, seq, data_root=cfg.data_root)
+        out_path = os.path.join(ds.object_dict_dir, cfg.config_name,
+                                "open-vocabulary_features.npy")
+        if resume and os.path.exists(out_path):
+            continue
+        od_path = os.path.join(ds.object_dict_dir, cfg.config_name, "object_dict.npy")
+        if not os.path.exists(od_path):
+            log.warning("no object_dict for %s; run the cluster step first", seq)
+            continue
+        object_dict = np.load(od_path, allow_pickle=True).item()
+        feats = extract_mask_features(ds, object_dict, encoder, device=device)
+        save_mask_features(feats, ds.object_dict_dir, cfg.config_name)
+
+
+def label_features_step(cfg: PipelineConfig, encoder, *, resume: bool = True) -> str:
+    """Step 5 (``run.py:999-1008``): the vocabulary's text features, cached at
+    ``<data_root>/text_features/<vocab>.npy``."""
+    path = os.path.join(cfg.data_root, "text_features", f"{vocab_name(cfg.dataset)}.npy")
+    if resume and os.path.exists(path):
+        return path
+    labels, _ = get_vocab(cfg.dataset)
+    return extract_label_features(labels, encoder, path)
+
+
+def query_step(cfg: PipelineConfig, seq_names: Sequence[str], *, resume: bool = True,
+               prediction_root: Optional[str] = None, device: DeviceLike = None) -> None:
+    """Step 6 (``run.py:1011-1028``): the class-aware npz of every scene. A
+    scene missing its object dict or features is skipped, not fatal."""
+    device = resolve_device(device)
+    prediction_root = prediction_root or os.path.join(cfg.data_root, "prediction")
+    for seq in seq_names:
+        out_path = os.path.join(prediction_root, cfg.config_name, f"{seq}.npz")
+        if resume and os.path.exists(out_path):
+            continue
+        ds = get_dataset(cfg.dataset, seq, data_root=cfg.data_root)
+        needed = [os.path.join(ds.object_dict_dir, cfg.config_name, n)
+                  for n in ("object_dict.npy", "open-vocabulary_features.npy")]
+        missing = [p for p in needed if not os.path.exists(p)]
+        if missing:
+            log.warning("skipping query for %s: missing %s", seq, missing)
+            continue
+        run_query(ds, cfg.config_name, seq, prediction_root=prediction_root, device=device)
+
+
+# ---------------------------------------------------------------------------
 # pipeline driver
 # ---------------------------------------------------------------------------
 
@@ -600,20 +699,22 @@ def run_pipeline(
     journal_path: Optional[str] = None,
     journal: bool = True,
     prediction_root: Optional[str] = None,
+    encoder_spec: str = "hash",
     device: DeviceLike = None,
 ) -> RunReport:
     """Run ``steps`` over ``seq_names`` (``run.py:1102-1345``).
 
-    Raises before any scene runs for an unknown or unported step, ``workers
-    > 1``, a refused configuration or a missing card (``device=None``).
-    A failed scene or step is recorded in the report, not raised.
-    ``prediction_root`` defaults to ``<data_root>/prediction``.
+    Raises before any scene runs for an unknown or unported step or
+    encoder, ``workers > 1``, a refused configuration or a missing card
+    (``device=None``). A failed scene or step is recorded in the report,
+    not raised. ``prediction_root`` defaults to ``<data_root>/prediction``.
     """
-    check_steps(cfg, steps, workers)
+    check_steps(cfg, steps, workers, encoder_spec)
     device = resolve_device(device)
     if cfg.debug:
         log.setLevel(logging.DEBUG)
-    report = RunReport(config_name=cfg.config_name)
+    report = RunReport(config_name=cfg.config_name,
+                       clip_checkpoint=find_local_clip_checkpoint())
 
     def timed(name, fn):
         t0 = time.perf_counter()
@@ -659,11 +760,27 @@ def run_pipeline(
         if report.faults["scene_retries"] or report.faults["degradations"]:
             log.warning("fault summary: %s", report.faults)
 
-    for step, no_class in (("eval_ca", True), ("eval", False)):
-        if step in steps:
-            report.evaluation[step] = timed(step, lambda no_class=no_class: evaluate_step(
-                cfg, no_class=no_class, seq_names=seq_names, prediction_root=prediction_root,
-                device=device))
+    def evaluate(step: str, no_class: bool) -> None:
+        report.evaluation[step] = timed(step, lambda: evaluate_step(
+            cfg, no_class=no_class, seq_names=seq_names, prediction_root=prediction_root,
+            device=device))
+
+    # the JAX order (run.py:1277-1289)
+    if "eval_ca" in steps:
+        evaluate("eval_ca", True)
+    encoder = None
+    if {"features", "label_features"} & set(steps):
+        encoder = make_encoder(encoder_spec)
+    if "features" in steps:
+        timed("features", lambda: features_step(cfg, seq_names, encoder, resume=resume,
+                                                device=device))
+    if "label_features" in steps:
+        timed("label_features", lambda: label_features_step(cfg, encoder, resume=resume))
+    if "query" in steps:
+        timed("query", lambda: query_step(cfg, seq_names, resume=resume,
+                                          prediction_root=prediction_root, device=device))
+    if "eval" in steps:
+        evaluate("eval", False)
 
     if report_path:
         report.save(report_path)
@@ -689,6 +806,9 @@ def main(argv=None) -> int:
                         help="serialize the scene loop (artifacts are identical)")
     parser.add_argument("--no-resume", action="store_true",
                         help="recompute even when artifacts exist")
+    parser.add_argument("--encoder", default="hash",
+                        help="feature encoder spec: hash[:dim] (hf:<local path>, CLIP, is "
+                             "not ported yet)")
     parser.add_argument("--report", default=None, help="run report JSON path")
     parser.add_argument("--journal", default=None,
                         help="crash-safe scene journal JSONL (default: "
@@ -729,7 +849,7 @@ def main(argv=None) -> int:
     report = run_pipeline(cfg, seq_names, steps=tuple(s for s in args.steps.split(",") if s),
                           resume=not args.no_resume, report_path=args.report,
                           journal_path=args.journal, journal=not args.no_journal,
-                          device=args.device)
+                          encoder_spec=args.encoder, device=args.device)
     total = time.time() - t0
     log.info("total time %.1f min (%.1f s/scene)", total / 60, total / max(len(seq_names), 1))
     if report.interrupted or faults.stop_requested():

@@ -21,7 +21,12 @@ scene retry, not the run.
 The port's ladder keeps only the rungs that change what the port does:
 ``sequential-executor`` and ``host-postprocess``. The JAX rungs
 ``single-chip`` (the port runs no mesh yet, ROADMAP A7) and
-``donation-off`` (torch has no buffer donation) have no torch meaning.
+``donation-off`` (torch has no buffer donation) have no torch meaning. So
+the rung numbers differ between the packages on the same scan: at the
+default config a post-process capacity overflow heals on the port's rung
+2 at attempt 3, on JAX's rung 3 at attempt 4, with equal artifacts and
+digests. ``SceneStatus.degradation_rung``, the journal's ``rung`` rows and
+the ``r`` field of ``digest_coord`` follow each package's own ladder.
 Not here yet: ``FaultPlan`` and its drills (a ROADMAP item of their own),
 and the metrics counters and flight-recorder marks (ROADMAP A9), which the
 JAX module books at these sites.

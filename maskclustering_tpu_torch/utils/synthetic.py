@@ -18,8 +18,8 @@ import numpy as np
 
 from maskclustering_tpu_torch.datasets.base import SceneTensors
 from maskclustering_tpu_torch.io.image import write_depth_png, write_mask_png
+from maskclustering_tpu_torch.io.jpeg import write_jpeg
 from maskclustering_tpu_torch.io.ply import write_ply_points
-from maskclustering_tpu_torch.io.png import write_png
 
 
 @dataclasses.dataclass
@@ -242,11 +242,11 @@ def write_scannet_layout(scene: SyntheticScene, data_root: str, seq_name: str,
     Produces what ``ScanNetDataset`` and the batch driver read: depth/
     (16-bit millimetres), output/mask/ id-maps, pose/, intrinsic/, the
     vh_clean_2 cloud, color/, and a benchmark GT txt (label * 1000 + inst +
-    1; the unannotated floor = 1) under ``<data_root>/scannet/gt``. The JAX
-    writer stores color frames as JPEG; the port has no JPEG encoder, and
-    the cluster path only lists color/ (``get_frame_list``), never decodes
-    it, so the color frames are PNG files named ``<frame id>.png``, which
-    both packages' loaders list alike.
+    1; the unannotated floor = 1) under ``<data_root>/scannet/gt``. The
+    colour frames are ``<frame id>.jpg`` with the JAX writer's pixels (the
+    id-map times 40, mod 256, as grey RGB), encoded by the port's baseline
+    4:2:0 quality-75 encoder (``io/jpeg.py``) where the JAX writer uses
+    PIL's: the files differ in bytes, not in kind.
     """
     root = os.path.join(data_root, "scannet", "processed", seq_name)
     for sub in ("color", "depth", "pose", "intrinsic", os.path.join("output", "mask")):
@@ -258,8 +258,8 @@ def write_scannet_layout(scene: SyntheticScene, data_root: str, seq_name: str,
         write_depth_png(os.path.join(root, "depth", f"{fid}.png"), scene.depths[f] * 1000.0)
         seg = scene.segmentations[f]
         write_mask_png(os.path.join(root, "output", "mask", f"{fid}.png"), seg)
-        write_png(os.path.join(root, "color", f"{fid}.png"),
-                  np.stack([(seg * 40 % 256).astype(np.uint8)] * 3, axis=-1))
+        write_jpeg(os.path.join(root, "color", f"{fid}.jpg"),
+                   np.stack([(seg * 40 % 256).astype(np.uint8)] * 3, axis=-1))
         np.savetxt(os.path.join(root, "pose", f"{fid}.txt"),
                    scene.cam_to_world[f].astype(np.float64))
     write_ply_points(os.path.join(root, f"{seq_name}_vh_clean_2.ply"), scene.scene_points)

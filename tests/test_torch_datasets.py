@@ -235,5 +235,15 @@ def test_write_scannet_layout_loads_like_jax(seed, wide_ids, tmp_path):
     np.testing.assert_array_equal(want.depths, (np.round(scene.depths * 1000.0)).astype(
         np.float32) * np.float32(1 / 1000.0))
     np.testing.assert_array_equal(want.segmentations, scene.segmentations)
+    # colour frames: <id>.jpg in both layouts, decoded alike by both readers
+    color = "scannet/processed/scene0000_00/color"
+    assert sorted(os.listdir(os.path.join(root, "port", color))) == \
+        sorted(os.listdir(os.path.join(root, "jax", color))) == [f"{i}.jpg" for i in range(5)]
+    for layout in ("port", "jax"):
+        data_root = os.path.join(root, layout)
+        ours = get_dataset("scannet", "scene0000_00", data_root=data_root)
+        theirs = jax_get_dataset("scannet", "scene0000_00", data_root=data_root)
+        for fid in range(5):
+            np.testing.assert_array_equal(ours.get_rgb(fid), theirs.get_rgb(fid))
     gt = "scannet/gt/scene0000_00.txt"
     assert open(os.path.join(root, "port", gt)).read() == open(os.path.join(root, "jax", gt)).read()

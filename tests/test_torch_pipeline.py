@@ -82,6 +82,7 @@ def runs(request, tmp_path_factory):
 def test_artifact_digest_and_assignment_match_jax(runs):
     want, got = runs["jax"][0], runs["port"][0]
     assert artifact_digest(got.objects) == jax_artifact_digest(want.objects)
+    assert got.digest == want.digest and got.digest["plane"]
     assert len(got.objects.point_ids_list) >= 3
     assert got.assignment.dtype == np.int32
     np.testing.assert_array_equal(got.assignment, np.asarray(want.assignment))
@@ -107,7 +108,8 @@ def test_exported_artifacts_match_jax(runs):
         np.testing.assert_array_equal(got_od[i]["point_ids"], obj["point_ids"])
         assert got_od[i]["mask_list"] == obj["mask_list"]
         assert got_od[i]["repre_mask_list"] == obj["repre_mask_list"]
-    assert got.timings["pulls"] == 7  # mask_valid, schedule, five post-process planes
+    # mask_valid, schedule, five post-process planes, the digest vector
+    assert got.timings["pulls"] == 8
 
 
 def test_run_scene_defaults_to_cuda():
@@ -140,6 +142,7 @@ def _compare_with_jax(scene, cfg, k_max=31):
                     from_jax_config(dataclasses.asdict(cfg)), k_max=k_max, seq_name=scene,
                     device="cpu")
     assert artifact_digest(got.objects) == jax_artifact_digest(want.objects)
+    assert got.digest == want.digest
     assert len(got.objects.point_ids_list) >= 3
     np.testing.assert_array_equal(got.assignment, np.asarray(want.assignment))
     for field in want.table._fields:
@@ -154,8 +157,9 @@ def test_default_configuration_matches_jax(scene, count_dtype):
     """The default configuration: dense association, device post-process."""
     cfg = _cfg(count_dtype).replace(use_exact_ball_query=False, device_postprocess=True)
     got = _compare_with_jax(scene, cfg)
-    # mask_valid, schedule, 15 device post-process pulls, the assignment
-    assert got.timings["pulls"] == 18
+    # mask_valid, schedule, 15 device post-process pulls, the assignment,
+    # the digest vector
+    assert got.timings["pulls"] == 19
 
 
 def test_dense_association_with_host_rung_matches_jax():
@@ -186,8 +190,11 @@ def test_scannet_config_runs_with_no_overrides():
     (0, 10, 16000, 14, "0ae5783a"), (1, 34, 60000, 100, "742bb72e")])
 def test_canary_goldens_reproduced(idx, frames, points, max_id, golden):
     """The committed canary scenes (built as ``serve/router.py:158-188``
-    does, under ``obs/canary.goldens_config()``) give the goldens'
-    artifact digests."""
+    does, under ``obs/canary.goldens_config()``) give the goldens' digest
+    dicts in full: plane, artifact, bucket, count_dtype, nan_inf and v, at
+    the coordinate each golden is stored under."""
+    from maskclustering_tpu_torch.obs.digest import digest_coord
+
     import json
 
     from maskclustering_tpu.obs.canary import goldens_config
@@ -203,6 +210,10 @@ def test_canary_goldens_reproduced(idx, frames, points, max_id, golden):
     res = run_scene(tensors, from_jax_config(dataclasses.asdict(goldens_config())),
                     device="cpu")
     assert artifact_digest(res.objects) == golden
+    coord = digest_coord(res.digest)
+    want = {k: v for k, v in goldens[coord].items() if k != "scene"}
+    assert res.digest == want
+    assert want["artifact"] == golden and want["plane"] in ("57810067", "c4c735f3")
 
 
 def test_streaming_configuration_raises():
@@ -226,18 +237,22 @@ def test_from_jax_config_rejects_unknown_keys():
 
 def test_port_imports_no_jax_and_no_reference_package():
     """Every module of the port, imported in a fresh interpreter, pulls in
-    neither jax nor anything of maskclustering_tpu, nor PIL or cv2 (the
-    card's machine has neither; the port decodes PNG itself)."""
+    neither jax nor anything of maskclustering_tpu, nor PIL, cv2 or
+    transformers (the card's machine has none of them; the port decodes PNG
+    and JPEG itself)."""
     code = r"""
 import importlib, pkgutil, sys
 import maskclustering_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
+for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.features",
+             "semantics.query", "io.jpeg", "obs.digest"):
+    assert pkg.__name__ + "." + name in names, name
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "maskclustering_tpu", "PIL", "cv2"))
+             if m.split(".")[0] in ("jax", "maskclustering_tpu", "PIL", "cv2", "transformers"))
 assert not bad, bad
-assert len(names) >= 30, names
+assert len(names) >= 35, names
 print(len(names))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}

@@ -1,14 +1,17 @@
 """The port's batch driver against the JAX package's, on scans written to disk.
 
 Three tiny synthetic scans in the ScanNet layout (the JAX
-``write_scannet_layout``) go through the JAX ``run_pipeline`` and the
-port's (``device="cpu"``) with ``steps=("cluster", "eval_ca")``: equal
-statuses, object counts, artifact digests, exported npz arrays, object
-dicts and AP. The port's overlapped executor equals its sequential loop;
-the run journal skips finished scenes; a post-process capacity overflow
-heals on the ``host-postprocess`` rung; unported steps, ``workers > 1`` and
-refused configurations raise before any scene runs; a missing GT file is a
-step error; ``main`` exits 0, 1 and 143 where the JAX ``main`` does.
+``write_scannet_layout``, so the colour frames are PIL JPEGs) go through the
+JAX ``run_pipeline`` and the port's (``device="cpu"``) with the seven
+default steps and the default hash encoder: equal statuses, object counts,
+digest dicts and coordinates, exported npz arrays, object dicts, features,
+class-aware predictions and both AP tables. The port's overlapped executor
+equals its sequential loop; the run journal skips finished scenes; a
+post-process capacity overflow heals on the ``host-postprocess`` rung, at
+the rung the JAX ladder maps to; unported steps and encoders, ``workers >
+1`` and refused configurations raise before any scene runs; a missing GT
+file is a step error; ``main`` exits 0, 1 and 143 where the JAX ``main``
+does.
 """
 
 import math
@@ -27,7 +30,9 @@ from maskclustering_tpu.run import run_pipeline as jax_run_pipeline
 from maskclustering_tpu.utils import faults as jax_faults
 from maskclustering_tpu.utils.synthetic import make_scene, write_scannet_layout
 from maskclustering_tpu_torch.config import load_config
+from maskclustering_tpu.run import DEFAULT_STEPS as JAX_DEFAULT_STEPS
 from maskclustering_tpu_torch.run import (
+    DEFAULT_STEPS,
     check_masks,
     get_seq_name_list,
     main,
@@ -60,10 +65,12 @@ def runs(tmp_path_factory):
     root = str(tmp_path_factory.mktemp("data"))
     _write_scenes(root)
     jax_cfg = jax_load_config("scannet").replace(data_root=root, config_name="jx", **KW)
+    # both packages' default steps, with the default encoder (hash, 64 wide)
     out = {"root": root,
-           "jx": jax_run_pipeline(jax_cfg, NAMES, steps=STEPS, resume=False),
-           "jx_ap": jax_evaluate_step(jax_cfg, no_class=True, seq_names=NAMES)}
-    out["ov"] = run_pipeline(_cfg(root, "ov"), NAMES, steps=STEPS, resume=False, device="cpu")
+           "jx": jax_run_pipeline(jax_cfg, NAMES, resume=False),
+           "jx_ap": jax_evaluate_step(jax_cfg, no_class=True, seq_names=NAMES),
+           "jx_class_ap": jax_evaluate_step(jax_cfg, no_class=False, seq_names=NAMES)}
+    out["ov"] = run_pipeline(_cfg(root, "ov"), NAMES, resume=False, device="cpu")
     out["sq"] = run_pipeline(_cfg(root, "sq", scene_overlap=False), NAMES, steps=STEPS,
                              resume=False, device="cpu")
     return out
@@ -102,7 +109,8 @@ def test_statuses_and_objects_equal_jax(runs):
         assert (got.seq_name, got.status, got.num_objects, got.attempts, got.degradation_rung,
                 got.error_class) == (want.seq_name, want.status, want.num_objects,
                                      want.attempts, want.degradation_rung, want.error_class)
-        assert got.digest == {"artifact": want.digest["artifact"]}
+        assert got.digest == want.digest and got.digest["plane"]
+        assert got.digest_coord == want.digest_coord == "k63:f32:n16384|bf16|single|r0|c0"
         assert got.num_objects == 3
     assert ov.faults == {"scene_retries": 0, "device_stalls": 0, "journal_skips": 0,
                          "degradations": {}, "final_rung": 0, "interrupted": False}
@@ -119,6 +127,42 @@ def test_ap_equal_jax(runs):
     ev = os.path.join(runs["root"], "evaluation", "scannet")
     assert (open(os.path.join(ev, "ov_class_agnostic.txt")).read()
             == open(os.path.join(ev, "jx_class_agnostic.txt")).read())
+
+
+def test_default_steps_are_the_jax_defaults(runs):
+    assert DEFAULT_STEPS == JAX_DEFAULT_STEPS
+    assert runs["ov"].ok and not runs["ov"].step_errors
+    assert set(runs["ov"].step_seconds) == set(DEFAULT_STEPS)
+    assert runs["ov"].clip_checkpoint is None  # no CLIP weights on this machine
+
+
+def test_features_equal_jax_bit_for_bit(runs):
+    for seq in NAMES:
+        od = os.path.join(runs["root"], "scannet", "processed", seq, "output", "object")
+        want = np.load(os.path.join(od, "jx", "open-vocabulary_features.npy"),
+                       allow_pickle=True).item()
+        got = np.load(os.path.join(od, "ov", "open-vocabulary_features.npy"),
+                      allow_pickle=True).item()
+        assert list(got) == list(want) and want
+        for key in want:
+            assert got[key].dtype == want[key].dtype == np.float32 and got[key].shape == (64,)
+            np.testing.assert_array_equal(got[key], want[key], err_msg=f"{seq} {key}")
+
+
+def test_class_predictions_and_class_ap_equal_jax(runs):
+    root = runs["root"]
+    for seq in NAMES:
+        with np.load(os.path.join(root, "prediction", "jx", f"{seq}.npz")) as a, \
+                np.load(os.path.join(root, "prediction", "ov", f"{seq}.npz")) as b:
+            assert sorted(a.files) == sorted(b.files) == ["pred_classes", "pred_masks",
+                                                          "pred_score"]
+            for key in a.files:
+                assert a[key].dtype == b[key].dtype, key
+                np.testing.assert_array_equal(b[key], a[key], err_msg=f"{seq} {key}")
+    got = runs["ov"].evaluation["eval"]
+    assert got is not None and _equal_with_nan(got, runs["jx_class_ap"])
+    ev = os.path.join(root, "evaluation", "scannet")
+    assert open(os.path.join(ev, "ov.txt")).read() == open(os.path.join(ev, "jx.txt")).read()
 
 
 def test_overlapped_equals_sequential(runs):
@@ -174,9 +218,33 @@ def test_capacity_overflow_heals_on_host_postprocess_rung(runs, tmp_path):
     _assert_same_artifacts(root, "ladder", "jx", NAMES[:1])
 
 
+def test_ladder_heals_at_the_rung_the_jax_ladder_maps_to(runs):
+    """The same overflowing scan through both packages' ladders: the JAX
+    ladder heals at attempt 4 on rung 3 (after an inert donation-off rung),
+    the port's at attempt 3 on rung 2. Artifacts and the plane and
+    artifact digests are equal; the coordinate differs in its rung only."""
+    root = runs["root"]
+    jax_cfg = jax_load_config("scannet").replace(
+        data_root=root, config_name="jladder", post_neighbor_cap=2, retry_backoff_s=0.0, **KW)
+    want = jax_run_pipeline(jax_cfg, NAMES[:1], steps=("cluster",), resume=False,
+                            journal=False)
+    got = run_pipeline(_cfg(root, "pladder", post_neighbor_cap=2, retry_backoff_s=0.0),
+                       NAMES[:1], steps=("cluster",), resume=False, journal=False,
+                       device="cpu")
+    (w,), (g,) = want.scenes, got.scenes
+    assert (w.status, w.attempts, w.degradation_rung) == ("ok", 4, 3)
+    assert (g.status, g.attempts, g.degradation_rung) == ("ok", 3, 2)
+    assert list(want.faults["degradations"]) == [
+        "sequential-executor", "donation-off", "host-postprocess"]
+    assert list(got.faults["degradations"]) == ["sequential-executor", "host-postprocess"]
+    assert g.digest == w.digest and g.digest["plane"]
+    assert g.digest_coord == w.digest_coord.replace("|r3|", "|r2|") != w.digest_coord
+    _assert_same_artifacts(root, "pladder", "jladder", NAMES[:1])
+
+
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(steps=("cluster", "features")), "A8"),
-    (dict(steps=("query",)), "A8"),
+    (dict(steps=DEFAULT_STEPS, encoder_spec="hf:/no/such/clip"), "A8b"),
+    (dict(steps=("label_features",), encoder_spec="hf:/no/such/clip"), "A8b"),
     (dict(steps=("cluster", "vis")), "A14"),
     (dict(steps=("top_images",)), "A14"),
     (dict(workers=2), "A7"),
@@ -211,8 +279,9 @@ def test_missing_gt_is_a_recorded_step_error(tmp_path):
 
 
 def test_eval_without_class_predictions_warns(runs):
-    """The class-labelled predictions come from the query step (A8)."""
-    rep = run_pipeline(_cfg(runs["root"], "ov"), NAMES, steps=("eval",), device="cpu")
+    """The class-labelled predictions come from the query step, which the
+    ``sq`` run did not take: ``eval`` warns and records no AP."""
+    rep = run_pipeline(_cfg(runs["root"], "sq"), NAMES, steps=("eval",), device="cpu")
     assert rep.ok and rep.evaluation == {"eval": None}
 
 
@@ -240,8 +309,8 @@ def test_main_exit_codes_match_jax(runs, tmp_path, restore_sigterm):
     root = runs["root"]
     common = ["--config", "scannet", "--data_root", root, "--no-resume"]
     report = str(tmp_path / "report.json")
-    # the default steps (masks, cluster, eval_ca) on one scene: rc 0, the
-    # report and its journal written
+    # the seven default steps on one scene: rc 0, the report and its
+    # journal written
     assert main(common + ["--seq_name_list", NAMES[0], "--report", report,
                           "--device", "cpu"]) == 0
     assert os.path.exists(report) and os.path.exists(tmp_path / "run_journal.jsonl")
