@@ -78,6 +78,21 @@ Imports nothing of JAX or of the JAX package. In order:
     ``cuda`` over the three and on ``cpu`` over the first: equal features
     (bit for bit), class-aware npz and AP. Printed: one frame's decode
     time, the step seconds and the distinct frames decoded.
+12. the CLIP encoder at ViT-H-14's full width (open_clip's ViT-H-14, the
+    reference's ``laion2b_s32b_b79k`` shapes: image tower 1280 wide, 32
+    layers, 16 heads, patch 14 at 224; text tower 1024 wide, 24 layers,
+    vocabulary 49,408; projection 1024), its weights drawn from a seeded
+    ``torch.Generator`` and written in the open_clip layout under
+    ``build/chip_smoke_clip`` with a byte-level tokenizer and a 224-pixel
+    preprocessor (bytes, write and load seconds). Eight crops of phase 11's
+    textured frames and sixteen labels encoded on ``cuda`` and on ``cpu``:
+    at most 1e-4 apart (max abs difference and least cosine printed). The
+    image tower's ms a crop at batch 64 and the text tower's ms a label
+    (CUDA events), each beside its FP32 bound, and the peak device memory.
+    Then ``features, label_features, query, eval`` with ``--encoder
+    hf:build/chip_smoke_clip`` on ``cuda`` over the first full-size scan:
+    the encoder's weights all on the card, 1024-wide finite features, a
+    198 x 1024 label file of unit vectors, classes in the vocabulary.
 
 Any mismatch or failure exits non-zero. The last three lines are the card
 line, the per-kernel JSON and the result JSON.
@@ -127,6 +142,19 @@ COLOR_HW = (968, 1296)
 COLOR_QUALITY = 90
 SEMANTIC_ENCODER = "hash:1024"
 SEMANTIC_STEPS = ("features", "label_features", "query", "eval")
+# phase 12: open_clip's ViT-H-14 (the reference checkpoint laion2b_s32b_b79k)
+# at full width, random weights from a seed
+VIT_H14 = {"embed_dim": 1024,
+           "vision_cfg": {"image_size": 224, "layers": 32, "width": 1280, "head_width": 80,
+                          "patch_size": 14, "mlp_ratio": 4.0},
+           "text_cfg": {"context_length": 77, "vocab_size": 49408, "width": 1024, "heads": 16,
+                        "layers": 24}}
+CLIP_SEED = 0
+CLIP_MERGES = 400
+CLIP_CROPS = 8
+CLIP_LABELS = 16
+CLIP_BATCH = 64
+CLIP_TOLERANCE = 1e-4
 
 
 def _say(msg: str) -> None:
@@ -1190,6 +1218,289 @@ def semantic_steps(dev, scene, batch) -> None:
          f"{ap['all_ap']:.4f} AP50 {ap['all_ap_50%']:.4f} (hash features: classes at random)")
 
 
+def vit_h14_state_dict(seed: int):
+    """open_clip ViT-H-14 weights (classic layout) drawn from a seeded
+    generator: matrices and embeddings N(0, 0.02), LayerNorm weights 1 +
+    N(0, 0.02) and biases N(0, 0.02), so 32 and 24 pre-LN blocks stay well
+    conditioned."""
+    import torch
+
+    g = torch.Generator().manual_seed(seed)
+    vis, txt = VIT_H14["vision_cfg"], VIT_H14["text_cfg"]
+    vw, tw, embed = vis["width"], txt["width"], VIT_H14["embed_dim"]
+    patch, grid = vis["patch_size"], vis["image_size"] // vis["patch_size"]
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g) * 0.02
+
+    sd = {"visual.class_embedding": rand(vw),
+          "visual.positional_embedding": rand(grid * grid + 1, vw),
+          "visual.conv1.weight": rand(vw, 3, patch, patch),
+          "visual.proj": rand(vw, embed),
+          "token_embedding.weight": rand(txt["vocab_size"], tw),
+          "positional_embedding": rand(txt["context_length"], tw),
+          "text_projection": rand(tw, embed),
+          "logit_scale": torch.tensor(4.6052)}
+    for name, w in (("visual.ln_pre", vw), ("visual.ln_post", vw), ("ln_final", tw)):
+        sd[name + ".weight"], sd[name + ".bias"] = 1 + rand(w), rand(w)
+    for root, w, layers in (("visual.transformer", vw, vis["layers"]),
+                            ("transformer", tw, txt["layers"])):
+        mlp = int(w * 4)
+        for i in range(layers):
+            p = f"{root}.resblocks.{i}."
+            sd[p + "ln_1.weight"], sd[p + "ln_1.bias"] = 1 + rand(w), rand(w)
+            sd[p + "ln_2.weight"], sd[p + "ln_2.bias"] = 1 + rand(w), rand(w)
+            sd[p + "attn.in_proj_weight"], sd[p + "attn.in_proj_bias"] = rand(3 * w, w), rand(3 * w)
+            sd[p + "attn.out_proj.weight"], sd[p + "attn.out_proj.bias"] = rand(w, w), rand(w)
+            sd[p + "mlp.c_fc.weight"], sd[p + "mlp.c_fc.bias"] = rand(mlp, w), rand(mlp)
+            sd[p + "mlp.c_proj.weight"], sd[p + "mlp.c_proj.bias"] = rand(w, mlp), rand(w)
+    return sd
+
+
+def write_byte_level_tokenizer(path: str, words, n_merges: int) -> int:
+    """vocab.json and merges.txt of a CLIP byte-level BPE: the 256 byte
+    symbols, their ``</w>`` forms, the ``n_merges`` most frequent pairs of
+    ``words`` (learned greedily) and the two special tokens. Returns the
+    vocabulary size."""
+    import collections
+
+    from maskclustering_tpu_torch.semantics.tokenizer import bytes_to_unicode
+
+    b2u = bytes_to_unicode()
+    vocab = list(b2u.values()) + [c + "</w>" for c in b2u.values()]
+    counts = collections.Counter()
+    for w in words:
+        chars = [b2u[b] for b in w.encode()]
+        chars[-1] += "</w>"
+        counts[tuple(chars)] += 1
+    merges = []
+    for _ in range(n_merges):
+        pairs = collections.Counter()
+        for w, c in counts.items():
+            for pair in zip(w, w[1:]):
+                pairs[pair] += c
+        if not pairs:
+            break
+        (a, b), _ = pairs.most_common(1)[0]
+        merges.append(f"{a} {b}")
+        vocab.append(a + b)
+        merged = collections.Counter()
+        for w, c in counts.items():
+            out, i = [], 0
+            while i < len(w):
+                if i + 1 < len(w) and (w[i], w[i + 1]) == (a, b):
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(w[i])
+                    i += 1
+            merged[tuple(out)] += c
+        counts = merged
+    vocab += ["<|startoftext|>", "<|endoftext|>"]
+    with open(os.path.join(path, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump({t: i for i, t in enumerate(vocab)}, f)
+    with open(os.path.join(path, "merges.txt"), "w", encoding="utf-8") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges) + "\n")
+    return len(vocab)
+
+
+def write_clip_checkpoint(path: str):
+    """Phase 12a: ViT-H-14 in the open_clip layout with its tokenizer and
+    preprocessor. Returns (seconds to draw, seconds to write, bytes)."""
+    import shutil
+
+    import torch
+
+    from maskclustering_tpu_torch.semantics import get_vocab
+
+    shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path)
+    t0 = time.perf_counter()
+    sd = vit_h14_state_dict(CLIP_SEED)
+    draw_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    torch.save(sd, os.path.join(path, "open_clip_pytorch_model.bin"))
+    with open(os.path.join(path, "open_clip_config.json"), "w") as f:
+        json.dump({"model_cfg": VIT_H14}, f)
+    words = [w for label in get_vocab("scannet")[0] for w in label.lower().split()]
+    n_vocab = write_byte_level_tokenizer(path, words, CLIP_MERGES)
+    if n_vocab > VIT_H14["text_cfg"]["vocab_size"]:
+        raise AssertionError(f"{n_vocab} tokens do not fit the embedding")
+    with open(os.path.join(path, "preprocessor_config.json"), "w") as f:
+        json.dump({"size": {"shortest_edge": 224}, "crop_size": {"height": 224, "width": 224},
+                   "resample": 3, "rescale_factor": 1 / 255,
+                   "image_mean": [0.48145466, 0.4578275, 0.40821073],
+                   "image_std": [0.26862954, 0.26130258, 0.27577711]}, f)
+    return draw_s, time.perf_counter() - t0, _tree_bytes(path)
+
+
+def tower_flops(tokens: int, width: int, mlp: int, layers: int) -> int:
+    """FP32 operations of ``layers`` pre-LN blocks over ``tokens`` tokens, an
+    FMA counted as two: q, k, v and out (8 T D^2), the scores and their
+    product with v (4 T^2 D), the MLP (4 T D M)."""
+    return layers * (8 * tokens * width ** 2 + 4 * tokens ** 2 * width + 4 * tokens * width * mlp)
+
+
+def clip_encoder(dev, scene, batch) -> None:
+    """Phase 12: the CLIP encoder at ViT-H-14's full width on cuda against
+    cpu, timed beside its FP32 bound, then through the semantic steps."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from maskclustering_tpu_torch import run as run_module
+    from maskclustering_tpu_torch.io.image import read_rgb
+    from maskclustering_tpu_torch.run import run_pipeline
+    from maskclustering_tpu_torch.semantics import HFCLIPEncoder, get_vocab, multiscale_crops
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(here, "build", "chip_smoke_clip")
+    draw_s, write_s, nbytes = write_clip_checkpoint(path)
+    t0 = time.perf_counter()
+    card = HFCLIPEncoder(path, device=dev)
+    torch.cuda.synchronize(dev)
+    load_card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host = HFCLIPEncoder(path, device="cpu")
+    load_cpu_s = time.perf_counter() - t0
+    spec = card.model.spec
+    n_params = sum(p.numel() for p in card.model.parameters())
+    if not all(p.device.type == "cuda" for p in card.model.parameters()):
+        raise AssertionError("the cuda encoder's weights are not all on the card")
+    _say(f"[clip] ViT-H-14 open_clip checkpoint: {n_params} parameters, {nbytes} bytes in "
+         f"{path} (drawn in {draw_s:.1f} s, written in {write_s:.1f} s); loaded to cuda in "
+         f"{load_card_s:.1f} s, to cpu in {load_cpu_s:.1f} s; spec {json.dumps(spec.to_dict())}")
+
+    # 12b: crops of phase 11's textured frames and labels, cuda against cpu
+    frame = read_rgb(os.path.join(batch["root"], "scannet", "processed", BATCH_SCANS[0],
+                                  "color", "0.jpg"))
+    seg = scene.segmentations[0]
+    crops = []
+    for mask_id in sorted(set(np.unique(seg).tolist()) - {0}):
+        crops += multiscale_crops(frame, seg == mask_id)
+    crops = crops[:CLIP_CROPS]
+    labels = list(get_vocab("scannet")[0][:CLIP_LABELS])
+    if len(crops) != CLIP_CROPS:
+        raise AssertionError(f"{len(crops)} crops cut from frame 0")
+    t0 = time.perf_counter()
+    img_card, txt_card = card.encode_images(crops), card.encode_texts(labels)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    img_cpu, txt_cpu = host.encode_images(crops), host.encode_texts(labels)
+    cpu_s = time.perf_counter() - t0
+    for name, a, b in (("image", img_card, img_cpu), ("text", txt_card, txt_cpu)):
+        err = float(np.abs(a - b).max())
+        cos = float((a * b).sum(axis=1).min())
+        _say(f"[clip] {name} features {a.shape} cuda vs cpu: max abs difference {err:.3e}, "
+             f"least cosine {cos:.9f} (tolerance {CLIP_TOLERANCE:g})")
+        if not (np.isfinite(a).all() and np.isfinite(b).all()) or err > CLIP_TOLERANCE:
+            raise AssertionError(f"{name} features differ between cuda and cpu by {err}")
+    _say(f"[clip] {CLIP_CROPS} crops ({[c.shape[0] for c in crops]} px squares) and "
+         f"{CLIP_LABELS} labels encoded in {card_s:.2f} s on cuda, {cpu_s:.2f} s on cpu "
+         f"(host clock, preprocessing and tokenising included)")
+
+    t0 = time.perf_counter()
+    card.processor(crops)
+    prep_ms = (time.perf_counter() - t0) * 1e3 / len(crops)
+    _say(f"[clip] host preprocessing (PIL-equal bicubic resize, crop, normalise): "
+         f"{prep_ms:.2f} ms a crop over the {len(crops)} crops (host clock)")
+
+    # the towers timed on the card (CUDA events), beside their FP32 bounds
+    pixels = torch.from_numpy(card.processor(crops * (CLIP_BATCH // CLIP_CROPS))).to(dev)
+    tokens = card.tokenizer(labels)
+    ids = torch.from_numpy(tokens["input_ids"]).to(dev)
+    mask = torch.from_numpy(tokens["attention_mask"]).to(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with torch.inference_mode():
+        image_ms = cuda_time_ms(lambda: card.model.get_image_features(pixels), reps=3,
+                                warmup=1) / CLIP_BATCH
+        text_ms = cuda_time_ms(lambda: card.model.get_text_features(ids, mask), reps=10,
+                               warmup=2) / CLIP_LABELS
+    peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    patches = spec.num_patches
+    image_ops = (2 * patches * spec.num_channels * spec.patch_size ** 2 * spec.vision_width
+                 + tower_flops(patches + 1, spec.vision_width, spec.vision_mlp,
+                               spec.vision_layers)
+                 + 2 * spec.vision_width * spec.projection_dim)
+    lengths = tokens["attention_mask"].sum(axis=1).tolist()
+    image_bytes = (sum(p.numel() for p in card.model.vision_model.parameters())
+                   + card.model.visual_projection.weight.numel()) * 4 / CLIP_BATCH \
+        + (3 * 224 * 224 + spec.projection_dim) * 4
+    text_ops = sum(tower_flops(n, spec.text_width, spec.text_mlp, spec.text_layers)
+                   + 2 * spec.text_width * spec.projection_dim for n in lengths) / CLIP_LABELS
+    # the text tower's weights but the token table, of which each token reads one row
+    table = card.model.text_model.embeddings.token_embedding.weight
+    text_bytes = (sum(p.numel() for p in card.model.text_model.parameters()) - table.numel()
+                  + card.model.text_projection.weight.numel()) * 4 / CLIP_LABELS \
+        + (sum(lengths) / CLIP_LABELS) * (spec.text_width * 4 + 8) + spec.projection_dim * 4
+    for name, ms, ops, nb, unit in (("image", image_ms, image_ops, image_bytes, "crop"),
+                                    ("text", text_ms, text_ops, text_bytes, "label")):
+        bound, by = bound_ms(int(ops), int(nb))
+        _say(f"[clip] {name} tower: {ms:.4f} ms a {unit} (CUDA events; batch "
+             f"{CLIP_BATCH if name == 'image' else CLIP_LABELS}), FP32 bound {bound:.4f} ms "
+             f"({by}: {ops / 1e9:.3f} GFLOP, {nb / 1e6:.3f} MB a {unit}), "
+             f"{100 * bound / ms:.1f} % of the bound")
+    _say(f"[clip] peak device memory over the timed batches {peak_mib:.1f} MiB; label token "
+         f"counts {lengths}")
+    del host
+
+    # 12c: the semantic steps with the CLIP encoder on the card, one scan
+    root, cfg = batch["root"], batch["cfg"]
+    clip_cfg = cfg.replace(config_name="chip_smoke_clip")
+    obj_dir = os.path.join(root, "scannet", "processed", BATCH_SCANS[0], "output", "object")
+    os.makedirs(os.path.join(obj_dir, clip_cfg.config_name), exist_ok=True)
+    shutil.copy(os.path.join(obj_dir, cfg.config_name, "object_dict.npy"),
+                os.path.join(obj_dir, clip_cfg.config_name, "object_dict.npy"))
+    pred = os.path.join(root, "prediction_clip")
+    built = []
+    make_encoder = run_module.make_encoder
+
+    def recording_make_encoder(spec_str, device=None):
+        built.append(make_encoder(spec_str, device))
+        return built[-1]
+
+    # phase 11's hash label features at this path are rewritten with CLIP's
+    text_path = os.path.join(root, "text_features", "scannet.npy")
+    run_module.make_encoder = recording_make_encoder
+    try:
+        rep = run_pipeline(clip_cfg, BATCH_SCANS[:1], steps=SEMANTIC_STEPS, resume=False,
+                           journal=False, prediction_root=pred, encoder_spec=f"hf:{path}",
+                           device=dev)
+    finally:
+        run_module.make_encoder = make_encoder
+    if not rep.ok:
+        raise AssertionError(f"semantic steps with the CLIP encoder failed: {rep.step_errors}")
+    if len(built) != 1 or not all(p.device.type == "cuda"
+                                  for p in built[0].model.parameters()):
+        raise AssertionError("the driver's CLIP encoder is not on the card")
+    feats = np.load(os.path.join(obj_dir, clip_cfg.config_name, "open-vocabulary_features.npy"),
+                    allow_pickle=True).item()
+    norms = np.array([np.linalg.norm(v) for v in feats.values()])
+    if not feats or any(v.shape != (spec.projection_dim,) or v.dtype != np.float32
+                        or not np.isfinite(v).all() for v in feats.values()) \
+            or not ((norms > 0) & (norms <= 1 + 1e-5)).all():
+        raise AssertionError("CLIP mask features are not finite 1024-wide means of unit vectors")
+    label_feats = np.load(text_path, allow_pickle=True).item()
+    label_names, label_ids = get_vocab("scannet")
+    lf = np.stack([label_feats[k] for k in label_names])
+    if list(label_feats) != list(label_names) or lf.shape != (198, spec.projection_dim) \
+            or not np.allclose(np.linalg.norm(lf, axis=1), 1.0, atol=1e-5):
+        raise AssertionError(f"label features {lf.shape} are not 198 unit 1024-vectors")
+    with np.load(os.path.join(pred, clip_cfg.config_name, f"{BATCH_SCANS[0]}.npz")) as x:
+        classes = x["pred_classes"].tolist()
+    if not set(classes) <= set(label_ids):
+        raise AssertionError(f"classes {classes} outside the vocabulary's ids")
+    ap = rep.evaluation["eval"]
+    _say(f"[clip] semantic steps on cuda with hf:{os.path.relpath(path, here)} over "
+         f"{BATCH_SCANS[0]}: step seconds "
+         f"{json.dumps({k: round(v, 3) for k, v in rep.step_seconds.items()})}; "
+         f"{len(feats)} mask features x {spec.projection_dim} (norms {norms.min():.4f}.."
+         f"{norms.max():.4f}), labels {lf.shape}, classes {classes}, AP {ap['all_ap']:.4f} "
+         f"(random weights); phase 12 in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "maskclustering_tpu_torch")):
@@ -1330,6 +1641,9 @@ def main() -> int:
     # 11. the plane digest lane and the semantic steps
     plane_digest_lane(dev, tensors, dense, mid_digests)
     semantic_steps(dev, scene, batch)
+
+    # 12. the CLIP encoder at ViT-H-14's full width
+    clip_encoder(dev, scene, batch)
 
     _say(f"[done] {time.perf_counter() - t_start:.1f} s")
     _say(card)

@@ -29,3 +29,14 @@ def synchronize(device: Optional[torch.device]) -> None:
     clocks around a stage measure the stage and not its enqueue."""
     if device is not None and device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def check_full_float32(device: torch.device, user: str) -> None:
+    """Refuse a CUDA device on which this process lets float32 products
+    round to TF32: a reduced-precision product (an argmax between close
+    labels, a feature) is a different result, not a faster one."""
+    if device.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
+                                  or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(f"{user} needs full float32 matmuls; this process allows TF32 "
+                           f"(torch.backends.cuda.matmul.allow_tf32 / "
+                           f"set_float32_matmul_precision)")

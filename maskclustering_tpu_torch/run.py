@@ -23,8 +23,10 @@ on one device:
   done.
 - **features**: per-mask features of every scene's representative masks
   (``semantics/features.py``), by the encoder of ``--encoder``: ``hash``
-  or ``hash:<dim>`` (the JAX default, a deterministic stand-in); ``hf:``
-  (CLIP) raises naming ROADMAP A8b before any scene runs;
+  or ``hash:<dim>`` (the JAX default, a deterministic stand-in), or
+  ``hf:<checkpoint dir>`` (CLIP, ``semantics/clip.py``, on the run's
+  device). The spec is checked before any scene runs; the checkpoint is
+  loaded where the JAX driver loads it, after ``cluster`` and ``eval_ca``;
 - **label_features**: the vocabulary's text features, cached on disk;
 - **query**: the class-aware prediction of every scene
   (``semantics/query.py``);
@@ -48,7 +50,7 @@ import os
 import time
 import traceback
 from collections import deque
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -173,23 +175,36 @@ def get_seq_name_list(dataset: str, splits_dir: str = "splits",
         return [line.strip() for line in f if line.strip()]
 
 
-def make_encoder(spec: str):
-    """Encoder factory (``run.py:148-157``): ``hash[:dim]`` | ``hf:<local path>``
-    (the CLIP encoder, which raises: ROADMAP A8b)."""
+def parse_encoder_spec(spec: str) -> Tuple[str, str]:
+    """(kind, argument) of an encoder spec, by the JAX factory's rules:
+    ``hash[:dim]`` or ``hf:<path>``. Raises ``ValueError`` for anything else,
+    or a dimension that is not an integer."""
     if spec.startswith("hash"):
         _, _, dim = spec.partition(":")
-        return HashEncoder(int(dim) if dim else 64)
+        if dim:
+            int(dim)
+        return "hash", dim
     if spec.startswith("hf:"):
-        return HFCLIPEncoder(spec[3:])
+        return "hf", spec[3:]
     raise ValueError(f"unknown encoder spec {spec!r} (use hash[:dim] or hf:<path>)")
+
+
+def make_encoder(spec: str, device: DeviceLike = None):
+    """Encoder factory (``run.py:148-157``): ``hash[:dim]`` | ``hf:<local
+    path>``, the CLIP encoder with its weights on ``device``."""
+    kind, arg = parse_encoder_spec(spec)
+    if kind == "hash":
+        return HashEncoder(int(arg) if arg else 64)
+    return HFCLIPEncoder(arg, device=device)
 
 
 def check_steps(cfg: PipelineConfig, steps: Sequence[str], workers: int = 1,
                 encoder_spec: str = "hash") -> None:
     """Raise, before any scene runs, for what the port cannot run: an
-    unknown step or encoder spec (``ValueError``), an unported step or
-    encoder, ``workers > 1`` or a configuration ``models.pipeline`` refuses
-    (``NotImplementedError``)."""
+    unknown step or a malformed encoder spec (``ValueError``), an unported
+    step, ``workers > 1`` or a configuration ``models.pipeline`` refuses
+    (``NotImplementedError``). The encoder itself is built by the step that
+    uses it."""
     unknown = set(steps) - set(ALL_STEPS)
     if unknown:
         raise ValueError(f"unknown steps {sorted(unknown)}; valid: {ALL_STEPS}")
@@ -199,7 +214,7 @@ def check_steps(cfg: PipelineConfig, steps: Sequence[str], workers: int = 1,
                 f"step {step!r} is not ported yet: ROADMAP.md queue A, item "
                 f"{UNPORTED_STEPS[step]} (ported steps: {PORTED_STEPS})")
     if {"features", "label_features"} & set(steps):
-        make_encoder(encoder_spec)
+        parse_encoder_spec(encoder_spec)
     if workers > 1:
         raise NotImplementedError(
             "workers > 1 (one process per scene shard) is not ported yet: "
@@ -704,10 +719,12 @@ def run_pipeline(
 ) -> RunReport:
     """Run ``steps`` over ``seq_names`` (``run.py:1102-1345``).
 
-    Raises before any scene runs for an unknown or unported step or
-    encoder, ``workers > 1``, a refused configuration or a missing card
-    (``device=None``). A failed scene or step is recorded in the report,
-    not raised. ``prediction_root`` defaults to ``<data_root>/prediction``.
+    Raises before any scene runs for an unknown or unported step, a
+    malformed encoder spec, ``workers > 1``, a refused configuration or a
+    missing card (``device=None``); a CLIP checkpoint that cannot be loaded
+    raises after ``cluster`` and ``eval_ca``, as in the JAX driver. A failed
+    scene or step is recorded in the report, not raised. ``prediction_root``
+    defaults to ``<data_root>/prediction``.
     """
     check_steps(cfg, steps, workers, encoder_spec)
     device = resolve_device(device)
@@ -770,7 +787,7 @@ def run_pipeline(
         evaluate("eval_ca", True)
     encoder = None
     if {"features", "label_features"} & set(steps):
-        encoder = make_encoder(encoder_spec)
+        encoder = make_encoder(encoder_spec, device)
     if "features" in steps:
         timed("features", lambda: features_step(cfg, seq_names, encoder, resume=resume,
                                                 device=device))
@@ -807,8 +824,8 @@ def main(argv=None) -> int:
     parser.add_argument("--no-resume", action="store_true",
                         help="recompute even when artifacts exist")
     parser.add_argument("--encoder", default="hash",
-                        help="feature encoder spec: hash[:dim] (hf:<local path>, CLIP, is "
-                             "not ported yet)")
+                        help="feature encoder spec: hash[:dim] or hf:<local checkpoint dir> "
+                             "(CLIP, on --device)")
     parser.add_argument("--report", default=None, help="run report JSON path")
     parser.add_argument("--journal", default=None,
                         help="crash-safe scene journal JSONL (default: "

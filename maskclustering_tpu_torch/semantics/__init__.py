@@ -1,7 +1,9 @@
 """Open-vocabulary semantics (L4): crops, encoders, features and the query.
 
-Counterpart of ``maskclustering_tpu/semantics`` with its export list;
-``HFCLIPEncoder`` raises when built (ROADMAP A8b).
+Counterpart of ``maskclustering_tpu/semantics`` with its export list.
+``HFCLIPEncoder`` is CLIP in plain PyTorch (``clip.py``) with the port's
+own checkpoint readers (``checkpoint.py``), tokenizer (``tokenizer.py``)
+and image processor (``image_processor.py``).
 """
 
 from maskclustering_tpu_torch.semantics.vocab import get_vocab, vocab_name

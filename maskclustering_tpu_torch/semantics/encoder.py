@@ -1,14 +1,17 @@
 """Encoders of the open-vocabulary semantics.
 
-Port of ``maskclustering_tpu/semantics/encoder.py:26-111, 408-432``, host
+Port of ``maskclustering_tpu/semantics/encoder.py``; features are host
 numpy as there:
 
 - ``HashEncoder``: the deterministic stand-in the batch driver uses by
   default (``--encoder hash[:dim]``): a byte-identical crop or text maps to
   the same unit vector, so pooling and the query run without weights;
 - ``PrecomputedFeatures``: a store of features computed elsewhere;
-- ``HFCLIPEncoder``: the CLIP encoder, not ported yet (ROADMAP A8b);
-  building one raises.
+- ``HFCLIPEncoder``: CLIP from a checkpoint on disk (``hf:<path>``), in
+  plain PyTorch on the caller's device: the towers of ``clip.py``, the
+  readers of ``checkpoint.py``, the tokenizer and image processor of
+  ``tokenizer.py`` and ``image_processor.py``; none of ``transformers``,
+  ``tokenizers``, ``safetensors``, ``msgpack``, ``flax`` or PIL.
 
 Every encoder returns L2-normalised float32 features.
 """
@@ -21,6 +24,16 @@ import zlib
 from typing import Optional, Protocol, Sequence
 
 import numpy as np
+import torch
+
+from maskclustering_tpu_torch.device import DeviceLike, check_full_float32, resolve_device
+from maskclustering_tpu_torch.semantics.checkpoint import (
+    load_clip_checkpoint,
+    resolve_checkpoint_dir,
+)
+from maskclustering_tpu_torch.semantics.clip import CLIP
+from maskclustering_tpu_torch.semantics.image_processor import CLIPImageProcessor
+from maskclustering_tpu_torch.semantics.tokenizer import CLIPTokenizer
 
 
 class ImageEncoder(Protocol):
@@ -97,16 +110,61 @@ class HashEncoder:
 
 
 class HFCLIPEncoder:
-    """CLIP from a local checkpoint (``encoder.py:326``): not ported yet.
+    """CLIP from a local checkpoint (``encoder.py:326-405``).
 
-    The plain-torch CLIP towers, the tokenizer and the open_clip checkpoint
-    conversion are ROADMAP A8b; building one raises before any work runs.
+    ``model_name_or_path`` is a directory in the open_clip cache layout (the
+    reference's ViT-H-14 ``laion2b_s32b_b79k``), or in the HF layout with
+    Flax, safetensors or torch weights, or a repo id in the local hub
+    cache; ``checkpoint.load_clip_checkpoint`` reads it in the JAX
+    encoder's order. The weights stay on ``device`` (the card unless the
+    caller asks for the CPU) and run in float32; a card that would round
+    float32 products to TF32 is refused. The tokenizer and preprocessor
+    files sit beside the weights. ``image_size`` is accepted for the JAX
+    signature; the preprocessor's crop size decides.
     """
 
-    def __init__(self, model_name_or_path: str, image_size: int = 224):
-        raise NotImplementedError(
-            f"the CLIP encoder (hf:{model_name_or_path}) is not ported yet: ROADMAP.md "
-            f"queue A, item A8b; the port's encoders are hash[:dim] and precomputed features")
+    def __init__(self, model_name_or_path: str, image_size: int = 224, *,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        check_full_float32(self.device, "the CLIP encoder")
+        self.image_size = image_size
+        path = resolve_checkpoint_dir(model_name_or_path)
+        spec, state, self.layout = load_clip_checkpoint(path)
+        with torch.device("meta"):
+            model = CLIP(spec)
+        try:
+            missing, unexpected = model.load_state_dict(state, strict=False, assign=True)
+        except RuntimeError as e:  # a tensor whose shape the config does not give
+            raise ValueError(f"CLIP checkpoint {path} does not fit its config: {e}") from e
+        if missing or unexpected:
+            raise ValueError(f"CLIP checkpoint {path} does not fit its config: "
+                             f"missing={sorted(missing)[:8]} unexpected={sorted(unexpected)[:8]}")
+        self.model = model.to(self.device).eval()
+        try:
+            self.tokenizer = CLIPTokenizer.from_pretrained(path)
+            self.processor = CLIPImageProcessor.from_pretrained(path)
+        except OSError as e:
+            if self.layout != "open_clip":
+                raise
+            raise ValueError(
+                f"open_clip checkpoint {path} converted, but no tokenizer/preprocessor files "
+                "found beside it; copy a CLIP tokenizer (vocab.json/merges.txt) and "
+                "preprocessor_config.json into the directory") from e
+        self.feature_dim = spec.projection_dim
+
+    def encode_images(self, images: Sequence[np.ndarray]) -> np.ndarray:
+        pixels = torch.from_numpy(self.processor(images)).to(self.device)
+        with torch.inference_mode():
+            feats = self.model.get_image_features(pixels)
+        return l2_normalize(feats.cpu().numpy().astype(np.float32))
+
+    def encode_texts(self, texts: Sequence[str]) -> np.ndarray:
+        tokens = self.tokenizer(list(texts))
+        ids = torch.from_numpy(tokens["input_ids"]).to(self.device)
+        mask = torch.from_numpy(tokens["attention_mask"]).to(self.device)
+        with torch.inference_mode():
+            feats = self.model.get_text_features(ids, mask)
+        return l2_normalize(feats.cpu().numpy().astype(np.float32))
 
 
 class PrecomputedFeatures:

@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from maskclustering_tpu_torch.device import DeviceLike, resolve_device
+from maskclustering_tpu_torch.device import DeviceLike, check_full_float32, resolve_device
 
 LOGIT_SCALE = 100.0  # reference open-voc_query.py:43
 
@@ -52,11 +52,7 @@ def classify_objects(obj_feats: np.ndarray, text_feats: np.ndarray,
     matmuls is refused here rather than silently rounded.
     """
     device = resolve_device(device)
-    if device.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32
-                                  or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError("classify_objects needs full float32 matmuls; this process "
-                           "allows TF32 (torch.backends.cuda.matmul.allow_tf32 / "
-                           "set_float32_matmul_precision)")
+    check_full_float32(device, "classify_objects")
     obj = torch.from_numpy(np.ascontiguousarray(obj_feats, dtype=np.float32)).to(device)
     text = torch.from_numpy(np.ascontiguousarray(text_feats, dtype=np.float32)).to(device)
     sim = torch.matmul(obj, text.T)

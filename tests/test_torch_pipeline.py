@@ -235,27 +235,68 @@ def test_from_jax_config_rejects_unknown_keys():
         from_jax_config({**dataclasses.asdict(_cfg()), "no_such_knob": 1})
 
 
-def test_port_imports_no_jax_and_no_reference_package():
+def _write_port_clip_dir(d):
+    """A tiny CLIP checkpoint in the HF layout written with the port alone:
+    config.json, pytorch_model.bin of the port's towers (seeded), a tiny
+    vocabulary and a 32-pixel preprocessor."""
+    import json
+
+    from maskclustering_tpu_torch.semantics.clip import CLIP
+    from maskclustering_tpu_torch.semantics.clip_config import CLIPSpec
+
+    vocab = ["a", "b", "a</w>", "b</w>", "ab</w>", "<|startoftext|>", "<|endoftext|>"]
+    config = {"projection_dim": 8,
+              "text_config": {"vocab_size": len(vocab), "hidden_size": 16,
+                              "intermediate_size": 32, "num_hidden_layers": 1,
+                              "num_attention_heads": 2},
+              "vision_config": {"hidden_size": 16, "intermediate_size": 32,
+                                "num_hidden_layers": 1, "num_attention_heads": 2,
+                                "image_size": 32, "patch_size": 8}}
+    (d / "config.json").write_text(json.dumps(config))
+    torch.manual_seed(0)
+    model = CLIP(CLIPSpec.from_hf_dict(config))
+    for p in model.parameters():
+        torch.nn.init.normal_(p, std=0.1)
+    torch.save(model.state_dict(), str(d / "pytorch_model.bin"))
+    (d / "vocab.json").write_text(json.dumps({t: i for i, t in enumerate(vocab)}))
+    (d / "merges.txt").write_text("#version: 0.2\na b</w>\n")
+    (d / "preprocessor_config.json").write_text(json.dumps(
+        {"size": {"shortest_edge": 32}, "crop_size": {"height": 32, "width": 32}}))
+
+
+def test_port_imports_no_jax_and_no_reference_package(tmp_path):
     """Every module of the port, imported in a fresh interpreter, pulls in
-    neither jax nor anything of maskclustering_tpu, nor PIL, cv2 or
-    transformers (the card's machine has none of them; the port decodes PNG
-    and JPEG itself)."""
+    neither jax nor anything of maskclustering_tpu, nor PIL, cv2, or the
+    libraries of HF's CLIP path (transformers, tokenizers, safetensors,
+    msgpack, regex, flax, ftfy); nor does building the CLIP encoder on a
+    checkpoint and encoding an image and a text (the card's machine has
+    none of them: the port decodes PNG and JPEG and reads CLIP itself)."""
+    _write_port_clip_dir(tmp_path)
     code = r"""
 import importlib, pkgutil, sys
+import numpy as np
 import maskclustering_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.features",
-             "semantics.query", "io.jpeg", "obs.digest"):
+             "semantics.query", "semantics.clip", "semantics.clip_config",
+             "semantics.checkpoint", "semantics.tokenizer", "semantics.image_processor",
+             "io.jpeg", "obs.digest"):
     assert pkg.__name__ + "." + name in names, name
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "maskclustering_tpu", "PIL", "cv2", "transformers"))
+from maskclustering_tpu_torch.semantics import HFCLIPEncoder
+enc = HFCLIPEncoder(sys.argv[1], device="cpu")
+img = enc.encode_images([np.full((20, 30, 3), 7, np.uint8)])
+txt = enc.encode_texts(["ab"])
+assert img.shape == txt.shape == (1, 8) and enc.layout == "torch", (img.shape, txt.shape)
+banned = ("jax", "maskclustering_tpu", "PIL", "cv2", "transformers", "tokenizers",
+          "safetensors", "msgpack", "regex", "flax", "ftfy")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 assert not bad, bad
-assert len(names) >= 35, names
+assert len(names) >= 40, names
 print(len(names))
 """
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-2000:]

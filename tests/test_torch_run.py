@@ -8,8 +8,9 @@ digest dicts and coordinates, exported npz arrays, object dicts, features,
 class-aware predictions and both AP tables. The port's overlapped executor
 equals its sequential loop; the run journal skips finished scenes; a
 post-process capacity overflow heals on the ``host-postprocess`` rung, at
-the rung the JAX ladder maps to; unported steps and encoders, ``workers >
-1`` and refused configurations raise before any scene runs; a missing GT
+the rung the JAX ladder maps to; unported steps, ``workers > 1`` and
+refused configurations raise before any scene runs, a missing CLIP
+checkpoint where the JAX driver raises; a missing GT
 file is a step error; ``main`` exits 0, 1 and 143 where the JAX ``main``
 does.
 """
@@ -242,14 +243,33 @@ def test_ladder_heals_at_the_rung_the_jax_ladder_maps_to(runs):
     _assert_same_artifacts(root, "pladder", "jladder", NAMES[:1])
 
 
+@pytest.mark.parametrize("steps", [DEFAULT_STEPS, ("label_features",)],
+                         ids=["default_steps", "label_features"])
+def test_missing_clip_checkpoint_raises_where_jax_does(runs, steps):
+    """``hf:`` with no checkpoint: both drivers raise the same class when the
+    encoder is built, after ``cluster`` and ``eval_ca`` have run."""
+    root, tag = runs["root"], f"noclip{len(steps)}"
+    jax_cfg = jax_load_config("scannet").replace(data_root=root, config_name="j" + tag, **KW)
+    with pytest.raises(Exception) as want:
+        jax_run_pipeline(jax_cfg, NAMES[:1], steps=steps, encoder_spec="hf:/no/such/clip",
+                         resume=False, journal=False)
+    with pytest.raises(ValueError) as got:
+        run_pipeline(_cfg(root, "p" + tag), NAMES[:1], steps=steps,
+                     encoder_spec="hf:/no/such/clip", resume=False, journal=False,
+                     device="cpu")
+    assert isinstance(want.value, type(got.value)), (want.value, got.value)
+    clustered = [os.path.exists(os.path.join(root, "prediction", f"{c}_class_agnostic",
+                                             f"{NAMES[0]}.npz")) for c in ("j" + tag, "p" + tag)]
+    assert clustered == [("cluster" in steps)] * 2
+
+
+# explicit ids: each case keeps the name it has always had in test histories
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(steps=DEFAULT_STEPS, encoder_spec="hf:/no/such/clip"), "A8b"),
-    (dict(steps=("label_features",), encoder_spec="hf:/no/such/clip"), "A8b"),
-    (dict(steps=("cluster", "vis")), "A14"),
-    (dict(steps=("top_images",)), "A14"),
-    (dict(workers=2), "A7"),
-    (dict(cfg=dict(mesh_shape=(1, 2))), "A7"),
-    (dict(cfg=dict(streaming_chunk=4)), "A6"),
+    pytest.param(dict(steps=("cluster", "vis")), "A14", id="kwargs2-A14"),
+    pytest.param(dict(steps=("top_images",)), "A14", id="kwargs3-A14"),
+    pytest.param(dict(workers=2), "A7", id="kwargs4-A7"),
+    pytest.param(dict(cfg=dict(mesh_shape=(1, 2))), "A7", id="kwargs5-A7"),
+    pytest.param(dict(cfg=dict(streaming_chunk=4)), "A6", id="kwargs6-A6"),
 ])
 def test_unported_raise_before_any_scene(runs, kwargs, match):
     kwargs = dict(kwargs)
