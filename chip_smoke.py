@@ -71,13 +71,14 @@ Imports nothing of JAX or of the JAX package. In order:
     ``cpu`` run (on the host post-process rung, whose digest the tests hold
     equal to the device rung's), and phase 9's mid-size scene the same on
     both devices; the digest program and its pull are timed on the card.
-    Phase 10's three
-    full-size scans get textured 968x1296 colour frames (ScanNet's colour
+    Phase 10's first
+    full-size scan gets textured 968x1296 colour frames (ScanNet's colour
     size; the port's JPEG encoder, quality 90, 4:2:0), then ``features,
-    label_features, query, eval`` with ``--encoder hash:1024`` run on
-    ``cuda`` over the three and on ``cpu`` over the first: equal features
-    (bit for bit), class-aware npz and AP. Printed: one frame's decode
-    time, the step seconds and the distinct frames decoded.
+    label_features, query, eval`` with ``--encoder hash:1024`` run on it on
+    ``cuda`` and on ``cpu``: equal features (bit for bit), class-aware npz
+    and AP. Printed: one frame's decode time, the step seconds and the
+    distinct frames decoded. (The ``cuda`` run took all three scans until
+    phase 13 joined; one keeps the script's time.)
 12. the CLIP encoder at ViT-H-14's full width (open_clip's ViT-H-14, the
     reference's ``laion2b_s32b_b79k`` shapes: image tower 1280 wide, 32
     layers, 16 heads, patch 14 at 224; text tower 1024 wide, 24 layers,
@@ -93,6 +94,26 @@ Imports nothing of JAX or of the JAX package. In order:
     hf:build/chip_smoke_clip`` on ``cuda`` over the first full-size scan:
     the encoder's weights all on the card, 1024-wide finite features, a
     198 x 1024 label file of unit vectors, classes in the vocabulary.
+13. streaming (``models.stream_scene``) and the fault drills. (a) Phase 8's
+    scene and config in one chunk of 32: the digest dict and artifacts of
+    phase 8. (b) Four chunks of 8 on ``cuda`` and on ``cpu``: every chunk's
+    digest, partial-instance count, mask count and plane bytes equal, and
+    the objects, assignment and digest; each association kernel launched
+    once a chunk; per chunk its seconds, plane bytes and launches, the
+    three streaming programs timed again on each chunk's inputs, and the
+    finalize with its host DBSCAN. (c) Peak device memory and wall, batch
+    against chunks of 16, on a 64-frame render of the full-size scene.
+    (d) Drills: on a mid-size scene streamed in three
+    chunks, ``flaky:<scene>.chunk:1`` heals and
+    ``stall:<scene>.chunk:1`` under a 5 s watchdog is retried while the
+    abandoned attempt raises ``StaleChunkAttempt`` on its own thread, both
+    with the fault-free artifacts; then ``python -m
+    maskclustering_tpu_torch.run --fault-plan`` over phase 10's four scans
+    with the JAX drill's four faults (load, a device stall, flaky twice, a
+    post-process overflow): statuses, attempts and rungs of the port's
+    two-rung ladder, every healed scan's artifacts equal to phase 10's.
+    (e) ``streaming_chunk`` 8 through the batch driver over phase 10's
+    three scans: cluster seconds and AP beside the batch run's.
 
 Any mismatch or failure exits non-zero. The last three lines are the card
 line, the per-kernel JSON and the result JSON.
@@ -101,10 +122,12 @@ line, the per-kernel JSON and the result JSON.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 # NVIDIA's H100 SXM data sheet (dense, no sparsity), at its 700 W limit
@@ -155,6 +178,18 @@ CLIP_CROPS = 8
 CLIP_LABELS = 16
 CLIP_BATCH = 64
 CLIP_TOLERANCE = 1e-4
+# phase 13: the full-size scene's 32 frames in four chunks; a longer scan
+# (twice the frames: three times took phase 13 past 150 s) batch against
+# chunked; the mid-size drills'
+# watchdog and stall (the stall outlasts the watchdog, so the abandoned
+# attempt wakes while or after its retry runs); the CLI drill's watchdog,
+# which also covers its process's first device phase
+STREAM_CHUNK = 8
+LONG_FRAMES = 64
+LONG_CHUNK = 16
+DRILL_WATCHDOG_S = 5.0
+DRILL_STALL_S = 8.0
+CLI_WATCHDOG_S = 10.0
 
 
 def _say(msg: str) -> None:
@@ -1043,7 +1078,8 @@ def batch_driver(dev, scene, mid_scene):
     _artifacts_equal(root, os.path.join(root, "prediction_ladder"), ladder_cfg.config_name,
                      ov_pred, ov_cfg.config_name, BATCH_SCANS[:1])
     _say("[ladder] host-postprocess rung == device rung at cap 1024 (npz, object dict)")
-    return {"launches": launches, "root": root, "cfg": ov_cfg, "pred": ov_pred}
+    return {"launches": launches, "root": root, "cfg": ov_cfg, "pred": ov_pred,
+            "ap": ov.evaluation["eval_ca"], "cluster_s": ov.step_seconds["cluster"]}
 
 
 def textured_frame(seg, frame: int, seed: int = 0):
@@ -1143,28 +1179,28 @@ def plane_digest_lane(dev, tensors, dense, mid_digests) -> None:
 
 def semantic_steps(dev, scene, batch) -> None:
     """Phase 11b: features, label_features, query and eval over phase 10's
-    full-size scans, their colour frames rewritten at 968x1296, on cuda over
-    all three scans and on cpu over the first; equal features, class-aware
-    npz and AP where both ran."""
+    first full-size scan, its colour frames rewritten at 968x1296, on cuda
+    and on cpu; equal features, class-aware npz and AP."""
     import shutil
 
     import numpy as np
 
-    from maskclustering_tpu_torch.run import evaluate_step, run_pipeline
+    from maskclustering_tpu_torch.run import run_pipeline
     from maskclustering_tpu_torch.semantics import representative_mask_index
 
     root, cfg, pred = batch["root"], batch["cfg"], batch["pred"]
-    sec, per_frame = write_color_frames(root, BATCH_SCANS, scene)
+    names = BATCH_SCANS[:1]
+    sec, per_frame = write_color_frames(root, names, scene)
     color0 = os.path.join(root, "scannet", "processed", BATCH_SCANS[0], "color", "0.jpg")
     _say(f"[semantic] wrote {scene.segmentations.shape[0]} textured {COLOR_HW[0]}x{COLOR_HW[1]} "
          f"JPEG frames (quality {COLOR_QUALITY}, 4:2:0, {per_frame:.0f} bytes a frame) into "
-         f"{len(BATCH_SCANS)} scans in {sec:.1f} s; one frame decodes in "
+         f"{len(names)} scan in {sec:.1f} s; one frame decodes in "
          f"{jpeg_decode_ms(color0):.1f} ms (host, best of 3)")
     od = {name: np.load(os.path.join(root, "scannet", "processed", name, "output", "object",
                                      cfg.config_name, "object_dict.npy"),
-                        allow_pickle=True).item() for name in BATCH_SCANS}
+                        allow_pickle=True).item() for name in names}
     frames = {name: len({f for f, _ in representative_mask_index(od[name])})
-              for name in BATCH_SCANS}
+              for name in names}
 
     def semantic_run(run_cfg, names, prediction_root, device):
         rep = run_pipeline(run_cfg, names, steps=SEMANTIC_STEPS, resume=False, journal=False,
@@ -1174,20 +1210,18 @@ def semantic_steps(dev, scene, batch) -> None:
             raise AssertionError(f"semantic steps on {device} failed: {rep.step_errors}")
         return rep
 
-    card = semantic_run(cfg, BATCH_SCANS, pred, dev)
-    card_ap = evaluate_step(cfg, no_class=False, seq_names=BATCH_SCANS[:1], prediction_root=pred,
-                            device=dev)
+    card = semantic_run(cfg, names, pred, dev)
     cpu_cfg = cfg.replace(config_name="chip_smoke_semantic_cpu")
     obj_dir = os.path.join(root, "scannet", "processed", BATCH_SCANS[0], "output", "object")
     os.makedirs(os.path.join(obj_dir, cpu_cfg.config_name), exist_ok=True)
     shutil.copy(os.path.join(obj_dir, cfg.config_name, "object_dict.npy"),
                 os.path.join(obj_dir, cpu_cfg.config_name, "object_dict.npy"))
     cpu_pred = os.path.join(root, "prediction_semantic_cpu")
-    cpu = semantic_run(cpu_cfg, BATCH_SCANS[:1], cpu_pred, "cpu")
-    _say(f"[semantic] cuda over {len(BATCH_SCANS)} scans (encoder {SEMANTIC_ENCODER}): step "
+    cpu = semantic_run(cpu_cfg, names, cpu_pred, "cpu")
+    _say(f"[semantic] cuda over {len(names)} scan (encoder {SEMANTIC_ENCODER}): step "
          f"seconds {json.dumps({k: round(v, 3) for k, v in card.step_seconds.items()})}; "
          f"distinct colour frames decoded {json.dumps(frames)} "
-         f"({sum(frames.values())} in all, of {scene.segmentations.shape[0]} a scan)")
+         f"(of {scene.segmentations.shape[0]} a scan)")
     _say(f"[semantic] cpu over {BATCH_SCANS[0]}: step seconds "
          f"{json.dumps({k: round(v, 3) for k, v in cpu.step_seconds.items()})}")
 
@@ -1210,12 +1244,12 @@ def semantic_steps(dev, scene, batch) -> None:
         if x["pred_masks"].shape != (scene.scene_points.shape[0], len(od[name])):
             raise AssertionError(f"{name}: pred_masks {x['pred_masks'].shape}")
         classes = x["pred_classes"].tolist()
-    if not _ap_equal(card_ap, cpu.evaluation["eval"]):
+    if not _ap_equal(card.evaluation["eval"], cpu.evaluation["eval"]):
         raise AssertionError(f"{name}: the class-aware AP of the cuda and cpu runs differ")
     ap = card.evaluation["eval"]
     _say(f"[semantic] {name}: cuda == cpu (features {len(a)} x 1024 bit for bit, class-aware "
-         f"npz, AP table); classes {classes}; AP over the {len(BATCH_SCANS)} scans "
-         f"{ap['all_ap']:.4f} AP50 {ap['all_ap_50%']:.4f} (hash features: classes at random)")
+         f"npz, AP table); classes {classes}; AP {ap['all_ap']:.4f} AP50 "
+         f"{ap['all_ap_50%']:.4f} (hash features: classes at random)")
 
 
 def vit_h14_state_dict(seed: int):
@@ -1501,6 +1535,352 @@ def clip_encoder(dev, scene, batch) -> None:
          f"(random weights); phase 12 in {time.perf_counter() - t_phase:.1f} s")
 
 
+@contextlib.contextmanager
+def recording_stream_chunks(records: list):
+    """Keep, for every ``StreamAccumulator.push_chunk`` attempt on any
+    thread, its chunk dict and the launch counts just after it, or the
+    exception it raised (a watchdog's abandoned attempt included)."""
+    from maskclustering_tpu_torch.models.streaming import StreamAccumulator
+    from maskclustering_tpu_torch.ops import cuda as kernels
+
+    real = StreamAccumulator.push_chunk
+
+    def push_chunk(acc, chunk):
+        try:
+            out = real(acc, chunk)
+        except Exception as e:
+            records.append({"error": e, "thread": threading.current_thread().name})
+            raise
+        records.append({"dict": out, "launches": dict(kernels.LAUNCHES.counts),
+                        "thread": threading.current_thread().name})
+        return out
+
+    StreamAccumulator.push_chunk = push_chunk
+    try:
+        yield records
+    finally:
+        StreamAccumulator.push_chunk = real
+
+
+@contextlib.contextmanager
+def recording_stream_programs(calls: list):
+    """Keep the inputs of every call to the three streaming programs, in
+    call order, so that each can be timed again on them."""
+    from maskclustering_tpu_torch.models import streaming
+
+    names = ("_stream_merge", "_stream_recluster", "_rep_plane_update")
+    real = {n: getattr(streaming, n) for n in names}
+
+    def wrap(name):
+        def program(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return real[name](*args, **kwargs)
+        return program
+
+    for n in names:
+        setattr(streaming, n, wrap(n))
+    try:
+        yield calls
+    finally:
+        for n in names:
+            setattr(streaming, n, real[n])
+
+
+def wall_ms(fn, reps: int = 3) -> float:
+    """Mean wall of ``fn()`` between device synchronisations (the
+    re-cluster reads a flag on the host each sweep, so CUDA events would
+    time the same wall)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def _stream_chunks(records):
+    return [r["dict"] for r in records if "dict" in r]
+
+
+def _check_stream_result(res, num_points: int, label: str) -> None:
+    import numpy as np
+
+    if not res.objects.point_ids_list:
+        raise AssertionError(f"{label}: the stream produced no objects")
+    for pids in res.objects.point_ids_list:
+        if pids.size == 0 or int(pids.min()) < 0 or int(pids.max()) >= num_points:
+            raise AssertionError(f"{label}: an object holds point ids outside the scene")
+    if not np.all(np.isfinite(res.assignment)) or res.assignment.shape != res.table.frame.shape:
+        raise AssertionError(f"{label}: assignment of shape {res.assignment.shape}")
+
+
+def streaming_phase(dev, tensors, dense, batch) -> dict:
+    """Phase 13: the streaming entry point and the fault drills on the card."""
+    import numpy as np
+    import torch
+
+    from maskclustering_tpu_torch.config import load_config
+    from maskclustering_tpu_torch.models import run_scene, streaming
+    from maskclustering_tpu_torch.models.streaming import stream_scene
+    from maskclustering_tpu_torch.obs.digest import artifact_digest
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.run import run_pipeline
+    from maskclustering_tpu_torch.utils import faults
+    from maskclustering_tpu_torch.utils.synthetic import (
+        add_depth_noise,
+        make_scene,
+        to_scene_tensors,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = dense["cfg"]
+
+    # 13a: one chunk covering the scene is the batch path, digest dict and all
+    kernels.LAUNCHES.reset()
+    t0 = time.perf_counter()
+    one = stream_scene(tensors, cfg.replace(streaming_chunk=tensors.num_frames),
+                       seq_name="chip_smoke_dense", device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES.counts)
+    _say(f"[stream] single chunk of {tensors.num_frames}: digest {json.dumps(one.digest)}, "
+         f"wall {wall:.2f} s, launches {json.dumps(launches)}")
+    if one.digest != dense["scene_digest"] or artifact_digest(one.objects) != dense["digest"]:
+        raise AssertionError(f"the single-chunk stream's digest {one.digest} is not phase 8's "
+                             f"{dense['scene_digest']}")
+    if any(launches.get(n, 0) != 1 for n in ASSOCIATION_KERNELS):
+        raise AssertionError("the single-chunk stream did not launch each association "
+                             "kernel once")
+
+    # 13b: four chunks of 8 frames, cuda against cpu, chunk by chunk
+    cfg8 = cfg.replace(streaming_chunk=STREAM_CHUNK, config_name="chip_smoke_stream")
+    runs = []
+    programs = []
+    for d in (dev, "cpu"):
+        records = []
+        with recording_stream_chunks(records), \
+                recording_stream_programs(programs if d == dev else []):
+            kernels.LAUNCHES.reset()
+            torch.cuda.reset_peak_memory_stats(dev)
+            t0 = time.perf_counter()
+            res = stream_scene(tensors, cfg8, seq_name="chip_smoke_stream", device=d)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(kernels.LAUNCHES.counts)
+        runs.append({"res": res, "chunks": _stream_chunks(records), "records": records,
+                     "wall": wall, "launches": launches,
+                     "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20})
+    cuda, cpu = runs
+    n_chunks = -(-tensors.num_frames // STREAM_CHUNK)
+    prev = {}
+    for c in cuda["records"]:
+        delta = {k: v - prev.get(k, 0) for k, v in c["launches"].items()}
+        prev = c["launches"]
+        ch = c["dict"]
+        _say(f"[stream] chunk {ch['chunk']}: {ch['frames']} frames, {ch['seconds']:.4f} s, "
+             f"plane_bytes {ch['plane_bytes']}, masks {ch['masks']}, partial instances "
+             f"{ch['partial_instances']}, digest {ch['digest']}, launches {json.dumps(delta)}")
+    for key in ("digest", "partial_instances", "masks", "plane_bytes"):
+        got = [c[key] for c in cuda["chunks"]]
+        want = [c[key] for c in cpu["chunks"]]
+        if got != want:
+            raise AssertionError(f"chunk {key} cuda {got} != cpu {want}")
+    rc, rh = cuda["res"], cpu["res"]
+    if (rc.digest != rh.digest or not np.array_equal(rc.assignment, rh.assignment)
+            or artifact_digest(rc.objects) != artifact_digest(rh.objects)):
+        raise AssertionError(f"the four-chunk stream differs: cuda {rc.digest} cpu {rh.digest}")
+    _check_stream_result(rc, tensors.num_points, "four-chunk stream")
+    for name in ASSOCIATION_KERNELS:
+        if cuda["launches"].get(name, 0) != n_chunks:
+            raise AssertionError(f"{name} launched {cuda['launches'].get(name, 0)} times in "
+                                 f"{n_chunks} chunks, not once a chunk")
+    if cuda["launches"].get("ball_query", 0):
+        raise AssertionError("the stream launched the ball query")
+    tm_c, tm_h = rc.timings, rh.timings
+    _say(f"[stream] {n_chunks} chunks of {STREAM_CHUNK}: cuda == cpu (every chunk digest and "
+         f"partial count, objects {len(rc.objects.point_ids_list)}, assignment, digest "
+         f"{json.dumps(rc.digest)}); wall cuda {cuda['wall']:.2f} s cpu {cpu['wall']:.2f} s; "
+         f"chunks cuda {tm_c['stream.chunks']:.3f} s cpu {tm_h['stream.chunks']:.3f} s; "
+         f"finalize cuda {tm_c['stream.finalize']:.3f} s (host DBSCAN "
+         f"{tm_c['stream.dbscan']:.3f} s, "
+         f"{100 * tm_c['stream.dbscan'] / tm_c['stream.finalize']:.1f} %) cpu "
+         f"{tm_h['stream.finalize']:.3f} s (DBSCAN {tm_h['stream.dbscan']:.3f} s); peak "
+         f"device memory {cuda['peak_mib']:.1f} MiB; launches {json.dumps(cuda['launches'])}")
+    per = {}
+    for name, args, kwargs in programs:
+        program = getattr(streaming, name)
+        per.setdefault(name, []).append(wall_ms(lambda: program(*args, **kwargs)))
+    _say("[stream] programs per chunk on cuda, ms (wall between synchronisations, mean of 3): "
+         + json.dumps({k: [round(v, 3) for v in vs] for k, vs in per.items()}))
+
+    # 13c: peak memory, batch against chunked, on a longer scan rendered
+    # afresh (repeating the 32 frames would repeat their claims, and the
+    # batch's post-process grows with the distinct views)
+    t0 = time.perf_counter()
+    long_scene = make_scene(num_boxes=8, num_frames=LONG_FRAMES, image_hw=(480, 640),
+                            spacing=0.008, floor_spacing=0.016, seed=0)
+    add_depth_noise(long_scene, sigma=0.002, seed=1000)
+    lt = to_scene_tensors(long_scene)
+    del long_scene
+    _say(f"[stream] {LONG_FRAMES}-frame scene built in {time.perf_counter() - t0:.1f} s "
+         f"(N={lt.num_points})")
+    mem = {}
+    for label, c in (("batch", cfg), ("chunked", cfg.replace(streaming_chunk=LONG_CHUNK))):
+        records = []
+        with recording_stream_chunks(records):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base_mib = torch.cuda.memory_allocated(dev) / 2**20
+            t0 = time.perf_counter()
+            run = run_scene if label == "batch" else stream_scene
+            res = run(lt, c, seq_name="chip_smoke_long", device=dev)
+            torch.cuda.synchronize()
+            mem[label] = {"wall": time.perf_counter() - t0, "res": res,
+                          "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20 - base_mib,
+                          "plane_bytes": max((ch["plane_bytes"] for ch in
+                                              _stream_chunks(records)), default=0)}
+        _check_stream_result(res, lt.num_points, f"{LONG_FRAMES}-frame {label}")
+    _say(f"[stream] {LONG_FRAMES} frames: batch peak {mem['batch']['peak_mib']:.1f} MiB wall "
+         f"{mem['batch']['wall']:.2f} s ({len(mem['batch']['res'].objects.point_ids_list)} "
+         f"objects); chunks of {LONG_CHUNK}: peak {mem['chunked']['peak_mib']:.1f} MiB wall "
+         f"{mem['chunked']['wall']:.2f} s ({len(mem['chunked']['res'].objects.point_ids_list)} "
+         f"objects, largest chunk planes {mem['chunked']['plane_bytes']} bytes; finalize "
+         f"{mem['chunked']['res'].timings['stream.finalize']:.3f} s, host DBSCAN "
+         f"{mem['chunked']['res'].timings['stream.dbscan']:.3f} s)")
+    del lt, mem
+
+    # 13d: fault drills. A mid-size scene streamed in three chunks
+    mid = to_scene_tensors(make_scene(num_boxes=4, num_frames=12, image_hw=(240, 320), seed=1))
+    mcfg = load_config("scannet", config_name="chip_smoke_mid_stream", distance_threshold=0.03,
+                       few_points_threshold=10, streaming_chunk=4)
+    ref = stream_scene(mid, mcfg, seq_name="mid_stream", device=dev)
+    _check_stream_result(ref, mid.num_points, "mid-size stream")
+
+    def same(res, label):
+        if (artifact_digest(res.objects) != artifact_digest(ref.objects)
+                or not np.array_equal(res.assignment, ref.assignment)
+                or res.digest != ref.digest):
+            raise AssertionError(f"the {label} drill's stream differs from the fault-free one")
+
+    records = []
+    faults.set_plan(faults.FaultPlan.from_spec("flaky:mid_stream.chunk:1"))
+    try:
+        with recording_stream_chunks(records):
+            res = stream_scene(mid, mcfg, seq_name="mid_stream", device=dev)
+    finally:
+        faults.set_plan(None)
+    same(res, "flaky")
+    errors = [type(r["error"]).__name__ for r in records if "error" in r]
+    if errors != ["InjectedFault"] or len(_stream_chunks(records)) != 3:
+        raise AssertionError(f"flaky drill attempts: {errors}, "
+                             f"{len(_stream_chunks(records))} ok")
+    _say(f"[drill] flaky:mid_stream.chunk:1 healed: 1 failed chunk attempt ({errors[0]}), "
+         f"3 chunks, artifacts == fault-free ({artifact_digest(ref.objects)})")
+
+    records = []
+    faults.set_plan(faults.FaultPlan.from_spec("stall:mid_stream.chunk:1",
+                                               stall_s=DRILL_STALL_S))
+    try:
+        with recording_stream_chunks(records):
+            t0 = time.perf_counter()
+            res = stream_scene(mid, mcfg.replace(watchdog_device_s=DRILL_WATCHDOG_S),
+                               seq_name="mid_stream", device=dev)
+            wall = time.perf_counter() - t0
+            deadline = time.monotonic() + 60.0
+            while (not any("error" in r for r in records)
+                   and time.monotonic() < deadline):
+                time.sleep(0.1)
+    finally:
+        faults.set_plan(None)
+    same(res, "stall")
+    stale = [r for r in records if "error" in r]
+    if (len(stale) != 1 or type(stale[0]["error"]).__name__ != "StaleChunkAttempt"
+            or not stale[0]["thread"].startswith("watchdog-device")):
+        raise AssertionError(f"stall drill: abandoned attempt ended {stale}")
+    _say(f"[drill] stall:mid_stream.chunk:1 under a {DRILL_WATCHDOG_S:.0f} s watchdog: stream "
+         f"{wall:.2f} s, artifacts == fault-free; the abandoned attempt woke after "
+         f"{DRILL_STALL_S:.0f} s and raised {stale[0]['error']} on its thread "
+         f"{stale[0]['thread']}")
+
+    # the batch driver's CLI under the JAX drill's four faults, over phase
+    # 10's scans: a config file with phase 10's knobs
+    root = batch["root"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    knobs = {k: v for k, v in dataclasses.asdict(batch["cfg"]).items()
+             if k not in ("config_name", "data_root")}
+    drill_cfg = os.path.join(root, "chip_smoke_drill.json")
+    with open(drill_cfg, "w") as fh:
+        json.dump(knobs, fh)
+    names = [MID_SCAN] + list(BATCH_SCANS)
+    spec = (f"load:{MID_SCAN}, stall:{BATCH_SCANS[0]}.device, flaky:{BATCH_SCANS[1]}:2, "
+            f"fail:{BATCH_SCANS[2]}.post")
+    report_path = os.path.join(root, "drill_report.json")
+    env = dict(os.environ, MCT_FAULT_STALL_S="3600")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "maskclustering_tpu_torch.run", "--config", drill_cfg,
+         "--data_root", root, "--seq_name_list", "+".join(names), "--steps", "cluster",
+         "--no-resume", "--fault-plan", spec, "--watchdog-device", str(CLI_WATCHDOG_S),
+         "--report", report_path, "--device", str(dev)],
+        cwd=here, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 1:  # one scan fails by design
+        raise AssertionError(f"drill CLI rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    with open(report_path) as fh:
+        rep = json.load(fh)
+    by = {s["seq_name"]: s for s in rep["scenes"]}
+    # the JAX drill's statuses (tests/test_faults.py:372-413) on the port's
+    # two-rung ladder: the capacity fault heals on rung 2 at attempt 3
+    got = {n: (by[n]["status"], by[n]["attempts"], by[n]["degradation_rung"]) for n in names}
+    want = {MID_SCAN: ("failed", 3, 2), BATCH_SCANS[0]: ("ok", 2, 1),
+            BATCH_SCANS[1]: ("ok", 3, 2), BATCH_SCANS[2]: ("ok", 3, 2)}
+    for n in names:
+        _say(f"[drill] {n}: {by[n]['status']}, attempts {by[n]['attempts']}, rung "
+             f"{by[n]['degradation_rung']}, last error class {by[n]['error_class'] or '-'}, "
+             f"{by[n]['seconds']:.2f} s")
+    _say(f"[drill] CLI --fault-plan '{spec}': rc {proc.returncode}, {wall:.1f} s, faults "
+         f"{json.dumps(rep['faults'])}")
+    if (got != want or by[MID_SCAN]["error_class"] != "retryable"
+            or "InjectedFault" not in by[MID_SCAN]["error"]
+            or rep["faults"]["device_stalls"] != 1
+            or rep["faults"]["degradations"] != {"sequential-executor": 1,
+                                                 "host-postprocess": 1}):
+        raise AssertionError(f"drill statuses {got}, want {want}; faults {rep['faults']}")
+    _artifacts_equal(root, os.path.join(root, "prediction"), "chip_smoke_drill", batch["pred"],
+                     batch["cfg"].config_name, BATCH_SCANS)
+    _say("[drill] every healed scan's npz and object dict == phase 10's fault-free run")
+
+    # 13e: --streaming-chunk through the batch driver on phase 10's scans
+    scfg = batch["cfg"].replace(config_name="chip_smoke_stream_batch",
+                                streaming_chunk=STREAM_CHUNK)
+    kernels.LAUNCHES.reset()
+    rep = run_pipeline(scfg, BATCH_SCANS, steps=("cluster", "eval_ca"), resume=False,
+                       journal=False, prediction_root=os.path.join(root, "prediction_stream"),
+                       device=dev)
+    launches = dict(kernels.LAUNCHES.counts)
+    if not rep.ok or any(s.num_objects <= 0 for s in rep.scenes):
+        raise AssertionError(f"the streaming batch run failed: {rep.step_errors} "
+                             f"{[(s.seq_name, s.status, s.error[-300:]) for s in rep.scenes]}")
+    if any(launches.get(n, 0) != n_chunks * len(BATCH_SCANS) for n in ASSOCIATION_KERNELS):
+        raise AssertionError(f"streaming batch launches {launches}")
+    ap, bap = rep.evaluation["eval_ca"], batch["ap"]
+    if any(s.digest != rep.scenes[0].digest for s in rep.scenes):  # one scan, three names
+        raise AssertionError(f"streamed scan digests differ: {[s.digest for s in rep.scenes]}")
+    _say(f"[stream] --streaming-chunk {STREAM_CHUNK} over {len(BATCH_SCANS)} scans: cluster "
+         f"{rep.step_seconds['cluster']:.3f} s "
+         f"({rep.step_seconds['cluster'] / len(BATCH_SCANS):.3f} s/scan; batch "
+         f"{batch['cluster_s'] / len(BATCH_SCANS):.3f}), AP {ap['all_ap']:.4f} "
+         f"AP50 {ap['all_ap_50%']:.4f} AP25 {ap['all_ap_25%']:.4f} against the batch AP "
+         f"{bap['all_ap']:.4f} AP50 {bap['all_ap_50%']:.4f}; objects "
+         f"{[s.num_objects for s in rep.scenes]}; digest coord {rep.scenes[0].digest_coord}; "
+         f"launches {json.dumps(launches)}")
+    _say(f"[stream] phase 13 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": cuda["launches"]}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "maskclustering_tpu_torch")):
@@ -1645,6 +2025,9 @@ def main() -> int:
     # 12. the CLIP encoder at ViT-H-14's full width
     clip_encoder(dev, scene, batch)
 
+    # 13. streaming and the fault drills
+    stream = streaming_phase(dev, tensors, dense, batch)
+
     _say(f"[done] {time.perf_counter() - t_start:.1f} s")
     _say(card)
     rows = [{
@@ -1666,7 +2049,8 @@ def main() -> int:
             "launches": dense["launches"][name], "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "scene_kernel_ms": t["ms"],
-            "batch_launches": batch["launches"][name]})
+            "batch_launches": batch["launches"][name],
+            "stream_launches": stream["launches"][name]})
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

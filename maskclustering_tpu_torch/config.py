@@ -129,6 +129,27 @@ class PipelineConfig:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
         if self.streaming_chunk < 0:
             raise ValueError(f"streaming_chunk must be >= 0, got {self.streaming_chunk}")
+        # the streaming refusals and their messages are the JAX config's
+        if self.streaming_chunk > 0 and self.mesh_shape:
+            raise ValueError(
+                "streaming_chunk is a single-chip mode — the fused mesh "
+                "path (mesh_shape) consumes whole scenes; unset one")
+        if self.streaming_chunk > 0 and self.use_exact_ball_query:
+            raise ValueError(
+                "streaming_chunk cannot run the exact ball-query parity "
+                "path (host-only, no chunk planes); unset one")
+        if self.stream_recluster_every < 1:
+            raise ValueError(
+                f"stream_recluster_every must be >= 1, got {self.stream_recluster_every}")
+        if self.stream_mask_headroom < 1.0:
+            raise ValueError(
+                f"stream_mask_headroom must be >= 1.0, got {self.stream_mask_headroom}")
+        if self.stream_chunk_retries < 0:
+            raise ValueError(
+                f"stream_chunk_retries must be >= 0, got {self.stream_chunk_retries}")
+        if self.stream_journal_every < 0:
+            raise ValueError(
+                f"stream_journal_every must be >= 0, got {self.stream_journal_every}")
 
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)

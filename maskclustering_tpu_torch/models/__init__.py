@@ -23,6 +23,13 @@ from maskclustering_tpu_torch.models.postprocess_device import (
     postprocess_scene_device,
     run_postprocess,
 )
+from maskclustering_tpu_torch.models.streaming import (
+    StaleChunkAttempt,
+    StreamAccumulator,
+    slice_scene_frames,
+    stream_scene,
+    stream_state_path,
+)
 
 __all__ = [
     "FrameAssociation",
@@ -44,4 +51,9 @@ __all__ = [
     "PostprocessCapacityError",
     "postprocess_scene_device",
     "run_postprocess",
+    "StaleChunkAttempt",
+    "StreamAccumulator",
+    "slice_scene_frames",
+    "stream_scene",
+    "stream_state_path",
 ]

@@ -509,12 +509,13 @@ def associate_scene(
 
 
 def associate_scene_tensors(tensors, cfg, k_max: int = 127, *,
-                            device: DeviceLike = None) -> SceneAssociation:
+                            device: DeviceLike = None, vox_size=None) -> SceneAssociation:
     """Run association from a SceneTensors bundle on ``device``: the cloud
     and the pose tables are uploaded once, the depth and id-map stacks
     through the compact feed (``io/feed.py``, ``backprojection.py:540-542``):
     uint16 when that is bit-exact, decoded on the device to the host
-    arrays' float32 and int32 values."""
+    arrays' float32 and int32 values. ``vox_size``: the coverage voxel of
+    this padded cloud when the caller has it (a stream's chunks share one)."""
     dev = resolve_device(device)
 
     def up(a, dtype):
@@ -523,7 +524,7 @@ def associate_scene_tensors(tensors, cfg, k_max: int = 127, *,
     depths, segs = to_device_frames(tensors.depths, tensors.segmentations, dev)
     return associate_scene(
         up(tensors.scene_points, torch.float32), depths, segs, up(tensors.intrinsics, torch.float32),
-        up(tensors.cam_to_world, torch.float32), up(tensors.frame_valid, torch.bool),
+        up(tensors.cam_to_world, torch.float32), up(tensors.frame_valid, torch.bool), vox_size,
         k_max=k_max, window=cfg.association_window,
         distance_threshold=cfg.distance_threshold, depth_trunc=cfg.depth_trunc,
         few_points_threshold=cfg.few_points_threshold,

@@ -1,6 +1,7 @@
 """Iterative view-consensus clustering (counterpart of ``models/clustering.py``).
 
-Cold start only: the assignment begins as singletons. Cluster state is one
+The assignment begins as singletons (the batch path) or, warm, as a prior
+assignment (``init``: the streaming re-cluster). Cluster state is one
 vector ``a[m] -> representative mask index`` over the M_pad slots. Each
 schedule step re-aggregates the mask features into their representatives
 (a segment-OR as a counting product), forms the observer and supporter
@@ -15,7 +16,7 @@ sweep reads one "changed" flag.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -48,10 +49,16 @@ def iterative_clustering(
     contained: torch.Tensor,  # (M_pad, M_pad) bool mask-level contained_mask
     active: torch.Tensor,  # (M_pad,) bool: valid & not undersegmented
     schedule: torch.Tensor,  # (T,) f32 observer thresholds, +inf padded
+    init: Optional[torch.Tensor] = None,  # (M_pad,) int prior assignment
     *,
     view_consensus_threshold: float = 0.9,
     count_dtype: str = "bf16",
 ) -> ClusterResult:
+    """``init`` warm-starts the merge from a prior assignment instead of
+    singletons (``clustering.py:68-118``); ``init=None`` is the cold start.
+    An ``init`` that refines the final components (``arange`` among them)
+    gives the cold start's result: min-label propagation does not depend on
+    such a starting partition."""
     m_pad = visible.shape[0]
     dev = visible.device
     arange = torch.arange(m_pad, device=dev)
@@ -67,7 +74,7 @@ def iterative_clustering(
         c = counting.count_dot(onehot, con_m, count_dtype=count_dtype, out_dtype=None) > 0
         return v, c, onehot.any(dim=1)
 
-    assign = arange
+    assign = arange if init is None else init.to(device=dev, dtype=arange.dtype)
     is_inf = torch.isinf(schedule).cpu()  # one 20-float read decides the loop length
     for t in range(schedule.shape[0]):
         if is_inf[t]:

@@ -6,9 +6,17 @@ device, whole scenes. Two associations: the dense projective association
 JAX package's (F_pad, N_pad) shape bucket and runs on the device, and the
 exact-parity one (``use_exact_ball_query=True``), host numpy around the
 ball-query kernel. Two post-process rungs: on the device (the default,
-``device_postprocess=True``) or on the host. Streaming and multi-device
-meshes raise ``NotImplementedError`` naming the ROADMAP item that will
-port them; nothing is substituted silently.
+``device_postprocess=True``) or on the host. Multi-device meshes raise
+``NotImplementedError`` naming the ROADMAP item that will port them;
+nothing is substituted silently. Streaming runs the same stages chunk by
+chunk (``models/streaming.py``).
+
+Fault seams (``utils/faults.inject``, the JAX package's sites): ``device``
+at the head of the device phase, ``pull`` before the mask-table pull,
+``host`` at the head of the host phase, ``export`` before the artifacts are
+written, and the ``corrupt`` bit-flip of the pulled assignment before the
+digest (``post`` heads the device post-process,
+``models/postprocess_device.py``).
 
 Device traffic per scene: ``mask_valid`` comes back once, to build the
 mask table (the pipeline's one mid-program pull); the 20-float schedule is
@@ -44,6 +52,7 @@ from maskclustering_tpu_torch.models.graph import (
 from maskclustering_tpu_torch.models.postprocess import SceneObjects, export_artifacts
 from maskclustering_tpu_torch.models.postprocess_device import run_postprocess
 from maskclustering_tpu_torch.obs import digest as sentinel
+from maskclustering_tpu_torch.utils import faults
 from maskclustering_tpu_torch.utils.compile_cache import max_seg_id, scene_pads
 
 log = logging.getLogger("maskclustering_tpu_torch")
@@ -80,9 +89,6 @@ class DeviceHandoff(NamedTuple):
 
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise ``NotImplementedError`` for a configuration the port does not run yet."""
-    if cfg.streaming_chunk > 0:
-        raise NotImplementedError(
-            "streaming (streaming_chunk > 0) is not ported yet: ROADMAP.md queue A, item A6")
     if cfg.mesh_shape:
         raise NotImplementedError(
             "multi-device meshes (mesh_shape) are not ported yet: ROADMAP.md queue A, item A7")
@@ -153,6 +159,7 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
     """Device phase of one scene: associate -> graph -> cluster."""
     check_supported(cfg)
     device = resolve_device(device)
+    faults.inject("device", seq_name)
     timings: Dict[str, float] = {}
     if k_max is None:
         k_max = bucket_k_max(max_seg_id(tensors.segmentations))
@@ -170,6 +177,7 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
 
     with _Stage(timings, "graph", device):
         # the one mid-program pull: M_pad depends on the valid-mask count
+        faults.inject("pull", seq_name)
         mask_valid_host = assoc.mask_valid.cpu().numpy()
         timings["pulls"] = timings.get("pulls", 0) + 1
         table = build_mask_table(mask_valid_host, pad_multiple=cfg.mask_pad_multiple)
@@ -215,6 +223,7 @@ def run_scene_host(handoff: DeviceHandoff, cfg: PipelineConfig, *,
     on the host rung is the batch runner's decision, not this function's.
     """
     timings = dict(handoff.timings)
+    faults.inject("host", handoff.seq_name)
     post_timings: Dict[str, float] = {}
     pulls = [0]
     t0 = time.perf_counter()
@@ -225,7 +234,7 @@ def run_scene_host(handoff: DeviceHandoff, cfg: PipelineConfig, *,
         cfg, handoff.scene_points, handoff.first_id, handoff.last_id, handoff.table.frame,
         handoff.table.mask_id, handoff.active, handoff.assignment, handoff.node_visible,
         handoff.frame_ids, k_max=handoff.k_max, timings=post_timings, n_real=handoff.n_real,
-        pulls=pulls)
+        pulls=pulls, seq_name=handoff.seq_name)
     assignment = handoff.assignment.cpu().numpy()
     digest_vec = sentinel.vector_host(digest_dev)
     # the digest vector is one pull on either rung; the host rung pulled the
@@ -240,11 +249,17 @@ def run_scene_host(handoff: DeviceHandoff, cfg: PipelineConfig, *,
         if handoff.seq_name is None or object_dict_dir is None:
             raise ValueError("export=True requires seq_name and object_dict_dir")
         t1 = time.perf_counter()
+        faults.inject("export", handoff.seq_name)
         export_artifacts(objects, handoff.seq_name, cfg.config_name, object_dict_dir,
                          prediction_root=prediction_root,
                          top_k_repre=cfg.num_representative_masks)
         timings["export"] = time.perf_counter() - t1
 
+    # "corrupt" flips a bit of the pulled assignment and raises nothing, so
+    # neither the retries nor the ladder heal it: only the digest sees it
+    if faults.take_corruption("host", handoff.seq_name):
+        assignment = assignment.copy()
+        assignment[0] ^= 0x1
     digest = sentinel.compose_scene_digest(digest_vec, handoff, assignment, objects,
                                            count_dtype=cfg.count_dtype)
     log.info("scene %s: %d objects, timings %s", handoff.seq_name,

@@ -48,6 +48,7 @@ from maskclustering_tpu_torch.models.postprocess import (
 )
 from maskclustering_tpu_torch.ops import counting
 from maskclustering_tpu_torch.ops.grid_dbscan import _bucket_pow2, build_grid, grid_dbscan_pairs
+from maskclustering_tpu_torch.utils import faults
 
 
 class PostprocessCapacityError(RuntimeError):
@@ -68,15 +69,18 @@ class PostprocessCapacityError(RuntimeError):
 def run_postprocess(cfg, scene_points, first, last, mask_frame, mask_id, mask_active,
                     assignment, node_visible, frame_ids, *, k_max: int,
                     timings: Optional[Dict[str, float]] = None,
-                    n_real: Optional[int] = None, pulls: Optional[List[int]] = None
-                    ) -> SceneObjects:
+                    n_real: Optional[int] = None, pulls: Optional[List[int]] = None,
+                    seq_name: Optional[str] = None) -> SceneObjects:
     """Single dispatch point of the device and host post-process rungs
     (``postprocess_device.py:106-173``); both give byte-identical artifacts.
 
     The large operands are tensors on the scene's device. ``n_real``: the
     true point count when the inputs are padded; a claimed pad point raises
     and the objects get the real count back. ``pulls``, when given, is a
-    one-element list the device-to-host pulls are added to.
+    one-element list the device-to-host pulls are added to. ``seq_name``
+    names the scene at the ``post`` fault seam, which heads the device rung
+    only: the host rung is the ladder's fallback, and a seam that kept
+    firing there would leave the ladder nothing to heal with.
     """
     kwargs = dict(k_max=k_max, point_filter_threshold=cfg.point_filter_threshold,
                   dbscan_eps=cfg.dbscan_split_eps,
@@ -88,6 +92,7 @@ def run_postprocess(cfg, scene_points, first, last, mask_frame, mask_id, mask_ac
     mask_id = np.asarray(mask_id)
     pulled = [0]
     if cfg.device_postprocess:
+        faults.inject("post", seq_name)
         objects = postprocess_scene_device(
             scene_points, first, last, mask_frame, mask_id, mask_active, assignment,
             node_visible, frame_ids, pull_chunk=cfg.claims_pull_chunk,

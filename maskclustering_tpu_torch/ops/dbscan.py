@@ -19,6 +19,9 @@ is part of the exported artifacts.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 from scipy.sparse import coo_matrix
 from scipy.sparse.csgraph import connected_components
@@ -60,3 +63,15 @@ def dbscan_labels(points: np.ndarray, eps: float, min_points: int) -> np.ndarray
         hit = ~core & (best != np.iinfo(np.int64).max)
         labels[hit] = best[hit]
     return labels
+
+
+def dbscan_labels_parallel(point_sets, eps: float, min_points: int):
+    """``dbscan_labels`` over many point sets, in their order, on a thread
+    pool of up to ``os.cpu_count()`` workers, as ``ops/dbscan.py:41-57``
+    does; a plain loop for 0 or 1 sets."""
+    point_sets = list(point_sets)
+    if len(point_sets) <= 1:
+        return [dbscan_labels(p, eps, min_points) for p in point_sets]
+    workers = min(len(point_sets), os.cpu_count() or 4)
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(lambda p: dbscan_labels(p, eps, min_points), point_sets))

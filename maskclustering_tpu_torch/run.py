@@ -10,17 +10,19 @@ on one device:
   or made by ``mask_command``); scenes without them are excluded.
 - **cluster**: the scene queue. Each scene is loaded from disk
   (``datasets/``, PNG through the port's codec), clustered by
-  ``models.pipeline`` and exported. Loads run ahead on daemon threads
-  (``prefetch_depth``). The overlapped executor (``scene_overlap``, the
-  default) runs scene i's device phase on the main thread while scene
-  i-1's host tail (post-process, export) runs on a worker thread; both
+  ``models.pipeline`` (or, under ``--streaming-chunk``, streamed through
+  ``models.streaming.stream_scene`` by the sequential loop, its state
+  journal under ``<prediction_root>/<config>_stream_state``) and exported.
+  Loads run ahead on daemon threads (``prefetch_depth``). The overlapped
+  executor (``scene_overlap``, the default) runs scene i's device phase on
+  the main thread while scene i-1's host tail (post-process, export) runs on a worker thread; both
   issue their device work to the one current stream, so the artifacts are
   bit-equal to the sequential loop's whatever the interleaving. A
   ``SceneSupervisor`` retries failed scenes, drops a degradation-ladder
   rung after a round with device-class failures (overlapped ->
   sequential executor -> host post-process; a post-process capacity
   overflow heals on the last), and skips scenes a run journal records as
-  done.
+  done. ``--fault-plan`` scripts faults at the seams (``utils/faults.py``).
 - **features**: per-mask features of every scene's representative masks
   (``semantics/features.py``), by the encoder of ``--encoder``: ``hash``
   or ``hash:<dim>`` (the JAX default, a deterministic stand-in), or
@@ -62,6 +64,7 @@ from maskclustering_tpu_torch.models.pipeline import (
     run_scene_device,
     run_scene_host,
 )
+from maskclustering_tpu_torch.models.streaming import stream_scene
 from maskclustering_tpu_torch.obs.digest import digest_coord
 from maskclustering_tpu_torch.semantics import (
     HashEncoder,
@@ -274,6 +277,7 @@ def check_masks(cfg: PipelineConfig, seq_names: Sequence[str],
 def _load_for_cluster(cfg: PipelineConfig, seq_name: str, resume: bool,
                       prediction_root: str):
     """(dataset, tensors): the host-IO half of one scene; tensors None = skip."""
+    faults.inject("load", seq_name)
     ds = get_dataset(cfg.dataset, seq_name, data_root=cfg.data_root)
     npz_path = os.path.join(prediction_root, cfg.config_name + "_class_agnostic",
                             f"{seq_name}.npz")
@@ -317,7 +321,7 @@ def _ok_status(seq: str, seconds: float, result) -> SceneStatus:
 
 def _stamp_coord(st: SceneStatus, cfg: PipelineConfig) -> SceneStatus:
     """Stamp the digest's coordinate on a rung-attributed SceneStatus
-    (``run.py:272-285``): one device, the rung it ran at, batch (chunk 0)."""
+    (``run.py:272-285``): one device, the rung it ran at, the chunk (0 = batch)."""
     st.digest_coord = digest_coord(st.digest, mesh="single", rung=st.degradation_rung,
                                    chunk=cfg.streaming_chunk)
     return st
@@ -351,14 +355,23 @@ def cluster_scene(cfg: PipelineConfig, seq_name: str, *, resume: bool = True,
             return ctx.finish(SceneStatus(seq_name, "skipped"))
         if faults.stop_requested():
             return ctx.finish(SceneStatus(seq_name, "interrupted"))
-        handoff = faults.call_with_deadline(
-            lambda: run_scene_device(tensors, cfg, seq_name=seq_name, device=device),
-            cfg.watchdog_device_s, seam="device", scene=seq_name)
-        result = faults.call_with_deadline(
-            lambda: run_scene_host(handoff, cfg, export=True,
-                                   object_dict_dir=ds.object_dict_dir,
-                                   prediction_root=prediction_root),
-            cfg.watchdog_host_s, seam="host", scene=seq_name)
+        if cfg.streaming_chunk > 0:
+            # chunk retries and the per-chunk watchdog run inside the stream;
+            # its state journal resumes a killed process mid-scene
+            result = stream_scene(
+                tensors, cfg, seq_name=seq_name, export=True,
+                object_dict_dir=ds.object_dict_dir, prediction_root=prediction_root,
+                state_dir=os.path.join(prediction_root, cfg.config_name + "_stream_state"),
+                resume=resume, device=device)
+        else:
+            handoff = faults.call_with_deadline(
+                lambda: run_scene_device(tensors, cfg, seq_name=seq_name, device=device),
+                cfg.watchdog_device_s, seam="device", scene=seq_name)
+            result = faults.call_with_deadline(
+                lambda: run_scene_host(handoff, cfg, export=True,
+                                       object_dict_dir=ds.object_dict_dir,
+                                       prediction_root=prediction_root),
+                cfg.watchdog_host_s, seam="host", scene=seq_name)
         return _stamp_coord(ctx.finish(_ok_status(seq_name, time.perf_counter() - t0, result)),
                             cfg)
     except Exception as e:
@@ -498,9 +511,11 @@ def _dispatch_scenes(cfg: PipelineConfig, seq_names: Sequence[str], *, resume: b
                      prediction_root: str, device, ctx: _FaultCtx) -> List[SceneStatus]:
     """One executor pass over ``seq_names`` at the current ladder rung:
     overlapped when ``cfg.scene_overlap`` and more than one scene, else
-    sequential. One process only (``workers > 1`` and meshes: A7)."""
+    sequential; streaming scenes pipeline inside the scene, sequentially.
+    One process only (``workers > 1`` and meshes: A7)."""
     check_supported(cfg)
-    run = (_cluster_scenes_overlapped if cfg.scene_overlap and len(seq_names) > 1
+    run = (_cluster_scenes_overlapped
+           if cfg.scene_overlap and len(seq_names) > 1 and cfg.streaming_chunk <= 0
            else _cluster_scenes_sequential)
     return run(cfg, seq_names, resume=resume, prediction_root=prediction_root,
                device=device, ctx=ctx)
@@ -810,7 +825,9 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="maskclustering_tpu_torch.run",
         description="mask-clustering batch driver on one CUDA card (PyTorch port)")
-    parser.add_argument("--config", required=True, help="config name under configs/")
+    parser.add_argument("--config", required=True,
+                        help="config name under configs/, or the path of a JSON config "
+                             "file (its file name without .json names the config)")
     parser.add_argument("--seq_name_list", default=None,
                         help="+-joined scene names (default: split file)")
     parser.add_argument("--splits_dir", default="splits")
@@ -821,6 +838,16 @@ def main(argv=None) -> int:
                              "inline; default: config prefetch_depth)")
     parser.add_argument("--no-overlap", action="store_true",
                         help="serialize the scene loop (artifacts are identical)")
+    parser.add_argument("--streaming-chunk", type=int, default=None, metavar="F",
+                        help="stream each scene in chunks of F frames through the "
+                             "accumulator (models/streaming.py): one chunk's claim planes "
+                             "resident, partial instances per chunk, byte-equal to the "
+                             "batch result when one chunk covers the scene; 0 = batch "
+                             "(default: config streaming_chunk)")
+    parser.add_argument("--fault-plan", default=None,
+                        help="deterministic fault injection spec (e.g. 'load:scene2, "
+                             "stall:scene4.device, flaky:scene5:2'; default: "
+                             "$MCT_FAULT_PLAN); a drill knob, never for production")
     parser.add_argument("--no-resume", action="store_true",
                         help="recompute even when artifacts exist")
     parser.add_argument("--encoder", default="hash",
@@ -855,9 +882,17 @@ def main(argv=None) -> int:
         overrides["scene_retries"] = args.scene_retries
     if args.watchdog_device is not None:
         overrides["watchdog_device_s"] = args.watchdog_device
+    if args.streaming_chunk is not None:
+        overrides["streaming_chunk"] = args.streaming_chunk
     if args.debug:
         overrides["debug"] = True
-    cfg = load_config(args.config, **overrides)
+    if args.config.endswith(".json") and os.path.isfile(args.config):
+        cfg = load_config(os.path.basename(args.config)[:-len(".json")],
+                          config_dir=os.path.dirname(os.path.abspath(args.config)), **overrides)
+    else:
+        cfg = load_config(args.config, **overrides)
+    if args.fault_plan:
+        faults.set_plan(faults.FaultPlan.from_spec(args.fault_plan))
     faults.install_sigterm_handler()
     seq_names = get_seq_name_list(cfg.dataset, args.splits_dir, args.seq_name_list)
     log.info("there are %d scenes", len(seq_names))

@@ -11,7 +11,8 @@ Gives the ids and attention masks of ``transformers``' ``CLIPTokenizerFast``
 3. pre-tokenise: the rest splits into the matches of
    ``'s|'t|'re|'ve|'m|'ll|'d|[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+``, and
    whitespace between them is dropped. Python's ``re`` has no ``\\p{L}``, so
-   this is a scanner over ``unicodedata.category``;
+   this is a scanner over ``unicodedata.category``, with the code points
+   where ``tokenizers``' newer tables differ carried as data (below);
 4. each piece's UTF-8 bytes map through GPT-2's ``bytes_to_unicode``, the
    last symbol takes ``</w>``, a symbol missing from the vocabulary becomes
    the unknown token, and the merges apply by rank, the leftmost occurrence
@@ -54,12 +55,51 @@ def bytes_to_unicode() -> Dict[int, str]:
     return dict(zip(bs, (chr(c) for c in cs)))
 
 
+# Where ``tokenizers`` 0.22.2 (the library CLIPTokenizerFast runs) and
+# Python 3.12's Unicode 15.0.0 disagree, over every code point but the
+# surrogates: the library's pre-tokeniser regex matches these (first, last)
+# ranges as \p{L} or \p{N}, and its Lowercase normaliser maps these
+# (first, last, lowercase of first) ranges one to one. Python's database
+# leaves them unassigned. Found with the library's own Split(\p{L}),
+# Split(\p{N}) and Lowercase over the whole code space; they are data
+# because the library is not a dependency of this package. Its \s and NFC
+# agree with Python's everywhere.
+_NEWER_LETTERS = (
+    (0x1C89, 0x1C8A), (0xA7CB, 0xA7CD), (0xA7DA, 0xA7DC), (0x105C0, 0x105F3),
+    (0x10D4A, 0x10D65), (0x10D6F, 0x10D85), (0x10EC2, 0x10EC4), (0x11380, 0x11389),
+    (0x1138B, 0x1138B), (0x1138E, 0x1138E), (0x11390, 0x113B5), (0x113B7, 0x113B7),
+    (0x113D1, 0x113D1), (0x113D3, 0x113D3), (0x11BC0, 0x11BE0), (0x13460, 0x143FA),
+    (0x16100, 0x1611D), (0x16D40, 0x16D6C), (0x18CFF, 0x18CFF), (0x1E5D0, 0x1E5ED),
+    (0x1E5F0, 0x1E5F0), (0x2EBF0, 0x2EE5D))
+_NEWER_NUMBERS = (
+    (0x10D40, 0x10D49), (0x116D0, 0x116E3), (0x11BF0, 0x11BF9), (0x16130, 0x16139),
+    (0x16D70, 0x16D79), (0x1CCF0, 0x1CCF9), (0x1E5F1, 0x1E5FA))
+_NEWER_LOWERCASE = (
+    (0x1C89, 0x1C89, 0x1C8A), (0xA7CB, 0xA7CB, 0x0264), (0xA7CC, 0xA7CC, 0xA7CD),
+    (0xA7CE, 0xA7CE, 0xA7CF), (0xA7D2, 0xA7D2, 0xA7D3), (0xA7D4, 0xA7D4, 0xA7D5),
+    (0xA7DA, 0xA7DA, 0xA7DB), (0xA7DC, 0xA7DC, 0x019B), (0x10D50, 0x10D65, 0x10D70),
+    (0x16EA0, 0x16EB8, 0x16EBB))
+_LOWER = {chr(c): chr(low + c - first)
+          for first, last, low in _NEWER_LOWERCASE for c in range(first, last + 1)}
+
+
+def _in_ranges(ch: str, ranges) -> bool:
+    c = ord(ch)
+    return any(first <= c <= last for first, last in ranges)
+
+
 def _is_letter(ch: str) -> bool:
-    return unicodedata.category(ch)[0] == "L"
+    cat = unicodedata.category(ch)
+    return cat[0] == "L" or (cat == "Cn" and _in_ranges(ch, _NEWER_LETTERS))
 
 
 def _is_number(ch: str) -> bool:
-    return unicodedata.category(ch)[0] == "N"
+    cat = unicodedata.category(ch)
+    return cat[0] == "N" or (cat == "Cn" and _in_ranges(ch, _NEWER_NUMBERS))
+
+
+def _lower(ch: str) -> str:
+    return _LOWER.get(ch) or ch.lower()
 
 
 def normalize(text: str) -> str:
@@ -72,7 +112,7 @@ def normalize(text: str) -> str:
                 out.append(" ")
             in_run = True
         else:
-            out.append(ch.lower())
+            out.append(_lower(ch))
             in_run = False
     return "".join(out)
 

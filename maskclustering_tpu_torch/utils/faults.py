@@ -1,18 +1,24 @@
-"""Fault-tolerance primitives of the batch driver (the part of
-``maskclustering_tpu/utils/faults.py`` it uses: ``:115-246, 308-424,
-705-917``).
+"""Fault-tolerance primitives of the batch driver and the streaming
+accumulator (the port's copy of ``maskclustering_tpu/utils/faults.py``).
 
 The scene is the fault boundary: a transient device fault should cost one
-scene retry, not the run.
+scene retry, not the run; inside a streamed scene, one chunk retry.
 
-- **watchdog** (``call_with_deadline``): a bounded wait around a scene's
-  load, device phase or host tail; on expiry a typed ``DeviceStallError``
-  is raised in the caller and the wedged work is abandoned on its daemon
-  thread (a hung native call can only be outwaited, not cancelled);
+- **watchdogs** (``call_with_deadline``, ``Heartbeat``): a bounded wait
+  around a scene's load, device phase, host tail or streaming chunk; on
+  expiry a typed ``DeviceStallError`` is raised in the caller and the
+  wedged work is abandoned on its daemon thread (a hung native call can
+  only be outwaited, not cancelled);
 - **error classes** (``classify_error``): ``retryable``, ``device`` (also
   drives the degradation ladder) or ``terminal`` (a retry cannot help);
 - **retry and degradation** (``RetryPolicy``, ``DegradationLadder``);
-- **cooperative stop** on SIGTERM at scene boundaries;
+- **deterministic fault injection** (``FaultPlan``, ``inject``,
+  ``take_corruption``): seam-scripted drills (``--fault-plan`` or
+  ``$MCT_FAULT_PLAN``, e.g. ``"load:scene2, stall:scene4.device,
+  flaky:scene5:2"``) that drive every watchdog, retry, ladder rung and
+  journal path on a healthy card. Same grammar, kinds, defaults and error
+  messages as the JAX module;
+- **cooperative stop** on SIGTERM at scene and chunk boundaries;
 - **crash-safe run journal** (``RunJournal``, ``read_journal``,
   ``replay_journal``, ``resume_done``): an append-only JSONL of scene
   attempt and outcome rows in the JAX package's envelope and format, so a
@@ -27,9 +33,11 @@ default config a post-process capacity overflow heals on the port's rung
 2 at attempt 3, on JAX's rung 3 at attempt 4, with equal artifacts and
 digests. ``SceneStatus.degradation_rung``, the journal's ``rung`` rows and
 the ``r`` field of ``digest_coord`` follow each package's own ladder.
-Not here yet: ``FaultPlan`` and its drills (a ROADMAP item of their own),
-and the metrics counters and flight-recorder marks (ROADMAP A9), which the
-JAX module books at these sites.
+
+Not here yet (ROADMAP A9, serving and observability): the metrics
+counters and flight-recorder marks the JAX module books at these sites,
+and the serving daemon that fires the ``admission`` seam. The seam and the
+``die`` kind parse; nothing fires them until the daemon is ported.
 """
 
 from __future__ import annotations
@@ -40,7 +48,7 @@ import os
 import signal
 import threading
 import time
-from typing import Callable, Dict, List, Optional, Set
+from typing import Callable, Dict, Iterable, List, Optional, Set
 
 import torch
 
@@ -62,6 +70,22 @@ class DeviceStallError(RuntimeError):
             f"{seam} phase of scene {scene!r} did not finish within "
             f"{budget_s:.3g}s (device stalled or wedged)")
 
+
+class InjectedFault(RuntimeError):
+    """A FaultPlan-scripted failure; ``retryable`` steers classification."""
+
+    def __init__(self, msg: str, *, retryable: bool = True):
+        self.retryable = retryable
+        super().__init__(msg)
+
+
+# the seams a FaultPlan can target, where run.py, models/pipeline.py,
+# models/postprocess_device.py and models/streaming.py call inject(): "post"
+# heads the device post-process chain (the seam that drives the ladder's
+# host-postprocess rung), "chunk" heads every streaming chunk (its faults
+# retry the chunk, the accumulator intact), "admission" is the serving
+# daemon's (ROADMAP A9)
+SEAMS = ("load", "device", "host", "export", "pull", "post", "chunk", "admission")
 
 # a scene overflowing a device post-process capacity bucket
 # (models/postprocess_device.py) heals on the ladder's host-postprocess
@@ -89,6 +113,8 @@ def classify_error(exc: BaseException) -> str:
     cannot help: programming and configuration errors)."""
     if isinstance(exc, DeviceStallError) or isinstance(exc, _DEVICE_ERROR_TYPES):
         return "device"
+    if isinstance(exc, InjectedFault):
+        return "retryable" if exc.retryable else "terminal"
     if isinstance(exc, MemoryError) or type(exc).__name__ in _DEVICE_ERROR_NAMES:
         return "device"
     if isinstance(exc, _TERMINAL_TYPES):
@@ -133,19 +159,83 @@ def call_with_deadline(fn: Callable, budget_s: float, *, seam: str = "device",
     return box["value"]
 
 
-class RetryPolicy:
-    """Exponential backoff of the scene retry rounds (``faults.py:308-348``,
-    its ``exp`` style): ``base_s * 2**(attempt - 1)`` capped at ``cap_s``.
-    The JAX class's linear style and delay-scaling env var serve bench.py's
-    supervisor, which the port does not have."""
+class Heartbeat:
+    """A deadline that re-arms on progress (long multi-step loops).
 
-    def __init__(self, base_s: float = 0.25, cap_s: float = 30.0):
+    ``beat()`` marks liveness; ``check()`` raises ``DeviceStallError`` when
+    no beat landed within ``budget_s``: a loop that is merely slow keeps
+    beating and lives, one whose next step never arrives dies within the
+    budget. Thread-safe (the beating worker and the checking supervisor are
+    usually different threads). No loop of the port beats it yet; the JAX
+    package's serving supervisor (ROADMAP A9) is its user.
+    """
+
+    def __init__(self, budget_s: float, *, seam: str = "device",
+                 scene: Optional[str] = None):
+        self.budget_s = budget_s
+        self.seam = seam
+        self.scene = scene
+        self._lock = threading.Lock()
+        self._last = time.monotonic()
+
+    def beat(self) -> None:
+        with self._lock:
+            self._last = time.monotonic()
+
+    def remaining(self) -> float:
+        with self._lock:
+            return self.budget_s - (time.monotonic() - self._last)
+
+    def age_s(self) -> float:
+        """Seconds since the last beat."""
+        with self._lock:
+            return time.monotonic() - self._last
+
+    def expired(self) -> bool:
+        return self.budget_s > 0 and self.remaining() <= 0
+
+    def check(self) -> None:
+        if self.expired():
+            raise DeviceStallError(self.seam, self.scene, self.budget_s)
+
+
+class RetryPolicy:
+    """Backoff schedule of the retry loops (``faults.py:308-348``).
+
+    ``style="exp"``: ``base_s * 2**(attempt - 1)`` capped at ``cap_s``, the
+    scene and chunk retry shape. ``style="linear"``: ``base_s * attempt``
+    capped, the JAX bench supervisor's shape. ``attempts`` is the caller's
+    budget (the streaming chunk loop's). ``scale_env`` names an environment
+    variable multiplying every delay; a malformed value counts as 1.0 and a
+    negative one as 0.
+    """
+
+    def __init__(self, attempts: int = 3, base_s: float = 0.25, cap_s: float = 30.0,
+                 style: str = "exp", scale_env: Optional[str] = None):
+        if style not in ("exp", "linear"):
+            raise ValueError(f"unknown backoff style {style!r}")
+        self.attempts = max(int(attempts), 1)
         self.base_s = max(float(base_s), 0.0)
         self.cap_s = max(float(cap_s), 0.0)
+        self.style = style
+        self.scale_env = scale_env
+
+    def scale(self) -> float:
+        if not self.scale_env:
+            return 1.0
+        try:
+            return max(float(os.environ.get(self.scale_env, "1.0")), 0.0)
+        except ValueError:
+            return 1.0
 
     def backoff(self, attempt: int) -> float:
         """Delay after the ``attempt``-th failure (1-based)."""
-        return min(self.base_s * (2.0 ** (max(int(attempt), 1) - 1)), self.cap_s)
+        attempt = max(int(attempt), 1)
+        if self.style == "linear":
+            delay = self.base_s * attempt
+        else:
+            delay = self.base_s * (2.0 ** (attempt - 1))
+        return min(delay, self.cap_s) * self.scale()
 
 
 # (rung name, config overrides, applicability predicate), most performant
@@ -203,6 +293,227 @@ class DegradationLadder:
 
 
 # ---------------------------------------------------------------------------
+# deterministic fault injection
+# ---------------------------------------------------------------------------
+
+
+class _FaultEntry:
+    __slots__ = ("kind", "seam", "scene", "remaining", "lock")
+
+    def __init__(self, kind: str, seam: str, scene: str, count: Optional[int]):
+        self.kind = kind
+        self.seam = seam
+        self.scene = scene
+        self.remaining = count  # None = every attempt
+        self.lock = threading.Lock()
+
+    def take(self) -> bool:
+        """Consume one firing; False once the count is exhausted."""
+        with self.lock:
+            if self.remaining is None:
+                return True
+            if self.remaining <= 0:
+                return False
+            self.remaining -= 1
+            return True
+
+
+# kind -> (default seam, default count; None = unlimited). "crash" and
+# "die" SIGKILL the process at the seam ("die" defaults to the serving
+# daemon's admission seam); "wedge" silences a heartbeat (set_wedge_hook)
+# and blocks without bound; "corrupt" flips a bit of a pulled value at a
+# data site instead of raising, so only a digest can see it
+_KIND_DEFAULTS = {
+    "fail": ("device", None),
+    "load": ("load", None),
+    "flaky": ("device", 1),
+    "stall": ("device", 1),
+    "terminal": ("device", None),
+    "sigterm": ("load", 1),
+    "crash": ("device", 1),
+    "wedge": ("device", 1),
+    "die": ("admission", 1),
+    "corrupt": ("host", None),
+}
+
+
+class FaultPlan:
+    """A deterministic, seam-scripted fault schedule.
+
+    Spec grammar (comma-separated entries)::
+
+        KIND:SCENE[.SEAM][:COUNT]
+
+        load:scene2           # scene2's load raises, every attempt
+        stall:scene4.device   # scene4's first device phase hangs (sleep)
+        flaky:scene5:2        # scene5's device phase fails twice, then ok
+        fail:scene3.export:1  # one export failure
+        terminal:scene6       # a non-retryable failure (classification)
+        sigterm:scene1.load   # one real SIGTERM to this process at the seam
+        crash:scene7.device   # one real SIGKILL to the executing process
+        wedge:scene8.device   # heartbeat-silent unbounded hang
+        corrupt:scene9.host   # silent bit-flip of a pulled value (digest drift)
+        die:sceneA.admission  # one real SIGKILL at the daemon's admission
+
+    ``stall`` sleeps ``stall_s`` (``$MCT_FAULT_STALL_S``, default 5 s) at
+    the seam: under an armed watchdog the caller sees ``DeviceStallError``
+    within its budget. Counts are firings remaining, decremented per firing,
+    so retries see the scripted sequence deterministically. Thread-safe:
+    seams fire from prefetch threads, the dispatch thread, the host-tail
+    worker and the watchdog threads.
+    """
+
+    def __init__(self, entries: Iterable[_FaultEntry], *, stall_s: float = 5.0,
+                 spec: str = ""):
+        self.entries = list(entries)
+        self.stall_s = float(stall_s)
+        self.spec = spec
+
+    @classmethod
+    def from_spec(cls, spec: str, *, stall_s: Optional[float] = None) -> "FaultPlan":
+        if stall_s is None:
+            try:
+                stall_s = float(os.environ.get("MCT_FAULT_STALL_S", "5.0"))
+            except ValueError:
+                stall_s = 5.0
+        entries = []
+        for raw in spec.split(","):
+            raw = raw.strip()
+            if not raw:
+                continue
+            parts = raw.split(":")
+            if len(parts) not in (2, 3):
+                raise ValueError(f"bad fault entry {raw!r} (KIND:SCENE[.SEAM][:COUNT])")
+            kind, target = parts[0].strip(), parts[1].strip()
+            if kind not in _KIND_DEFAULTS:
+                raise ValueError(f"unknown fault kind {kind!r} in {raw!r} "
+                                 f"(one of {sorted(_KIND_DEFAULTS)})")
+            seam, count = _KIND_DEFAULTS[kind]
+            if "." in target:
+                scene, _, maybe_seam = target.rpartition(".")
+                if maybe_seam not in SEAMS:
+                    raise ValueError(f"unknown seam {maybe_seam!r} in {raw!r} "
+                                     f"(one of {SEAMS})")
+                target, seam = scene, maybe_seam
+            if len(parts) == 3:
+                count = int(parts[2])
+                if count < 1:
+                    raise ValueError(f"count must be >= 1 in {raw!r}")
+            if not target:
+                raise ValueError(f"empty scene name in {raw!r}")
+            entries.append(_FaultEntry(kind, seam, target, count))
+        return cls(entries, stall_s=stall_s, spec=spec)
+
+    def fire(self, seam: str, scene: Optional[str]) -> None:
+        """Perform every scripted action matching (seam, scene): raising
+        kinds raise, ``stall`` sleeps, ``sigterm`` signals this process,
+        ``crash``/``die`` SIGKILL it, ``wedge`` calls the wedge hook and
+        blocks. ``corrupt`` entries never fire here (``take_corruption``)."""
+        if scene is None:
+            return
+        for e in self.entries:
+            if e.kind == "corrupt":
+                continue
+            if e.seam != seam or e.scene != scene or not e.take():
+                continue
+            log.warning("fault injection: %s at %s seam of scene %s", e.kind, seam, scene)
+            if e.kind == "stall":
+                time.sleep(self.stall_s)
+            elif e.kind == "sigterm":
+                os.kill(os.getpid(), signal.SIGTERM)
+            elif e.kind in ("crash", "die"):
+                os.kill(os.getpid(), signal.SIGKILL)
+            elif e.kind == "wedge":
+                hook = wedge_hook()
+                if hook is not None:
+                    hook()
+                while True:  # unbounded: only an external SIGKILL ends it
+                    time.sleep(60.0)
+            elif e.kind == "terminal":
+                raise InjectedFault(f"injected terminal fault at {seam} seam of {scene}",
+                                    retryable=False)
+            elif seam == "post":
+                # the post seam's one real failure is a capacity overflow:
+                # the production error type drives the production (device)
+                # classification, hence the ladder's host-postprocess rung
+                from maskclustering_tpu_torch.models.postprocess_device import (
+                    PostprocessCapacityError,
+                )
+
+                raise PostprocessCapacityError(
+                    f"injected ({e.kind} fault at scene {scene})", -1, 0, "post_group_cap")
+            else:  # fail / load / flaky
+                raise InjectedFault(f"injected {e.kind} fault at {seam} seam of {scene}")
+
+    def take_corruption(self, seam: str, scene: Optional[str]) -> bool:
+        """Consume one scripted ``corrupt`` firing for (seam, scene); the
+        data site flips a bit when this returns True. Nothing raises, so
+        the retry policy and the ladder never see it."""
+        if scene is None:
+            return False
+        for e in self.entries:
+            if e.kind != "corrupt" or e.seam != seam or e.scene != scene or not e.take():
+                continue
+            log.warning("fault injection: corrupt at %s seam of scene %s", seam, scene)
+            return True
+        return False
+
+
+_PLAN: Optional[FaultPlan] = None
+_PLAN_LOADED = False
+_PLAN_LOCK = threading.Lock()
+_WEDGE_HOOK: Optional[Callable] = None
+
+
+def set_wedge_hook(fn: Optional[Callable]) -> None:
+    """Register what a ``wedge`` fault does before it hangs (a serving
+    worker silences its heartbeat emitter here)."""
+    global _WEDGE_HOOK
+    with _PLAN_LOCK:
+        _WEDGE_HOOK = fn
+
+
+def wedge_hook() -> Optional[Callable]:
+    with _PLAN_LOCK:
+        return _WEDGE_HOOK
+
+
+def active_plan() -> Optional[FaultPlan]:
+    """The process-wide plan: ``set_plan`` wins, else ``$MCT_FAULT_PLAN``
+    (parsed once)."""
+    global _PLAN, _PLAN_LOADED
+    with _PLAN_LOCK:
+        if not _PLAN_LOADED:
+            spec = os.environ.get("MCT_FAULT_PLAN", "").strip()
+            _PLAN = FaultPlan.from_spec(spec) if spec else None
+            _PLAN_LOADED = True
+        return _PLAN
+
+
+def set_plan(plan: Optional[FaultPlan]) -> None:
+    """Install (or clear with None) the process-wide plan; overrides the env."""
+    global _PLAN, _PLAN_LOADED
+    with _PLAN_LOCK:
+        _PLAN = plan
+        _PLAN_LOADED = True
+
+
+def inject(seam: str, scene: Optional[str]) -> None:
+    """The seam hook: a no-op without an active plan, else fires the plan's
+    matching entries."""
+    plan = active_plan()
+    if plan is not None:
+        plan.fire(seam, scene)
+
+
+def take_corruption(seam: str, scene: Optional[str]) -> bool:
+    """The corruption hook: True when the active plan scripts a ``corrupt``
+    firing at (seam, scene); the data site then flips one bit."""
+    plan = active_plan()
+    return plan.take_corruption(seam, scene) if plan is not None else False
+
+
+# ---------------------------------------------------------------------------
 # cooperative stop (SIGTERM-safe shutdown)
 # ---------------------------------------------------------------------------
 
@@ -238,6 +549,10 @@ def stop_requested() -> bool:
     if _STOP.is_set():
         _announce_stop()
     return _STOP.is_set()
+
+
+def stop_reason() -> str:
+    return _STOP_REASON
 
 
 def clear_stop() -> None:

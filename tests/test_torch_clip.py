@@ -27,7 +27,6 @@ import json
 import math
 import os
 import shutil
-import unicodedata
 
 import numpy as np
 import pytest
@@ -151,14 +150,11 @@ def test_tokenizer_equals_clip_tokenizer_fast(tokenizer_dirs, which, texts):
     assert got["input_ids"].dtype == np.int64 and got["attention_mask"].dtype == np.int64
 
 
-def test_tokenizer_every_code_point(tokenizer_dirs):
-    """Each code point in three contexts. The only differences are code
-    points Python's Unicode database (15.0 in 3.12) leaves unassigned and a
-    newer one assigns (ROADMAP.md §C)."""
-    d = tokenizer_dirs["byte_level"]
+def _differing_code_points(d, points):
+    """The code points whose three contexts tokenise differently in the
+    port and in CLIPTokenizerFast."""
     fast = transformers.CLIPTokenizerFast.from_pretrained(d)
     mine = CLIPTokenizer.from_pretrained(d)
-    points = [*range(0xD800), *range(0xE000, 0x11000), *range(0x1F000, 0x1FB00)]
     texts = [f"a{chr(c)}b {chr(c)}{chr(c)}X 1{chr(c)}" for c in points]
     differ = []
     for start in range(0, len(texts), 4096):
@@ -166,9 +162,33 @@ def test_tokenizer_every_code_point(tokenizer_dirs):
         for c, text, ids in zip(points[start:], chunk, fast(chunk)["input_ids"]):
             if mine.encode(text) != list(ids):
                 differ.append(c)
-    assert {unicodedata.category(chr(c)) for c in differ} <= {"Cn"}, \
-        [hex(c) for c in differ if unicodedata.category(chr(c)) != "Cn"][:20]
-    assert len(differ) < 200, len(differ)
+    return differ
+
+
+def _newer_table_code_points():
+    from maskclustering_tpu_torch.semantics import tokenizer as tok
+
+    ranges = ([r[:2] for r in tok._NEWER_LOWERCASE] + list(tok._NEWER_LETTERS)
+              + list(tok._NEWER_NUMBERS))
+    return sorted({c for first, last in ranges for c in range(first, last + 1)})
+
+
+def test_tokenizer_every_code_point(tokenizer_dirs):
+    """Each code point in three contexts, over the BMP, two supplementary
+    blocks and every code point of the tokenizer's newer-Unicode tables:
+    no difference (ROADMAP.md §C, C2)."""
+    table = _newer_table_code_points()
+    points = sorted({*range(0xD800), *range(0xE000, 0x11000), *range(0x1F000, 0x1FB00),
+                     *table})
+    assert len(table) > 4900
+    assert _differing_code_points(tokenizer_dirs["byte_level"], points) == []
+
+
+@pytest.mark.slow
+def test_tokenizer_every_code_point_full_plane(tokenizer_dirs):
+    """The same over all 1,112,064 code points but the surrogates."""
+    points = [*range(0xD800), *range(0xE000, 0x110000)]
+    assert _differing_code_points(tokenizer_dirs["byte_level"], points) == []
 
 
 def test_tokenizer_refusals(tokenizer_dirs, tmp_path):

@@ -217,9 +217,19 @@ def test_canary_goldens_reproduced(idx, frames, points, max_id, golden):
 
 
 def test_streaming_configuration_raises():
-    cfg = from_jax_config(dataclasses.asdict(_cfg())).replace(streaming_chunk=4)
-    with pytest.raises(NotImplementedError, match="A6"):
-        run_scene(port_to_scene_tensors(port_make_scene(**SCENES["seed4"])), cfg, device="cpu")
+    """Streaming is ported (``models/streaming.py``): the pipeline accepts a
+    streaming configuration, and the combinations the JAX config refuses
+    raise its ValueError, message for message, in both packages."""
+    from maskclustering_tpu_torch.models.pipeline import check_supported
+
+    dense = _cfg().replace(use_exact_ball_query=False, device_postprocess=True)
+    check_supported(from_jax_config(dataclasses.asdict(dense)).replace(streaming_chunk=4))
+    for bad in (dict(mesh_shape=(1, 2)), dict(use_exact_ball_query=True)):
+        with pytest.raises(ValueError) as want:
+            dense.replace(streaming_chunk=4, **bad)
+        with pytest.raises(ValueError) as got:
+            from_jax_config(dataclasses.asdict(dense)).replace(streaming_chunk=4, **bad)
+        assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("name", sorted(f[:-5] for f in os.listdir(os.path.join(REPO, "configs"))
@@ -269,8 +279,9 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
     neither jax nor anything of maskclustering_tpu, nor PIL, cv2, or the
     libraries of HF's CLIP path (transformers, tokenizers, safetensors,
     msgpack, regex, flax, ftfy); nor does building the CLIP encoder on a
-    checkpoint and encoding an image and a text (the card's machine has
-    none of them: the port decodes PNG and JPEG and reads CLIP itself)."""
+    checkpoint and encoding an image and a text, or streaming a scene in
+    chunks (the card's machine has none of them: the port decodes PNG and
+    JPEG and reads CLIP itself)."""
     _write_port_clip_dir(tmp_path)
     code = r"""
 import importlib, pkgutil, sys
@@ -282,8 +293,18 @@ for name in names:
 for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.features",
              "semantics.query", "semantics.clip", "semantics.clip_config",
              "semantics.checkpoint", "semantics.tokenizer", "semantics.image_processor",
-             "io.jpeg", "obs.digest"):
+             "io.jpeg", "obs.digest", "models.streaming", "utils.faults"):
     assert pkg.__name__ + "." + name in names, name
+from maskclustering_tpu_torch.config import load_config
+from maskclustering_tpu_torch.models.streaming import stream_scene
+from maskclustering_tpu_torch.utils.synthetic import make_scene, to_scene_tensors
+scan = to_scene_tensors(make_scene(num_boxes=2, num_frames=6, image_hw=(40, 56), seed=3,
+                                   spacing=0.05))
+res = stream_scene(scan, load_config("scannet", step=1, distance_threshold=0.05,
+                                     mask_pad_multiple=32, frame_pad_multiple=4,
+                                     point_chunk=2048, streaming_chunk=2),
+                   seq_name="iso", device="cpu")
+assert res.timings["stream.num_chunks"] == 3 and res.digest["artifact"], res.timings
 from maskclustering_tpu_torch.semantics import HFCLIPEncoder
 enc = HFCLIPEncoder(sys.argv[1], device="cpu")
 img = enc.encode_images([np.full((20, 30, 3), 7, np.uint8)])
