@@ -114,6 +114,24 @@ Imports nothing of JAX or of the JAX package. In order:
     two-rung ladder, every healed scan's artifacts equal to phase 10's.
     (e) ``streaming_chunk`` 8 through the batch driver over phase 10's
     three scans: cluster seconds and AP beside the batch run's.
+14. the fused multi-device path (``parallel/``). (a) ``cluster_scene_batch``
+    on a (1, 1) mesh of the card over two 480x640 lanes, phase 8's scene
+    and a render of 16 frames from another seed, phase 8's config: each
+    lane's artifact digest equals ``run_scene``'s (the first is phase 8's),
+    each association kernel launched once a lane; the batch's seconds a
+    scene beside phase 8's ``run_scene`` wall, and the peak device memory
+    for one lane and for two. (b) The same batch on meshes that repeat the
+    card, (2, 1), (1, 2), (1, 1, 2) and (2, 2, 2): the same digests, one
+    launch of each kernel a lane x frame shard x point shard, and each
+    point shard of a lane's ``first_id`` holding N_pad / P columns on its
+    device. (c) Phase 9's mid-size scene as a batch of one on ``cuda`` and
+    on ``cpu``: phase 9's digest on both. (d) The batch driver over phase
+    10's scans: the CLI with ``mesh_shape`` [1, 1] and ``--point-shards 1``,
+    ``run_pipeline`` on a (2, 1) mesh with two point shards over the card
+    four times (``mesh_devices``; the short last batch has a pad lane), and
+    the CLI with ``--workers 2`` over the four scans: npz, object dicts and
+    AP equal to phase 10's (the mid-size scan to an in-process run), the
+    seconds a scan beside phase 10's.
 
 Any mismatch or failure exits non-zero. The last three lines are the card
 line, the per-kernel JSON and the result JSON.
@@ -190,6 +208,12 @@ LONG_CHUNK = 16
 DRILL_WATCHDOG_S = 5.0
 DRILL_STALL_S = 8.0
 CLI_WATCHDOG_S = 10.0
+# phase 14: the second lane of the mesh batch (another seed, half the
+# frames), the meshes that repeat the one card, and the worker processes
+MESH_SECOND_SEED = 3
+MESH_SECOND_FRAMES = 16
+ONE_CARD_MESHES = ((2, 1), (1, 2), (1, 1, 2), (2, 2, 2))
+MESH_WORKERS = 2
 
 
 def _say(msg: str) -> None:
@@ -718,7 +742,7 @@ def dense_default_full(dev, tensors, distance_threshold: float = 0.01):
          f"{json.dumps(stage['syncs_resident'])}")
     profile_dense(dev, tensors, cfg, wall)
     return {"launches": launches, "timed": timed, "digest": digest, "wall": wall,
-            "scene_digest": res.digest, "cfg": cfg}
+            "scene_digest": res.digest, "cfg": cfg, "m_pad": res.table.m_pad}
 
 
 def busy_seconds(trace_path: str):
@@ -1881,6 +1905,241 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
     return {"launches": cuda["launches"]}
 
 
+@contextlib.contextmanager
+def recording_fused_outputs(outs: list):
+    """Keep every ``FusedStepResult`` the batch path post-processes, once a
+    batch, with the time its step's work ended on the card."""
+    import torch
+
+    from maskclustering_tpu_torch.parallel import batch as pb
+
+    real = pb.fused_scene_objects
+
+    def rec(out, index, *args, **kwargs):
+        if index == 0:
+            torch.cuda.synchronize()
+            outs.append((out, time.perf_counter()))
+        return real(out, index, *args, **kwargs)
+
+    pb.fused_scene_objects = rec
+    try:
+        yield outs
+    finally:
+        pb.fused_scene_objects = real
+
+
+def fused_batch(dev, cfg, mesh, lanes, names):
+    """``cluster_scene_batch`` over ``lanes`` on ``mesh``, the launch counts
+    set to 0 just before and read just after. Returns (objects, the step's
+    result, launches, (wall, step) seconds, peak device MiB); the step's
+    seconds include the host stacking of the batch."""
+    import torch
+
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.parallel import cluster_scene_batch
+
+    outs = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.LAUNCHES.reset()
+    with recording_fused_outputs(outs):
+        t0 = time.perf_counter()
+        objs = cluster_scene_batch(cfg, mesh, lanes, k_max=63, seq_names=names)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES.counts)
+    (out, t_step), = outs
+    return (objs, out, launches, (wall, t_step - t0),
+            torch.cuda.max_memory_allocated(dev) / 2**20)
+
+
+def _run_cli(here: str, args, timeout: int = 600):
+    proc = subprocess.run([sys.executable, "-m", "maskclustering_tpu_torch.run", *args],
+                          cwd=here, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {args} rc {proc.returncode}\n{proc.stderr[-3000:]}")
+
+
+def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
+    """Phase 14: the fused multi-device path on the card."""
+    import numpy as np
+    import torch
+
+    from maskclustering_tpu_torch.config import load_config
+    from maskclustering_tpu_torch.models import run_scene
+    from maskclustering_tpu_torch.obs.digest import artifact_digest
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.parallel import cluster_scene_batch, make_mesh
+    from maskclustering_tpu_torch.run import evaluate_step, run_pipeline
+    from maskclustering_tpu_torch.utils.synthetic import (
+        add_depth_noise,
+        make_scene,
+        to_scene_tensors,
+    )
+
+    t_phase = time.perf_counter()
+    cfg = dense["cfg"]
+    second = make_scene(num_boxes=8, num_frames=MESH_SECOND_FRAMES, image_hw=(480, 640),
+                        spacing=0.008, floor_spacing=0.016, seed=MESH_SECOND_SEED)
+    add_depth_noise(second, sigma=0.002, seed=1000 + MESH_SECOND_SEED)
+    lanes = [tensors, to_scene_tensors(second)]
+    names = ["chip_smoke_mesh_a", "chip_smoke_mesh_b"]
+    ref_b = run_scene(lanes[1], cfg, k_max=63, seq_name=names[1], device=dev)
+    refs = [dense["digest"], artifact_digest(ref_b.objects)]
+
+    # 14a: one lane a scene on the card, mesh (1, 1)
+    one = make_mesh((1, 1), devices=[dev])
+    solo, _, _, (solo_wall, solo_step), solo_peak = fused_batch(dev, cfg, one, lanes[:1],
+                                                                names[:1])
+    objs, out, launches, (wall, step), peak = fused_batch(dev, cfg, one, lanes, names)
+    digests = [artifact_digest(o) for o in objs]
+    f_pad, n_pad = int(out.node_visible[0].shape[1]), int(out.first_id[0][0].shape[1])
+    _say(f"[mesh] (1, 1) over two 480x640 lanes (N={[t.num_points for t in lanes]}, "
+         f"F={[t.num_frames for t in lanes]}; F_pad={f_pad} N_pad={n_pad} "
+         f"M_pad={int(out.assignment[0].shape[0])} dense slots against run_scene's compacted "
+         f"{dense['m_pad']}): objects {[len(o.point_ids_list) for o in objs]}, digests {digests}, "
+         f"run_scene {refs}; launches {json.dumps(launches)}")
+    _say(f"[mesh] {card}: fused batch {wall:.3f} s = {wall / 2:.3f} s a scene, of which the "
+         f"step {step:.3f} s and the two post-processes {wall - step:.3f} s (one lane alone "
+         f"{solo_wall:.3f} s, step {solo_step:.3f} s) against phase 8's run_scene "
+         f"{dense['wall']:.3f} s; peak device memory one lane {solo_peak:.1f} MiB, two lanes "
+         f"{peak:.1f} MiB")
+    if digests != refs or artifact_digest(solo[0]) != refs[0]:
+        raise AssertionError(f"mesh lanes {digests} (alone {artifact_digest(solo[0])}) != "
+                             f"run_scene {refs}")
+    for name in ASSOCIATION_KERNELS:
+        if launches.get(name, 0) != len(lanes):
+            raise AssertionError(f"{name} launched {launches.get(name, 0)} times for "
+                                 f"{len(lanes)} lanes, not once a lane")
+    if launches.get("ball_query", 0) or not all(o.point_ids_list for o in objs):
+        raise AssertionError(f"mesh batch launches {launches}, objects "
+                             f"{[len(o.point_ids_list) for o in objs]}")
+
+    # 14b: shards on one card: meshes that repeat it
+    for shape in ONE_CARD_MESHES:
+        mesh = make_mesh(shape, devices=[dev] * int(np.prod(shape)))
+        got, res, counts, (sec, step_sec), mib = fused_batch(dev, cfg, mesh, lanes, names)
+        f_axis, p_axis = shape[1], (shape[2] if len(shape) > 2 else 1)
+        per_row = len(lanes) // shape[0]
+        grid = mesh.devices.reshape(shape[0], f_axis, p_axis)
+        got_digests = [artifact_digest(o) for o in got]
+        bad = [n for n in ASSOCIATION_KERNELS
+               if counts.get(n, 0) != len(lanes) * f_axis * p_axis]
+        for lane in range(len(lanes)):
+            for p, shard in enumerate(res.first_id[lane]):
+                if (tuple(shard.shape) != (f_pad, n_pad // p_axis)
+                        or shard.device != grid[lane // per_row, 0, p]):
+                    raise AssertionError(f"mesh {shape}: lane {lane} shard {p} is "
+                                         f"{tuple(shard.shape)} on {shard.device}")
+        _say(f"[mesh] {shape} on {int(np.prod(shape))} x {dev}: digests {got_digests}, "
+             f"{sec:.3f} s (step {step_sec:.3f} s), peak {mib:.1f} MiB, launches "
+             f"{json.dumps(counts)}; each first_id shard ({f_pad}, {n_pad // p_axis})")
+        if got_digests != digests or bad:
+            raise AssertionError(f"mesh {shape}: digests {got_digests} != {digests} or "
+                                 f"launches {counts} not one a lane x frame shard x point shard")
+
+    # 14c: card against cpu, a batch of one
+    mid = to_scene_tensors(make_scene(num_boxes=4, num_frames=12, image_hw=(240, 320), seed=1))
+    mid_cfg = load_config("scannet", config_name="chip_smoke_mid_dense", distance_threshold=0.03,
+                          few_points_threshold=10)
+    mids = []
+    for d in (dev, torch.device("cpu")):
+        t0 = time.perf_counter()
+        (o,) = cluster_scene_batch(mid_cfg, make_mesh((1, 1), devices=[d]), [mid],
+                                   seq_names=["mid"])
+        mids.append((artifact_digest(o), time.perf_counter() - t0))
+    _say(f"[mesh] mid-size batch of one: {dev} {mids[0][0]} ({mids[0][1]:.2f} s), cpu "
+         f"{mids[1][0]} ({mids[1][1]:.2f} s), phase 9's run_scene {mid_digests[0]['artifact']}")
+    if not mids[0][0] == mids[1][0] == mid_digests[0]["artifact"]:
+        raise AssertionError("the mid-size mesh batch differs between cuda, cpu and run_scene")
+
+    # 14d: the batch driver on phase 10's scans
+    root, ov_cfg, ov_pred, here = batch["root"], batch["cfg"], batch["pred"], os.path.dirname(
+        os.path.abspath(__file__))
+    knobs = {k: v for k, v in dataclasses.asdict(ov_cfg).items()
+             if k not in ("config_name", "data_root")}
+
+    def write_cfg(name: str, **kw) -> str:
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as fh:
+            json.dump({**knobs, **kw}, fh)
+        return path
+
+    def check_run(label: str, pred: str, cfg_name: str, scenes, seconds: float,
+                  coord: str) -> None:
+        """The run's full-size scans: ok at ``coord``, phase 10's artifacts
+        and AP; ``seconds`` is its cluster step."""
+        scenes = [s for s in scenes if s["seq_name"] in BATCH_SCANS]
+        if len(scenes) != len(BATCH_SCANS) or any(
+                (s["status"], s["digest_coord"]) != ("ok", coord) for s in scenes):
+            raise AssertionError(f"{label}: {[(s['seq_name'], s['status'], s['digest_coord'])
+                                              for s in scenes]}")
+        _artifacts_equal(root, ov_pred, ov_cfg.config_name, pred, cfg_name, BATCH_SCANS)
+        ap = evaluate_step(ov_cfg.replace(config_name=cfg_name), no_class=True,
+                           seq_names=BATCH_SCANS, prediction_root=pred, device=dev)
+        if not _ap_equal(ap, batch["ap"]):
+            raise AssertionError(f"{label}: AP {ap['all_ap']} != phase 10's")
+        _say(f"[mesh] {label}: npz and object dicts == phase 10's, AP {ap['all_ap']:.4f} AP50 "
+             f"{ap['all_ap_50%']:.4f}; cluster {seconds:.3f} s; digest coord {coord}")
+
+    t0 = time.perf_counter()
+    report_path = os.path.join(root, "mesh_cli_report.json")
+    _run_cli(here, ["--config", write_cfg("chip_smoke_mesh_cli", mesh_shape=[1, 1]),
+                    "--point-shards", "1", "--data_root", root, "--seq_name_list",
+                    "+".join(BATCH_SCANS), "--steps", "cluster,eval_ca", "--no-resume",
+                    "--report", report_path])
+    with open(report_path) as fh:
+        crep = json.load(fh)
+    check_run(f"CLI mesh_shape [1, 1] ({time.perf_counter() - t0:.1f} s with the process)",
+              os.path.join(root, "prediction"), "chip_smoke_mesh_cli", crep["scenes"],
+              crep["step_seconds"]["cluster"], "fused|bf16|1x1|r0|c0")
+
+    mcfg = ov_cfg.replace(config_name="chip_smoke_mesh_devices", mesh_shape=(2, 1),
+                          point_shards=2)
+    pred = os.path.join(root, "prediction_mesh_devices")
+    kernels.LAUNCHES.reset()
+    rep = run_pipeline(mcfg, BATCH_SCANS, steps=("cluster",), resume=False, journal=False,
+                       prediction_root=pred, device=dev, mesh_devices=[dev] * 4)
+    counts = dict(kernels.LAUNCHES.counts)
+    lanes_run = 2 * -(-len(BATCH_SCANS) // 2)  # the short last batch has a pad lane
+    if any(counts.get(n, 0) != lanes_run * 2 for n in ASSOCIATION_KERNELS):
+        raise AssertionError(f"mesh_devices run launches {counts}, want {lanes_run * 2} each")
+    check_run(f"run_pipeline mesh (2, 1) x point 2 over [{dev}] * 4, launches "
+              f"{json.dumps(counts)}", pred, mcfg.config_name,
+              [dataclasses.asdict(s) for s in rep.scenes], rep.step_seconds["cluster"],
+              "fused|bf16|2x1|r0|c0")
+
+    # worker processes over the four scans; the mid-size scan's reference
+    # is an in-process run of the same config
+    t0 = time.perf_counter()
+    report_path = os.path.join(root, "workers_report.json")
+    names4 = list(BATCH_SCANS) + [MID_SCAN]
+    _run_cli(here, ["--config", write_cfg("chip_smoke_workers"), "--workers", str(MESH_WORKERS),
+                    "--data_root", root, "--seq_name_list", "+".join(names4), "--steps",
+                    "cluster", "--no-resume", "--report", report_path])
+    with open(report_path) as fh:
+        wrep = json.load(fh)
+    bucket = wrep["scenes"][0]["digest_coord"].split("|")[0]
+    if [s["status"] for s in wrep["scenes"]] != ["ok"] * len(names4):
+        raise AssertionError(f"workers run statuses {[s['status'] for s in wrep['scenes']]}")
+    check_run(f"CLI --workers {MESH_WORKERS} over {len(names4)} scans "
+              f"({time.perf_counter() - t0:.1f} s with the processes)",
+              os.path.join(root, "prediction"), "chip_smoke_workers", wrep["scenes"],
+              wrep["step_seconds"]["cluster"], f"{bucket}|bf16|single|r0|c0")
+    inproc = os.path.join(root, "prediction_mid_inproc")
+    run_pipeline(ov_cfg.replace(config_name="chip_smoke_mid_inproc"), [MID_SCAN],
+                 steps=("cluster",), resume=False, journal=False, prediction_root=inproc,
+                 device=dev)
+    _artifacts_equal(root, inproc, "chip_smoke_mid_inproc", os.path.join(root, "prediction"),
+                     "chip_smoke_workers", [MID_SCAN])
+    _say(f"[mesh] {card}: --workers {MESH_WORKERS} {wrep['step_seconds']['cluster']:.3f} s over "
+         f"{len(names4)} scans = {wrep['step_seconds']['cluster'] / len(names4):.3f} s a scan "
+         f"against phase 10's {batch['cluster_s'] / len(BATCH_SCANS):.3f}; {MID_SCAN} == its "
+         f"in-process run")
+    _say(f"[mesh] phase 14 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "maskclustering_tpu_torch")):
@@ -2028,6 +2287,9 @@ def main() -> int:
     # 13. streaming and the fault drills
     stream = streaming_phase(dev, tensors, dense, batch)
 
+    # 14. the fused multi-device path
+    mesh = mesh_phase(dev, card, tensors, dense, mid_digests, batch)
+
     _say(f"[done] {time.perf_counter() - t_start:.1f} s")
     _say(card)
     rows = [{
@@ -2050,7 +2312,8 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "scene_kernel_ms": t["ms"],
             "batch_launches": batch["launches"][name],
-            "stream_launches": stream["launches"][name]})
+            "stream_launches": stream["launches"][name],
+            "mesh_launches": mesh["launches"][name]})
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

@@ -3,9 +3,8 @@
 Same frozen dataclass, field for field, as ``maskclustering_tpu.config``:
 a JAX ``PipelineConfig`` turned into a plain dict (``dataclasses.asdict``)
 rebuilds here unchanged through :func:`from_jax_config`, so one config can
-drive both packages. The port runs only some of these knobs; the pipeline
-(``models/pipeline.py``) raises ``NotImplementedError`` for the rest.
-Reads the repo's ``configs/*.json`` data files.
+drive both packages, and the validation refuses what the JAX config refuses,
+with its messages. Reads the repo's ``configs/*.json`` data files.
 """
 
 from __future__ import annotations
@@ -127,6 +126,11 @@ class PipelineConfig:
                      "mask_pad_multiple", "max_cluster_iterations"):
             if getattr(self, name) < 1:
                 raise ValueError(f"{name} must be >= 1, got {getattr(self, name)}")
+        if self.point_shards > 1 and not self.mesh_shape:
+            raise ValueError(
+                "point_shards > 1 requires the fused mesh path — set "
+                "mesh_shape (scene, frame); the point axis is the mesh's "
+                "third axis, not a single-chip mode")
         if self.streaming_chunk < 0:
             raise ValueError(f"streaming_chunk must be >= 0, got {self.streaming_chunk}")
         # the streaming refusals and their messages are the JAX config's

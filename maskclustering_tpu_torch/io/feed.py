@@ -25,6 +25,11 @@ from maskclustering_tpu_torch.device import DeviceLike, resolve_device
 # scale 4000)
 DEPTH_SCALES = (1000.0, 4000.0)
 
+# The fused mesh step (``parallel/sharded.py``) carries the feed encoding in
+# the dtype alone, so uint16 there means exactly this one quantisation: its
+# encoder (``parallel/batch.pad_scene_batch``) tries no other scale
+FUSED_FEED_DEPTH_SCALE = 1000.0
+
 
 def _roundtrips(arr: np.ndarray, scale: float) -> Tuple[bool, np.ndarray]:
     """(ok, quanta): uint16 quanta reproduce ``arr`` bit-exactly at ``scale``.
@@ -39,8 +44,10 @@ def _roundtrips(arr: np.ndarray, scale: float) -> Tuple[bool, np.ndarray]:
     return bool((q16.astype(np.float32) * np.float32(1.0 / scale) == arr).all()), q16
 
 
-def encode_depth(depths: np.ndarray) -> Tuple[np.ndarray, float]:
-    """(encoded, scale): uint16 quanta when bit-exact, else (float32, 0.0).
+def encode_depth(depths: np.ndarray,
+                 scales: Tuple[float, ...] = DEPTH_SCALES) -> Tuple[np.ndarray, float]:
+    """(encoded, scale): uint16 quanta at the first of ``scales`` that is
+    bit-exact, else (float32, 0.0).
 
     A strided probe of about 4k elements rejects never-quantised depth
     before any full-array pass.
@@ -50,7 +57,7 @@ def encode_depth(depths: np.ndarray) -> Tuple[np.ndarray, float]:
         return np.asarray(depths, np.float32), 0.0
     flat = depths.ravel()
     probe = flat[:: max(flat.size // 4096, 1)]
-    for scale in DEPTH_SCALES:
+    for scale in scales:
         if not _roundtrips(probe, scale)[0]:
             continue
         ok, q16 = _roundtrips(flat, scale)

@@ -417,37 +417,75 @@ def _frame_counts(depths: torch.Tensor, segs: torch.Tensor, intrinsics: torch.Te
     return torch.cat(n_pixels), torch.cat(n_voxels)
 
 
+class FrameClaims(NamedTuple):
+    """The claim half of a stack's association, before the masks are known."""
+
+    params: torch.Tensor  # (F, 18) float32 claim_params
+    table: torch.Tensor  # (F, H, W, 4) int32 pixel table
+    cand: Optional[torch.Tensor]  # the plain claim's candidates (CPU only), else None
+    n_claimed: torch.Tensor  # (F, k_max + 1) int32 distinct points claimed per id
+
+
+def claim_frames(scene_points, depths, segs, intrinsics, cam_to_world, *, k_max: int,
+                 window: int, distance_threshold: float, depth_trunc: float) -> FrameClaims:
+    """Pixel table and claim of a stack of F frames against ``scene_points``.
+
+    ``n_claimed`` counts the points given, so over a column split of the
+    cloud it is a partial count, and the sum over the parts is the whole
+    cloud's (each point is claimed by its own window only).
+    """
+    params = claim_params(intrinsics, invert_se3(cam_to_world),
+                          distance_threshold=distance_threshold, depth_trunc=depth_trunc)
+    table = pixel_table(depths, segs, params, k_max=k_max)
+    if scene_points.device.type == "cuda":
+        return FrameClaims(params, table, None,
+                           claim_scene(scene_points, table, params, k_max=k_max, window=window))
+    # the plain claim's candidates serve the assignment as they are
+    cand, n_claimed = scene_candidates_reference(scene_points, table, params, k_max=k_max,
+                                                 window=window)
+    return FrameClaims(params, table, cand, n_claimed)
+
+
+def mask_validity(n_pixels, n_voxels, n_claimed, frame_valid, *, k_max: int,
+                  few_points_threshold: int, coverage_threshold: float) -> torch.Tensor:
+    """(F, k_max + 1) bool: enough valid pixels, at least one voxel and
+    enough coverage (claimed points over occupied voxels), in a valid frame."""
+    dev = n_claimed.device
+    coverage = n_claimed.to(torch.float32) / torch.clamp(n_voxels.to(torch.float32), min=1.0)
+    return ((n_pixels >= few_points_threshold) & (n_voxels >= 1)
+            & (coverage >= _f32(coverage_threshold, dev))
+            & (torch.arange(k_max + 1, device=dev) > 0) & frame_valid.to(dev)[:, None])
+
+
+def assign_frames(scene_points, claims: FrameClaims, mask_valid, *, k_max: int, window: int):
+    """Per point and frame the smallest and largest valid claiming id:
+    (F, N) ``(mask_of_point int32, first int16, last int16)``."""
+    if claims.cand is None:
+        return assign_scene(scene_points, claims.table, claims.params, mask_valid, k_max=k_max,
+                            window=window)
+    return assign_candidates_reference(claims.cand, mask_valid, k_max=k_max,
+                                       n=scene_points.shape[0])
+
+
 def _associate_frames(scene_points, depths, segs, intrinsics, cam_to_world, frame_valid,
                       vox_size, *, k_max: int, window: int, distance_threshold: float,
                       depth_trunc: float, few_points_threshold: int,
                       coverage_threshold: float) -> FrameAssociation:
     """The association of a stack of F frames: every
     :class:`FrameAssociation` field with a leading frame axis."""
-    dev = scene_points.device
-    params = claim_params(intrinsics, invert_se3(cam_to_world),
-                          distance_threshold=distance_threshold, depth_trunc=depth_trunc)
     # the counts first: their sort's scratch is freed before the table exists
     n_pixels, n_voxels = _frame_counts(depths, segs, intrinsics, cam_to_world, vox_size,
                                       k_max=k_max, distance_threshold=distance_threshold,
                                       depth_trunc=depth_trunc)
-    table = pixel_table(depths, segs, params, k_max=k_max)
-    if dev.type == "cuda":
-        cand, n_claimed = None, claim_scene(scene_points, table, params, k_max=k_max,
-                                            window=window)
-    else:
-        # the plain claim's candidates serve the assignment as they are
-        cand, n_claimed = scene_candidates_reference(scene_points, table, params, k_max=k_max,
-                                                     window=window)
-    coverage = n_claimed.to(torch.float32) / torch.clamp(n_voxels.to(torch.float32), min=1.0)
-    mask_valid = ((n_pixels >= few_points_threshold) & (n_voxels >= 1)
-                  & (coverage >= _f32(coverage_threshold, dev))
-                  & (torch.arange(k_max + 1, device=dev) > 0) & frame_valid.to(dev)[:, None])
-    if cand is None:
-        mop, first, last = assign_scene(scene_points, table, params, mask_valid, k_max=k_max,
-                                        window=window)
-    else:
-        mop, first, last = assign_candidates_reference(cand, mask_valid, k_max=k_max,
-                                                       n=scene_points.shape[0])
+    claims = claim_frames(scene_points, depths, segs, intrinsics, cam_to_world, k_max=k_max,
+                          window=window, distance_threshold=distance_threshold,
+                          depth_trunc=depth_trunc)
+    n_claimed = claims.n_claimed
+    mask_valid = mask_validity(n_pixels, n_voxels, n_claimed, frame_valid, k_max=k_max,
+                               few_points_threshold=few_points_threshold,
+                               coverage_threshold=coverage_threshold)
+    mop, first, last = assign_frames(scene_points, claims, mask_valid, k_max=k_max,
+                                     window=window)
     return FrameAssociation(mask_of_point=mop, first_id=first, last_id=last,
                             mask_valid=mask_valid, n_pixels=n_pixels, n_voxels=n_voxels,
                             n_claimed=n_claimed)

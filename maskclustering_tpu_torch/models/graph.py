@@ -80,13 +80,16 @@ def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(value, dtype=torch.float32, device=like.device)
 
 
-def _cooccurrence(mask_of_point: torch.Tensor, boundary: torch.Tensor,
-                  mask_frame: torch.Tensor, mask_id: torch.Tensor, point_chunk: int,
-                  count_dtype: str = "bf16"):
-    """(c, n_tot) by chunked counting products over the points.
+def cooccurrence_counts(mask_of_point: torch.Tensor, boundary: torch.Tensor,
+                        mask_frame: torch.Tensor, mask_id: torch.Tensor, point_chunk: int,
+                        count_dtype: str = "bf16"):
+    """(c, n_tot) by chunked counting products over the points given.
 
-    Chunk partial counts are exact integers, so their sum does not depend
-    on the chunking or its order.
+    ``c`` stays in the encoding's accumulator dtype (float32 for bf16,
+    int32 for int8). Every entry is an exact integer below 2**24, so the
+    counts of a column split of the points sum to the whole cloud's, in any
+    order and any chunking: the fused mesh step sums point shards' partial
+    counts so (``parallel/sharded.py``).
     """
     f, n = mask_of_point.shape
     m_pad = mask_frame.shape[0]
@@ -102,7 +105,7 @@ def _cooccurrence(mask_of_point: torch.Tensor, boundary: torch.Tensor,
         w_left = w_right & ~bc[:, None]
         c += counting.count_dot(w_left.T, w_right, count_dtype=count_dtype, out_dtype=None)
         n_tot += w_left.sum(dim=0).to(torch.float32)
-    return c.to(torch.float32), n_tot
+    return c, n_tot
 
 
 def frame_segment_stats(c: torch.Tensor, mask_frame: torch.Tensor, f: int, k_max: int):
@@ -158,12 +161,35 @@ def compute_graph_stats(
     big_mask_point_count: int = 500,
     count_dtype: str = "bf16",
 ) -> GraphStats:
-    f, _ = mask_of_point.shape
-    m_pad = mask_frame.shape[0]
-    dev = mask_of_point.device
+    c, n_tot = cooccurrence_counts(mask_of_point, boundary, mask_frame, mask_id,
+                                   point_chunk, count_dtype)
+    return graph_stats_from_counts(
+        c, n_tot, mask_frame, mask_active, num_frames=mask_of_point.shape[0], k_max=k_max,
+        mask_visible_threshold=mask_visible_threshold, contained_threshold=contained_threshold,
+        undersegment_filter_threshold=undersegment_filter_threshold,
+        big_mask_point_count=big_mask_point_count, count_dtype=count_dtype)
 
-    c, n_tot = _cooccurrence(mask_of_point, boundary, mask_frame, mask_id,
-                             point_chunk, count_dtype)
+
+def graph_stats_from_counts(
+    c: torch.Tensor,  # (M_pad, M_pad) co-occurrence counts, any exact dtype
+    n_tot: torch.Tensor,  # (M_pad,) f32 valid-point count per mask
+    mask_frame: torch.Tensor,  # (M_pad,) int32
+    mask_active: torch.Tensor,  # (M_pad,) bool
+    *,
+    num_frames: int,
+    k_max: int = 127,
+    mask_visible_threshold: float = 0.3,
+    contained_threshold: float = 0.8,
+    undersegment_filter_threshold: float = 0.3,
+    big_mask_point_count: int = 500,
+    count_dtype: str = "bf16",
+) -> GraphStats:
+    """The thresholds of :func:`compute_graph_stats` over its counts."""
+    f = num_frames
+    m_pad = mask_frame.shape[0]
+    dev = c.device
+    c = c.to(torch.float32)
+
     frame_onehot = mask_frame.long()[:, None] == torch.arange(f, device=dev)[None, :]
     cmax, top_global, n_vis = frame_segment_stats(c, mask_frame, f, k_max)
 

@@ -6,10 +6,10 @@ device, whole scenes. Two associations: the dense projective association
 JAX package's (F_pad, N_pad) shape bucket and runs on the device, and the
 exact-parity one (``use_exact_ball_query=True``), host numpy around the
 ball-query kernel. Two post-process rungs: on the device (the default,
-``device_postprocess=True``) or on the host. Multi-device meshes raise
-``NotImplementedError`` naming the ROADMAP item that will port them;
-nothing is substituted silently. Streaming runs the same stages chunk by
-chunk (``models/streaming.py``).
+``device_postprocess=True``) or on the host. Streaming runs the same stages
+chunk by chunk (``models/streaming.py``), and the fused multi-device step
+(``parallel/``) over a dense mask slot table; this module ignores
+``mesh_shape``, as the JAX ``run_scene`` does.
 
 Fault seams (``utils/faults.inject``, the JAX package's sites): ``device``
 at the head of the device phase, ``pull`` before the mask-table pull,
@@ -87,13 +87,6 @@ class DeviceHandoff(NamedTuple):
     timings: Dict[str, float]  # associate/graph/cluster stage walls
 
 
-def check_supported(cfg: PipelineConfig) -> None:
-    """Raise ``NotImplementedError`` for a configuration the port does not run yet."""
-    if cfg.mesh_shape:
-        raise NotImplementedError(
-            "multi-device meshes (mesh_shape) are not ported yet: ROADMAP.md queue A, item A7")
-
-
 def bucket_k_max(max_id: int, minimum: int = 63, ceiling: int = K_MAX_CEILING) -> int:
     """Smallest (2^b - 1) >= max(max_id, minimum), clamped at ``ceiling``;
     ids above k_max are dropped as background."""
@@ -157,7 +150,6 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
                      k_max: Optional[int] = None, seq_name: Optional[str] = None,
                      device: DeviceLike = None) -> DeviceHandoff:
     """Device phase of one scene: associate -> graph -> cluster."""
-    check_supported(cfg)
     device = resolve_device(device)
     faults.inject("device", seq_name)
     timings: Dict[str, float] = {}

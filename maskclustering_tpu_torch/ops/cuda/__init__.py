@@ -4,8 +4,10 @@ Each kernel is one ``*.cu`` file beside this module with a plain
 ``extern "C"`` entry. It is compiled at first use with ``nvcc`` for
 ``sm_90a`` into ``build/torch_kernels/`` at the repository root (listed in
 ``.gitignore``), under a name keyed by the source and flags, and loaded with
-``ctypes``. Entries take raw device pointers and PyTorch's current stream
-and return ``cudaGetLastError()``; the wrappers here raise when it is not 0.
+``ctypes``. Entries take raw device pointers, the ordinal of the tensors'
+card (each entry sets it as its runtime's current device before launching)
+and PyTorch's current stream on that card, and return
+``cudaGetLastError()``; the wrappers here raise when it is not 0.
 
 No fallback: a failed build or launch raises. The plain torch versions
 live beside the callers (``ops/neighbor.py``, ``models/backprojection.py``)
@@ -142,12 +144,12 @@ def load(name: str) -> ctypes.CDLL:
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if name == "ball_query":
-        lib.mc_ball_query.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, p]
+        lib.mc_ball_query.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, p, i, p]
         lib.mc_ball_query.restype = ctypes.c_int
     elif name == "associate":
-        lib.mc_associate_table.argtypes = [p, p, i, i, i, p, i, p, p]
-        lib.mc_associate_claim_scene.argtypes = [p, i, p, i, i, i, p, i, i, p, p]
-        lib.mc_associate_assign_scene.argtypes = [p, i, p, i, i, i, p, p, i, i, p, p, p, p]
+        lib.mc_associate_table.argtypes = [p, p, i, i, i, p, i, p, i, p]
+        lib.mc_associate_claim_scene.argtypes = [p, i, p, i, i, i, p, i, i, p, i, p]
+        lib.mc_associate_assign_scene.argtypes = [p, i, p, i, i, i, p, p, i, i, p, p, p, i, p]
         for entry in (lib.mc_associate_table, lib.mc_associate_claim_scene,
                       lib.mc_associate_assign_scene):
             entry.restype = ctypes.c_int
@@ -207,7 +209,7 @@ def ball_query_cuda(query: torch.Tensor, candidates: torch.Tensor,
         err = lib.mc_ball_query(query.data_ptr(), cand.data_ptr(),
                                 query_lengths.data_ptr(), cand_lengths.data_ptr(),
                                 b, p, cand.shape[1], k, ctypes.c_float(r2), out.data_ptr(),
-                                stream)
+                                dev.index, stream)
     if err != 0:
         raise RuntimeError(f"ball_query kernel launch failed: CUDA error {err}")
     LAUNCHES.add("ball_query", (b, p, s))
@@ -256,7 +258,8 @@ def associate_table_cuda(depths: torch.Tensor, segs: torch.Tensor, params: torch
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mc_associate_table(depths.data_ptr(), segs.data_ptr(), f, h, w,
-                                     params.data_ptr(), k_max, table.data_ptr(), stream)
+                                     params.data_ptr(), k_max, table.data_ptr(), dev.index,
+                                     stream)
     if err != 0:
         raise RuntimeError(f"associate_table kernel launch failed: CUDA error {err}")
     LAUNCHES.add("associate_table", (f, h, w))
@@ -298,7 +301,7 @@ def associate_claim_scene_cuda(scene_points: torch.Tensor, table: torch.Tensor,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.mc_associate_claim_scene(scene_points.data_ptr(), n, table.data_ptr(), f, h, w,
                                            params.data_ptr(), k_max, window,
-                                           n_claimed.data_ptr(), stream)
+                                           n_claimed.data_ptr(), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"associate_claim kernel launch failed: CUDA error {err}")
     LAUNCHES.add("associate_claim", (f, n, h, w, (2 * window + 1) ** 2))
@@ -330,7 +333,7 @@ def associate_assign_scene_cuda(scene_points: torch.Tensor, table: torch.Tensor,
         err = lib.mc_associate_assign_scene(
             scene_points.data_ptr(), n, table.data_ptr(), f, h, w, params.data_ptr(),
             mask_valid.data_ptr(), k_max, window, mop.data_ptr(), first.data_ptr(),
-            last.data_ptr(), stream)
+            last.data_ptr(), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"associate_assign kernel launch failed: CUDA error {err}")
     LAUNCHES.add("associate_assign", (f, n, h, w, (2 * window + 1) ** 2))

@@ -295,11 +295,18 @@ bool scene_of(const void* pts, int n, const void* table, int frames, int h, int 
   return true;
 }
 
+// Every entry launches on card `device`, the ordinal of its tensors' card:
+// this library links its own CUDA runtime, whose current device is set per
+// host thread, so the entry sets it before each launch.
+int set_device(int device) { return static_cast<int>(cudaSetDevice(device)); }
+
 }  // namespace
 
 extern "C" int mc_associate_table(const void* depth, const void* seg, int frames, int h, int w,
-                                  const void* prm, int k_max, void* table, void* stream) {
+                                  const void* prm, int k_max, void* table, int device,
+                                  void* stream) {
   if (frames <= 0 || h * w <= 0) return 0;
+  if (const int err = set_device(device)) return err;
   const dim3 grid((h * w + kThreads - 1) / kThreads, frames);
   table_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(depth), static_cast<const int*>(seg), h, w,
@@ -309,8 +316,9 @@ extern "C" int mc_associate_table(const void* depth, const void* seg, int frames
 
 extern "C" int mc_associate_claim_scene(const void* pts, int n, const void* table, int frames,
                                         int h, int w, const void* prm, int k_max, int window,
-                                        void* n_claimed, void* stream) {
+                                        void* n_claimed, int device, void* stream) {
   if (n <= 0 || frames <= 0) return 0;
+  if (const int err = set_device(device)) return err;
   Scene a;
   dim3 grid;
   if (!scene_of(pts, n, table, frames, h, w, prm, k_max, &a, &grid))
@@ -331,8 +339,9 @@ extern "C" int mc_associate_claim_scene(const void* pts, int n, const void* tabl
 extern "C" int mc_associate_assign_scene(const void* pts, int n, const void* table, int frames,
                                          int h, int w, const void* prm, const void* valid,
                                          int k_max, int window, void* mop, void* first,
-                                         void* last, void* stream) {
+                                         void* last, int device, void* stream) {
   if (n <= 0 || frames <= 0) return 0;
+  if (const int err = set_device(device)) return err;
   Scene a;
   dim3 grid;
   if (!scene_of(pts, n, table, frames, h, w, prm, k_max, &a, &grid))

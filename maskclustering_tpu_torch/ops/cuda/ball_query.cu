@@ -260,11 +260,15 @@ ball_query_kernel(const float* __restrict__ query,       // (B, P, 3)
 
 }  // namespace
 
+// Launches on card `device`, the ordinal of the tensors' card: this library
+// links its own CUDA runtime, whose current device is set per host thread.
 extern "C" int mc_ball_query(const float* query, const float* cand,
                              const int* query_lengths, const int* cand_lengths,
                              int B, int P, int S, int K, float r2, int* out,
-                             void* stream) {
+                             int device, void* stream) {
     if (B <= 0 || P <= 0) return 0;
+    const cudaError_t set = cudaSetDevice(device);
+    if (set != cudaSuccess) return static_cast<int>(set);
     if (SMEM_BYTES > 48 * 1024) {  // above the default limit only on request
         const cudaError_t err = cudaFuncSetAttribute(
             ball_query_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);

@@ -1,7 +1,6 @@
 """Batch driver (L6): scans on disk through the steps of a run.
 
-Port of ``maskclustering_tpu/run.py:42-1345, 1361-1605``, for one process
-on one device:
+Port of ``maskclustering_tpu/run.py:42-1345, 1361-1605``:
 
     python -m maskclustering_tpu_torch.run --config scannet \\
         --data_root DATA --seq_name_list a+b --encoder hash:1024
@@ -13,16 +12,21 @@ on one device:
   ``models.pipeline`` (or, under ``--streaming-chunk``, streamed through
   ``models.streaming.stream_scene`` by the sequential loop, its state
   journal under ``<prediction_root>/<config>_stream_state``) and exported.
-  Loads run ahead on daemon threads (``prefetch_depth``). The overlapped
-  executor (``scene_overlap``, the default) runs scene i's device phase on
-  the main thread while scene i-1's host tail (post-process, export) runs on a worker thread; both
-  issue their device work to the one current stream, so the artifacts are
-  bit-equal to the sequential loop's whatever the interleaving. A
-  ``SceneSupervisor`` retries failed scenes, drops a degradation-ladder
-  rung after a round with device-class failures (overlapped ->
-  sequential executor -> host post-process; a post-process capacity
-  overflow heals on the last), and skips scenes a run journal records as
-  done. ``--fault-plan`` scripts faults at the seams (``utils/faults.py``).
+  Loads run ahead on daemon threads (``prefetch_depth``). A config with a
+  ``mesh_shape`` runs batches of scenes through the fused multi-device step
+  (``cluster_scenes_mesh``, ``parallel/``), and ``workers > 1`` spawns one
+  process per round-robin shard of the scene list, worker ``i`` on card
+  ``i % device_count``. Otherwise the overlapped executor
+  (``scene_overlap``, the default) runs scene i's device phase on the main
+  thread while scene i-1's host tail (post-process, export) runs on a
+  worker thread; both issue their device work to the one current stream,
+  so the artifacts are bit-equal to the sequential loop's whatever the
+  interleaving. A ``SceneSupervisor`` retries failed scenes, drops a
+  degradation-ladder rung after a round with device-class failures
+  (overlapped -> sequential executor -> single device, with a mesh -> host
+  post-process; a post-process capacity overflow heals on the last), and
+  skips scenes a run journal records as done. ``--fault-plan`` scripts
+  faults at the seams (``utils/faults.py``).
 - **features**: per-mask features of every scene's representative masks
   (``semantics/features.py``), by the encoder of ``--encoder``: ``hash``
   or ``hash:<dim>`` (the JAX default, a deterministic stand-in), or
@@ -36,9 +40,10 @@ on one device:
   class-labelled predictions (``evaluation/``).
 
 The defaults are the JAX package's seven steps. ``vis`` and ``top_images``
-raise ``NotImplementedError`` naming ROADMAP A14 before any scene runs, as
-do ``workers > 1`` and a mesh (A7). Everything runs on the CUDA card unless
-the caller passes ``device="cpu"`` (``--device cpu``). Exit codes: 0 ok, 1
+raise ``NotImplementedError`` naming ROADMAP A14 before any scene runs.
+Everything runs on the CUDA card unless the caller passes ``device="cpu"``
+(``--device cpu``); a mesh runs on every visible card unless the caller
+passes ``mesh_devices`` (a list that may repeat a device). Exit codes: 0 ok, 1
 a scene or step failed, 143 stopped by SIGTERM (the report and journal are
 still written).
 """
@@ -55,15 +60,12 @@ from collections import deque
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from maskclustering_tpu_torch.config import PipelineConfig, load_config
 from maskclustering_tpu_torch.datasets import get_dataset
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
-from maskclustering_tpu_torch.models.pipeline import (
-    check_supported,
-    run_scene_device,
-    run_scene_host,
-)
+from maskclustering_tpu_torch.models.pipeline import run_scene_device, run_scene_host
 from maskclustering_tpu_torch.models.streaming import stream_scene
 from maskclustering_tpu_torch.obs.digest import digest_coord
 from maskclustering_tpu_torch.semantics import (
@@ -116,7 +118,7 @@ class SceneStatus:
     degradation_rung: int = 0
     error_class: str = ""
     # the scene's invariant digest (obs/digest.py) and the coordinate it
-    # was observed at, ``<bucket>|<count_dtype>|single|r<rung>|c0``
+    # was observed at, ``<bucket>|<count_dtype>|<mesh>|r<rung>|c<chunk>``
     digest: Optional[Dict] = None
     digest_coord: str = ""
 
@@ -201,13 +203,11 @@ def make_encoder(spec: str, device: DeviceLike = None):
     return HFCLIPEncoder(arg, device=device)
 
 
-def check_steps(cfg: PipelineConfig, steps: Sequence[str], workers: int = 1,
-                encoder_spec: str = "hash") -> None:
+def check_steps(steps: Sequence[str], encoder_spec: str = "hash") -> None:
     """Raise, before any scene runs, for what the port cannot run: an
-    unknown step or a malformed encoder spec (``ValueError``), an unported
-    step, ``workers > 1`` or a configuration ``models.pipeline`` refuses
-    (``NotImplementedError``). The encoder itself is built by the step that
-    uses it."""
+    unknown step or a malformed encoder spec (``ValueError``), or an
+    unported step (``NotImplementedError``). The encoder itself is built by
+    the step that uses it."""
     unknown = set(steps) - set(ALL_STEPS)
     if unknown:
         raise ValueError(f"unknown steps {sorted(unknown)}; valid: {ALL_STEPS}")
@@ -218,11 +218,6 @@ def check_steps(cfg: PipelineConfig, steps: Sequence[str], workers: int = 1,
                 f"{UNPORTED_STEPS[step]} (ported steps: {PORTED_STEPS})")
     if {"features", "label_features"} & set(steps):
         parse_encoder_spec(encoder_spec)
-    if workers > 1:
-        raise NotImplementedError(
-            "workers > 1 (one process per scene shard) is not ported yet: "
-            "ROADMAP.md queue A, item A7")
-    check_supported(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -507,18 +502,151 @@ def _cluster_scenes_overlapped(cfg: PipelineConfig, seq_names: Sequence[str], *,
     return [statuses[s] for s in seq_names if s in statuses]
 
 
-def _dispatch_scenes(cfg: PipelineConfig, seq_names: Sequence[str], *, resume: bool,
-                     prediction_root: str, device, ctx: _FaultCtx) -> List[SceneStatus]:
-    """One executor pass over ``seq_names`` at the current ladder rung:
-    overlapped when ``cfg.scene_overlap`` and more than one scene, else
-    sequential; streaming scenes pipeline inside the scene, sequentially.
-    One process only (``workers > 1`` and meshes: A7)."""
-    check_supported(cfg)
-    run = (_cluster_scenes_overlapped
-           if cfg.scene_overlap and len(seq_names) > 1 and cfg.streaming_chunk <= 0
-           else _cluster_scenes_sequential)
-    return run(cfg, seq_names, resume=resume, prediction_root=prediction_root,
-               device=device, ctx=ctx)
+def _cluster_worker(payload) -> List[SceneStatus]:
+    """One spawned process's shard of the scene list (``run.py:559-567``)."""
+    cfg, seq_names, resume, prediction_root, device = payload
+    return [cluster_scene(cfg, s, resume=resume, prediction_root=prediction_root,
+                          device=device) for s in seq_names]
+
+
+def cluster_scenes_mesh(cfg: PipelineConfig, seq_names: Sequence[str], *, resume: bool = True,
+                        prediction_root: Optional[str] = None,
+                        ctx: Optional[_FaultCtx] = None,
+                        mesh_devices: Optional[Sequence] = None) -> List[SceneStatus]:
+    """Step 2 over a device mesh (``run.py:570-680``): fused batches ->
+    per-scene artifacts.
+
+    Scenes stream through the mesh in batches of the ``scene`` axis size
+    (loads prefetched); each batch runs the fused step
+    (``parallel.cluster_scene_batch``), then export writes the artifacts
+    the single-device path writes. A failed export fails its scene only; a
+    batch that fails, or stalls past ``cfg.watchdog_device_s``
+    (``DeviceStallError``, device-class), fails the whole batch, which the
+    supervisor retries down the ladder to the ``single-chip`` rung. The
+    statuses carry the artifact-only digest (the fused path builds no
+    ``DeviceHandoff``) at the coordinate ``fused|<count_dtype>|<SxF>|r|c0``.
+    """
+    from maskclustering_tpu_torch.models.postprocess import export_artifacts
+    from maskclustering_tpu_torch.obs import digest as sentinel
+    from maskclustering_tpu_torch.parallel.batch import cluster_scene_batch, make_run_mesh
+    from maskclustering_tpu_torch.parallel.mesh import mesh_label
+
+    prediction_root = prediction_root or os.path.join(cfg.data_root, "prediction")
+    mesh = make_run_mesh(cfg, mesh_devices)
+    s_axis = int(mesh.shape["scene"])
+    ctx = ctx if ctx is not None else _FaultCtx()
+    statuses: Dict[str, SceneStatus] = {}
+    pending: List[tuple] = []  # (seq, dataset, tensors)
+
+    def flush():
+        if not pending:
+            return
+        batch, pending[:] = list(pending), []
+        t0 = time.perf_counter()
+
+        def dispatch_batch():
+            # the injection runs inside the guarded call, so a scripted stall
+            # surfaces as DeviceStallError through the watchdog
+            for seq, _, _ in batch:
+                faults.inject("device", seq)
+            return cluster_scene_batch(cfg, mesh, [b[2] for b in batch],
+                                       seq_names=[b[0] for b in batch])
+
+        try:
+            objects_list = faults.call_with_deadline(
+                dispatch_batch, cfg.watchdog_device_s, seam="device",
+                scene=",".join(b[0] for b in batch))
+        except Exception as e:
+            log.exception("mesh batch %s failed", [b[0] for b in batch])
+            for seq, _, _ in batch:
+                statuses[seq] = ctx.finish(_failed_status(seq, time.perf_counter() - t0, e))
+            return
+        per_scene = (time.perf_counter() - t0) / len(batch)
+        for (seq, ds, _), objects in zip(batch, objects_list):
+            try:
+                faults.inject("export", seq)
+                export_artifacts(objects, seq, cfg.config_name, ds.object_dict_dir,
+                                 prediction_root=prediction_root,
+                                 top_k_repre=cfg.num_representative_masks)
+            except Exception as e:
+                log.exception("scene %s export failed", seq)
+                statuses[seq] = ctx.finish(_failed_status(seq, per_scene, e))
+                continue
+            st = ctx.finish(SceneStatus(seq, "ok", per_scene,
+                                        num_objects=len(objects.point_ids_list)))
+            st.digest = sentinel.artifact_only_digest(objects, bucket="fused",
+                                                      count_dtype=cfg.count_dtype)
+            st.digest_coord = digest_coord(st.digest, mesh=mesh_label(cfg.mesh_shape),
+                                           rung=st.degradation_rung, chunk=0)
+            statuses[seq] = st
+
+    # the next scenes' disk loads overlap the current batch's device work
+    for seq, resolve in _prefetched_loads(cfg, seq_names, resume, prediction_root,
+                                          depth=cfg.prefetch_depth):
+        if faults.stop_requested():
+            statuses[seq] = ctx.finish(SceneStatus(seq, "interrupted"))
+            continue
+        ctx.begin(seq)
+        try:
+            ds, tensors = faults.call_with_deadline(resolve, cfg.watchdog_load_s, seam="load",
+                                                    scene=seq)
+        except Exception as e:
+            log.exception("scene %s failed to load", seq)
+            statuses[seq] = ctx.finish(_failed_status(seq, 0.0, e))
+            continue
+        if tensors is None:
+            statuses[seq] = ctx.finish(SceneStatus(seq, "skipped"))
+            continue
+        pending.append((seq, ds, tensors))
+        if len(pending) == s_axis:
+            flush()
+    flush()
+    return [statuses[s] for s in seq_names if s in statuses]
+
+
+def _worker_device(device: torch.device, i: int) -> str:
+    """Worker ``i``'s device: card ``i % device_count`` on CUDA (so on one
+    card every worker shares it), else the run's device."""
+    if device.type == "cuda":
+        return f"cuda:{i % torch.cuda.device_count()}"
+    return str(device)
+
+
+def _dispatch_scenes(cfg: PipelineConfig, seq_names: Sequence[str], *, workers: int,
+                     resume: bool, prediction_root: str, device, ctx: _FaultCtx,
+                     mesh_devices: Optional[Sequence] = None) -> List[SceneStatus]:
+    """One executor pass over ``seq_names`` at the current ladder rung
+    (``run.py:683-726``): a ``cfg.mesh_shape`` routes through the fused mesh
+    path; else ``workers <= 1`` runs in this process, overlapped when
+    ``cfg.scene_overlap`` and more than one scene, else sequential
+    (streaming scenes pipeline inside the scene, sequentially); and
+    ``workers > 1`` spawns processes over round-robin scene shards."""
+    if cfg.mesh_shape:
+        return cluster_scenes_mesh(cfg, seq_names, resume=resume,
+                                   prediction_root=prediction_root, ctx=ctx,
+                                   mesh_devices=mesh_devices)
+    if workers <= 1:
+        run = (_cluster_scenes_overlapped
+               if cfg.scene_overlap and len(seq_names) > 1 and cfg.streaming_chunk <= 0
+               else _cluster_scenes_sequential)
+        return run(cfg, seq_names, resume=resume, prediction_root=prediction_root,
+                   device=device, ctx=ctx)
+    import multiprocessing as mp
+
+    shards = [list(seq_names[i::workers]) for i in range(workers)]
+    payloads = [(cfg, shard, resume, prediction_root, _worker_device(device, i))
+                for i, shard in enumerate(shards) if shard]
+    # spawn: this process may already hold a CUDA context, which fork breaks
+    with mp.get_context("spawn").Pool(len(payloads)) as pool:
+        out = pool.map(_cluster_worker, payloads)
+    order = {name: i for i, name in enumerate(seq_names)}
+    statuses = sorted((st for chunk in out for st in chunk), key=lambda st: order[st.seq_name])
+    for st in statuses:
+        # the children keep no journal or attempt state: this process stamps
+        # and journals their outcomes after the fact
+        ctx.begin(st.seq_name)
+        ctx.finish(st)
+    return statuses
 
 
 class SceneSupervisor:
@@ -538,10 +666,13 @@ class SceneSupervisor:
     - stops retrying once a SIGTERM requested stop.
     """
 
-    def __init__(self, cfg: PipelineConfig, *, resume: bool = True,
+    def __init__(self, cfg: PipelineConfig, *, workers: int = 1, resume: bool = True,
                  journal: Optional[faults.RunJournal] = None,
-                 prediction_root: Optional[str] = None, device: DeviceLike = None):
+                 prediction_root: Optional[str] = None, device: DeviceLike = None,
+                 mesh_devices: Optional[Sequence] = None):
         self.cfg = cfg
+        self.workers = workers
+        self.mesh_devices = mesh_devices
         self.resume = resume
         self.journal = journal
         self.prediction_root = prediction_root or os.path.join(cfg.data_root, "prediction")
@@ -567,9 +698,10 @@ class SceneSupervisor:
         round_no = 1
         while pending:
             ctx = _FaultCtx(journal=journal, rung=ladder.rung, attempts=attempts)
-            batch = _dispatch_scenes(ladder.apply(cfg), pending, resume=self.resume,
-                                     prediction_root=self.prediction_root,
-                                     device=self.device, ctx=ctx)
+            batch = _dispatch_scenes(ladder.apply(cfg), pending, workers=self.workers,
+                                     resume=self.resume, prediction_root=self.prediction_root,
+                                     device=self.device, ctx=ctx,
+                                     mesh_devices=self.mesh_devices)
             retry: List[str] = []
             saw_device = False
             for st in batch:
@@ -607,13 +739,14 @@ class SceneSupervisor:
                                 or any(s.status == "interrupted" for s in scenes))}
 
 
-def cluster_scenes(cfg: PipelineConfig, seq_names: Sequence[str], *, resume: bool = True,
-                   journal: Optional[faults.RunJournal] = None,
-                   prediction_root: Optional[str] = None,
-                   device: DeviceLike = None) -> List[SceneStatus]:
+def cluster_scenes(cfg: PipelineConfig, seq_names: Sequence[str], *, workers: int = 1,
+                   resume: bool = True, journal: Optional[faults.RunJournal] = None,
+                   prediction_root: Optional[str] = None, device: DeviceLike = None,
+                   mesh_devices: Optional[Sequence] = None) -> List[SceneStatus]:
     """Step 2: one SceneSupervisor pass over the run's scene list."""
-    return SceneSupervisor(cfg, resume=resume, journal=journal,
-                           prediction_root=prediction_root, device=device).run(seq_names)
+    return SceneSupervisor(cfg, workers=workers, resume=resume, journal=journal,
+                           prediction_root=prediction_root, device=device,
+                           mesh_devices=mesh_devices).run(seq_names)
 
 
 # ---------------------------------------------------------------------------
@@ -731,17 +864,20 @@ def run_pipeline(
     prediction_root: Optional[str] = None,
     encoder_spec: str = "hash",
     device: DeviceLike = None,
+    mesh_devices: Optional[Sequence] = None,
 ) -> RunReport:
     """Run ``steps`` over ``seq_names`` (``run.py:1102-1345``).
 
-    Raises before any scene runs for an unknown or unported step, a
-    malformed encoder spec, ``workers > 1``, a refused configuration or a
-    missing card (``device=None``); a CLIP checkpoint that cannot be loaded
+    ``workers > 1`` clusters in that many spawned processes; a config with
+    a ``mesh_shape`` clusters on a mesh over ``mesh_devices`` (default:
+    every visible card). Raises before any scene runs for an unknown or
+    unported step, a malformed encoder spec or a missing card
+    (``device=None``); a CLIP checkpoint that cannot be loaded
     raises after ``cluster`` and ``eval_ca``, as in the JAX driver. A failed
     scene or step is recorded in the report, not raised. ``prediction_root``
     defaults to ``<data_root>/prediction``.
     """
-    check_steps(cfg, steps, workers, encoder_spec)
+    check_steps(steps, encoder_spec)
     device = resolve_device(device)
     if cfg.debug:
         log.setLevel(logging.DEBUG)
@@ -778,8 +914,9 @@ def run_pipeline(
             if jp:
                 jr = faults.RunJournal(jp, cfg.config_name)
                 jr.begin_run()
-        sup = SceneSupervisor(cfg, resume=resume, journal=jr, prediction_root=prediction_root,
-                              device=device)
+        sup = SceneSupervisor(cfg, workers=workers, resume=resume, journal=jr,
+                              prediction_root=prediction_root, device=device,
+                              mesh_devices=mesh_devices)
         try:
             report.scenes = timed("cluster", lambda: sup.run(seq_names)) or []
         finally:
@@ -833,6 +970,14 @@ def main(argv=None) -> int:
     parser.add_argument("--splits_dir", default="splits")
     parser.add_argument("--steps", default=",".join(DEFAULT_STEPS),
                         help=f"comma-separated subset of {PORTED_STEPS}")
+    parser.add_argument("--workers", type=int, default=1,
+                        help="scene-queue worker processes (1 = in-process); worker i "
+                             "runs on card i %% device_count")
+    parser.add_argument("--point-shards", type=int, default=None,
+                        help="split the scene points over this many devices (the mesh's "
+                             "third axis; needs the config's mesh_shape, and the device "
+                             "count becomes scene*frame*point); artifacts are the same at "
+                             "any shard count")
     parser.add_argument("--prefetch-depth", type=int, default=None,
                         help="disk-load lookahead of the scene prefetcher (0 = load "
                              "inline; default: config prefetch_depth)")
@@ -878,6 +1023,8 @@ def main(argv=None) -> int:
         overrides["prefetch_depth"] = args.prefetch_depth
     if args.no_overlap:
         overrides["scene_overlap"] = False
+    if args.point_shards is not None:
+        overrides["point_shards"] = args.point_shards
     if args.scene_retries is not None:
         overrides["scene_retries"] = args.scene_retries
     if args.watchdog_device is not None:
@@ -899,7 +1046,7 @@ def main(argv=None) -> int:
 
     t0 = time.time()
     report = run_pipeline(cfg, seq_names, steps=tuple(s for s in args.steps.split(",") if s),
-                          resume=not args.no_resume, report_path=args.report,
+                          workers=args.workers, resume=not args.no_resume, report_path=args.report,
                           journal_path=args.journal, journal=not args.no_journal,
                           encoder_spec=args.encoder, device=args.device)
     total = time.time() - t0

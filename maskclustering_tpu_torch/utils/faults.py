@@ -24,15 +24,22 @@ scene retry, not the run; inside a streamed scene, one chunk retry.
   attempt and outcome rows in the JAX package's envelope and format, so a
   rerun skips exactly the scenes that finished.
 
-The port's ladder keeps only the rungs that change what the port does:
-``sequential-executor`` and ``host-postprocess``. The JAX rungs
-``single-chip`` (the port runs no mesh yet, ROADMAP A7) and
-``donation-off`` (torch has no buffer donation) have no torch meaning. So
-the rung numbers differ between the packages on the same scan: at the
-default config a post-process capacity overflow heals on the port's rung
-2 at attempt 3, on JAX's rung 3 at attempt 4, with equal artifacts and
-digests. ``SceneStatus.degradation_rung``, the journal's ``rung`` rows and
-the ``r`` field of ``digest_coord`` follow each package's own ladder.
+The port's ladder keeps the rungs that change what the port does:
+``sequential-executor``, ``single-chip`` (applied only when the config has
+a ``mesh_shape``: the fused mesh path gives way to the single-device one,
+point axis included) and ``host-postprocess``. The JAX rung
+``donation-off`` has no torch meaning (the port's only donation, the fused
+step's early release of its frame stacks, changes no byte and no failure).
+``sequential-executor`` and ``single-chip`` come before it, so they carry
+the same rung numbers in both packages; the port's ``host-postprocess``
+is one rung lower than JAX's. So at the default config a post-process
+capacity overflow heals on the port's rung 2 at attempt 3 without a mesh
+(JAX's rung 3, attempt 4), and a device fault of a mesh batch that outlasts
+``sequential-executor`` (which leaves the mesh in place) heals on
+``single-chip``, rung 2 in both packages (rung 1 when the run is already
+sequential). Artifacts and digests are equal at every rung.
+``SceneStatus.degradation_rung``, the journal's ``rung`` rows and the ``r``
+field of ``digest_coord`` follow each package's own ladder.
 
 Not here yet (ROADMAP A9, serving and observability): the metrics
 counters and flight-recorder marks the JAX module books at these sites,
@@ -244,6 +251,9 @@ class RetryPolicy:
 _LADDER_RUNGS = (
     ("sequential-executor", {"scene_overlap": False},
      lambda cfg: bool(cfg.scene_overlap)),
+    # the single-device path retires the whole mesh, point axis included
+    ("single-chip", {"mesh_shape": (), "point_shards": 1},
+     lambda cfg: bool(cfg.mesh_shape)),
     ("host-postprocess", {"device_postprocess": False},
      lambda cfg: bool(cfg.device_postprocess)),
 )

@@ -124,10 +124,14 @@ def test_run_scene_defaults_to_cuda():
     (dict(mesh_shape=(1, 2)), "A7"),
 ])
 def test_unported_configurations_raise(override, item):
-    cfg = from_jax_config(dataclasses.asdict(_cfg())).replace(**override)
+    """Meshes (A7) are ported (``parallel/``): ``run_scene`` ignores
+    ``mesh_shape``, as the JAX ``run_scene`` does, and clusters the scene on
+    its one device."""
+    cfg = from_jax_config(dataclasses.asdict(_cfg()))
     tensors = port_to_scene_tensors(port_make_scene(**SCENES["seed4"]))
-    with pytest.raises(NotImplementedError, match=item):
-        run_scene(tensors, cfg, k_max=31, device="cpu")
+    got = run_scene(tensors, cfg.replace(**override), k_max=31, device="cpu")
+    want = run_scene(tensors, cfg, k_max=31, device="cpu")
+    assert got.digest == want.digest and got.digest["artifact"]
 
 
 def _compare_with_jax(scene, cfg, k_max=31):
@@ -220,10 +224,8 @@ def test_streaming_configuration_raises():
     """Streaming is ported (``models/streaming.py``): the pipeline accepts a
     streaming configuration, and the combinations the JAX config refuses
     raise its ValueError, message for message, in both packages."""
-    from maskclustering_tpu_torch.models.pipeline import check_supported
-
     dense = _cfg().replace(use_exact_ball_query=False, device_postprocess=True)
-    check_supported(from_jax_config(dataclasses.asdict(dense)).replace(streaming_chunk=4))
+    assert from_jax_config(dataclasses.asdict(dense)).replace(streaming_chunk=4).streaming_chunk
     for bad in (dict(mesh_shape=(1, 2)), dict(use_exact_ball_query=True)):
         with pytest.raises(ValueError) as want:
             dense.replace(streaming_chunk=4, **bad)
@@ -279,9 +281,10 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
     neither jax nor anything of maskclustering_tpu, nor PIL, cv2, or the
     libraries of HF's CLIP path (transformers, tokenizers, safetensors,
     msgpack, regex, flax, ftfy); nor does building the CLIP encoder on a
-    checkpoint and encoding an image and a text, or streaming a scene in
-    chunks (the card's machine has none of them: the port decodes PNG and
-    JPEG and reads CLIP itself)."""
+    checkpoint and encoding an image and a text, streaming a scene in chunks,
+    or clustering a batch on a mesh of repeated CPU devices (the card's
+    machine has none of them: the port decodes PNG and JPEG and reads CLIP
+    itself)."""
     _write_port_clip_dir(tmp_path)
     code = r"""
 import importlib, pkgutil, sys
@@ -293,7 +296,8 @@ for name in names:
 for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.features",
              "semantics.query", "semantics.clip", "semantics.clip_config",
              "semantics.checkpoint", "semantics.tokenizer", "semantics.image_processor",
-             "io.jpeg", "obs.digest", "models.streaming", "utils.faults"):
+             "io.jpeg", "obs.digest", "models.streaming", "utils.faults", "parallel",
+             "parallel.mesh", "parallel.sharded", "parallel.batch"):
     assert pkg.__name__ + "." + name in names, name
 from maskclustering_tpu_torch.config import load_config
 from maskclustering_tpu_torch.models.streaming import stream_scene
@@ -305,6 +309,12 @@ res = stream_scene(scan, load_config("scannet", step=1, distance_threshold=0.05,
                                      point_chunk=2048, streaming_chunk=2),
                    seq_name="iso", device="cpu")
 assert res.timings["stream.num_chunks"] == 3 and res.digest["artifact"], res.timings
+from maskclustering_tpu_torch.parallel import cluster_scene_batch, make_mesh
+objs = cluster_scene_batch(load_config("scannet", step=1, distance_threshold=0.05,
+                                       frame_pad_multiple=4, point_chunk=2048,
+                                       mesh_shape=(1, 2), point_shards=2),
+                           make_mesh((1, 2, 2), devices=["cpu"] * 4), [scan])
+assert len(objs) == 1 and objs[0].point_ids_list, objs
 from maskclustering_tpu_torch.semantics import HFCLIPEncoder
 enc = HFCLIPEncoder(sys.argv[1], device="cpu")
 img = enc.encode_images([np.full((20, 30, 3), 7, np.uint8)])

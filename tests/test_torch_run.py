@@ -8,11 +8,13 @@ digest dicts and coordinates, exported npz arrays, object dicts, features,
 class-aware predictions and both AP tables. The port's overlapped executor
 equals its sequential loop; the run journal skips finished scenes; a
 post-process capacity overflow heals on the ``host-postprocess`` rung, at
-the rung the JAX ladder maps to; unported steps, ``workers > 1`` and
-refused configurations raise before any scene runs, a missing CLIP
-checkpoint where the JAX driver raises; a missing GT
+the rung the JAX ladder maps to; unported steps raise before any scene
+runs, a missing CLIP checkpoint where the JAX driver raises; a missing GT
 file is a step error; ``main`` exits 0, 1 and 143 where the JAX ``main``
-does.
+does. The fused mesh path (a (2, 1) mesh with two point shards over
+repeated CPU devices) equals the JAX driver's mesh run and the
+single-device run, a stalled mesh batch heals on the ``single-chip`` rung
+in both packages, and ``workers=2`` equals the in-process run.
 """
 
 import math
@@ -268,9 +270,10 @@ def test_missing_clip_checkpoint_raises_where_jax_does(runs, steps):
 @pytest.mark.parametrize("kwargs,match", [
     pytest.param(dict(steps=("cluster", "vis")), "A14", id="kwargs2-A14"),
     pytest.param(dict(steps=("top_images",)), "A14", id="kwargs3-A14"),
-    pytest.param(dict(workers=2), "A7", id="kwargs4-A7"),
-    pytest.param(dict(cfg=dict(mesh_shape=(1, 2))), "A7", id="kwargs5-A7"),
-    # streaming (A6) is ported: it passes the checks made before any scene
+    # worker processes and meshes (A7) and streaming (A6) are ported: they
+    # pass the checks made before any scene
+    pytest.param(dict(workers=2), None, id="kwargs4-A7"),
+    pytest.param(dict(cfg=dict(mesh_shape=(1, 2))), None, id="kwargs5-A7"),
     pytest.param(dict(cfg=dict(streaming_chunk=4)), None, id="kwargs6-A6"),
 ])
 def test_unported_raise_before_any_scene(runs, kwargs, match):
@@ -278,7 +281,8 @@ def test_unported_raise_before_any_scene(runs, kwargs, match):
     cfg = _cfg(runs["root"], "refused", **kwargs.pop("cfg", {}))
     kwargs.setdefault("steps", STEPS)
     if match is None:
-        check_steps(cfg, kwargs["steps"], kwargs.get("workers", 1))
+        assert cfg.mesh_shape or cfg.streaming_chunk or kwargs.get("workers", 1) > 1
+        check_steps(kwargs["steps"])
         return
     with pytest.raises(NotImplementedError, match=match):
         run_pipeline(cfg, NAMES, device="cpu", **kwargs)
@@ -403,3 +407,122 @@ def test_kernel_loader_and_launch_counts_are_thread_safe(monkeypatch):
     assert len(libs) == n_threads and all(lib is libs[0] for lib in libs)
     assert log.counts["associate_claim"] == n_threads * n_adds
     assert log.shapes["associate_claim"][(1,)] == n_threads * n_adds
+
+
+# ---------------------------------------------------------------------------
+# the fused mesh path and worker processes (A7)
+# ---------------------------------------------------------------------------
+
+# a (scene 2, frame 1, point 2) mesh: a short last batch of one scene and a
+# pad lane; frames pad to 8 (the dense slot table holds F_pad * k_max slots)
+MESH_KW = dict(mesh_shape=(2, 1), point_shards=2, frame_pad_multiple=8, scene_overlap=False,
+               retry_backoff_s=0.01)
+MESH_DEVICES = ["cpu"] * 4
+# covers a warm batch of two lanes on either package; a stalled batch costs it
+MESH_WATCHDOG_S = 20.0
+STALL_S = 3600.0  # the abandoned stall outsleeps the suite
+
+
+def _jax_run_mesh(cfg):
+    """The JAX mesh of ``cfg`` over the first scene * frame * point of the
+    eight virtual devices (its ``make_run_mesh`` takes them all)."""
+    import jax
+
+    from maskclustering_tpu.parallel.mesh import make_mesh as jax_make_mesh
+
+    shape = tuple(cfg.mesh_shape) + ((cfg.point_shards,) if cfg.point_shards > 1 else ())
+    return jax_make_mesh(shape, devices=jax.devices()[:int(np.prod(shape))])
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(runs):
+    """Both drivers on the mesh, fault-free and under a stall of the last
+    batch; the port's worker pool."""
+    import maskclustering_tpu.parallel.batch as jax_batch
+    from maskclustering_tpu.datasets import get_dataset as jax_get_dataset
+    from maskclustering_tpu.models.pipeline import run_scene as jax_run_scene
+
+    root = runs["root"]
+    out = {}
+    stall = f"stall:{NAMES[2]}.device"
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_batch, "make_run_mesh", _jax_run_mesh)
+        jcfg = jax_load_config("scannet").replace(data_root=root, config_name="jm", **KW,
+                                                  **MESH_KW)
+        out["jm"] = jax_run_pipeline(jcfg, NAMES, steps=STEPS, resume=False, journal=False)
+        dcfg = jcfg.replace(config_name="jd", watchdog_device_s=MESH_WATCHDOG_S)
+        # compile outside the watchdog what the drill runs under it: the
+        # first batch on the mesh, and the stalled scene on one device
+        scans = [jax_get_dataset("scannet", s, data_root=root).load_scene_tensors(1)
+                 for s in NAMES]
+        jax_batch.cluster_scene_batch(dcfg, _jax_run_mesh(dcfg), scans[:2])
+        jax_run_scene(scans[2], dcfg.replace(mesh_shape=(), point_shards=1))
+        jax_faults.set_plan(jax_faults.FaultPlan.from_spec(stall, stall_s=STALL_S))
+        try:
+            out["jd"] = jax_run_pipeline(dcfg, NAMES, steps=STEPS, resume=False, journal=False)
+        finally:
+            jax_faults.set_plan(None)
+    out["pm"] = run_pipeline(_cfg(root, "pm", **MESH_KW), NAMES, steps=STEPS, resume=False,
+                             journal=False, device="cpu", mesh_devices=MESH_DEVICES)
+    faults.set_plan(faults.FaultPlan.from_spec(stall, stall_s=STALL_S))
+    try:
+        out["pd"] = run_pipeline(_cfg(root, "pd", **MESH_KW, watchdog_device_s=MESH_WATCHDOG_S),
+                                 NAMES, steps=STEPS, resume=False, device="cpu",
+                                 mesh_devices=MESH_DEVICES,
+                                 journal_path=os.path.join(root, "pd_journal.jsonl"))
+    finally:
+        faults.set_plan(None)
+    out["pw"] = run_pipeline(_cfg(root, "pw"), NAMES, steps=STEPS, resume=False, device="cpu",
+                             workers=2, journal_path=os.path.join(root, "pw_journal.jsonl"))
+    return out
+
+
+def _status_rows(report):
+    return [(s.seq_name, s.status, s.num_objects, s.attempts, s.degradation_rung,
+             s.error_class, s.digest, s.digest_coord) for s in report.scenes]
+
+
+def test_mesh_run_equals_the_jax_mesh_run(runs, mesh_runs):
+    jm, pm = mesh_runs["jm"], mesh_runs["pm"]
+    assert jm.ok and pm.ok
+    assert _status_rows(pm) == _status_rows(jm)
+    for s in pm.scenes:
+        assert s.digest["bucket"] == "fused" and s.digest["artifact"] and not s.digest["plane"]
+        assert s.digest_coord == "fused|bf16|2x1|r0|c0"
+    # the fused path's artifacts are the single-device path's
+    by_seq = {s.seq_name: s.digest["artifact"] for s in runs["sq"].scenes}
+    assert {s.seq_name: s.digest["artifact"] for s in pm.scenes} == by_seq
+    _assert_same_artifacts(runs["root"], "jm", "pm")
+    _assert_same_artifacts(runs["root"], "sq", "pm")
+    assert _equal_with_nan(pm.evaluation["eval_ca"], runs["jx_ap"])
+
+
+def test_mesh_stall_heals_on_the_single_chip_rung(runs, mesh_runs):
+    """The stalled batch fails as a DeviceStallError and heals on the
+    ``single-chip`` rung, rung 1 of both ladders on a sequential run."""
+    jd, pd = mesh_runs["jd"], mesh_runs["pd"]
+    assert jd.ok and pd.ok
+    by = {s.seq_name: s for s in pd.scenes}
+    assert (by[NAMES[2]].attempts, by[NAMES[2]].degradation_rung) == (2, 1)
+    assert by[NAMES[2]].digest_coord.endswith("|single|r1|c0")
+    assert [by[n].digest_coord for n in NAMES[:2]] == ["fused|bf16|2x1|r0|c0"] * 2
+    assert _status_rows(pd) == _status_rows(jd)
+    for report in (jd, pd):
+        assert report.faults["degradations"] == {"single-chip": 1}
+        assert report.faults["device_stalls"] == 1 and report.faults["final_rung"] == 1
+    rows = faults.read_journal(os.path.join(runs["root"], "pd_journal.jsonl"), config="pd")
+    failed = [r for r in rows if r.get("event") == "outcome" and r.get("status") == "failed"]
+    assert [(r["seq"], r["error_class"]) for r in failed] == [(NAMES[2], "device")]
+    assert "DeviceStallError" in failed[0]["error"]
+    _assert_same_artifacts(runs["root"], "jd", "pd")
+    _assert_same_artifacts(runs["root"], "pm", "pd")
+
+
+def test_worker_processes_equal_the_in_process_run(runs, mesh_runs):
+    pw = mesh_runs["pw"]
+    assert pw.ok and [s.seq_name for s in pw.scenes] == NAMES
+    assert _status_rows(pw) == _status_rows(runs["sq"])
+    _assert_same_artifacts(runs["root"], "sq", "pw")
+    assert _equal_with_nan(pw.evaluation["eval_ca"], runs["jx_ap"])
+    rows = faults.read_journal(os.path.join(runs["root"], "pw_journal.jsonl"), config="pw")
+    assert sorted(r["seq"] for r in rows if r.get("event") == "outcome") == NAMES
