@@ -132,6 +132,27 @@ Imports nothing of JAX or of the JAX package. In order:
     the CLI with ``--workers 2`` over the four scans: npz, object dicts and
     AP equal to phase 10's (the mid-size scan to an in-process run), the
     seconds a scan beside phase 10's.
+15. the scene-serving daemon (``serve/``) in this process, one in-thread
+    worker on the card, over phase 10's scans and config on a Unix socket.
+    (a) Start with one scan warm, obs events armed: the warm-up seconds.
+    (b) ``ServeClient.run_scene`` on each scan and a repeat of the first:
+    ``ack``, ``status running``, ``result ok``, phase 10's artifact digest
+    and object count, one launch of each association kernel a request; a
+    synthetic scene at a bucket this process never dispatched, cold then
+    warm (``buckets_new``); the seconds of each beside phase 8's wall (obs
+    off). (c) Six requests from three client threads at capacity 2: every
+    admitted one ok with the same digests, any ``queue_full`` typed; p50,
+    p95, requests a second and the queue high-water. (e) ``stream_chunk``
+    x4 (chunks of 8) and ``stream_end`` over one scan: artifacts and digest
+    equal to an in-process ``stream_scene``. (g) ``status`` with
+    ``detail="slo"``: counts, latency quantiles, telemetry windows and the
+    SLO result. (f) One request held in flight (a device stall) and two
+    queued, then stop: ok for the first, ``draining`` rejects for the
+    others; a second daemon on the same journal directory recovers the WAL
+    and dedupes the answered key; the events file holds ``serve.request``
+    spans and ``serve.*`` counters. (d) A daemon with ``serve_batch_max``
+    2: two same-bucket scans in one fused dispatch, ``batch`` 2, (b)'s
+    digests, each association kernel once a lane.
 
 Any mismatch or failure exits non-zero. The last three lines are the card
 line, the per-kernel JSON and the result JSON.
@@ -214,6 +235,16 @@ MESH_SECOND_SEED = 3
 MESH_SECOND_FRAMES = 16
 ONE_CARD_MESHES = ((2, 1), (1, 2), (1, 1, 2), (2, 2, 2))
 MESH_WORKERS = 2
+# phase 15: the serving daemon's admission bound, client threads and their
+# requests, the served stream's chunk, the drill's device stall, the packed
+# width, and a synthetic request at a bucket no earlier phase dispatched
+# (40 frames pad to 64 at the scannet frame multiple; the mid-size cloud)
+SERVE_CAPACITY = 2
+SERVE_THREADS = 3
+SERVE_PER_THREAD = 2
+SERVE_STALL_S = 3.0
+SERVE_BATCH = 2
+SERVE_COLD_SPEC = {"num_boxes": 4, "num_frames": 40, "image_hw": [240, 320], "seed": 7}
 
 
 def _say(msg: str) -> None:
@@ -1103,7 +1134,8 @@ def batch_driver(dev, scene, mid_scene):
                      ov_pred, ov_cfg.config_name, BATCH_SCANS[:1])
     _say("[ladder] host-postprocess rung == device rung at cap 1024 (npz, object dict)")
     return {"launches": launches, "root": root, "cfg": ov_cfg, "pred": ov_pred,
-            "ap": ov.evaluation["eval_ca"], "cluster_s": ov.step_seconds["cluster"]}
+            "ap": ov.evaluation["eval_ca"], "cluster_s": ov.step_seconds["cluster"],
+            "scans": {s.seq_name: (s.digest, s.num_objects) for s in ov.scenes}}
 
 
 def textured_frame(seg, frame: int, seed: int = 0):
@@ -2140,6 +2172,351 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
     return {"launches": launches}
 
 
+def _short_socket() -> str:
+    """An AF_UNIX path well inside its 107 bytes: a fresh directory in the
+    temporary directory, or in /tmp when that one's path is too long."""
+    import tempfile
+
+    base = tempfile.gettempdir()
+    return os.path.join(tempfile.mkdtemp(prefix="mct", dir=base if len(base) <= 64 else "/tmp"),
+                        "s.sock")
+
+
+def _served_artifact_digest(root: str, seq: str, cfg_name: str, num_points: int) -> str:
+    """``artifact_digest`` of the objects a daemon exported for ``seq``."""
+    import types
+
+    import numpy as np
+
+    from maskclustering_tpu_torch.obs.digest import artifact_digest
+
+    od = np.load(os.path.join(root, "scannet", "processed", seq, "output", "object", cfg_name,
+                              "object_dict.npy"), allow_pickle=True).item()
+    keys = sorted(od)
+    return artifact_digest(types.SimpleNamespace(
+        point_ids_list=[od[k]["point_ids"] for k in keys],
+        mask_list=[od[k]["mask_list"] for k in keys], num_points=num_points))
+
+
+def _served(client, scene: str, **kw):
+    """One scene request: (ack, status events, terminal) with the protocol's
+    order checked: the ack first, then status events, then one result."""
+    ack = client.request_scene(scene, **kw)
+    if ack.get("kind") != "ack":
+        return ack, [], ack
+    statuses = []
+    term = client.wait_result(collect=statuses)
+    return ack, statuses, term
+
+
+def _quantile(vals, q: float) -> float:
+    """The nearest-rank rule of the serve worker's latency digest."""
+    from maskclustering_tpu_torch.obs.metrics import percentile
+
+    return percentile(sorted(vals), q)
+
+
+def serve_phase(dev, card: str, dense, batch) -> dict:
+    """Phase 15: the scene-serving daemon on the card."""
+    import shutil
+
+    from maskclustering_tpu_torch import obs
+    from maskclustering_tpu_torch.models.streaming import stream_scene
+    from maskclustering_tpu_torch.obs.digest import artifact_digest
+    from maskclustering_tpu_torch.obs.events import read_events
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.serve import ServeClient, ServeDaemon
+    from maskclustering_tpu_torch.serve import wal as serve_wal
+    from maskclustering_tpu_torch.datasets import get_dataset
+    from maskclustering_tpu_torch.utils import faults
+
+    t_phase = time.perf_counter()
+    root = batch["root"]
+    cfg = batch["cfg"].replace(config_name="chip_smoke_serve")
+    pred = os.path.join(root, "prediction_serve")
+    jdir = os.path.join(root, "serve_journals")
+    events_path = os.path.join(root, "serve_events.jsonl")
+    shutil.rmtree(jdir, ignore_errors=True)
+    want = batch["scans"]  # phase 10's {scan: (digest dict, objects)}
+    first = BATCH_SCANS[0]
+    num_points = {}
+
+    def counts():
+        return dict(kernels.LAUNCHES.counts)
+
+    def delta(before, after):
+        return {n: after.get(n, 0) - before.get(n, 0) for n in ASSOCIATION_KERNELS}
+
+    def check_ok(term, scene, label):
+        if term.get("kind") != "result" or term.get("status") != "ok":
+            raise AssertionError(f"{label}: {scene} answered {term}")
+        dg, n_obj = want[scene]
+        if term["digest"]["artifact"] != dg["artifact"] or term["num_objects"] != n_obj:
+            raise AssertionError(f"{label}: {scene} digest {term['digest']} objects "
+                                 f"{term['num_objects']}, phase 10's {dg} {n_obj}")
+
+    kernels.LAUNCHES.reset()
+    obs.configure(events_path, truncate=True, meta={"tool": "chip_smoke", "device": str(dev)})
+    sock = _short_socket()
+    # (a) start: one scan warm
+    daemon = ServeDaemon(cfg, socket_path=sock, capacity=SERVE_CAPACITY, journal_dir=jdir,
+                         prediction_root=pred, warm_scenes=(first,), device=dev,
+                         telemetry_window_s=1.0)
+    t0 = time.perf_counter()
+    daemon.start()
+    start_s = time.perf_counter() - t0
+    _say(f"[serve] {card}: daemon on {sock} (capacity {SERVE_CAPACITY}, device {dev}), "
+         f"warm-up of {first} {daemon.stats()['warmup_s']:.2f} s, start {start_s:.2f} s")
+
+    # (b) sequential requests: each scan, then the first again
+    rows = []
+    with ServeClient(sock, timeout_s=600.0) as c:
+        for scene in list(BATCH_SCANS) + [first]:
+            before = counts()
+            t0 = time.perf_counter()
+            ack, statuses, term = _served(c, scene, tag="seq")
+            wall = time.perf_counter() - t0
+            d = delta(before, counts())
+            if ack.get("kind") != "ack" or [s.get("state") for s in statuses] != ["running"]:
+                raise AssertionError(f"{scene}: events {ack} {statuses}")
+            check_ok(term, scene, "sequential")
+            if any(v != 1 for v in d.values()):
+                raise AssertionError(f"{scene}: association launches {d}, not one each")
+            rows.append((scene, term, wall))
+        # a synthetic scene at a bucket no earlier phase dispatched: cold,
+        # then warm
+        cold = []
+        for _ in range(2):
+            before = counts()
+            ack, statuses, term = _served(c, "chip_smoke_serve_cold", synthetic=SERVE_COLD_SPEC)
+            if term.get("status") != "ok" or delta(before, counts()) != {
+                    n: 1 for n in ASSOCIATION_KERNELS}:
+                raise AssertionError(f"cold synthetic request: {term}")
+            cold.append((term, statuses[0].get("warm")))
+    for scene, term, wall in rows:
+        _say(f"[serve] {scene}: ack, running, ok in {term['seconds']:.3f} s (scene "
+             f"{term['scene_seconds']:.3f} s, client wall {wall:.3f} s), buckets_new "
+             f"{term['buckets_new']}, digest {term['digest']['artifact']} == phase 10's, "
+             f"{term['num_objects']} objects, one launch of each association kernel")
+    (c0, w0), (c1, w1) = cold
+    if c0["buckets_new"] < 1 or c1["buckets_new"] != 0 or w1 is not True \
+            or c0["digest"] != c1["digest"]:
+        raise AssertionError(f"cold/warm synthetic: {c0} {c1}")
+    _say(f"[serve] synthetic {SERVE_COLD_SPEC} bucket {c0['bucket']}: cold {c0['seconds']:.3f} s "
+         f"(scene {c0['scene_seconds']:.3f} s, buckets_new {c0['buckets_new']}, the write of "
+         f"the scan and the classification included), warm {c1['seconds']:.3f} s (scene "
+         f"{c1['scene_seconds']:.3f} s, buckets_new 0), digest {c1['digest']['artifact']}")
+    warm_scene = [r[1]["scene_seconds"] for r in rows[1:]]
+    _say(f"[serve] warm scan requests {min(warm_scene):.3f}-{max(warm_scene):.3f} s a scene "
+         f"against phase 8's run_scene wall {dense['wall']:.3f} s (obs off) and phase 10's "
+         f"{batch['cluster_s'] / len(BATCH_SCANS):.3f} s a scan")
+
+    # (c) concurrency: client threads at capacity 2
+    results, errors = [], []
+
+    def client_thread(i):
+        try:
+            with ServeClient(sock, timeout_s=600.0) as cc:
+                for j in range(SERVE_PER_THREAD):
+                    scene = BATCH_SCANS[(i + j) % len(BATCH_SCANS)]
+                    t0 = time.perf_counter()
+                    term, _, _ = cc.run_scene(scene, tag=f"c{i}.{j}")
+                    results.append((scene, term, time.perf_counter() - t0))
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client_thread, args=(i,), name=f"serve-client-{i}")
+               for i in range(SERVE_THREADS)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600.0)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads):
+        raise AssertionError(f"concurrent clients: {errors}")
+    rejected = [t for _, t, _ in results if t.get("kind") == "reject"]
+    if any(t.get("reason") != "queue_full" for t in rejected):
+        raise AssertionError(f"concurrent rejects: {rejected}")
+    served = [(s, t, w) for s, t, w in results if t.get("kind") != "reject"]
+    for scene, term, _ in served:
+        check_ok(term, scene, "concurrent")
+    # the result's seconds run from dispatch; the client's wall adds the queue
+    secs = [t["seconds"] for _, t, _ in served]
+    walls = [w for _, _, w in served]
+    stats = daemon.stats()
+    _say(f"[serve] {SERVE_THREADS} client threads x {SERVE_PER_THREAD} at capacity "
+         f"{SERVE_CAPACITY}: {len(served)} ok with phase 10's digests, {len(rejected)} typed "
+         f"queue_full; over {len(secs)} requests (a smoke reading: p95 of so few is their "
+         f"largest) seconds p50 {_quantile(secs, 50):.3f} p95 {_quantile(secs, 95):.3f}, "
+         f"client wall (queue included) p50 {_quantile(walls, 50):.3f} p95 "
+         f"{_quantile(walls, 95):.3f}; {len(served) / wall:.3f} requests a second over "
+         f"{wall:.2f} s with one worker, queue high-water {stats['queue']['high_water']}")
+
+    # (e) a served stream: four chunks of 8 over one scan, then stream_end
+    scene = BATCH_SCANS[1]
+    t0 = time.perf_counter()
+    with ServeClient(sock, timeout_s=600.0) as c:
+        chunks = []
+        before = counts()
+        for i in range(4):
+            term, statuses = c.stream_chunk(scene, chunk=STREAM_CHUNK if i == 0 else 0)
+            if term.get("status") != "ok":
+                raise AssertionError(f"stream chunk {i}: {term}")
+            chunks.append((term, [s.get("state") for s in statuses]))
+        end, _ = c.stream_end(scene)
+        d = delta(before, counts())
+    wall = time.perf_counter() - t0
+    if end.get("status") != "ok" or not chunks[-1][0]["done"] or end["chunks"] != 4:
+        raise AssertionError(f"stream end: {end}")
+    if any(v != 4 for v in d.values()):
+        raise AssertionError(f"served stream launches {d}, not one a chunk")
+    ds = get_dataset("scannet", scene, data_root=root)
+    tensors = ds.load_scene_tensors(cfg.step)
+    num_points[scene] = tensors.num_points
+    ref_cfg = cfg.replace(config_name="chip_smoke_serve_stream_ref", streaming_chunk=STREAM_CHUNK)
+    ref_pred = os.path.join(root, "prediction_serve_stream_ref")
+    # the in-process reference launches outside the daemon: kept out of the
+    # phase's count of served launches
+    before_ref = counts()
+    ref = stream_scene(tensors, ref_cfg, seq_name=scene, export=True,
+                       object_dict_dir=ds.object_dict_dir, prediction_root=ref_pred, device=dev)
+    outside = delta(before_ref, counts())
+    served_dg = _served_artifact_digest(root, scene, cfg.config_name, tensors.num_points)
+    _artifacts_equal(root, pred, cfg.config_name, ref_pred, ref_cfg.config_name, [scene])
+    if served_dg != artifact_digest(ref.objects):
+        raise AssertionError(f"served stream digest {served_dg} != in-process "
+                             f"{artifact_digest(ref.objects)}")
+    _say(f"[serve] stream over {scene}: chunks "
+         + ", ".join(f"{t['chunk']} ({t['seconds']:.3f} s, {t['partial_instances']} partial, "
+                     f"{'/'.join(st)})" for t, st in chunks)
+         + f"; stream_end {end['seconds']:.3f} s, {end['num_objects']} objects; end to end "
+         f"{wall:.2f} s; artifacts and digest {served_dg} == in-process stream_scene; "
+         f"launches {json.dumps(d)}")
+
+    # (g) the status op with the SLO detail
+    with ServeClient(sock, timeout_s=60.0) as c:
+        st = c.slo()
+    tele = st.get("telemetry") or {}
+    if not tele.get("windows") or st.get("slo", {}).get("spec") != "serve-default" \
+            or st["counts"]["ok"] < len(rows) + 2 + len(served):
+        raise AssertionError(f"status detail=slo: {json.dumps(st)[:2000]}")
+    _say(f"[serve] status slo: counts {json.dumps(st['counts'])}, latency "
+         f"{json.dumps(st['latency'])}, {len(tele['windows'])} telemetry windows, slo ok "
+         f"{st['slo']['ok']} ({', '.join(o['name'] + ' ' + o['state'] for o in st['slo']['objectives'])})")
+
+    # (f) drain: one request held in flight, two queued, then stop
+    plan = faults.FaultPlan.from_spec(f"stall:{first}.device:1", stall_s=SERVE_STALL_S)
+    faults.set_plan(plan)
+    out = {}
+
+    def drain_client(i, scene, idem):
+        with ServeClient(sock, timeout_s=600.0) as cc:
+            out[i] = cc.run_scene(scene, idem=idem)[0]
+
+    drains = [threading.Thread(target=drain_client, args=(0, first, "chip-smoke-drain-0"))]
+    drains[0].start()
+    t_end = time.monotonic() + 120
+    while plan.entries[0].remaining != 0 and time.monotonic() < t_end:
+        time.sleep(0.01)
+    for i in (1, 2):
+        drains.append(threading.Thread(target=drain_client,
+                                       args=(i, BATCH_SCANS[i], f"chip-smoke-drain-{i}")))
+        drains[-1].start()
+    while daemon.queue.depth() < 2 and time.monotonic() < t_end:
+        time.sleep(0.01)
+    t0 = time.perf_counter()
+    daemon.request_stop()
+    daemon.shutdown(timeout_s=120.0)
+    drain_s = time.perf_counter() - t0
+    for th in drains:
+        th.join(120.0)
+    faults.set_plan(None)
+    if set(out) != {0, 1, 2}:
+        raise AssertionError(f"drain answers {out}")
+    check_ok(out[0], first, "drain in flight")
+    if [out[i].get("reason") for i in (1, 2)] != ["draining", "draining"]:
+        raise AssertionError(f"drain queued answers {out[1]} {out[2]}")
+    daemon.emit_serve_counters()
+    obs.flush_metrics()
+    obs.disable()
+    spans = [e for e in read_events(events_path, kinds=["span"]) if e["name"] == "serve.request"]
+    metric_rows = list(read_events(events_path, kinds=["metrics"]))
+    serve_counters = sorted(k for k in metric_rows[-1]["metrics"]["counters"]
+                            if k.startswith("serve."))
+    if not spans or "serve.requests_ok" not in serve_counters:
+        raise AssertionError(f"events file: {len(spans)} serve.request spans, counters "
+                             f"{serve_counters}")
+    sock2 = _short_socket()
+    second = ServeDaemon(cfg, socket_path=sock2, capacity=SERVE_CAPACITY, journal_dir=jdir,
+                         prediction_root=pred, device=dev)
+    second.start()
+    try:
+        with ServeClient(sock2, timeout_s=600.0) as c:
+            again, _, _ = c.run_scene(first, idem="chip-smoke-drain-0")
+        durable = second.stats()["durable"]
+    finally:
+        second.request_stop()
+        second.shutdown()
+    wal_state = serve_wal.read_wal(os.path.join(jdir, serve_wal.WAL_FILENAME))
+    if not again.get("deduped") or again.get("id") != out[0]["id"] \
+            or durable["wal_deduped"] != 1 or wal_state.pending:
+        raise AssertionError(f"WAL recovery: {again} {durable}")
+    _say(f"[serve] drain: in flight {out[0]['id']} ok ({out[0]['seconds']:.3f} s, its "
+         f"{SERVE_STALL_S:g} s stall included), {out[1]['id']} and {out[2]['id']} draining "
+         f"rejects, shutdown {drain_s:.2f} s; a second daemon on the journal directory "
+         f"recovered the WAL ({durable['wal_replayed']} replayed, {len(wal_state.answered)} "
+         f"answered keys) and deduped {again['id']} ok; events: {len(spans)} serve.request "
+         f"spans, counters {serve_counters}")
+
+    # (d) packed batch: two same-bucket scans in one fused dispatch
+    pcfg = cfg.replace(config_name="chip_smoke_serve_packed", serve_batch_max=SERVE_BATCH,
+                       serve_batch_linger_s=2.0)
+    sock3 = _short_socket()
+    packed = ServeDaemon(pcfg, socket_path=sock3, capacity=4, prediction_root=pred,
+                         warm_scenes=tuple(BATCH_SCANS[1:]), device=dev, wal=False)
+    t0 = time.perf_counter()
+    packed.start()
+    warm_s = time.perf_counter() - t0
+    pout = {}
+
+    def packed_client(scene):
+        with ServeClient(sock3, timeout_s=600.0) as cc:
+            pout[scene] = cc.run_scene(scene)[0]
+
+    try:
+        before = counts()
+        pts = [threading.Thread(target=packed_client, args=(s,)) for s in BATCH_SCANS[1:]]
+        t0 = time.perf_counter()
+        for th in pts:
+            th.start()
+        for th in pts:
+            th.join(600.0)
+        wall = time.perf_counter() - t0
+        d = delta(before, counts())
+        bstats = packed.worker.batch_stats()
+    finally:
+        packed.request_stop()
+        packed.shutdown()
+    for scene in BATCH_SCANS[1:]:
+        check_ok(pout.get(scene, {}), scene, "packed")
+        if pout[scene].get("batch") != SERVE_BATCH:
+            raise AssertionError(f"packed {scene}: {pout[scene]}")
+    if any(v != SERVE_BATCH for v in d.values()):
+        raise AssertionError(f"packed launches {d}, not one a lane")
+    per = [pout[s]["scene_seconds"] for s in BATCH_SCANS[1:]]
+    _say(f"[serve] packed: warm-up {warm_s:.2f} s; {SERVE_BATCH} requests in one fused dispatch "
+         f"(batch {SERVE_BATCH}, hist {bstats['hist']}), {per[0]:.3f} s a scene, client wall "
+         f"{wall:.3f} s, digests == (b)'s, launches {json.dumps(d)}")
+    launches = {n: v - outside.get(n, 0) for n, v in counts().items()}
+    for s in (sock, sock2, sock3):
+        shutil.rmtree(os.path.dirname(s), ignore_errors=True)
+    _say(f"[serve] launches through the daemons over the phase {json.dumps(launches)} "
+         f"(the in-process reference stream's {json.dumps(outside)} left out)")
+    _say(f"[serve] phase 15 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "maskclustering_tpu_torch")):
@@ -2290,6 +2667,9 @@ def main() -> int:
     # 14. the fused multi-device path
     mesh = mesh_phase(dev, card, tensors, dense, mid_digests, batch)
 
+    # 15. the scene-serving daemon
+    serve = serve_phase(dev, card, dense, batch)
+
     _say(f"[done] {time.perf_counter() - t_start:.1f} s")
     _say(card)
     rows = [{
@@ -2313,7 +2693,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": None, "scene_kernel_ms": t["ms"],
             "batch_launches": batch["launches"][name],
             "stream_launches": stream["launches"][name],
-            "mesh_launches": mesh["launches"][name]})
+            "mesh_launches": mesh["launches"][name],
+            "serve_launches": serve["launches"][name]})
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

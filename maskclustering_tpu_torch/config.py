@@ -21,6 +21,60 @@ _CONFIG_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__fil
 COUNT_DTYPES = ("bf16", "int8")
 
 
+def parse_carve_spec(spec: str) -> Tuple[int, int]:
+    """``"KxC"`` -> (workers, chips_per_worker), with the JAX config's errors."""
+    parts = spec.lower().split("x")
+    if len(parts) != 2:
+        raise ValueError(f"serve_carve must be 'KxC' (workers x chips), got {spec!r}")
+    try:
+        workers, chips = int(parts[0]), int(parts[1])
+    except ValueError:
+        raise ValueError(
+            f"serve_carve must be 'KxC' with integer K and C, got {spec!r}") from None
+    if workers < 1 or chips < 1:
+        raise ValueError(f"serve_carve needs K >= 1 and C >= 1, got {spec!r}")
+    return workers, chips
+
+
+def parse_tenant_spec(spec: str) -> Dict[str, Tuple[float, Optional[int]]]:
+    """``"name:weight[:quota],..."`` -> {name: (weight, quota_or_None)}, with
+    the JAX config's errors (the worker pool's QoS table, ROADMAP A9c)."""
+    table: Dict[str, Tuple[float, Optional[int]]] = {}
+    for entry in (e.strip() for e in spec.split(",")):
+        if not entry:
+            continue
+        parts = entry.split(":")
+        if len(parts) not in (2, 3):
+            raise ValueError(f"serve_tenants entry must be 'name:weight' or "
+                             f"'name:weight:quota', got {entry!r}")
+        name = parts[0]
+        if not name or "/" in name or "\\" in name:
+            raise ValueError(f"serve_tenants name must be non-empty without path "
+                             f"separators, got {name!r}")
+        if name in table:
+            raise ValueError(f"serve_tenants repeats tenant {name!r}")
+        try:
+            weight = float(parts[1])
+        except ValueError:
+            raise ValueError(f"serve_tenants weight must be a number, got "
+                             f"{parts[1]!r} for tenant {name!r}") from None
+        if weight <= 0:
+            raise ValueError(f"serve_tenants weight must be > 0, got {weight} for "
+                             f"tenant {name!r}")
+        quota: Optional[int] = None
+        if len(parts) == 3:
+            try:
+                quota = int(parts[2])
+            except ValueError:
+                raise ValueError(f"serve_tenants quota must be an integer, got "
+                                 f"{parts[2]!r} for tenant {name!r}") from None
+            if quota < 1:
+                raise ValueError(f"serve_tenants quota must be >= 1, got {quota} "
+                                 f"for tenant {name!r}")
+        table[name] = (weight, quota)
+    return table
+
+
 @dataclasses.dataclass(frozen=True)
 class PipelineConfig:
     """All knobs for one pipeline run (reference configs/*.json semantics)."""
@@ -154,6 +208,35 @@ class PipelineConfig:
         if self.stream_journal_every < 0:
             raise ValueError(
                 f"stream_journal_every must be >= 0, got {self.stream_journal_every}")
+        # the serving knobs' refusals and their messages are the JAX config's
+        for knob in ("retry_backoff_s", "watchdog_load_s", "watchdog_device_s",
+                     "watchdog_host_s", "worker_heartbeat_s", "serve_journal_keep",
+                     "serve_journal_max_age_s", "serve_prune_interval_s"):
+            if getattr(self, knob) < 0:
+                raise ValueError(f"{knob} must be >= 0, got {getattr(self, knob)}")
+        if self.worker_respawns < 0:
+            raise ValueError(f"worker_respawns must be >= 0, got {self.worker_respawns}")
+        if self.serve_batch_max < 1:
+            raise ValueError(f"serve_batch_max must be >= 1, got {self.serve_batch_max}")
+        if self.serve_batch_linger_s < 0:
+            raise ValueError(
+                f"serve_batch_linger_s must be >= 0, got {self.serve_batch_linger_s}")
+        if self.serve_batch_max > 1 and self.streaming_chunk > 0:
+            raise ValueError(
+                "serve_batch_max > 1 packs whole scenes onto the scene "
+                "mesh axis — streaming_chunk is a single-chip whole-stream "
+                "mode; unset one")
+        if self.serve_workers < 1:
+            raise ValueError(f"serve_workers must be >= 1, got {self.serve_workers}")
+        if self.serve_carve:
+            workers, _chips = parse_carve_spec(self.serve_carve)
+            if workers != self.serve_workers:
+                raise ValueError(
+                    f"serve_carve {self.serve_carve!r} names {workers} "
+                    f"workers but serve_workers={self.serve_workers}; "
+                    f"the carve's K must equal serve_workers")
+        if self.serve_tenants:
+            parse_tenant_spec(self.serve_tenants)
 
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)

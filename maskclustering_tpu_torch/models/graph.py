@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from maskclustering_tpu_torch.ops import counting
-from maskclustering_tpu_torch.utils.compile_cache import bucket_size
+from maskclustering_tpu_torch.utils.compile_cache import bucket_size, record_shape_bucket
 
 
 class MaskTable(NamedTuple):
@@ -53,6 +53,7 @@ def build_mask_table(mask_valid: np.ndarray, pad_multiple: int = 256) -> MaskTab
     f_idx, k_idx = np.nonzero(mask_valid)
     num = len(f_idx)
     m_pad = bucket_size(num, pad_multiple)
+    record_shape_bucket("masks", m_pad)
     frame = np.full(m_pad, mask_valid.shape[0], dtype=np.int32)
     mask_id = np.full(m_pad, -1, dtype=np.int32)
     frame[:num] = f_idx

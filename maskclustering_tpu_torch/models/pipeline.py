@@ -53,11 +53,14 @@ from maskclustering_tpu_torch.models.postprocess import SceneObjects, export_art
 from maskclustering_tpu_torch.models.postprocess_device import run_postprocess
 from maskclustering_tpu_torch.obs import digest as sentinel
 from maskclustering_tpu_torch.utils import faults
-from maskclustering_tpu_torch.utils.compile_cache import max_seg_id, scene_pads
+from maskclustering_tpu_torch.utils.compile_cache import (
+    bucket_k_max,
+    max_seg_id,
+    record_shape_bucket,
+    scene_pads,
+)
 
 log = logging.getLogger("maskclustering_tpu_torch")
-
-K_MAX_CEILING = 1023
 
 
 class SceneResult(NamedTuple):
@@ -85,18 +88,6 @@ class DeviceHandoff(NamedTuple):
     n_real: int  # true (pre-pad) point count
     seq_name: Optional[str]
     timings: Dict[str, float]  # associate/graph/cluster stage walls
-
-
-def bucket_k_max(max_id: int, minimum: int = 63, ceiling: int = K_MAX_CEILING) -> int:
-    """Smallest (2^b - 1) >= max(max_id, minimum), clamped at ``ceiling``;
-    ids above k_max are dropped as background."""
-    k = minimum
-    while k < max_id and k < ceiling:
-        k = k * 2 + 1
-    if max_id > k:
-        log.warning("segmentation ids up to %d exceed k_max ceiling %d; "
-                    "masks with larger ids are treated as background", max_id, k)
-    return k
 
 
 class _Stage:
@@ -164,7 +155,9 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
         else:
             # the JAX package's shape bucket: the padded point count decides
             # the spacing sample, hence the coverage voxel size
-            tensors = pad_scene_tensors(tensors, *scene_pads(cfg, tensors.num_frames, n_real))
+            f_pad, n_pad = scene_pads(cfg, tensors.num_frames, n_real)
+            tensors = pad_scene_tensors(tensors, f_pad, n_pad)
+            record_shape_bucket("scene", k_max, f_pad, n_pad)
             assoc = associate_scene_tensors(tensors, cfg, k_max=k_max, device=device)
 
     with _Stage(timings, "graph", device):

@@ -49,6 +49,7 @@ from maskclustering_tpu_torch.models.postprocess import (
 from maskclustering_tpu_torch.ops import counting
 from maskclustering_tpu_torch.ops.grid_dbscan import _bucket_pow2, build_grid, grid_dbscan_pairs
 from maskclustering_tpu_torch.utils import faults
+from maskclustering_tpu_torch.utils.compile_cache import record_shape_bucket
 
 
 class PostprocessCapacityError(RuntimeError):
@@ -375,6 +376,7 @@ def postprocess_scene_device(
     if live == 0:
         return done("claims", "dbscan", "mask_assign", "emit", "merge")
     r_pad = _rep_bucket(live)
+    record_shape_bucket("post.nodestats", r_pad, m_pad, f, n, k2)
 
     mask_frame_d = torch.from_numpy(np.asarray(mask_frame)).to(dev)
     mask_id_d = torch.from_numpy(np.asarray(mask_id)).to(dev)
@@ -397,6 +399,7 @@ def postprocess_scene_device(
     # grid DBSCAN split; n_real keeps the sentinel pad points out of the grid
     grid = build_grid(scene_points, dbscan_eps, n_real=n_real)
     c_pad = _bucket_pow2(num_pairs, minimum=256)
+    record_shape_bucket("post.dbscan", r_pad, c_pad, grid.cell_cap, n)
     points_d = torch.from_numpy(np.asarray(scene_points, np.float32)).to(dev)
     (pair_rep, pair_pt, pair_valid, dense_local, ngrp_d, nb_overflow_d) = _dbscan_split_kernel(
         claimed, nv_rep, live_valid, points_d, torch.from_numpy(grid.order).to(dev),
@@ -416,6 +419,7 @@ def postprocess_scene_device(
     goff = np.zeros(r_pad, np.int32)
     goff[1:] = np.cumsum(ngrp[:-1]).astype(np.int32)
     s_pad = _bucket_pow2(total, minimum=128)
+    record_shape_bucket("post.groups", r_pad, s_pad, c_pad, n)
     (group_size_d, npts_ratio_d, goh, obj_packed, bb_min_d, bb_max_d, glo_d,
      ghi_d) = _group_structs_kernel(
         pair_rep, pair_pt, pair_valid, dense_local, torch.from_numpy(goff).to(dev),
@@ -449,6 +453,7 @@ def postprocess_scene_device(
     # drain, stage 2: the survivors' bit planes + their intersection counts
     o = len(survivors)
     o_pad = _bucket_pow2(o, minimum=8)
+    record_shape_bucket("post.drain", o_pad, s_pad, n)
     surv_idx = np.zeros(o_pad, np.int32)
     surv_idx[:o] = survivors
     rows_d, inter_d = _survivor_gather_kernel(obj_packed, torch.from_numpy(surv_idx).to(dev),

@@ -33,8 +33,9 @@ chunk whose watchdog expired keeps running on its daemon thread
 epoch fence drops its bind, and because the bound state is never written
 in place, what it computed meanwhile cannot reach the retry's state.
 
-The JAX module's metrics, spans and transfer-guard windows have no port yet
-(ROADMAP A9, A10). What they carried that a caller sees stays: each chunk
+The JAX module's stream metrics, spans and transfer-guard windows have no
+port yet (ROADMAP A9b, A10); its shape buckets are booked
+(``record_shape_bucket``). What they carried that a caller sees stays: each chunk
 dict's ``plane_bytes``, ``partial_instances``, ``seconds`` and ``digest``,
 and the ``stream.*`` timings (``stream.finalize`` and its host DBSCAN,
 ``stream.dbscan``, are the port's, in place of the JAX span).
@@ -73,7 +74,6 @@ from maskclustering_tpu_torch.models.graph import (
 from maskclustering_tpu_torch.models.pipeline import (
     DeviceHandoff,
     SceneResult,
-    bucket_k_max,
     pad_scene_tensors,
     run_scene_host,
 )
@@ -86,7 +86,13 @@ from maskclustering_tpu_torch.obs import digest as sentinel
 from maskclustering_tpu_torch.ops import counting
 from maskclustering_tpu_torch.ops.dbscan import dbscan_labels_parallel
 from maskclustering_tpu_torch.utils import faults
-from maskclustering_tpu_torch.utils.compile_cache import bucket_size, max_seg_id, scene_pads
+from maskclustering_tpu_torch.utils.compile_cache import (
+    bucket_k_max,
+    bucket_size,
+    max_seg_id,
+    record_shape_bucket,
+    scene_pads,
+)
 
 log = logging.getLogger("maskclustering_tpu_torch")
 
@@ -459,6 +465,9 @@ class StreamAccumulator:
         if self.k_max <= 0:
             self.k_max = bucket_k_max(max_seg_id(chunk_tensors.segmentations))
         padded = pad_scene_tensors(chunk_tensors, self.f_chunk_pad, self.n_pad)
+        # one bucket vocabulary with the batch path: a chunk is just another
+        # scene-bucket coordinate
+        record_shape_bucket("scene", self.k_max, self.f_chunk_pad, self.n_pad)
         if self._vox_size is None:
             # every chunk pads the one cloud to n_pad: one coverage voxel
             self._vox_size = _vox_size_jit(
@@ -482,9 +491,11 @@ class StreamAccumulator:
                 raise StaleChunkAttempt(self.seq_name, ci)
             if self.chunks_done == 0:
                 self._alloc_state(self._presize_m_pad(table_k))
+                record_shape_bucket("stream", self.m_pad, self.f_alloc, self.n_pad)
                 self.scene_points = np.asarray(chunk_tensors.scene_points)
             elif self.masks_used + table_k.m_pad > self.m_pad:
                 self._grow_state(self.masks_used + table_k.m_pad)
+                record_shape_bucket("stream", self.m_pad, self.f_alloc, self.n_pad)
             offset = self.masks_used
         num_k = table_k.num_masks
         frame_t = torch.from_numpy(table_k.frame).to(dev)

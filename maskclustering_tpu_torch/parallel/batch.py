@@ -26,12 +26,11 @@ import numpy as np
 
 from maskclustering_tpu_torch.datasets.base import PAD_COORD, SceneTensors
 from maskclustering_tpu_torch.io.feed import FUSED_FEED_DEPTH_SCALE, encode_depth, encode_seg
-from maskclustering_tpu_torch.models.pipeline import bucket_k_max
 from maskclustering_tpu_torch.models.postprocess import SceneObjects
 from maskclustering_tpu_torch.models.postprocess_device import run_postprocess
 from maskclustering_tpu_torch.parallel.mesh import Mesh, make_mesh, point_axis_size
 from maskclustering_tpu_torch.parallel.sharded import FusedStepResult, build_fused_step
-from maskclustering_tpu_torch.utils.compile_cache import max_seg_id
+from maskclustering_tpu_torch.utils.compile_cache import bucket_k_max, max_seg_id
 
 
 def _round_up(value: int, multiple: int) -> int:

@@ -57,11 +57,12 @@ import os
 import time
 import traceback
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from maskclustering_tpu_torch import obs
 from maskclustering_tpu_torch.config import PipelineConfig, load_config
 from maskclustering_tpu_torch.datasets import get_dataset
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
@@ -134,7 +135,7 @@ class RunReport:
     # AP summaries of the evaluation steps ({"eval_ca": avgs, "eval": ...};
     # None where a step found no predictions)
     evaluation: Dict[str, Optional[Dict]] = dataclasses.field(default_factory=dict)
-    # the JAX report's obs digest: None until ROADMAP A9
+    # the JAX report's obs digest: None until ROADMAP A9b
     obs: Optional[Dict] = None
     # the cluster step's fault digest: scene_retries, device_stalls,
     # journal_skips, degradations{rung: 1}, final_rung, interrupted
@@ -347,6 +348,7 @@ def cluster_scene(cfg: PipelineConfig, seq_name: str, *, resume: bool = True,
         ds, tensors = faults.call_with_deadline(loader, cfg.watchdog_load_s, seam="load",
                                                 scene=seq_name)
         if tensors is None:
+            obs.count("run.scenes_skipped")
             return ctx.finish(SceneStatus(seq_name, "skipped"))
         if faults.stop_requested():
             return ctx.finish(SceneStatus(seq_name, "interrupted"))
@@ -367,10 +369,12 @@ def cluster_scene(cfg: PipelineConfig, seq_name: str, *, resume: bool = True,
                                        object_dict_dir=ds.object_dict_dir,
                                        prediction_root=prediction_root),
                 cfg.watchdog_host_s, seam="host", scene=seq_name)
+        obs.count("run.scenes_ok")
         return _stamp_coord(ctx.finish(_ok_status(seq_name, time.perf_counter() - t0, result)),
                             cfg)
     except Exception as e:
         log.exception("scene %s failed", seq_name)
+        obs.count("run.scenes_failed")
         return ctx.finish(_failed_status(seq_name, time.perf_counter() - t0, e))
 
 
@@ -383,13 +387,16 @@ def _prefetched_loads(cfg: PipelineConfig, seq_names: Sequence[str], resume: boo
     0`` loads inline. Scenes yield in list order, and a failed load
     re-raises at its own scene's ``resolve()``.
     """
+    def load(seq):
+        with obs.span("exec.load", scene=seq):
+            return _load_for_cluster(cfg, seq, resume, prediction_root)
+
     def spawn(seq):
-        return DaemonFuture(lambda: _load_for_cluster(cfg, seq, resume, prediction_root),
-                            name=f"prefetch-{seq}").result
+        return DaemonFuture(lambda: load(seq), name=f"prefetch-{seq}").result
 
     if depth <= 0:
         for seq in seq_names:
-            yield seq, (lambda seq=seq: _load_for_cluster(cfg, seq, resume, prediction_root))
+            yield seq, (lambda seq=seq: load(seq))
         return
     pending = deque(spawn(seq_names[i]) for i in range(min(depth, len(seq_names))))
     for i, seq in enumerate(seq_names):
@@ -405,13 +412,14 @@ def _cluster_scenes_sequential(cfg: PipelineConfig, seq_names: Sequence[str], *,
     ``scene_overlap=False`` path and the order the overlapped executor is
     held to."""
     out: List[SceneStatus] = []
-    for seq, resolve in _prefetched_loads(cfg, seq_names, resume, prediction_root,
-                                          depth=cfg.prefetch_depth):
-        if faults.stop_requested():
-            out.append(ctx.finish(SceneStatus(seq, "interrupted")))
-            continue
-        out.append(cluster_scene(cfg, seq, resume=resume, prediction_root=prediction_root,
-                                 device=device, _preloaded=resolve, _ctx=ctx))
+    with obs.span("exec.scene_loop", scenes=len(seq_names), mode="sequential"):
+        for seq, resolve in _prefetched_loads(cfg, seq_names, resume, prediction_root,
+                                              depth=cfg.prefetch_depth):
+            if faults.stop_requested():
+                out.append(ctx.finish(SceneStatus(seq, "interrupted")))
+                continue
+            out.append(cluster_scene(cfg, seq, resume=resume, prediction_root=prediction_root,
+                                     device=device, _preloaded=resolve, _ctx=ctx))
     return out
 
 
@@ -447,6 +455,8 @@ def _cluster_scenes_overlapped(cfg: PipelineConfig, seq_names: Sequence[str], *,
         except TimeoutError:
             fut.abandon()
             stall = faults.DeviceStallError("host", seq, cfg.watchdog_host_s)
+            obs.count("run.device_stalls")
+            obs.count("run.scenes_failed")
             log.error("scene %s failed: %s", seq, stall)
             statuses[seq] = ctx.finish(SceneStatus(
                 seq, "failed", time.perf_counter() - t0, error=str(stall),
@@ -454,51 +464,58 @@ def _cluster_scenes_overlapped(cfg: PipelineConfig, seq_names: Sequence[str], *,
             return
         if err is not None:
             log.error("scene %s failed\n%s", seq, err.error)
+            obs.count("run.scenes_failed")
             err.seconds = t_end - t0
             statuses[seq] = ctx.finish(err)
             return
+        obs.count("run.scenes_ok")
         statuses[seq] = _stamp_coord(ctx.finish(_ok_status(seq, t_end - t0, result)), cfg)
 
-    for seq, resolve in _prefetched_loads(cfg, seq_names, resume, prediction_root,
-                                          depth=cfg.prefetch_depth):
-        if faults.stop_requested():
-            statuses[seq] = ctx.finish(SceneStatus(seq, "interrupted"))
-            continue
-        t0 = time.perf_counter()
-        ctx.begin(seq)
-        try:
-            ds, tensors = faults.call_with_deadline(resolve, cfg.watchdog_load_s,
-                                                    seam="load", scene=seq)
-            if tensors is None:
-                statuses[seq] = ctx.finish(SceneStatus(seq, "skipped"))
-                continue
+    with obs.span("exec.scene_loop", scenes=len(seq_names), mode="overlapped"):
+        for seq, resolve in _prefetched_loads(cfg, seq_names, resume, prediction_root,
+                                              depth=cfg.prefetch_depth):
             if faults.stop_requested():
                 statuses[seq] = ctx.finish(SceneStatus(seq, "interrupted"))
                 continue
-            handoff = faults.call_with_deadline(
-                lambda: run_scene_device(tensors, cfg, seq_name=seq, device=device),
-                cfg.watchdog_device_s, seam="device", scene=seq)
-        except Exception as e:
-            log.exception("scene %s failed", seq)
-            statuses[seq] = ctx.finish(_failed_status(seq, time.perf_counter() - t0, e))
-            continue
-        # backpressure: the previous tail retires before another handoff
-        # goes live, bounding the device memory to two scenes
+            t0 = time.perf_counter()
+            ctx.begin(seq)
+            try:
+                ds, tensors = faults.call_with_deadline(resolve, cfg.watchdog_load_s,
+                                                        seam="load", scene=seq)
+                if tensors is None:
+                    obs.count("run.scenes_skipped")
+                    statuses[seq] = ctx.finish(SceneStatus(seq, "skipped"))
+                    continue
+                if faults.stop_requested():
+                    statuses[seq] = ctx.finish(SceneStatus(seq, "interrupted"))
+                    continue
+                with obs.span("exec.device", scene=seq):
+                    handoff = faults.call_with_deadline(
+                        lambda: run_scene_device(tensors, cfg, seq_name=seq, device=device),
+                        cfg.watchdog_device_s, seam="device", scene=seq)
+            except Exception as e:
+                log.exception("scene %s failed", seq)
+                obs.count("run.scenes_failed")
+                statuses[seq] = ctx.finish(_failed_status(seq, time.perf_counter() - t0, e))
+                continue
+            # backpressure: the previous tail retires before another handoff
+            # goes live, bounding the device memory to two scenes
+            if in_flight is not None:
+                finish(in_flight)
+
+            def host_tail(handoff=handoff, seq=seq, ds=ds):
+                try:
+                    with obs.span("exec.host_tail", scene=seq):
+                        result = run_scene_host(handoff, cfg, export=True,
+                                                object_dict_dir=ds.object_dict_dir,
+                                                prediction_root=prediction_root)
+                    return result, None, time.perf_counter()
+                except Exception as e:  # noqa: BLE001 — attributed in finish()
+                    return None, _failed_status(seq, 0.0, e), time.perf_counter()
+
+            in_flight = (seq, t0, DaemonFuture(host_tail, name=f"host-tail-{seq}"))
         if in_flight is not None:
             finish(in_flight)
-
-        def host_tail(handoff=handoff, seq=seq, ds=ds):
-            try:
-                result = run_scene_host(handoff, cfg, export=True,
-                                        object_dict_dir=ds.object_dict_dir,
-                                        prediction_root=prediction_root)
-                return result, None, time.perf_counter()
-            except Exception as e:  # noqa: BLE001 — attributed in finish()
-                return None, _failed_status(seq, 0.0, e), time.perf_counter()
-
-        in_flight = (seq, t0, DaemonFuture(host_tail, name=f"host-tail-{seq}"))
-    if in_flight is not None:
-        finish(in_flight)
     return [statuses[s] for s in seq_names if s in statuses]
 
 
@@ -558,6 +575,7 @@ def cluster_scenes_mesh(cfg: PipelineConfig, seq_names: Sequence[str], *, resume
                 scene=",".join(b[0] for b in batch))
         except Exception as e:
             log.exception("mesh batch %s failed", [b[0] for b in batch])
+            obs.count("run.scenes_failed", len(batch))
             for seq, _, _ in batch:
                 statuses[seq] = ctx.finish(_failed_status(seq, time.perf_counter() - t0, e))
             return
@@ -570,8 +588,10 @@ def cluster_scenes_mesh(cfg: PipelineConfig, seq_names: Sequence[str], *, resume
                                  top_k_repre=cfg.num_representative_masks)
             except Exception as e:
                 log.exception("scene %s export failed", seq)
+                obs.count("run.scenes_failed")
                 statuses[seq] = ctx.finish(_failed_status(seq, per_scene, e))
                 continue
+            obs.count("run.scenes_ok")
             st = ctx.finish(SceneStatus(seq, "ok", per_scene,
                                         num_objects=len(objects.point_ids_list)))
             st.digest = sentinel.artifact_only_digest(objects, bucket="fused",
@@ -664,10 +684,25 @@ class SceneSupervisor:
       device-class failure;
     - **journal-skips** scenes the journal records as done;
     - stops retrying once a SIGTERM requested stop.
+
+    Two callers share these semantics: the batch cluster step (one
+    supervisor per run) and the serving worker (``serve/worker.py``, one
+    supervisor PER REQUEST, so a sick request's ladder drop cannot poison
+    its neighbours). ``on_event`` observes decisions without changing them:
+    ``on_event("retry", scenes=[...], round=n, delay_s=d, rung=r)`` before
+    each retry round and ``on_event("degrade", rung=name, rung_index=i)`` on
+    each ladder drop. ``should_continue`` is polled beside
+    ``stop_requested()`` before a failed scene may retry (the worker wires
+    the request's deadline here). ``initial_rungs`` starts the ladder that
+    many rungs down (a request that crashed its worker re-runs
+    pre-degraded).
     """
 
     def __init__(self, cfg: PipelineConfig, *, workers: int = 1, resume: bool = True,
                  journal: Optional[faults.RunJournal] = None,
+                 on_event: Optional[Callable] = None,
+                 should_continue: Optional[Callable[[], bool]] = None,
+                 initial_rungs: int = 0,
                  prediction_root: Optional[str] = None, device: DeviceLike = None,
                  mesh_devices: Optional[Sequence] = None):
         self.cfg = cfg
@@ -675,10 +710,28 @@ class SceneSupervisor:
         self.mesh_devices = mesh_devices
         self.resume = resume
         self.journal = journal
+        self.on_event = on_event
+        self.should_continue = should_continue
         self.prediction_root = prediction_root or os.path.join(cfg.data_root, "prediction")
         self.device = resolve_device(device)
         self.ladder = faults.DegradationLadder(cfg)
         self.stats = {"scene_retries": 0, "device_stalls": 0, "journal_skips": 0}
+        for _ in range(max(int(initial_rungs), 0)):
+            if self.ladder.degrade(reason="worker crash carry-over") is None:
+                break
+
+    def _notify(self, kind: str, **info) -> None:
+        if self.on_event is None:
+            return
+        try:
+            self.on_event(kind, **info)
+        except Exception:  # noqa: BLE001 — an observer must not sink the queue
+            log.exception("scene supervisor on_event(%r) observer failed", kind)
+
+    def _may_retry(self) -> bool:
+        if faults.stop_requested():
+            return False
+        return self.should_continue is None or bool(self.should_continue())
 
     def run(self, seq_names: Sequence[str]) -> List[SceneStatus]:
         cfg, ladder, journal = self.cfg, self.ladder, self.journal
@@ -691,6 +744,7 @@ class SceneSupervisor:
             done = journal.resume_done()
             for seq in pending:
                 if seq in done:
+                    obs.count("run.journal_skips")
                     statuses[seq] = SceneStatus(seq, "skipped", attempts=0)
                     journal.outcome(seq, "skipped", attempt=0, rung=0)
                     self.stats["journal_skips"] += 1
@@ -713,14 +767,19 @@ class SceneSupervisor:
                 in_budget = round_no <= cfg.scene_retries
                 ladder_can_help = st.error_class == "device" and not ladder.exhausted
                 if (st.error_class != "terminal" and (in_budget or ladder_can_help)
-                        and not faults.stop_requested()):
+                        and self._may_retry()):
                     retry.append(st.seq_name)
             if not retry:
                 break
             if saw_device:
-                ladder.degrade(reason=f"device-class failure(s) in round {round_no}")
+                rung_name = ladder.degrade(reason=f"device-class failure(s) in round {round_no}")
+                if rung_name:
+                    self._notify("degrade", rung=rung_name, rung_index=ladder.rung)
             delay = policy.backoff(round_no)
             self.stats["scene_retries"] += len(retry)
+            obs.count("run.scene_retries", len(retry))
+            self._notify("retry", scenes=list(retry), round=round_no + 1, delay_s=delay,
+                         rung=ladder.rung)
             log.warning("retrying %d scene(s) in %.2fs (round %d, rung %d%s)",
                         len(retry), delay, round_no + 1, ladder.rung,
                         f": {'+'.join(ladder.applied_names)}" if ladder.applied_names else "")

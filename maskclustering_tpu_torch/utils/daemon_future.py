@@ -10,14 +10,20 @@ consuming stage.
 only after ``_done.wait()`` returns true: the Event's internal lock is the
 happens-before edge. A consumer whose ``result(timeout)`` expired calls
 ``abandon()``; the worker then drops a late value instead of pinning it
-(and a whole scene's tensors with it) on the future. The JAX package counts
-such drops; the port's counters wait for ROADMAP A9.
+(and a whole scene's tensors with it) on the future, and counts the drop as
+``run.abandoned_results``.
 """
 
 from __future__ import annotations
 
 import threading
 from typing import Callable, Optional
+
+
+def _drop_late() -> None:
+    from maskclustering_tpu_torch.utils.faults import _count
+
+    _count("run.abandoned_results")
 
 
 class DaemonFuture:
@@ -33,10 +39,14 @@ class DaemonFuture:
             try:
                 value = fn()
             except BaseException as e:  # noqa: BLE001 — re-raised in result()
-                if not self._abandoned.is_set():
+                if self._abandoned.is_set():
+                    _drop_late()  # an abandoned error is a drop too
+                else:
                     self._exc = e
             else:
-                if not self._abandoned.is_set():
+                if self._abandoned.is_set():
+                    _drop_late()
+                else:
                     self._value = value
             finally:
                 self._done.set()

@@ -41,10 +41,11 @@ sequential). Artifacts and digests are equal at every rung.
 ``SceneStatus.degradation_rung``, the journal's ``rung`` rows and the ``r``
 field of ``digest_coord`` follow each package's own ladder.
 
-Not here yet (ROADMAP A9, serving and observability): the metrics
-counters and flight-recorder marks the JAX module books at these sites,
-and the serving daemon that fires the ``admission`` seam. The seam and the
-``die`` kind parse; nothing fires them until the daemon is ported.
+The metrics counters (``run.device_stalls``, ``run.abandoned_results``,
+``run.degradations.<rung>``, ``faults.injected.<seam>``) and the
+flight-recorder marks and dumps (watchdog and heartbeat expiry, injected
+faults, the stop transition) are booked at the JAX module's sites. The
+serving daemon fires the ``admission`` seam (``serve/daemon.py``).
 """
 
 from __future__ import annotations
@@ -60,6 +61,38 @@ from typing import Callable, Dict, Iterable, List, Optional, Set
 import torch
 
 log = logging.getLogger("maskclustering_tpu_torch")
+
+
+def _count(name: str, delta: float = 1.0) -> None:
+    """obs counter bump; accounting never faults the fault layer."""
+    try:
+        from maskclustering_tpu_torch.obs import metrics
+
+        metrics.count(name, delta)
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def _flight_record(kind: str, **fields) -> None:
+    """Flight-ring mark (obs/flight.py); never the failure source."""
+    try:
+        from maskclustering_tpu_torch.obs import flight
+
+        flight.record(kind, **fields)
+    except Exception:  # noqa: BLE001
+        pass
+
+
+def _flight_dump(reason: str) -> None:
+    """Crash-safe black-box dump (a no-op unless a flight directory is
+    armed). Called on the watchdog and cooperative-drain paths, never from
+    a signal handler."""
+    try:
+        from maskclustering_tpu_torch.obs import flight
+
+        flight.dump(reason)
+    except Exception:  # noqa: BLE001
+        pass
 
 
 class DeviceStallError(RuntimeError):
@@ -91,7 +124,7 @@ class InjectedFault(RuntimeError):
 # heads the device post-process chain (the seam that drives the ladder's
 # host-postprocess rung), "chunk" heads every streaming chunk (its faults
 # retry the chunk, the accumulator intact), "admission" is the serving
-# daemon's (ROADMAP A9)
+# daemon's (serve/daemon.py, after the WAL admit row)
 SEAMS = ("load", "device", "host", "export", "pull", "post", "chunk", "admission")
 
 # a scene overflowing a device post-process capacity bucket
@@ -149,10 +182,14 @@ def call_with_deadline(fn: Callable, budget_s: float, *, seam: str = "device",
         try:
             value = fn()
         except BaseException as e:  # noqa: BLE001 — re-raised below
-            if not abandoned.is_set():
+            if abandoned.is_set():
+                _count("run.abandoned_results")
+            else:
                 box["error"] = e
         else:
-            if not abandoned.is_set():
+            if abandoned.is_set():
+                _count("run.abandoned_results")
+            else:
                 box["value"] = value
         finally:
             done.set()
@@ -160,6 +197,11 @@ def call_with_deadline(fn: Callable, budget_s: float, *, seam: str = "device",
     threading.Thread(target=work, daemon=True, name=f"watchdog-{seam}-{scene}").start()
     if not done.wait(budget_s):
         abandoned.set()
+        _count("run.device_stalls")
+        # the wedge evidence goes to disk before the error unwinds
+        _flight_record("flight.fault", what="watchdog_expired", seam=seam,
+                       scene=scene, budget_s=budget_s)
+        _flight_dump("watchdog")
         raise DeviceStallError(seam, scene, budget_s)
     if "error" in box:
         raise box["error"]  # type: ignore[misc]
@@ -174,7 +216,7 @@ class Heartbeat:
     beating and lives, one whose next step never arrives dies within the
     budget. Thread-safe (the beating worker and the checking supervisor are
     usually different threads). No loop of the port beats it yet; the JAX
-    package's serving supervisor (ROADMAP A9) is its user.
+    package's subprocess worker supervisor (ROADMAP A9c) is its user.
     """
 
     def __init__(self, budget_s: float, *, seam: str = "device",
@@ -203,6 +245,10 @@ class Heartbeat:
 
     def check(self) -> None:
         if self.expired():
+            _count("run.device_stalls")
+            _flight_record("flight.fault", what="heartbeat_expired", seam=self.seam,
+                           scene=self.scene, budget_s=self.budget_s)
+            _flight_dump("watchdog")
             raise DeviceStallError(self.seam, self.scene, self.budget_s)
 
 
@@ -290,6 +336,7 @@ class DegradationLadder:
             return None
         name, _ = self._rungs[self._applied]
         self._applied += 1
+        _count(f"run.degradations.{name}")
         log.warning("degrading to rung %d (%s)%s", self._applied, name,
                     f": {reason}" if reason else "")
         return name
@@ -426,6 +473,9 @@ class FaultPlan:
                 continue
             if e.seam != seam or e.scene != scene or not e.take():
                 continue
+            _count(f"faults.injected.{seam}")
+            _flight_record("flight.fault", what="injected", fault_kind=e.kind, seam=seam,
+                           scene=scene)
             log.warning("fault injection: %s at %s seam of scene %s", e.kind, seam, scene)
             if e.kind == "stall":
                 time.sleep(self.stall_s)
@@ -464,6 +514,9 @@ class FaultPlan:
         for e in self.entries:
             if e.kind != "corrupt" or e.seam != seam or e.scene != scene or not e.take():
                 continue
+            _count(f"faults.injected.{seam}")
+            _flight_record("flight.fault", what="injected", fault_kind="corrupt", seam=seam,
+                           scene=scene)
             log.warning("fault injection: corrupt at %s seam of scene %s", seam, scene)
             return True
         return False
@@ -545,6 +598,9 @@ def _announce_stop() -> None:
     """One-shot stop warning, from a normal thread only."""
     if not _STOP_ANNOUNCED.is_set():
         _STOP_ANNOUNCED.set()
+        # the ring mark for the stop transition happens here, never in the
+        # (flag-only) handler
+        _flight_record("flight.signal", what="stop_requested", reason=_STOP_REASON)
         log.warning("stop requested%s: finishing in-flight scenes, "
                     "journaling the rest",
                     f" ({_STOP_REASON})" if _STOP_REASON else "")
@@ -601,12 +657,16 @@ class RunJournal:
     a crash leaves exact attribution on disk: ``done`` scenes are skipped
     on resume, an ``attempt`` with no outcome was in flight and re-runs.
     Rows carry the config name, so one file can serve several configs.
-    Thread-safe; a failing write disables the journal instead of the run.
+    ``request_id`` (the serving daemon's per-request attribution) stamps
+    every row when given; ``read_journal``/``replay_journal``/``resume_done``
+    filter on it. Thread-safe; a failing write disables the journal instead
+    of the run.
     """
 
-    def __init__(self, path: str, config_name: str):
+    def __init__(self, path: str, config_name: str, request_id: Optional[str] = None):
         self.path = path
         self.config_name = config_name
+        self.request_id = request_id
         self._lock = threading.Lock()
         d = os.path.dirname(path)
         if d:
@@ -616,6 +676,8 @@ class RunJournal:
     def _emit(self, kind: str, payload: Dict) -> None:
         line = {"v": JOURNAL_VERSION, "kind": kind, "ts": time.time(), "pid": os.getpid(),
                 **payload}
+        if self.request_id is not None:
+            line["request"] = self.request_id
         with self._lock:
             if self._f is None:
                 return
@@ -652,7 +714,7 @@ class RunJournal:
         self._emit(KIND_SCENE, payload)
 
     def resume_done(self) -> Set[str]:
-        return resume_done(self.path, config=self.config_name)
+        return resume_done(self.path, config=self.config_name, request=self.request_id)
 
     def close(self) -> None:
         with self._lock:
@@ -661,9 +723,11 @@ class RunJournal:
                 self._f = None
 
 
-def read_journal(path: str, *, config: Optional[str] = None) -> List[Dict]:
+def read_journal(path: str, *, config: Optional[str] = None,
+                 request: Optional[str] = None) -> List[Dict]:
     """All journal rows, oldest first; torn lines (a crash mid-write) and
-    unknown versions are skipped. ``config`` filters to one config's rows."""
+    unknown versions are skipped. ``config`` filters to one config's rows,
+    ``request`` to one serving request's."""
     rows = []
     with open(path, encoding="utf-8") as f:
         for raw in f:
@@ -676,16 +740,19 @@ def read_journal(path: str, *, config: Optional[str] = None) -> List[Dict]:
                 continue
             if config is not None and row.get("config") != config:
                 continue
+            if request is not None and row.get("request") != request:
+                continue
             rows.append(row)
     return rows
 
 
-def replay_journal(path: str, *, config: Optional[str] = None) -> Dict[str, Dict]:
+def replay_journal(path: str, *, config: Optional[str] = None,
+                   request: Optional[str] = None) -> Dict[str, Dict]:
     """Final per-scene state from the journal alone: ``{seq: {status,
     attempts, degradation_rung, error_class, num_objects}}``; a trailing
     ``attempt`` with no outcome replays as ``"in-flight"``."""
     out: Dict[str, Dict] = {}
-    for row in read_journal(path, config=config):
+    for row in read_journal(path, config=config, request=request):
         seq = row.get("seq")
         if row.get("kind") != KIND_SCENE or not isinstance(seq, str):
             continue
@@ -703,10 +770,11 @@ def replay_journal(path: str, *, config: Optional[str] = None) -> Dict[str, Dict
     return out
 
 
-def resume_done(path: str, *, config: Optional[str] = None) -> Set[str]:
+def resume_done(path: str, *, config: Optional[str] = None,
+                request: Optional[str] = None) -> Set[str]:
     """Scenes whose journal says they need no re-run: final status ``ok``
     or ``skipped``. Failed, interrupted and in-flight scenes re-run."""
     if not os.path.exists(path):
         return set()
-    return {seq for seq, st in replay_journal(path, config=config).items()
+    return {seq for seq, st in replay_journal(path, config=config, request=request).items()
             if st["status"] in ("ok", "skipped")}
