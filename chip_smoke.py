@@ -154,8 +154,37 @@ Imports nothing of JAX or of the JAX package. In order:
     2: two same-bucket scans in one fused dispatch, ``batch`` 2, (b)'s
     digests, each association kernel once a lane.
 
-Any mismatch or failure exits non-zero. The last three lines are the card
-line, the per-kernel JSON and the result JSON.
+16. obs on the card, files under a temporary directory. Phase 8's scene
+    again with obs off and armed (the walls beside phase 8's). (a) ``python -m
+    maskclustering_tpu_torch.run --report R.json --ledger <tmp>`` over one
+    of phase 10's scans: ``R_events.jsonl``, the report's ``obs`` digest
+    with one ``associate``/``graph``/``cluster``/``postprocess`` span each,
+    ``pipeline.host_sync`` equal to the scene's pulls, phase 10's digest and
+    one ledger row; the armed seconds beside phase 10's. (b) ``python -m
+    maskclustering_tpu_torch.obs.report`` on the events file, ``--diff``
+    against a second armed run, ``--history`` over both rows, ``--regress``
+    passing against the first row (its headline at least the newest
+    row's) and failing against half the newest row's headline. (c) A
+    daemon in the canary goldens' configuration with ``--warm-baseline``
+    and the sentinel armed every second against ``canary_goldens.json``:
+    two rounds or more, no drift, the SLO's ``correctness`` met; one more
+    round with the ticks stopped: every probe's digest the committed
+    golden's, its seconds and launches (one of each association kernel a
+    probe). (e) While it runs, one served request traced with ``python -m
+    maskclustering_tpu_torch.obs.trace`` (queue wait, then the execution
+    with the stage spans nested, then the journal's outcome) and ``python
+    -m maskclustering_tpu_torch.obs.top --once``. (d) The drift drill: goldens
+    with one artifact digest changed give the ``canary.drift`` event, a
+    flight dump naming the coordinate, the counter, a window's ``drift``
+    and a violated ``correctness``. (f) The mid-size scene streamed in
+    chunks of 8 with obs armed: ``stream.chunks`` and the ``stream.chunk``
+    spans equal to the chunks, one ``stream.finalize``, the digest of the
+    same stream unarmed. ``PERF_LEDGER.jsonl`` and ``canary_goldens.json``
+    keep their bytes.
+
+Every perf-ledger row of the script goes to a temporary file
+(``MCT_PERF_LEDGER``). Any mismatch or failure exits non-zero. The last
+three lines are the card line, the per-kernel JSON and the result JSON.
 """
 
 from __future__ import annotations
@@ -1135,7 +1164,8 @@ def batch_driver(dev, scene, mid_scene):
     _say("[ladder] host-postprocess rung == device rung at cap 1024 (npz, object dict)")
     return {"launches": launches, "root": root, "cfg": ov_cfg, "pred": ov_pred,
             "ap": ov.evaluation["eval_ca"], "cluster_s": ov.step_seconds["cluster"],
-            "scans": {s.seq_name: (s.digest, s.num_objects) for s in ov.scenes}}
+            "scans": {s.seq_name: (s.digest, s.num_objects) for s in ov.scenes},
+            "scene_seconds": {s.seq_name: s.seconds for s in ov.scenes}}
 
 
 def textured_frame(seg, frame: int, seed: int = 0):
@@ -1880,7 +1910,7 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
         [sys.executable, "-m", "maskclustering_tpu_torch.run", "--config", drill_cfg,
          "--data_root", root, "--seq_name_list", "+".join(names), "--steps", "cluster",
          "--no-resume", "--fault-plan", spec, "--watchdog-device", str(CLI_WATCHDOG_S),
-         "--report", report_path, "--device", str(dev)],
+         "--report", report_path, "--no-obs", "--device", str(dev)],
         cwd=here, env=env, capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     if proc.returncode != 1:  # one scan fails by design
@@ -1985,11 +2015,17 @@ def fused_batch(dev, cfg, mesh, lanes, names):
             torch.cuda.max_memory_allocated(dev) / 2**20)
 
 
+def _run_module(here: str, module: str, args, timeout: int = 600):
+    """``python -m module args`` from the checkout: (returncode, stdout, stderr)."""
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=here, capture_output=True,
+                          text=True, timeout=timeout)
+    return proc.returncode, proc.stdout, proc.stderr
+
+
 def _run_cli(here: str, args, timeout: int = 600):
-    proc = subprocess.run([sys.executable, "-m", "maskclustering_tpu_torch.run", *args],
-                          cwd=here, capture_output=True, text=True, timeout=timeout)
-    if proc.returncode != 0:
-        raise AssertionError(f"CLI {args} rc {proc.returncode}\n{proc.stderr[-3000:]}")
+    rc, _, err = _run_module(here, "maskclustering_tpu_torch.run", args, timeout)
+    if rc != 0:
+        raise AssertionError(f"CLI {args} rc {rc}\n{err[-3000:]}")
 
 
 def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
@@ -2119,7 +2155,7 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
     _run_cli(here, ["--config", write_cfg("chip_smoke_mesh_cli", mesh_shape=[1, 1]),
                     "--point-shards", "1", "--data_root", root, "--seq_name_list",
                     "+".join(BATCH_SCANS), "--steps", "cluster,eval_ca", "--no-resume",
-                    "--report", report_path])
+                    "--report", report_path, "--no-obs"])
     with open(report_path) as fh:
         crep = json.load(fh)
     check_run(f"CLI mesh_shape [1, 1] ({time.perf_counter() - t0:.1f} s with the process)",
@@ -2148,7 +2184,7 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
     names4 = list(BATCH_SCANS) + [MID_SCAN]
     _run_cli(here, ["--config", write_cfg("chip_smoke_workers"), "--workers", str(MESH_WORKERS),
                     "--data_root", root, "--seq_name_list", "+".join(names4), "--steps",
-                    "cluster", "--no-resume", "--report", report_path])
+                    "cluster", "--no-resume", "--report", report_path, "--no-obs"])
     with open(report_path) as fh:
         wrep = json.load(fh)
     bucket = wrep["scenes"][0]["digest_coord"].split("|")[0]
@@ -2517,6 +2553,343 @@ def serve_phase(dev, card: str, dense, batch) -> dict:
     return {"launches": launches}
 
 
+def _wait_for(pred, timeout_s: float, what: str) -> None:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if pred():
+            return
+        time.sleep(0.05)
+    raise AssertionError(f"timed out after {timeout_s:.0f} s waiting for {what}")
+
+
+def obs_phase(dev, card: str, tensors, dense, batch) -> dict:
+    """Phase 16: the run report, the perf ledger, the request trace, live top
+    and the canary sentinel on the card, and the stage spans they read."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from maskclustering_tpu_torch import obs
+    from maskclustering_tpu_torch.config import load_config
+    from maskclustering_tpu_torch.models import run_scene
+    from maskclustering_tpu_torch.models.streaming import stream_scene
+    from maskclustering_tpu_torch.obs import canary, flight, ledger, metrics
+    from maskclustering_tpu_torch.obs.digest import artifact_digest
+    from maskclustering_tpu_torch.obs.events import KIND_DRIFT, KIND_SPAN, read_events
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.run import run_pipeline
+    from maskclustering_tpu_torch.serve import ServeClient, ServeDaemon
+    from maskclustering_tpu_torch.utils.synthetic import make_scene, to_scene_tensors
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    guarded = {p: open(p, "rb").read() for p in (os.path.join(here, "PERF_LEDGER.jsonl"),
+                                                 os.path.join(here, "canary_goldens.json"))
+               if os.path.exists(p)}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_obs_")
+    root, scan = batch["root"], BATCH_SCANS[0]
+    led_path = os.path.join(tmp, "ledger.jsonl")
+
+    # phase 8's scene again, obs off: the disarmed spans must not move it
+    t0 = time.perf_counter()
+    again = run_scene(tensors, dense["cfg"], k_max=63, seq_name="chip_smoke_dense", device=dev)
+    torch.cuda.synchronize()
+    wall8 = time.perf_counter() - t0
+    if artifact_digest(again.objects) != dense["digest"]:
+        raise AssertionError("phase 8's scene gave another digest with obs off")
+    # and armed: every span fences, which is the cost of the fences
+    obs.configure(os.path.join(tmp, "scene_events.jsonl"), truncate=True)
+    try:
+        t0 = time.perf_counter()
+        armed8 = run_scene(tensors, dense["cfg"], k_max=63, seq_name="chip_smoke_dense",
+                           device=dev)
+        torch.cuda.synchronize()
+        wall8_armed = time.perf_counter() - t0
+    finally:
+        obs.disable()
+    if armed8.digest != again.digest or armed8.timings["pulls"] != again.timings["pulls"]:
+        raise AssertionError("phase 8's scene armed differs from unarmed")
+    _say(f"[obs] {card}: phase 8's scene with obs off {wall8:.3f} s (phase 8: "
+         f"{dense['wall']:.3f} s), armed {wall8_armed:.3f} s; stage walls off / armed "
+         + json.dumps({k: [round(again.timings[k], 4), round(armed8.timings[k], 4)]
+                       for k in ("associate", "graph", "cluster", "postprocess")})
+         + f"; pulls {again.timings['pulls']}")
+
+    # (a) a reported scan through the CLI: events, obs digest, one ledger row
+    cfg_path = os.path.join(tmp, "chip_smoke_obs.json")
+    with open(cfg_path, "w") as fh:
+        json.dump({k: v for k, v in dataclasses.asdict(batch["cfg"]).items()
+                   if k not in ("config_name", "data_root")}, fh)
+    report_path = os.path.join(tmp, "R.json")
+    t0 = time.perf_counter()
+    rc, _, err = _run_module(here, "maskclustering_tpu_torch.run", [
+        "--config", cfg_path, "--data_root", root, "--seq_name_list", scan, "--steps",
+        "cluster,eval_ca", "--no-resume", "--no-journal", "--report", report_path,
+        "--ledger", led_path, "--device", str(dev)])
+    cli_s = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"reported run rc {rc}\n{err[-3000:]}")
+    events_path = os.path.join(tmp, "R_events.jsonl")
+    with open(report_path) as fh:
+        rep = json.load(fh)
+    (st,) = rep["scenes"]
+    stages = rep["obs"]["stages"]
+    counters = rep["obs"]["counters"]
+    if not os.path.exists(events_path) or any(
+            stages.get(s, {}).get("count") != 1
+            for s in ("associate", "graph", "cluster", "postprocess")):
+        raise AssertionError(f"report obs stages {sorted(stages)}")
+    if counters.get("pipeline.host_sync") != st["timings"]["pulls"]:
+        raise AssertionError(f"pipeline.host_sync {counters.get('pipeline.host_sync')} != "
+                             f"pulls {st['timings']['pulls']}")
+    if st["digest"] != batch["scans"][scan][0]:
+        raise AssertionError(f"reported scan digest {st['digest']} != phase 10's")
+    rows = ledger.read_ledger(led_path)
+    if len(rows) != 1 or rows[0]["tool"] != "run":
+        raise AssertionError(f"ledger rows {rows}")
+    _say(f"[obs] reported scan {scan} (CLI, {cli_s:.1f} s with the process): {st['seconds']:.3f} "
+         f"s armed against phase 10's {batch['scene_seconds'][scan]:.3f} s unarmed; stages "
+         + json.dumps({k: v["p50_s"] for k, v in stages.items()
+                       if k in ("associate", "graph", "cluster", "postprocess", "export")})
+         + f"; device p50 " + json.dumps({k: v["device_p50_s"] for k, v in stages.items()
+                                          if k in ("associate", "graph", "cluster",
+                                                   "postprocess")})
+         + f"; pipeline.host_sync {counters['pipeline.host_sync']} == pulls; digest "
+         f"{st['digest']['artifact']} == phase 10's; one ledger row ({rows[0]['value']} s/scene)")
+
+    # (b) the report CLI: table, diff, history, the regress gate both ways
+    events2 = os.path.join(tmp, "R2_events.jsonl")
+    rep2 = run_pipeline(batch["cfg"].replace(config_name="chip_smoke_obs"), [scan],
+                        steps=("cluster", "eval_ca"), resume=False, journal=False,
+                        report_path=os.path.join(tmp, "R2.json"), obs_events=events2,
+                        ledger_path=led_path, prediction_root=os.path.join(tmp, "pred2"),
+                        device=dev)
+    if rep2.scenes[0].digest != st["digest"] or obs.enabled():
+        raise AssertionError("the second armed run differs, or left obs armed")
+    _say(f"[obs] the same scan armed in this process: {rep2.scenes[0].seconds:.3f} s")
+    report_mod = "maskclustering_tpu_torch.obs.report"
+    rc, out, err = _run_module(here, report_mod, [events_path])
+    if rc != 0 or "postprocess" not in out or "dev.p50" not in out:
+        raise AssertionError(f"report CLI rc {rc}\n{out[-2000:]}{err[-2000:]}")
+    table = [ln for ln in out.splitlines()
+             if ln.split()[:1] and ln.split()[0] in ("associate", "graph", "cluster",
+                                                     "postprocess")]
+    rc_d, out_d, err_d = _run_module(here, report_mod, [events_path, "--diff", events2])
+    rc_h, out_h, err_h = _run_module(here, report_mod, ["--history", "--ledger", led_path])
+    hist = ledger.read_ledger(led_path)
+    if rc_d != 0 or "A vs B" not in out_d or rc_h != 0 or "(2 rows)" not in out_h \
+            or len(hist) != 2:
+        raise AssertionError(f"diff rc {rc_d} / history rc {rc_h}\n{err_d[-1500:]}"
+                             f"{err_h[-1500:]}")
+    gates = {}
+    # the gate reads the newest row. The first row, its headline raised to
+    # the newest one's if lower (two runs of a scan differ by host noise),
+    # passes; half the newest row's headline reads a 100 % slowdown
+    for label, value in (("pass", max(hist[0]["value"], hist[1]["value"])),
+                         ("fail", hist[1]["value"] * 0.5)):
+        base = os.path.join(tmp, f"baseline_{label}.json")
+        with open(base, "w") as fh:
+            json.dump(dict(hist[0], value=value), fh)
+        gates[label] = _run_module(here, report_mod, ["--ledger", led_path, "--regress", base])
+    if gates["pass"][0] != 0 or gates["fail"][0] == 0:
+        raise AssertionError(f"regress gate rc pass {gates['pass'][0]} fail {gates['fail'][0]}"
+                             f"\n{gates['pass'][1][-1500:]}{gates['fail'][1][-1500:]}")
+    _say("[obs] report CLI: stage table\n" + "\n".join(table) + f"\n[obs] --diff rc 0, "
+         f"--history rc 0 over {len(hist)} rows ({hist[0]['value']} / {hist[1]['value']} s/scene), "
+         f"--regress rc {gates['pass'][0]} against the first row (headline "
+         f"{max(hist[0]['value'], hist[1]['value'])}), rc {gates['fail'][0]} against half the "
+         f"newest row's headline: " + [ln for ln in gates["fail"][1].splitlines()
+                            if ln.startswith("headline")][0])
+
+    # (c) the canary sentinel on the card against the committed goldens, and
+    # (e) a traced request and top while it runs
+    goldens_path = os.path.join(here, "canary_goldens.json")
+    goldens = canary.load_goldens(goldens_path)
+    if goldens is None:
+        raise AssertionError("the committed canary goldens did not load")
+    ccfg = canary.goldens_config().replace(
+        config_name="chip_smoke_canary", dataset="scannet", step=1,
+        data_root=os.path.join(tmp, "served"))
+    serve_events = os.path.join(tmp, "serve_events.jsonl")
+    jdir = os.path.join(tmp, "journals")
+    metrics.registry().reset()
+    obs.configure(serve_events, truncate=True, meta={"tool": "chip_smoke", "device": str(dev)})
+    sock = _short_socket()
+    daemon = ServeDaemon(ccfg, socket_path=sock, journal_dir=jdir,
+                         warm_baseline=os.path.join(here, "compile_surface_baseline.json"),
+                         canary_interval_s=1.0, canary_goldens=goldens_path,
+                         telemetry_window_s=1.0, device=dev)
+    t0 = time.perf_counter()
+    daemon.start()
+    start_s = time.perf_counter() - t0
+    try:
+        if daemon.sentinel is None:
+            raise AssertionError("the sentinel did not arm")
+        _wait_for(lambda: daemon.sentinel.stats()["rounds"] >= 2, 120.0, "two canary rounds")
+        _wait_for(lambda: daemon.aggregator.snapshot()["windows"], 30.0, "a telemetry window")
+        with ServeClient(sock, timeout_s=600.0) as c:
+            sent = c.sentinel()
+            slo = c.slo()["slo"]
+            term, _, _ = c.run_scene("chip_smoke_traced", synthetic={
+                "num_boxes": 4, "num_frames": 12, "image_hw": [240, 320], "seed": 1})
+        s = sent["sentinel"]
+        correctness = {o["name"]: o for o in slo["objectives"]}["correctness"]
+        if ("rounds" not in s or s["rounds"] < 2 or s["drift_total"] != 0
+                or s["coords"] != sorted(goldens["goldens"])
+                or any(r["status"] != "ok" for r in s["last_results"])
+                or correctness["state"] != "ok"):
+            raise AssertionError(f"sentinel {s}, correctness {correctness}")
+        if term.get("status") != "ok":
+            raise AssertionError(f"traced request: {term}")
+        # one round more, with the sentinel's own ticks stopped: its probes
+        # and the kernel launches it took
+        daemon.sentinel.stop()
+        if not daemon.worker.wait_idle(60.0):
+            raise AssertionError("the worker did not go idle")
+        kernels.LAUNCHES.reset()
+        probes = daemon.worker.run_canary()
+        canary_launches = dict(kernels.LAUNCHES.counts)
+        verdicts = [canary.compare_probe(p, goldens) for p in probes or []]
+        if len(verdicts) != len(goldens["goldens"]) or any(
+                v["status"] != "ok" for v in verdicts):
+            raise AssertionError(f"canary probes {verdicts}")
+        if any(canary_launches.get(n, 0) != len(probes) for n in ASSOCIATION_KERNELS):
+            raise AssertionError(f"canary round launches {canary_launches}")
+        _say(f"[canary] {card}: daemon start (warm-up of the goldens' scenes) {start_s:.2f} s; "
+             f"{s['rounds']} rounds every {s['interval_s']:g} s, drift {s['drift_total']}; "
+             f"correctness {correctness['state']} (observed {correctness['observed_long']}); "
+             + "; ".join(f"{p['scene']} {p['coord']}: artifact {p['digest']['artifact']} plane "
+                         f"{p['digest']['plane']} == goldens, {p['seconds']:.3f} s"
+                         for p in probes)
+             + f"; a round's launches {json.dumps(canary_launches)}")
+
+        # (e) the traced request and top
+        rc_t, out_t, err_t = _run_module(here, "maskclustering_tpu_torch.obs.trace", [
+            term["id"], "--events", serve_events, "--journal", jdir])
+        lines = out_t.splitlines()
+
+        def find(key, start):
+            """The first line from ``start`` on that shows ``key`` (a stage
+            child line by its exact name)."""
+            for i in range(start, len(lines)):
+                if key.startswith("· "):
+                    if "· " in lines[i] and \
+                            lines[i].split("· ", 1)[1].split(" (")[0].strip() == key[2:]:
+                        return i
+                elif key in lines[i]:
+                    return i
+            return -1
+
+        pos = 0
+        for key in ("queue wait", "execution", "· associate", "· graph", "· cluster",
+                    "· postprocess", "outcome ok"):
+            pos = find(key, pos)
+            if pos < 0:
+                break
+        if rc_t != 0 or pos < 0:
+            raise AssertionError(f"trace rc {rc_t}\n{out_t[-3000:]}{err_t[-1500:]}")
+        rc_top, out_top, err_top = _run_module(here, "maskclustering_tpu_torch.obs.top",
+                                               ["--socket", sock, "--once"])
+        if rc_top != 0 or "mct-serve top" not in out_top:
+            raise AssertionError(f"top rc {rc_top}\n{out_top[-1500:]}{err_top[-1500:]}")
+        _say(f"[trace] request {term['id']} ({term['seconds']:.3f} s):\n" + out_t.rstrip())
+        _say(f"[top] one frame, {len(out_top.splitlines())} lines:\n" + out_top.rstrip())
+    finally:
+        daemon.request_stop()
+        daemon.shutdown()
+        obs.disable()
+        shutil.rmtree(os.path.dirname(sock), ignore_errors=True)
+
+    # (d) the drift drill: goldens with one artifact digest changed
+    bad = json.loads(json.dumps(goldens))
+    coord = sorted(bad["goldens"])[0]
+    bad["goldens"][coord]["artifact"] = "00000000"
+    bad_path = os.path.join(tmp, "goldens_drifted.json")
+    with open(bad_path, "w") as fh:
+        json.dump(bad, fh)
+    drift_events = os.path.join(tmp, "drift_events.jsonl")
+    fdir = os.path.join(tmp, "flight")
+    metrics.registry().reset()
+    obs.configure(drift_events, truncate=True, meta={"tool": "chip_smoke", "device": str(dev)})
+    sock = _short_socket()
+    env_flight = os.environ.get(flight.ENV_DIR)
+    drill = ServeDaemon(ccfg.replace(config_name="chip_smoke_drift"), socket_path=sock,
+                        warm_baseline=os.path.join(here, "compile_surface_baseline.json"),
+                        canary_interval_s=1.0, canary_goldens=bad_path, flight_dir=fdir,
+                        telemetry_window_s=1.0, device=dev, wal=False)
+    drill.start()
+    try:
+        _wait_for(lambda: drill.sentinel.stats()["drift_total"] >= 1, 120.0, "a drift")
+        _wait_for(lambda: sum(int(w.get("drift", 0) or 0)
+                              for w in drill.aggregator.snapshot()["windows"]) >= 1,
+                  30.0, "a window with drift")
+        with ServeClient(sock, timeout_s=60.0) as c:
+            slo = c.slo()
+        drifted = drill.sentinel.stats()
+    finally:
+        drill.request_stop()
+        drill.shutdown()
+        obs.flush_metrics()
+        obs.disable()
+        flight.arm(None)
+        if env_flight is None:
+            os.environ.pop(flight.ENV_DIR, None)
+        else:
+            os.environ[flight.ENV_DIR] = env_flight
+        shutil.rmtree(os.path.dirname(sock), ignore_errors=True)
+    drift_rows = list(read_events(drift_events, kinds=[KIND_DRIFT]))
+    dumps = sorted(os.listdir(fdir)) if os.path.isdir(fdir) else []
+    named = [d for d in dumps if coord in open(os.path.join(fdir, d)).read()]
+    n_drift = metrics.registry().snapshot()["counters"].get("canary.drift", 0)
+    window_drift = sum(int(w.get("drift", 0) or 0) for w in slo["telemetry"]["windows"])
+    correctness = {o["name"]: o for o in slo["slo"]["objectives"]}["correctness"]
+    if (not drift_rows or drift_rows[0].get("coord") != coord or not named or n_drift < 1
+            or window_drift < 1 or correctness["state"] != "violated"):
+        raise AssertionError(f"drift drill: events {len(drift_rows)}, dumps {dumps}, counter "
+                             f"{n_drift}, window drift {window_drift}, correctness "
+                             f"{correctness}")
+    _say(f"[canary] drift drill at {coord}: {len(drift_rows)} canary.drift event(s) (fields "
+         f"{drift_rows[0]['fields']}), flight dump {named[0]} names it, canary.drift "
+         f"{int(n_drift)}, windows' drift {window_drift}, correctness {correctness['state']}; "
+         f"sentinel drift_coords {json.dumps(drifted['drift_coords'])}")
+
+    # (f) streaming spans: the mid-size scene in chunks of 8, armed and not
+    mid = to_scene_tensors(make_scene(num_boxes=4, num_frames=12, image_hw=(240, 320), seed=1))
+    mcfg = load_config("scannet", config_name="chip_smoke_mid_stream", distance_threshold=0.03,
+                       few_points_threshold=10, streaming_chunk=STREAM_CHUNK)
+    off = stream_scene(mid, mcfg, seq_name="mid_stream", device=dev)
+    stream_events = os.path.join(tmp, "stream_events.jsonl")
+    metrics.registry().reset()
+    obs.configure(stream_events, truncate=True, meta={"tool": "chip_smoke", "device": str(dev)})
+    try:
+        armed = stream_scene(mid, mcfg, seq_name="mid_stream", device=dev)
+        obs.flush_metrics()
+    finally:
+        obs.disable()
+    n_chunks = -(-mid.num_frames // STREAM_CHUNK)
+    spans = [e["name"] for e in read_events(stream_events, kinds=[KIND_SPAN])]
+    stream_counters = {k: v for k, v in metrics.registry().snapshot()["counters"].items()
+                       if k.startswith("stream.")}
+    if (stream_counters.get("stream.chunks") != n_chunks or spans.count("stream.chunk") != n_chunks
+            or spans.count("stream.finalize") != 1 or spans.count("stream.scene") != 1
+            or armed.digest != off.digest
+            or artifact_digest(armed.objects) != artifact_digest(off.objects)):
+        raise AssertionError(f"streaming spans {spans}, counters {stream_counters}, digests "
+                             f"{armed.digest} / {off.digest}")
+    _say(f"[obs] mid-size stream in {n_chunks} chunks of {STREAM_CHUNK}, armed: "
+         f"{spans.count('stream.chunk')} stream.chunk spans, one stream.finalize, counters "
+         f"{json.dumps(stream_counters)}; artifact {armed.digest['artifact']} == unarmed")
+
+    for path, data in guarded.items():
+        if open(path, "rb").read() != data:
+            raise AssertionError(f"{path} changed during the phase")
+    shutil.rmtree(tmp, ignore_errors=True)
+    _say(f"[obs] {', '.join(os.path.basename(p) for p in guarded)} unchanged; phase 16 in "
+         f"{time.perf_counter() - t_phase:.1f} s")
+    return {"canary_launches": canary_launches}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "maskclustering_tpu_torch")):
@@ -2543,6 +2916,13 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    # every perf-ledger row of a reported run in this script lands here,
+    # never in a ledger file of the checkout
+    import shutil
+    import tempfile
+
+    ledger_dir = tempfile.mkdtemp(prefix="chip_smoke_ledger_")
+    os.environ["MCT_PERF_LEDGER"] = os.path.join(ledger_dir, "ledger.jsonl")
 
     # 1. card
     card = card_line()
@@ -2670,6 +3050,9 @@ def main() -> int:
     # 15. the scene-serving daemon
     serve = serve_phase(dev, card, dense, batch)
 
+    # 16. the run report, ledger, trace, top and the canary sentinel
+    obs_run = obs_phase(dev, card, tensors, dense, batch)
+
     _say(f"[done] {time.perf_counter() - t_start:.1f} s")
     _say(card)
     rows = [{
@@ -2694,7 +3077,9 @@ def main() -> int:
             "batch_launches": batch["launches"][name],
             "stream_launches": stream["launches"][name],
             "mesh_launches": mesh["launches"][name],
-            "serve_launches": serve["launches"][name]})
+            "serve_launches": serve["launches"][name],
+            "canary_launches": obs_run["canary_launches"].get(name, 0)})
+    shutil.rmtree(ledger_dir, ignore_errors=True)
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

@@ -46,7 +46,8 @@ import torch
 from maskclustering_tpu_torch.datasets.base import PAD_DISTANCE_CUTOFF
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
 from maskclustering_tpu_torch.io.feed import to_device_frames
-from maskclustering_tpu_torch.ops.geometry import fma, invert_se3, rotate, unproject_depth
+from maskclustering_tpu_torch.ops.geometry import (fma, invert_se3, rotate, sqrt_f32,
+                                                   unproject_depth)
 
 # elements of the (sample, block) distance matrix estimate_spacing holds at once
 _SPACING_BLOCK = 1 << 24
@@ -67,7 +68,8 @@ def estimate_spacing(points: torch.Tensor, *, sample: int = 2048) -> torch.Tenso
     squared distance is the reduction XLA:CPU compiles,
     ``fma(d2, d2, fma(d1, d1, d0 * d0))``. The JAX package scans the cloud
     in chunks padded with +inf rows; those rows never win the minimum, so
-    the blocks here skip them. Returns a 0-d float32 tensor.
+    the blocks here skip them. The root is :func:`sqrt_f32`, correctly
+    rounded as XLA's. Returns a 0-d float32 tensor.
     """
     n = points.shape[0]
     dev = points.device
@@ -86,7 +88,7 @@ def estimate_spacing(points: torch.Tensor, *, sample: int = 2048) -> torch.Tenso
         dist2 = fma(d2, d2, fma(d1, d1, d0 * d0))
         dist2 = torch.where(torch.isfinite(dist2) & (dist2 > tiny), dist2, inf)
         best = torch.minimum(best, dist2.min(dim=1).values)
-    d = torch.sqrt(best)
+    d = sqrt_f32(best)
     valid = torch.isfinite(d) & (d < _f32(PAD_DISTANCE_CUTOFF, dev))
     ds = torch.sort(torch.where(valid, d, inf)).values
     cnt = valid.sum()

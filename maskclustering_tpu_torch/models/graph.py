@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from maskclustering_tpu_torch.ops import counting
+from maskclustering_tpu_torch.ops.geometry import fma
 from maskclustering_tpu_torch.utils.compile_cache import bucket_size, record_shape_bucket
 
 
@@ -260,7 +261,7 @@ def observer_schedule_device(observer_hist: torch.Tensor, max_len: int = 20) -> 
     v_lo = torch.searchsorted(cum, (lo + 1).contiguous(), side="left").to(torch.float32)
     v_hi = torch.searchsorted(cum, (hi + 1).contiguous(), side="left").to(torch.float32)
     one = torch.ones_like(frac)
-    interp = torch.addcmul(torch.where(hi > lo, v_hi, v_lo) * frac, v_lo, one - frac)
+    interp = fma(v_lo, one - frac, torch.where(hi > lo, v_hi, v_lo) * frac)
     le1 = interp <= 1.0
     clipped = torch.where(le1, one, interp)
     dead = (le1 & (qs < 50)) | (cnt == 0)

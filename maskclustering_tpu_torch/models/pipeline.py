@@ -24,7 +24,16 @@ read once by the clustering loop; then the post-process rung pulls what it
 needs (the device rung a few scalars per phase and the survivors' bit
 planes; the host rung the claim planes), and the scene's digest vector
 (``obs/digest.py``) comes back beside the assignment. The pulls are
-counted in ``timings``.
+counted in ``timings["pulls"]`` and on the ``pipeline.host_sync`` counter,
+and the span of each carries a ``host_pull`` attribute.
+
+Stages book the JAX package's spans into ``obs.scene_tracer()``:
+``associate``, ``graph`` (the mask-table pull), ``cluster`` (with its
+``cluster.solve`` child), ``postprocess`` with its ``post.*`` children,
+and ``export``. Each stage ends in a device synchronize whether obs is
+armed or not, so ``timings`` is the same either way; armed, the
+synchronize's wait is the span's ``sync_s`` (device time). Disarmed, the
+spans add no synchronize and no launch.
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from typing import Dict, NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
+from maskclustering_tpu_torch import obs
 from maskclustering_tpu_torch.config import PipelineConfig
 from maskclustering_tpu_torch.datasets.base import SceneTensors
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device, synchronize
@@ -91,19 +101,34 @@ class DeviceHandoff(NamedTuple):
 
 
 class _Stage:
-    """Wall time of one stage, ending in a device synchronize."""
+    """Wall time of one stage, ending in a device synchronize, booked as a
+    span of the scene tracer: the synchronize's wait is the span's
+    ``sync_s``, the device time the stage dispatched."""
 
-    def __init__(self, timings: Dict[str, float], name: str, device: torch.device):
+    def __init__(self, timings: Dict[str, float], name: str, device: torch.device,
+                 **attrs):
         self.timings, self.name, self.device = timings, name, device
+        self.span = obs.scene_tracer().span(name, **attrs)
 
     def __enter__(self):
+        self.span.__enter__()
         self.t0 = time.perf_counter()
-        return self
+        return self.span
 
     def __exit__(self, *exc):
+        t1 = time.perf_counter()
         synchronize(self.device)
-        self.timings[self.name] = time.perf_counter() - self.t0
-        return False
+        now = time.perf_counter()
+        self.span.sync_s += now - t1
+        self.timings[self.name] = now - self.t0
+        return self.span.__exit__(*exc)
+
+
+def _count_pulls(timings: Dict[str, float], n: int) -> None:
+    """Book ``n`` host pulls in ``timings["pulls"]`` and on
+    ``pipeline.host_sync`` (the two always agree)."""
+    timings["pulls"] = timings.get("pulls", 0) + n
+    obs.count("pipeline.host_sync", n)
 
 
 def pad_scene_tensors(tensors: SceneTensors, f_pad: int, n_pad: int) -> SceneTensors:
@@ -148,7 +173,8 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
         k_max = bucket_k_max(max_seg_id(tensors.segmentations))
     n_real = tensors.num_points
 
-    with _Stage(timings, "associate", device):
+    with _Stage(timings, "associate", device, scene=seq_name, k_max=k_max,
+                num_frames=tensors.num_frames, num_points=n_real) as sp:
         if cfg.use_exact_ball_query:
             assoc = associate_scene_exact(tensors, cfg, k_max=k_max, device=device,
                                           timings=timings)
@@ -158,14 +184,17 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
             f_pad, n_pad = scene_pads(cfg, tensors.num_frames, n_real)
             tensors = pad_scene_tensors(tensors, f_pad, n_pad)
             record_shape_bucket("scene", k_max, f_pad, n_pad)
+            sp.set(f_pad=f_pad, n_pad=n_pad)
             assoc = associate_scene_tensors(tensors, cfg, k_max=k_max, device=device)
 
-    with _Stage(timings, "graph", device):
+    with _Stage(timings, "graph", device, scene=seq_name) as sp:
         # the one mid-program pull: M_pad depends on the valid-mask count
         faults.inject("pull", seq_name)
         mask_valid_host = assoc.mask_valid.cpu().numpy()
-        timings["pulls"] = timings.get("pulls", 0) + 1
+        _count_pulls(timings, 1)
+        sp.set(host_pull="mask_valid")
         table = build_mask_table(mask_valid_host, pad_multiple=cfg.mask_pad_multiple)
+        sp.set(m_pad=table.m_pad)
         frame = torch.from_numpy(table.frame).to(device)
         mask_id = torch.from_numpy(table.mask_id).to(device)
         valid = torch.from_numpy(table.valid).to(device)
@@ -182,14 +211,17 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
         schedule = observer_schedule_device(stats.observer_hist,
                                             max_len=cfg.max_cluster_iterations)
 
-    with _Stage(timings, "cluster", device):
+    with _Stage(timings, "cluster", device, scene=seq_name) as sp:
         active = valid & ~stats.undersegment
-        result = iterative_clustering(
-            stats.visible, stats.contained, active, schedule,
-            view_consensus_threshold=cfg.view_consensus_threshold,
-            count_dtype=cfg.count_dtype,
-        )
-        timings["pulls"] += 1  # the schedule read that bounds the loop
+        with obs.span("cluster.solve", m_pad=int(stats.visible.shape[0]),
+                      schedule_len=int(schedule.shape[0])):
+            result = iterative_clustering(
+                stats.visible, stats.contained, active, schedule,
+                view_consensus_threshold=cfg.view_consensus_threshold,
+                count_dtype=cfg.count_dtype,
+            )
+        _count_pulls(timings, 1)  # the schedule read that bounds the loop
+        sp.set(host_pull="schedule")
 
     return DeviceHandoff(
         table=table, assignment=result.assignment, active=active,
@@ -211,23 +243,31 @@ def run_scene_host(handoff: DeviceHandoff, cfg: PipelineConfig, *,
     faults.inject("host", handoff.seq_name)
     post_timings: Dict[str, float] = {}
     pulls = [0]
-    t0 = time.perf_counter()
-    # the plane lane reads the handoff before any post-process kernel runs;
-    # its (8,) vector is pulled after, beside the assignment
-    digest_dev = sentinel.digest_scene_device(handoff)
-    objects = run_postprocess(
-        cfg, handoff.scene_points, handoff.first_id, handoff.last_id, handoff.table.frame,
-        handoff.table.mask_id, handoff.active, handoff.assignment, handoff.node_visible,
-        handoff.frame_ids, k_max=handoff.k_max, timings=post_timings, n_real=handoff.n_real,
-        pulls=pulls, seq_name=handoff.seq_name)
-    assignment = handoff.assignment.cpu().numpy()
-    digest_vec = sentinel.vector_host(digest_dev)
-    # the digest vector is one pull on either rung; the host rung pulled the
-    # assignment with the claim planes
-    pulls[0] += 2 if cfg.device_postprocess else 1
-    timings["pulls"] = timings.get("pulls", 0) + pulls[0]
-    timings["postprocess"] = time.perf_counter() - t0
+    with obs.scene_tracer().span("postprocess", scene=handoff.seq_name) as sp:
+        # the plane lane reads the handoff before any post-process kernel
+        # runs; its (8,) vector is pulled after, beside the assignment
+        digest_dev = sentinel.digest_scene_device(handoff)
+        objects = run_postprocess(
+            cfg, handoff.scene_points, handoff.first_id, handoff.last_id,
+            handoff.table.frame, handoff.table.mask_id, handoff.active, handoff.assignment,
+            handoff.node_visible, handoff.frame_ids, k_max=handoff.k_max,
+            timings=post_timings, n_real=handoff.n_real, pulls=pulls,
+            seq_name=handoff.seq_name)
+        with obs.span("post.assignment.pull", host_pull="assignment"):
+            assignment = handoff.assignment.cpu().numpy()
+        obs.count_transfer("d2h", assignment.nbytes, "post.drain")
+        with obs.span("post.digest.pull", host_pull="digest"):
+            digest_vec = sentinel.vector_host(digest_dev)
+        obs.count_transfer("d2h", digest_vec.nbytes, "post.drain")
+        # the digest vector is one pull on either rung; the host rung pulled
+        # the assignment with the claim planes
+        pulls[0] += 2 if cfg.device_postprocess else 1
+        _count_pulls(timings, pulls[0])
+    timings["postprocess"] = sp.duration
     for k, v in post_timings.items():
+        # the post-process phases' walls become child spans of
+        # "postprocess": same event schema, no double-timing
+        obs.record_span(f"post.{k}", v, parent="postprocess")
         timings[f"post.{k}"] = v
 
     if export:

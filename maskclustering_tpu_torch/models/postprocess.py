@@ -20,6 +20,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
+from maskclustering_tpu_torch import obs
 from maskclustering_tpu_torch.ops.dbscan import dbscan_labels
 from maskclustering_tpu_torch.ops.geometry import bboxes_overlap
 
@@ -320,6 +321,14 @@ def export_artifacts(objects: SceneObjects, seq_name: str, config_name: str,
     evaluation protocol and the semantics stage read either framework's
     output interchangeably.
     """
+    with obs.span("export", scene=seq_name, num_objects=len(objects.point_ids_list)):
+        return _export_artifacts(objects, seq_name, config_name, object_dict_dir,
+                                 prediction_root, top_k_repre)
+
+
+def _export_artifacts(objects: SceneObjects, seq_name: str, config_name: str,
+                      object_dict_dir: str, prediction_root: str,
+                      top_k_repre: int) -> Dict[str, str]:
     num_instance = len(objects.point_ids_list)
     masks = np.zeros((objects.num_points, max(num_instance, 0)), dtype=bool)
     object_dict = {}

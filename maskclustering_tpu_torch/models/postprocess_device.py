@@ -40,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from maskclustering_tpu_torch import obs
 from maskclustering_tpu_torch.models.postprocess import (
     SceneObjects,
     _PhaseTimer,
@@ -101,11 +102,14 @@ def run_postprocess(cfg, scene_points, first, last, mask_frame, mask_id, mask_ac
             neighbor_cap=cfg.post_neighbor_cap, n_real=n_real, pulls=pulled, **kwargs)
     else:
         # the host rung pulls the claim planes, as postprocess_device.py:150-163
-        first_h = first.cpu().numpy()
-        last_h = last.cpu().numpy()
-        nv_h = node_visible.cpu().numpy()
-        active_h = mask_active.cpu().numpy()
-        assign_h = assignment.cpu().numpy()
+        with obs.span("post.host_pull", host_pull="claims"):
+            first_h = first.cpu().numpy()
+            last_h = last.cpu().numpy()
+            nv_h = node_visible.cpu().numpy()
+            active_h = mask_active.cpu().numpy()
+            assign_h = assignment.cpu().numpy()
+            obs.count_transfer("d2h", first_h.nbytes + last_h.nbytes + nv_h.nbytes,
+                               "postprocess")
         pulled[0] += 5
         objects = postprocess_scene(scene_points, first_h, last_h, first_h > 0, mask_frame,
                                     mask_id, active_h, assign_h, nv_h, frame_ids, **kwargs)
@@ -370,8 +374,10 @@ def postprocess_scene_device(
         return SceneObjects(point_ids_list=[], mask_list=[], num_points=n)
 
     # r_pad sizing: a 4-byte scalar pull, not an assignment pull
-    live = int(_live_count_kernel(assignment, mask_active,
-                                  min_masks_per_object=int(min_masks_per_object)))
+    with obs.span("post.prep.pull", host_pull="live_count"):
+        live = int(_live_count_kernel(assignment, mask_active,
+                                      min_masks_per_object=int(min_masks_per_object)))
+        obs.count_transfer("d2h", 4, "post.drain")
     pulled += 1
     if live == 0:
         return done("claims", "dbscan", "mask_assign", "emit", "merge")
@@ -380,17 +386,20 @@ def postprocess_scene_device(
 
     mask_frame_d = torch.from_numpy(np.asarray(mask_frame)).to(dev)
     mask_id_d = torch.from_numpy(np.asarray(mask_id)).to(dev)
-    rep_tab, live_slots, live_valid, ridx_of_mask, alive, mask_flat = _prep_kernel(
-        assignment, mask_active, mask_frame_d, mask_id_d, r_pad=r_pad, f=f, k2=k2,
-        min_masks_per_object=int(min_masks_per_object))
-    claimed, ratio_ok, nv_rep = _node_stats_kernel(
-        first, last, rep_tab, node_visible, live_slots, live_valid, r_pad=r_pad,
-        point_filter_threshold=float(point_filter_threshold), count_dtype=count_dtype)
+    with obs.span("post.claims.kernel", r_pad=r_pad, m_pad=m_pad, f=f, n=n) as sp:
+        rep_tab, live_slots, live_valid, ridx_of_mask, alive, mask_flat = _prep_kernel(
+            assignment, mask_active, mask_frame_d, mask_id_d, r_pad=r_pad, f=f, k2=k2,
+            min_masks_per_object=int(min_masks_per_object))
+        claimed, ratio_ok, nv_rep = sp.sync(_node_stats_kernel(
+            first, last, rep_tab, node_visible, live_slots, live_valid, r_pad=r_pad,
+            point_filter_threshold=float(point_filter_threshold), count_dtype=count_dtype))
     t.mark("claims")
 
     # pair-bucket sizing: the O(r_pad) node-size pull
-    sizes = claimed.sum(dim=1).cpu().numpy()
-    cand_pre = (live_valid & (claimed.any(dim=1)) & nv_rep.any(dim=1)).cpu().numpy()
+    with obs.span("post.split.pull", r_pad=r_pad, host_pull="node_sizes"):
+        sizes = claimed.sum(dim=1).cpu().numpy()
+        cand_pre = (live_valid & (claimed.any(dim=1)) & nv_rep.any(dim=1)).cpu().numpy()
+        obs.count_transfer("d2h", sizes.nbytes + cand_pre.nbytes, "post.drain")
     pulled += 2
     num_pairs = int(sizes[cand_pre].sum())
     if num_pairs == 0:
@@ -401,14 +410,19 @@ def postprocess_scene_device(
     c_pad = _bucket_pow2(num_pairs, minimum=256)
     record_shape_bucket("post.dbscan", r_pad, c_pad, grid.cell_cap, n)
     points_d = torch.from_numpy(np.asarray(scene_points, np.float32)).to(dev)
-    (pair_rep, pair_pt, pair_valid, dense_local, ngrp_d, nb_overflow_d) = _dbscan_split_kernel(
-        claimed, nv_rep, live_valid, points_d, torch.from_numpy(grid.order).to(dev),
-        torch.from_numpy(grid.start).to(dev), torch.from_numpy(grid.length).to(dev),
-        c_pad=c_pad, cell_cap=grid.cell_cap, neighbor_cap=int(neighbor_cap),
-        eps=float(dbscan_eps), min_points=int(dbscan_min_points))
+    with obs.span("post.dbscan.kernel", r_pad=r_pad, c_pad=c_pad,
+                  cell_cap=grid.cell_cap) as sp:
+        (pair_rep, pair_pt, pair_valid, dense_local, ngrp_d,
+         nb_overflow_d) = sp.sync(_dbscan_split_kernel(
+            claimed, nv_rep, live_valid, points_d, torch.from_numpy(grid.order).to(dev),
+            torch.from_numpy(grid.start).to(dev), torch.from_numpy(grid.length).to(dev),
+            c_pad=c_pad, cell_cap=grid.cell_cap, neighbor_cap=int(neighbor_cap),
+            eps=float(dbscan_eps), min_points=int(dbscan_min_points)))
     # O(r_pad) group-count pull: sizes the group axis and surfaces overflows
-    ngrp = ngrp_d.cpu().numpy()
-    nb_overflow = bool(nb_overflow_d)
+    with obs.span("post.groups.pull", r_pad=r_pad, host_pull="group_counts"):
+        ngrp = ngrp_d.cpu().numpy()
+        nb_overflow = bool(nb_overflow_d)
+        obs.count_transfer("d2h", ngrp.nbytes + 1, "post.drain")
     pulled += 2
     if nb_overflow:
         raise PostprocessCapacityError("DBSCAN neighbor-list", -1, int(neighbor_cap),
@@ -420,20 +434,26 @@ def postprocess_scene_device(
     goff[1:] = np.cumsum(ngrp[:-1]).astype(np.int32)
     s_pad = _bucket_pow2(total, minimum=128)
     record_shape_bucket("post.groups", r_pad, s_pad, c_pad, n)
-    (group_size_d, npts_ratio_d, goh, obj_packed, bb_min_d, bb_max_d, glo_d,
-     ghi_d) = _group_structs_kernel(
-        pair_rep, pair_pt, pair_valid, dense_local, torch.from_numpy(goff).to(dev),
-        ngrp_d.to(torch.int32), ratio_ok, points_d, ridx_of_mask, alive, s_pad=s_pad)
+    with obs.span("post.groups.kernel", s_pad=s_pad) as sp:
+        (group_size_d, npts_ratio_d, goh, obj_packed, bb_min_d, bb_max_d, glo_d,
+         ghi_d) = sp.sync(_group_structs_kernel(
+            pair_rep, pair_pt, pair_valid, dense_local, torch.from_numpy(goff).to(dev),
+            ngrp_d.to(torch.int32), ratio_ok, points_d, ridx_of_mask, alive, s_pad=s_pad))
     t.mark("dbscan")
 
-    best_group_d, best_count_d = _mask_group_counts_impl(
-        first, last, goh, mask_flat, glo_d, ghi_d, k2=k2, s_pad=s_pad, count_dtype=count_dtype)
+    with obs.span("post.mask_assign.kernel", s_pad=s_pad, m_pad=m_pad) as sp:
+        best_group_d, best_count_d = sp.sync(_mask_group_counts_impl(
+            first, last, goh, mask_flat, glo_d, ghi_d, k2=k2, s_pad=s_pad,
+            count_dtype=count_dtype))
     t.mark("mask_assign")
 
     # emit-only drain, stage 1: O(M_pad + S) scalars
-    (group_size, npts_ratio, best_group, best_count, glo, ghi, bb_min, bb_max) = (
-        a.cpu().numpy() for a in (group_size_d, npts_ratio_d, best_group_d, best_count_d,
-                                  glo_d, ghi_d, bb_min_d, bb_max_d))
+    with obs.span("post.drain.pull", s_pad=s_pad, m_pad=m_pad, host_pull="drain"):
+        small = tuple(a.cpu().numpy() for a in (group_size_d, npts_ratio_d, best_group_d,
+                                                 best_count_d, glo_d, ghi_d, bb_min_d,
+                                                 bb_max_d))
+        obs.count_transfer("d2h", sum(a.nbytes for a in small), "post.drain")
+    (group_size, npts_ratio, best_group, best_count, glo, ghi, bb_min, bb_max) = small
     pulled += 8
 
     obj_masks: Dict[int, List[Tuple]] = {}
@@ -456,15 +476,28 @@ def postprocess_scene_device(
     record_shape_bucket("post.drain", o_pad, s_pad, n)
     surv_idx = np.zeros(o_pad, np.int32)
     surv_idx[:o] = survivors
-    rows_d, inter_d = _survivor_gather_kernel(obj_packed, torch.from_numpy(surv_idx).to(dev),
-                                              count_dtype=count_dtype)
-    parts = []
-    for c in _row_chunks(rows_d, o_pad, pull_chunk):
-        parts.append(_unpack_bits(c.cpu().numpy(), n))
+    with obs.span("post.drain.objpull", objects=o, o_pad=o_pad,
+                  host_pull="survivors") as sp:
+        rows_d, inter_d = _survivor_gather_kernel(
+            obj_packed, torch.from_numpy(surv_idx).to(dev), count_dtype=count_dtype)
+        chunks = _row_chunks(rows_d, o_pad, pull_chunk)
+        parts = []
+        nbytes = max_chunk = 0
+        for c in chunks:
+            h = c.cpu().numpy()
+            nbytes += h.nbytes
+            max_chunk = max(max_chunk, h.nbytes)
+            parts.append(_unpack_bits(h, n))
+            pulled += 1
+        member = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
+        inter_h = inter_d.cpu().numpy()
+        inter = inter_h[:o, :o]
         pulled += 1
-    member = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=0)
-    inter = inter_d.cpu().numpy()[:o, :o]
-    pulled += 1
+        sp.set(chunks=len(parts))
+        # the drain's host-buffer ceiling: the largest single pull of any
+        # scene of this process (high-water)
+        obs.gauge_max("post.drain.max_chunk_bytes", float(max_chunk))
+        obs.count_transfer("d2h", nbytes + inter_h.nbytes, "post.drain")
     t.mark("emit")
 
     point_ids = [np.nonzero(member[i])[0].astype(np.int32) for i in range(o)]

@@ -33,12 +33,17 @@ chunk whose watchdog expired keeps running on its daemon thread
 epoch fence drops its bind, and because the bound state is never written
 in place, what it computed meanwhile cannot reach the retry's state.
 
-The JAX module's stream metrics, spans and transfer-guard windows have no
-port yet (ROADMAP A9b, A10); its shape buckets are booked
-(``record_shape_bucket``). What they carried that a caller sees stays: each chunk
-dict's ``plane_bytes``, ``partial_instances``, ``seconds`` and ``digest``,
-and the ``stream.*`` timings (``stream.finalize`` and its host DBSCAN,
-``stream.dbscan``, are the port's, in place of the JAX span).
+Metrics and spans are the JAX module's: ``stream.scene``, ``stream.chunk``
+and ``stream.finalize`` spans; ``stream.chunks``, ``stream.frames``,
+``stream.host_sync``, ``stream.reclusters``, ``stream.stale_binds_dropped``,
+``stream.mask_capacity_growths``, ``stream.chunk_retries``,
+``stream.state_saves`` and ``stream.state_resumes`` counters; and the
+``stream.max_plane_bytes``, ``stream.state_bytes`` and
+``stream.partial_instances`` gauges. The JAX transfer-guard windows have no
+port (ROADMAP A10). Each chunk dict carries ``plane_bytes``,
+``partial_instances``, ``seconds`` and ``digest``, and the result's
+``stream.*`` timings add ``stream.finalize`` and its host DBSCAN,
+``stream.dbscan``.
 
 The state journal is the JAX package's npz (same keys, version 1), so a
 journal written by either package resumes in the other.
@@ -57,6 +62,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from maskclustering_tpu_torch import obs
 from maskclustering_tpu_torch.config import PipelineConfig
 from maskclustering_tpu_torch.datasets.base import SceneTensors
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
@@ -409,6 +415,7 @@ class StreamAccumulator:
         new_pad = bucket_size(needed, self.cfg.mask_pad_multiple)
         log.warning("stream %s: mask capacity %d -> %d (projection overflow)",
                     self.seq_name, self.m_pad, new_pad)
+        obs.count("stream.mask_capacity_growths")
         dm = new_pad - self.m_pad
         dev = self.device
         self.g_frame = np.concatenate([self.g_frame, np.full(dm, self.total_frames, np.int32)])
@@ -462,110 +469,129 @@ class StreamAccumulator:
         # fault seam: a scripted fault here retries the chunk, state intact
         faults.inject("chunk", self.seq_name)
         real_frames = chunk_tensors.num_frames
-        if self.k_max <= 0:
-            self.k_max = bucket_k_max(max_seg_id(chunk_tensors.segmentations))
-        padded = pad_scene_tensors(chunk_tensors, self.f_chunk_pad, self.n_pad)
-        # one bucket vocabulary with the batch path: a chunk is just another
-        # scene-bucket coordinate
-        record_shape_bucket("scene", self.k_max, self.f_chunk_pad, self.n_pad)
-        if self._vox_size is None:
-            # every chunk pads the one cloud to n_pad: one coverage voxel
-            self._vox_size = _vox_size_jit(
-                torch.from_numpy(np.asarray(padded.scene_points, np.float32)).to(dev),
-                distance_threshold=float(cfg.distance_threshold))
-        assoc = associate_scene_tensors(padded, cfg, k_max=self.k_max, device=dev,
-                                        vox_size=self._vox_size)
-        plane_bytes = sum(t.numel() * t.element_size() for t in (
-            assoc.mask_of_point, assoc.first_id, assoc.last_id, assoc.point_visible,
-            assoc.boundary))
+        with obs.span("stream.chunk", scene=self.seq_name, chunk=ci,
+                      frames=real_frames) as sp:
+            if self.k_max <= 0:
+                self.k_max = bucket_k_max(max_seg_id(chunk_tensors.segmentations))
+            padded = pad_scene_tensors(chunk_tensors, self.f_chunk_pad, self.n_pad)
+            # one bucket vocabulary with the batch path: a chunk is just another
+            # scene-bucket coordinate
+            record_shape_bucket("scene", self.k_max, self.f_chunk_pad, self.n_pad)
+            if self._vox_size is None:
+                # every chunk pads the one cloud to n_pad: one coverage voxel
+                self._vox_size = _vox_size_jit(
+                    torch.from_numpy(np.asarray(padded.scene_points, np.float32)).to(dev),
+                    distance_threshold=float(cfg.distance_threshold))
+            assoc = associate_scene_tensors(padded, cfg, k_max=self.k_max, device=dev,
+                                            vox_size=self._vox_size)
+            plane_bytes = sum(t.numel() * t.element_size() for t in (
+                assoc.mask_of_point, assoc.first_id, assoc.last_id, assoc.point_visible,
+                assoc.boundary))
+            obs.gauge_max("stream.max_plane_bytes", float(plane_bytes))
 
-        # the one pull a chunk needs: its mask table's bucket is data-dependent
-        faults.inject("pull", self.seq_name)
-        mask_valid_host = assoc.mask_valid.cpu().numpy()
-        table_k = build_mask_table(mask_valid_host, pad_multiple=cfg.mask_pad_multiple)
+            # the one pull a chunk needs: its mask table's bucket is data-dependent
+            faults.inject("pull", self.seq_name)
+            mask_valid_host = assoc.mask_valid.cpu().numpy()
+            obs.count("stream.host_sync")
+            table_k = build_mask_table(mask_valid_host, pad_multiple=cfg.mask_pad_multiple)
+            sp.set(m_pad=table_k.m_pad, plane_bytes=int(plane_bytes))
 
-        with self._bind_lock:
-            # the state is sized under the fence too: a superseded attempt
-            # must not allocate or grow the state its retry is using
-            if epoch != self._epoch:
+            with self._bind_lock:
+                # the state is sized under the fence too: a superseded attempt
+                # must not allocate or grow the state its retry is using
+                stale = epoch != self._epoch
+                if not stale:
+                    if self.chunks_done == 0:
+                        self._alloc_state(self._presize_m_pad(table_k))
+                        record_shape_bucket("stream", self.m_pad, self.f_alloc, self.n_pad)
+                        self.scene_points = np.asarray(chunk_tensors.scene_points)
+                    elif self.masks_used + table_k.m_pad > self.m_pad:
+                        self._grow_state(self.masks_used + table_k.m_pad)
+                        record_shape_bucket("stream", self.m_pad, self.f_alloc, self.n_pad)
+                    offset = self.masks_used
+            if stale:
+                obs.count("stream.stale_binds_dropped")
                 raise StaleChunkAttempt(self.seq_name, ci)
-            if self.chunks_done == 0:
-                self._alloc_state(self._presize_m_pad(table_k))
-                record_shape_bucket("stream", self.m_pad, self.f_alloc, self.n_pad)
-                self.scene_points = np.asarray(chunk_tensors.scene_points)
-            elif self.masks_used + table_k.m_pad > self.m_pad:
-                self._grow_state(self.masks_used + table_k.m_pad)
-                record_shape_bucket("stream", self.m_pad, self.f_alloc, self.n_pad)
-            offset = self.masks_used
-        num_k = table_k.num_masks
-        frame_t = torch.from_numpy(table_k.frame).to(dev)
-        mask_id_t = torch.from_numpy(table_k.mask_id).to(dev)
-        valid_t = torch.from_numpy(table_k.valid).to(dev)
+            num_k = table_k.num_masks
+            frame_t = torch.from_numpy(table_k.frame).to(dev)
+            mask_id_t = torch.from_numpy(table_k.mask_id).to(dev)
+            valid_t = torch.from_numpy(table_k.valid).to(dev)
 
-        # exact within-chunk graph statistics (the batch program)
-        stats = compute_graph_stats(
-            assoc.mask_of_point, assoc.boundary, frame_t, mask_id_t, valid_t,
-            k_max=self.k_max, point_chunk=cfg.point_chunk,
-            mask_visible_threshold=cfg.mask_visible_threshold,
-            contained_threshold=cfg.contained_threshold,
-            undersegment_filter_threshold=cfg.undersegment_filter_threshold,
-            big_mask_point_count=cfg.big_mask_point_count,
-            count_dtype=cfg.count_dtype)
-        act_k = valid_t & ~stats.undersegment
-
-        visible, contained, active, n_tot = _stream_merge(
-            self.visible, self.contained, self.active, self.n_tot, self.assignment,
-            self.rep_plane, assoc.mask_of_point, stats.visible, stats.contained, act_k,
-            stats.n_tot, frame_t, mask_id_t, offset, ci * self.f_chunk_pad,
-            k_max=self.k_max, point_chunk=cfg.point_chunk,
-            mask_visible_threshold=cfg.mask_visible_threshold,
-            contained_threshold=cfg.contained_threshold,
-            big_mask_point_count=cfg.big_mask_point_count,
-            count_dtype=cfg.count_dtype)
-
-        assignment, node_visible = self.assignment, self.node_visible
-        if (ci + 1) % max(cfg.stream_recluster_every, 1) == 0 or ci + 1 == self.n_chunks:
-            result = _stream_recluster(
-                visible, contained, active, self.assignment,
-                max_len=cfg.max_cluster_iterations,
-                view_consensus_threshold=cfg.view_consensus_threshold,
+            # exact within-chunk graph statistics (the batch program)
+            stats = compute_graph_stats(
+                assoc.mask_of_point, assoc.boundary, frame_t, mask_id_t, valid_t,
+                k_max=self.k_max, point_chunk=cfg.point_chunk,
+                mask_visible_threshold=cfg.mask_visible_threshold,
+                contained_threshold=cfg.contained_threshold,
+                undersegment_filter_threshold=cfg.undersegment_filter_threshold,
+                big_mask_point_count=cfg.big_mask_point_count,
                 count_dtype=cfg.count_dtype)
-            assignment, node_visible = result.assignment, result.node_visible
+            act_k = valid_t & ~stats.undersegment
 
-        # fold the chunk's claims into the point -> rep plane
-        slot_of = np.full((self.f_chunk_pad, self.k_max + 2), -1, dtype=np.int32)
-        valid_rows = table_k.valid[:num_k]
-        slot_of[table_k.frame[:num_k][valid_rows], table_k.mask_id[:num_k][valid_rows]] = (
-            offset + np.nonzero(valid_rows)[0])
-        rep_plane, rep_votes, partial_t = _rep_plane_update(
-            self.rep_plane, self.rep_votes, assoc.first_id, assoc.last_id,
-            torch.from_numpy(slot_of).to(dev), assignment,
-            chunk_frames=self.chunk_frames,
-            min_points=max(cfg.dbscan_split_min_points, 1))
-        # the per-chunk accumulator digest, pulled with the partial count
-        chunk_vec_dev = sentinel.digest_stream(assignment, active, rep_plane)
-        partial = int(partial_t)
-        chunk_vec = sentinel.vector_host(chunk_vec_dev)
-        # fault seam: silent corruption of the pulled chunk digest, seen
-        # only as drift, never as a retryable error
-        if faults.take_corruption("chunk", self.seq_name):
-            chunk_vec = chunk_vec.copy()
-            chunk_vec[0] ^= 0x1
+            visible, contained, active, n_tot = _stream_merge(
+                self.visible, self.contained, self.active, self.n_tot, self.assignment,
+                self.rep_plane, assoc.mask_of_point, stats.visible, stats.contained, act_k,
+                stats.n_tot, frame_t, mask_id_t, offset, ci * self.f_chunk_pad,
+                k_max=self.k_max, point_chunk=cfg.point_chunk,
+                mask_visible_threshold=cfg.mask_visible_threshold,
+                contained_threshold=cfg.contained_threshold,
+                big_mask_point_count=cfg.big_mask_point_count,
+                count_dtype=cfg.count_dtype)
 
-        # ---- transaction point: every program ran; bind ----
-        with self._bind_lock:
-            stale = epoch != self._epoch
-            if not stale:
-                self._bind_state(visible, contained, active, n_tot, assignment, node_visible,
-                                 rep_plane, rep_votes, table_k, offset, num_k, chunk_tensors,
-                                 real_frames, partial)
-        if stale:
-            raise StaleChunkAttempt(self.seq_name, ci)
-        if self.single:
-            self._single_assoc = assoc
-            self._single_points = np.asarray(padded.scene_points)
-            self._single_frame_ids = list(padded.frame_ids)
-            self._single_table = table_k
+            assignment, node_visible = self.assignment, self.node_visible
+            if (ci + 1) % max(cfg.stream_recluster_every, 1) == 0 or ci + 1 == self.n_chunks:
+                result = _stream_recluster(
+                    visible, contained, active, self.assignment,
+                    max_len=cfg.max_cluster_iterations,
+                    view_consensus_threshold=cfg.view_consensus_threshold,
+                    count_dtype=cfg.count_dtype)
+                assignment, node_visible = result.assignment, result.node_visible
+                obs.count("stream.reclusters")
+
+            # fold the chunk's claims into the point -> rep plane
+            slot_of = np.full((self.f_chunk_pad, self.k_max + 2), -1, dtype=np.int32)
+            valid_rows = table_k.valid[:num_k]
+            slot_of[table_k.frame[:num_k][valid_rows], table_k.mask_id[:num_k][valid_rows]] = (
+                offset + np.nonzero(valid_rows)[0])
+            rep_plane, rep_votes, partial_t = _rep_plane_update(
+                self.rep_plane, self.rep_votes, assoc.first_id, assoc.last_id,
+                torch.from_numpy(slot_of).to(dev), assignment,
+                chunk_frames=self.chunk_frames,
+                min_points=max(cfg.dbscan_split_min_points, 1))
+            # the per-chunk accumulator digest, pulled with the partial count
+            chunk_vec_dev = sentinel.digest_stream(assignment, active, rep_plane)
+            partial = int(partial_t)
+            chunk_vec = sentinel.vector_host(chunk_vec_dev)
+            obs.count("stream.host_sync")
+            # fault seam: silent corruption of the pulled chunk digest, seen
+            # only as drift, never as a retryable error
+            if faults.take_corruption("chunk", self.seq_name):
+                chunk_vec = chunk_vec.copy()
+                chunk_vec[0] ^= 0x1
+
+            # ---- transaction point: every program ran; bind ----
+            with self._bind_lock:
+                stale = epoch != self._epoch
+                if not stale:
+                    self._bind_state(visible, contained, active, n_tot, assignment, node_visible,
+                                     rep_plane, rep_votes, table_k, offset, num_k, chunk_tensors,
+                                     real_frames, partial)
+            if stale:
+                obs.count("stream.stale_binds_dropped")
+                raise StaleChunkAttempt(self.seq_name, ci)
+            if self.single:
+                self._single_assoc = assoc
+                self._single_points = np.asarray(padded.scene_points)
+                self._single_frame_ids = list(padded.frame_ids)
+                self._single_table = table_k
+            state_bytes = sum(t.numel() * t.element_size() for t in (
+                self.visible, self.contained, self.active, self.n_tot, self.assignment,
+                self.node_visible, self.rep_plane, self.rep_votes))
+            obs.gauge_max("stream.state_bytes", float(state_bytes))
+            obs.gauge("stream.partial_instances", float(partial))
+            obs.count("stream.chunks")
+            obs.count("stream.frames", real_frames)
+            sp.set(partial_instances=partial, masks=self.masks_used)
         seconds = time.perf_counter() - t0
         self.timings["stream.chunks"] = self.timings.get("stream.chunks", 0.0) + seconds
         return {"chunk": ci, "frames": real_frames,
@@ -599,6 +625,7 @@ class StreamAccumulator:
         rep_h = self.rep_plane.cpu().numpy()[:self.n_real]
         assign_h = self.assignment.cpu().numpy()
         active_h = self.active.cpu().numpy()
+        obs.count("stream.host_sync")
         member_count = np.bincount(assign_h[active_h], minlength=self.m_pad) \
             if active_h.any() else np.zeros(self.m_pad, np.int64)
         reps = np.unique(rep_h[rep_h > 0]) - 1
@@ -663,17 +690,18 @@ class StreamAccumulator:
             return run_scene_host(handoff, self.cfg, export=export,
                                   object_dict_dir=object_dict_dir,
                                   prediction_root=prediction_root)
-        t0 = time.perf_counter()
-        objects = self._objects_from_rep_plane()
-        assignment = self.assignment.cpu().numpy()
-        if export:
-            if self.seq_name is None or object_dict_dir is None:
-                raise ValueError("export=True requires seq_name and object_dict_dir")
-            faults.inject("export", self.seq_name)
-            export_artifacts(objects, self.seq_name, self.cfg.config_name, object_dict_dir,
-                             prediction_root=prediction_root,
-                             top_k_repre=self.cfg.num_representative_masks)
-        self.timings["stream.finalize"] = time.perf_counter() - t0
+        with obs.span("stream.finalize", scene=self.seq_name):
+            t0 = time.perf_counter()
+            objects = self._objects_from_rep_plane()
+            assignment = self.assignment.cpu().numpy()
+            if export:
+                if self.seq_name is None or object_dict_dir is None:
+                    raise ValueError("export=True requires seq_name and object_dict_dir")
+                faults.inject("export", self.seq_name)
+                export_artifacts(objects, self.seq_name, self.cfg.config_name, object_dict_dir,
+                                 prediction_root=prediction_root,
+                                 top_k_repre=self.cfg.num_representative_masks)
+            self.timings["stream.finalize"] = time.perf_counter() - t0
         digest = sentinel.artifact_only_digest(
             objects, bucket=sentinel.bucket_label(self.k_max, self.f_chunk_pad, self.n_pad),
             count_dtype=self.cfg.count_dtype)
@@ -716,6 +744,7 @@ class StreamAccumulator:
             scene_points=self.scene_points,
         )
         os.replace(tmp, path)
+        obs.count("stream.state_saves")
 
     def load_state(self, path: str) -> bool:
         """Resume from a journaled accumulator; False = not resumable
@@ -759,6 +788,7 @@ class StreamAccumulator:
             log.exception("stream %s: unreadable state journal %s (restarting the stream)",
                           self.seq_name, path)
             return False
+        obs.count("stream.state_resumes")
         log.info("stream %s: resumed at chunk %d/%d from %s", self.seq_name,
                  self.chunks_done, self.n_chunks, path)
         return True
@@ -801,39 +831,42 @@ def stream_scene(tensors: SceneTensors, cfg: PipelineConfig, *,
                                 base_s=cfg.retry_backoff_s,
                                 cap_s=max(cfg.retry_backoff_s * 8.0, 0.0))
     t0 = time.perf_counter()
-    for ci in range(acc.chunks_done, acc.n_chunks):
-        chunk = slice_scene_frames(tensors, ci * acc.chunk_frames,
-                                   min((ci + 1) * acc.chunk_frames, tensors.num_frames))
-        attempt = 0
-        while True:
-            try:
-                digest = faults.call_with_deadline(
-                    lambda chunk=chunk: acc.push_chunk(chunk),
-                    cfg.watchdog_device_s, seam="device", scene=seq_name)
-                break
-            except Exception as e:  # noqa: BLE001 — the chunk retry loop
-                if (faults.classify_error(e) == "terminal"
-                        or attempt >= cfg.stream_chunk_retries
-                        or faults.stop_requested()):
-                    raise
-                attempt += 1
-                delay = policy.backoff(attempt)
-                log.warning("stream %s: chunk %d failed (%s); retry %d/%d in %.2fs",
-                            seq_name, ci, e, attempt, cfg.stream_chunk_retries, delay)
-                if delay > 0:
-                    time.sleep(delay)
-        log.info("stream %s: chunk %d/%d, %d frames, %d partial instance(s)", seq_name,
-                 digest["chunk"] + 1, acc.n_chunks, digest["frames_done"],
-                 digest["partial_instances"])
-        # the journal cadence (cfg.stream_journal_every, 0 = never); the last
-        # chunk never journals: finalize follows and removes the file
-        if state_path and cfg.stream_journal_every > 0 \
-                and (ci + 1) % cfg.stream_journal_every == 0 and ci + 1 < acc.n_chunks:
-            acc.save_state(state_path)
-    result = faults.call_with_deadline(
-        lambda: acc.finalize(export=export, object_dict_dir=object_dict_dir,
-                             prediction_root=prediction_root),
-        cfg.watchdog_host_s, seam="host", scene=seq_name)
+    with obs.span("stream.scene", scene=seq_name, chunks=acc.n_chunks,
+                  chunk_frames=acc.chunk_frames):
+        for ci in range(acc.chunks_done, acc.n_chunks):
+            chunk = slice_scene_frames(tensors, ci * acc.chunk_frames,
+                                       min((ci + 1) * acc.chunk_frames, tensors.num_frames))
+            attempt = 0
+            while True:
+                try:
+                    digest = faults.call_with_deadline(
+                        lambda chunk=chunk: acc.push_chunk(chunk),
+                        cfg.watchdog_device_s, seam="device", scene=seq_name)
+                    break
+                except Exception as e:  # noqa: BLE001 — the chunk retry loop
+                    if (faults.classify_error(e) == "terminal"
+                            or attempt >= cfg.stream_chunk_retries
+                            or faults.stop_requested()):
+                        raise
+                    attempt += 1
+                    delay = policy.backoff(attempt)
+                    obs.count("stream.chunk_retries")
+                    log.warning("stream %s: chunk %d failed (%s); retry %d/%d in %.2fs",
+                                seq_name, ci, e, attempt, cfg.stream_chunk_retries, delay)
+                    if delay > 0:
+                        time.sleep(delay)
+            log.info("stream %s: chunk %d/%d, %d frames, %d partial instance(s)", seq_name,
+                     digest["chunk"] + 1, acc.n_chunks, digest["frames_done"],
+                     digest["partial_instances"])
+            # the journal cadence (cfg.stream_journal_every, 0 = never); the last
+            # chunk never journals: finalize follows and removes the file
+            if state_path and cfg.stream_journal_every > 0 \
+                    and (ci + 1) % cfg.stream_journal_every == 0 and ci + 1 < acc.n_chunks:
+                acc.save_state(state_path)
+        result = faults.call_with_deadline(
+            lambda: acc.finalize(export=export, object_dict_dir=object_dict_dir,
+                                 prediction_root=prediction_root),
+            cfg.watchdog_host_s, seam="host", scene=seq_name)
     if state_path and os.path.exists(state_path):
         # a finished scene's journal must not resume into a double count
         os.remove(state_path)

@@ -17,13 +17,17 @@ device — instrumented code has zero extra syncs and no event I/O, so
 honest-shape bench numbers are unaffected. ``configure(path)`` arms the
 real tracer: spans fence at their boundaries, every span/metrics flush
 appends one schema-versioned JSON line to ``path``, and live device
-memory is sampled at span ends. The files are the JAX package's format:
-its ``python -m maskclustering_tpu.obs.report events.jsonl`` renders them
-(the port's own report CLI is ROADMAP A9b).
+memory is sampled at span ends. The files are the JAX package's format,
+and each package's report renders the other's. Render/diff captured files
+with::
+
+    python -m maskclustering_tpu_torch.obs.report events.jsonl [--diff other.jsonl]
 
 Modules: tracer (spans + fencing), metrics (registry), events (JSONL
 sink/reader), flight (the always-on black box), telemetry (serving
-windows), slo (objectives over them), digest (scene digests).
+windows), slo (objectives over them), digest (scene digests), canary (the
+sentinel over them), ledger (perf trajectory), report, trace and top
+(CLIs).
 """
 
 from __future__ import annotations
@@ -40,7 +44,8 @@ from maskclustering_tpu_torch.obs.tracer import NULL_TRACER, NullTracer, Span, T
 
 __all__ = [
     "configure", "disable", "enabled", "events_path",
-    "emit_event", "get_tracer", "span", "record_span", "traced", "flush_metrics",
+    "emit_event", "get_tracer", "scene_tracer", "span", "record_span", "traced",
+    "flush_metrics",
     "count", "count_transfer", "gauge", "gauge_max", "observe", "registry",
     "sample_hbm", "read_events", "EventSink", "Tracer", "NullTracer",
     "Span", "NULL_TRACER", "SCHEMA_VERSION", "ReadStats",
@@ -51,6 +56,10 @@ XPROF_ITEM = "ROADMAP A10"
 
 _active = NULL_TRACER
 _sink: Optional[EventSink] = None
+# timing-only fallback: run_scene's per-stage timings dict must exist with
+# or without obs, so scene_tracer() never returns the null tracer — but
+# this one never fences, emits, or samples (sink=None disables all three)
+_TIMING_TRACER = Tracer(sink=None)
 
 
 def configure(path: str, *, fence: bool = True, annotations: bool = False,
@@ -173,3 +182,10 @@ def traced(name: str, **attrs):
 
 def flush_metrics() -> None:
     _active.flush_metrics()
+
+
+def scene_tracer() -> Tracer:
+    """The tracer ``run_scene`` times its stages with: the armed tracer
+    when obs is on, else a shared timing-only tracer (no fence, no events)
+    so ``SceneResult.timings`` exists either way."""
+    return _active if isinstance(_active, Tracer) else _TIMING_TRACER

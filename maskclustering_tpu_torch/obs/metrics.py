@@ -38,6 +38,9 @@ from typing import Dict, List, Optional
 
 import torch
 
+# the one quantile rule every surface shares lives in the report module
+from maskclustering_tpu_torch.obs.report import percentile  # noqa: F401
+
 _HIST_CAP = 4096  # per-histogram value cap before stride decimation
 
 
@@ -192,17 +195,6 @@ def count_transfer(direction: str, nbytes: int, stage: str) -> None:
     """
     _REGISTRY.count(f"{direction}.bytes.{stage}", float(nbytes))
     _REGISTRY.count(f"{direction}.bytes", float(nbytes))
-
-
-def percentile(sorted_vals: List[float], q: float) -> float:
-    """Nearest-rank percentile over an ascending list: the one quantile
-    rule of ``maskclustering_tpu/obs/report.py:216`` that every surface
-    shares (histogram summaries, the serve worker's latency digest, the
-    telemetry windows), kept here until the port has ``obs/report.py``."""
-    if not sorted_vals:
-        return 0.0
-    idx = min(int(q / 100.0 * len(sorted_vals)), len(sorted_vals) - 1)
-    return sorted_vals[idx]
 
 
 _DEVICE: Optional[torch.device] = None

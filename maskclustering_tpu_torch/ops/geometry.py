@@ -17,16 +17,77 @@ element-wise kernels do.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
 
 def fma(a: torch.Tensor, b, c: torch.Tensor) -> torch.Tensor:
-    """``a * b + c`` rounded once (``torch.addcmul`` is a true FMA on the
-    CPU and on CUDA)."""
+    """``a * b + c`` for float32 tensors, rounded once.
+
+    ``torch.addcmul`` is a true FMA on CUDA and on the CPU under the AVX512
+    and AVX2 dispatch levels, but not under the ``default`` one, whose
+    kernels round the product first. So on the CPU the first call checks
+    ``addcmul`` once on triples where the two differ, and a host where it
+    is no FMA takes :func:`_fma_exact`. Either way the bits are the host's
+    no longer (see also :func:`sqrt_f32`)."""
     if not isinstance(b, torch.Tensor):
         b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
+    if a.device.type == "cpu" and not _cpu_addcmul_is_fma():
+        return _fma_exact(a, b, c)
     return torch.addcmul(c, a, b)
+
+
+def _fma_exact(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 ``a * b + c`` from float64 operations.
+
+    The float64 product of two float32 values is exact. Their sum with
+    ``c`` is rounded to odd (a two-sum recovers the rounding error, and a
+    sum whose error is not zero moves to the odd neighbour on its side),
+    and rounding that to float32 is the correctly rounded result, because
+    53 >= 24 + 2.
+    """
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bv = s - p
+    err = (p - (s - bv)) + (cd - bv)
+    even = (s.view(torch.int64) & 1) == 0
+    to_odd = torch.isfinite(err) & (err != 0) & even
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where(to_odd, torch.nextafter(s, toward), s).float()
+
+
+@functools.cache
+def _cpu_addcmul_is_fma() -> bool:
+    """Whether this process's CPU ``addcmul`` rounds once (checked once).
+
+    (1 + 2^-23)(1 - 2^-23) - 1 is -2^-46 fused, but 0 when the product is
+    rounded first; the odd lengths reach the vector kernels' scalar tails.
+    """
+    eps = float(np.float32(2.0 ** -23))
+    for n in (1, 7, 16, 67):
+        a = torch.full((n,), 1 + eps, dtype=torch.float32)
+        b = torch.full((n,), 1 - eps, dtype=torch.float32)
+        got = torch.addcmul(torch.full((n,), -1.0), a, b)
+        if not bool((got == -eps * eps).all()):
+            return False
+    return True
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root, on every host.
+
+    Some torch CPU builds compute float32 ``torch.sqrt`` through a vector
+    approximation that is not correctly rounded (one ulp off on about a
+    fifth of the values), while XLA:CPU's is IEEE. The float64 root of a
+    float32 value, rounded to float32, is the float32 root exactly
+    (53 >= 2 * 24 + 2), so this takes that route on the CPU and on CUDA
+    alike, and both devices give the same bits.
+    """
+    return torch.sqrt(x.double()).float()
 
 
 def _coef(mat: torch.Tensor, i: int, j: int, nd: int) -> torch.Tensor:

@@ -135,7 +135,7 @@ class RunReport:
     # AP summaries of the evaluation steps ({"eval_ca": avgs, "eval": ...};
     # None where a step found no predictions)
     evaluation: Dict[str, Optional[Dict]] = dataclasses.field(default_factory=dict)
-    # the JAX report's obs digest: None until ROADMAP A9b
+    # the obs digest (obs/report.RunData.summary) of an obs-armed run
     obs: Optional[Dict] = None
     # the cluster step's fault digest: scene_retries, device_stalls,
     # journal_skips, degradations{rung: 1}, final_rung, interrupted
@@ -918,6 +918,9 @@ def run_pipeline(
     resume: bool = True,
     mask_command: Optional[str] = None,
     report_path: Optional[str] = None,
+    obs_events: Optional[str] = None,
+    ledger_path: Optional[str] = None,
+    ledger: bool = True,
     journal_path: Optional[str] = None,
     journal: bool = True,
     prediction_root: Optional[str] = None,
@@ -935,8 +938,37 @@ def run_pipeline(
     raises after ``cluster`` and ``eval_ca``, as in the JAX driver. A failed
     scene or step is recorded in the report, not raised. ``prediction_root``
     defaults to ``<data_root>/prediction``.
+
+    ``obs_events`` arms obs for the run (spans fence, events land in that
+    file, started afresh) and embeds its digest as ``report.obs``. With a
+    ``report_path`` and ``ledger``, one row goes to the perf ledger at
+    ``ledger_path`` (default ``obs.ledger.default_ledger_path()``, never
+    the JAX package's ``PERF_LEDGER.jsonl``); a ledger failure never
+    fails the run.
     """
     check_steps(steps, encoder_spec)
+    kw = dict(steps=steps, workers=workers, resume=resume, mask_command=mask_command,
+              report_path=report_path, obs_events=obs_events, ledger_path=ledger_path,
+              ledger=ledger, journal_path=journal_path, journal=journal,
+              prediction_root=prediction_root, encoder_spec=encoder_spec, device=device,
+              mesh_devices=mesh_devices)
+    if not obs_events:
+        return _run_pipeline_body(cfg, seq_names, **kw)
+    # truncate: this call owns the path (typically derived from --report);
+    # appending to an earlier run's capture would pool stale spans
+    obs.configure(obs_events, truncate=True,
+                  meta={"tool": "run", "config": cfg.config_name})
+    try:
+        return _run_pipeline_body(cfg, seq_names, **kw)
+    finally:
+        # this call armed obs; it disarms it on every path
+        obs.disable()
+
+
+def _run_pipeline_body(cfg: PipelineConfig, seq_names: Sequence[str], *, steps, workers,
+                       resume, mask_command, report_path, obs_events, ledger_path, ledger,
+                       journal_path, journal, prediction_root, encoder_spec, device,
+                       mesh_devices) -> RunReport:
     device = resolve_device(device)
     if cfg.debug:
         log.setLevel(logging.DEBUG)
@@ -1010,8 +1042,39 @@ def run_pipeline(
     if "eval" in steps:
         evaluate("eval", False)
 
+    if obs_events and obs.enabled():
+        obs.flush_metrics()
+        try:
+            from maskclustering_tpu_torch.obs.report import RunData
+
+            report.obs = RunData(obs_events).summary()
+        except Exception:  # noqa: BLE001 — a digest failure must not fail the run
+            log.exception("obs digest failed for %s", obs_events)
+            report.obs = {"events": obs_events}
     if report_path:
         report.save(report_path)
+    if ledger and report_path and report.scenes:
+        # one trajectory row per reported run: `obs.report --history`
+        # renders it, `--regress` gates it
+        try:
+            from maskclustering_tpu_torch.obs import ledger as led
+
+            led.append_row(
+                ledger_path or led.default_ledger_path(),
+                led.run_row({"config_name": report.config_name,
+                             "scenes": [dataclasses.asdict(s) for s in report.scenes],
+                             "obs": report.obs,
+                             "faults": report.faults},
+                            # knob attribution, the JAX row's keys: --regress
+                            # names a flip instead of blaming code
+                            count_dtype=cfg.count_dtype,
+                            plane_dtype="int16",
+                            point_shards=int(cfg.point_shards),
+                            streaming_chunk=int(cfg.streaming_chunk),
+                            postprocess_path=("device" if cfg.device_postprocess
+                                              else "host")))
+        except Exception:  # noqa: BLE001 — the ledger must never fail the run
+            log.exception("perf ledger append failed")
     return report
 
 
@@ -1058,6 +1121,17 @@ def main(argv=None) -> int:
                         help="feature encoder spec: hash[:dim] or hf:<local checkpoint dir> "
                              "(CLIP, on --device)")
     parser.add_argument("--report", default=None, help="run report JSON path")
+    parser.add_argument("--obs_events", default=None,
+                        help="obs span/metrics JSONL path (default: derived from "
+                             "--report; render with python -m "
+                             "maskclustering_tpu_torch.obs.report)")
+    parser.add_argument("--no-obs", action="store_true",
+                        help="disable obs capture even when --report is set")
+    parser.add_argument("--ledger", default=None,
+                        help="perf ledger JSONL the run digest appends to (default: "
+                             "PERF_LEDGER_TORCH.jsonl / $MCT_PERF_LEDGER)")
+    parser.add_argument("--no-ledger", action="store_true",
+                        help="do not append this run to the perf ledger")
     parser.add_argument("--journal", default=None,
                         help="crash-safe scene journal JSONL (default: "
                              "run_journal.jsonl next to --report)")
@@ -1103,9 +1177,19 @@ def main(argv=None) -> int:
     seq_names = get_seq_name_list(cfg.dataset, args.splits_dir, args.seq_name_list)
     log.info("there are %d scenes", len(seq_names))
 
+    obs_events = args.obs_events
+    if obs_events is None and args.report:
+        # a reported run captures events by default: the report JSON then
+        # carries the digest and the path to the full span stream
+        obs_events = os.path.splitext(args.report)[0] + "_events.jsonl"
+    if args.no_obs:
+        obs_events = None
+
     t0 = time.time()
     report = run_pipeline(cfg, seq_names, steps=tuple(s for s in args.steps.split(",") if s),
                           workers=args.workers, resume=not args.no_resume, report_path=args.report,
+                          obs_events=obs_events, ledger_path=args.ledger,
+                          ledger=not args.no_ledger,
                           journal_path=args.journal, journal=not args.no_journal,
                           encoder_spec=args.encoder, device=args.device)
     total = time.time() - t0

@@ -8,8 +8,7 @@ stdout at shutdown (``daemon.stats()``); everything else goes to stderr
 via logging. Flags whose subsystem is not ported raise
 ``NotImplementedError`` naming its item: ``--isolate-worker`` and
 ``--workers``/``--carve``/``--tenants`` beyond one worker (ROADMAP A9c),
-``--canary-*`` (A9b), ``--retrace-sanitizer``, ``--no-freeze`` and
-``--aot-cache`` (A10).
+``--retrace-sanitizer``, ``--no-freeze`` and ``--aot-cache`` (A10).
 """
 
 from __future__ import annotations
@@ -30,7 +29,7 @@ XLA_TOOLING_ITEM = "ROADMAP A10"
 
 def _refuse_unported(args) -> None:
     """Raise for a flag whose subsystem the port does not have yet."""
-    from maskclustering_tpu_torch.serve.daemon import CANARY_ITEM, ISOLATION_ITEM
+    from maskclustering_tpu_torch.serve.daemon import ISOLATION_ITEM
 
     if args.isolate_worker:
         raise NotImplementedError(
@@ -41,10 +40,6 @@ def _refuse_unported(args) -> None:
         if value is not None and not (flag == "--workers" and int(value) <= 1):
             raise NotImplementedError(
                 f"{flag} (the multi-worker pool) is not ported yet ({ISOLATION_ITEM})")
-    if args.canary_interval > 0 or args.canary_goldens is not None:
-        raise NotImplementedError(
-            f"--canary-interval/--canary-goldens (the canary sentinel) are not "
-            f"ported yet ({CANARY_ITEM})")
     if args.retrace_sanitizer:
         raise NotImplementedError(
             f"--retrace-sanitizer (XLA's compile-event sanitizer) has no torch "
@@ -157,10 +152,14 @@ def main(argv=None) -> int:
                              "answer (obs/slo.py; default: the canned "
                              "serve-default spec)")
     parser.add_argument("--canary-interval", type=float, default=0.0,
-                        help="the canary sentinel's period (not ported: ROADMAP A9b; "
-                             "0 = off)")
+                        help="arm the mct-sentinel canary scheduler: every "
+                             "N seconds an idle daemon replays its warm "
+                             "scenes and byte-compares the invariant "
+                             "digests against canary_goldens.json "
+                             "(obs/canary.py; 0 = off)")
     parser.add_argument("--canary-goldens", default=None,
-                        help="the canary sentinel's goldens (not ported: ROADMAP A9b)")
+                        help="committed goldens path for --canary-interval "
+                             "(default: canary_goldens.json)")
     parser.add_argument("--telemetry-window", type=float, default=5.0,
                         help="telemetry aggregation window seconds "
                              "(obs/telemetry.py ring; the status op's "
@@ -276,6 +275,8 @@ def main(argv=None) -> int:
         telemetry_window_s=args.telemetry_window,
         slo_spec=args.slo_spec,
         flight_dir=args.flight_dir,
+        canary_interval_s=args.canary_interval,
+        canary_goldens=args.canary_goldens,
         device=device,
     )
     daemon.start()

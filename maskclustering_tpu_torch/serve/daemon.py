@@ -33,10 +33,13 @@ The daemon deliberately reuses the one-shot stack end to end — the same
 executors, the same artifact exports — so a served scene's npz is
 byte-identical to ``run.py``'s.
 
-Not ported yet, each raising ``NotImplementedError`` that names its item:
-the crash-contained topology (``isolate_worker=True``, ``serve_workers >
-1``: ROADMAP A9c) and the canary sentinel (``canary_interval_s > 0``:
-ROADMAP A9b). The JAX daemon's XLA tooling — the persistent compilation
+``canary_interval_s > 0`` arms the canary sentinel (obs/canary.py): every
+interval, at an idle queue, the worker replays its warm-up scenes and the
+digests are held against the committed goldens.
+
+Not ported yet, raising ``NotImplementedError`` that names its item: the
+crash-contained topology (``isolate_worker=True``, ``serve_workers > 1``:
+ROADMAP A9c). The JAX daemon's XLA tooling — the persistent compilation
 cache, the AOT warm start and the retrace sanitizer's freeze (ROADMAP
 A10) — has no step here: ``stats()["retrace"]`` is ``{}``, as in JAX with
 the sanitizer off.
@@ -66,9 +69,8 @@ from maskclustering_tpu_torch.utils import faults
 log = logging.getLogger("maskclustering_tpu_torch")
 
 DEFAULT_CAPACITY = 8
-# the items the daemon's unported options wait for
+# the item the daemon's unported options wait for
 ISOLATION_ITEM = "ROADMAP A9c"
-CANARY_ITEM = "ROADMAP A9b"
 
 
 def _make_sender(conn: socket.socket):
@@ -163,10 +165,6 @@ class ServeDaemon:
                 f"serve_workers={pool_size}) is not ported yet ({ISOLATION_ITEM}: "
                 f"the supervised subprocess worker and the worker pool); the "
                 f"port serves with one in-thread worker")
-        if float(canary_interval_s) > 0:
-            raise NotImplementedError(
-                f"the canary sentinel (canary_interval_s={canary_interval_s:g}) is "
-                f"not ported yet ({CANARY_ITEM})")
         self.cfg = cfg
         self.socket_path = socket_path
         self.host = host
@@ -227,9 +225,10 @@ class ServeDaemon:
         # the SLO plane (obs/slo.py): a bad spec must fail daemon startup
         # loudly, not surface as a broken `status` answer hours later
         self.slo_spec = _slo.load_spec(slo_spec)
-        # the correctness plane (the canary sentinel) is not ported: the
-        # status op's sentinel detail answers {"armed": false}, as a JAX
-        # daemon without a sentinel does
+        # the correctness plane (obs/canary.py): goldens load at start()
+        # so a warm worker exists before the first probe
+        self.canary_interval_s = float(canary_interval_s)
+        self.canary_goldens = canary_goldens
         self.sentinel = None
         if flight_dir:
             # arm this process AND (via env) any worker subprocess it
@@ -269,6 +268,7 @@ class ServeDaemon:
         self.aggregator.rebase()
         telemetry.install(self.aggregator)
         self._ticker.start()
+        self._start_sentinel()
         self._acceptor = threading.Thread(
             target=self._accept_loop, daemon=True, name="serve-acceptor")
         self._acceptor.start()
@@ -294,6 +294,36 @@ class ServeDaemon:
             self._listener.bind((self.host, self.port))
         self._listener.listen(16)
         self._listener.settimeout(0.25)  # the acceptor's stop-poll cadence
+
+    def _start_sentinel(self) -> None:
+        """Arm the canary sentinel (correctness plane) when requested.
+
+        Missing/stale goldens disable the sentinel with a loud warning
+        rather than failing startup: a daemon that serves real traffic
+        but cannot self-verify beats no daemon, and the drill/CI gate is
+        where an unverifiable daemon must fail.
+        """
+        if self.canary_interval_s <= 0:
+            return
+        from maskclustering_tpu_torch.obs import canary as _canary
+
+        path = self.canary_goldens or _canary.DEFAULT_GOLDENS_PATH
+        goldens = _canary.load_goldens(path)
+        if goldens is None:
+            log.warning("mct-serve: canary sentinel requested but no usable "
+                        "goldens at %s — sentinel disabled; the JAX package's "
+                        "scripts/load_gen.py --write-goldens regenerates them", path)
+            return
+        self.sentinel = _canary.CanarySentinel(
+            run_round=self.worker.run_canary,
+            goldens=goldens, interval_s=self.canary_interval_s,
+            # idle = nothing queued; the worker may still be mid-request,
+            # which run_canary's handshake waits out at the next idle poll
+            is_idle=lambda: self.queue.depth() == 0)
+        self.sentinel.start()
+        log.info("mct-serve: canary sentinel armed (%d golden coordinate(s),"
+                 " every %.1fs)", len(goldens.get("goldens") or {}),
+                 self.canary_interval_s)
 
     def _prewarm(self) -> None:
         """Pay the serving vocabulary's cold dispatches before the first
@@ -372,6 +402,8 @@ class ServeDaemon:
         self._stop.set()
         log.info("mct-serve: draining (in-flight request finishes, queued "
                  "requests get typed rejects)")
+        if self.sentinel is not None:
+            self.sentinel.stop()
         drained_clean = self.worker.stop(timeout_s=timeout_s)
         if not drained_clean:
             log.error("mct-serve: in-flight request outlived the %.0fs "
@@ -753,8 +785,11 @@ class ServeDaemon:
             "warm_buckets": [list(b) for b in w["warm_buckets"]],
             # the JAX daemon's retrace-sanitizer digest ({} with it off)
             "retrace": {},
-            # the canary sentinel's summary (None without one)
-            "canary": None,
+            # drift-plane summary for load_gen verdicts + serve ledger
+            # stamping (full matrix behind the "sentinel" status detail)
+            "canary": ({"rounds": self.sentinel.stats()["rounds"],
+                        "drift_total": self.sentinel.stats()["drift_total"]}
+                       if self.sentinel is not None else None),
             "draining": self._draining.is_set(),
             # the durability plane (serve/wal.py): WAL replay/dedupe and
             # retention evidence — the chaos drill's verdict reads these

@@ -31,7 +31,9 @@ driver's executors — with serving-specific wiring around it:
   reported on its result (``buckets_new`` — a warm daemon answers 0) and
   fed to the router's warmth set.
 
-The canary sentinel's probes (``run_canary``) wait for ROADMAP A9b.
+The canary sentinel's probes (``run_canary``) replay the warm-up scenes on
+this thread, at an idle queue poll, and never enter the queue, the latency
+window or the request counters.
 
 Synthetic requests materialize on disk (ScanNet layout under the
 daemon's data root) on first use and are ordinary disk scenes from then
@@ -47,7 +49,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional
+from typing import Deque, Dict, List, Optional, Tuple
 
 import torch
 
@@ -163,6 +165,14 @@ class ServeWorker:
         # the evicted client's next op reopens from chunk 0)
         self._streams: Dict[str, _StreamSession] = {}
         self.max_stream_sessions = 4
+        # mct-sentinel canary state: warm-up fitted tensors are retained
+        # so canary probes replay the warm scenes exactly (no host-side
+        # scene regeneration); the pending/done pair hands a round to the
+        # card-owning worker thread at an idle poll
+        self._warm_cache: List[Tuple[str, object]] = []
+        self._canary_pending = threading.Event()
+        self._canary_done = threading.Event()
+        self._canary_probes: Optional[List[Dict]] = None
         # continuous scene batching (cfg.serve_batch_max > 1): the fused
         # dispatch mesh (lazy — single-chip daemons build a (1, 1) mesh)
         # and the occupancy histogram {batch width -> dispatches}, both
@@ -224,6 +234,20 @@ class ServeWorker:
                 head = self.queue.next(timeout_s=self.poll_s)
                 batch = None if head is None else [head]
             if batch is None:
+                if self._canary_pending.is_set():
+                    # idle poll: run the requested canary round HERE, on
+                    # the card-owning thread — canaries never race a
+                    # request for the card
+                    self._canary_pending.clear()
+                    self._idle.clear()
+                    try:
+                        self._canary_probes = self._canary_round()
+                    except Exception:  # noqa: BLE001 — a canary must not kill serving
+                        log.exception("serve: canary round failed")
+                        self._canary_probes = None
+                    finally:
+                        self._idle.set()
+                        self._canary_done.set()
                 continue
             if self._stop.is_set():
                 # stop landed while we were blocked in the pop: these
@@ -864,6 +888,10 @@ class ServeWorker:
         # the packing scheduler's pad-lane source: partial batches pad to
         # full width with THIS bucket's warm synthetic tensors
         self.router.remember_pad_tensors(bucket, tensors)
+        # sentinel: retain the fitted tensors — canary probes replay them
+        # byte-for-byte (never regenerating scenes host-side)
+        if all(n != name for n, _ in self._warm_cache):
+            self._warm_cache.append((name, tensors))
         return True
 
     def warm_batch_executable(self, name: str, tensors) -> bool:
@@ -896,17 +924,58 @@ class ServeWorker:
         obs.count("serve.warmup_batches")
         return True
 
-    # -- canary probes -----------------------------------------------------
+    # -- mct-sentinel canary probes -----------------------------------------
 
-    def run_canary(self, timeout_s: float = 120.0):
-        """The canary sentinel's probe round: not ported yet."""
-        raise NotImplementedError(
-            "the canary sentinel (run_canary) is not ported yet (ROADMAP A9b)")
+    def run_canary(self, timeout_s: float = 120.0) -> Optional[List[Dict]]:
+        """Execute one canary round; returns per-scene probe digests.
+
+        On a running worker the round is handed to the card-owning thread
+        (it picks it up at an idle queue poll, so a canary never races a
+        request for the card); without a running thread (goldens
+        generation, tests) it executes inline. Returns None on timeout.
+
+        Canary traffic is fenced BY CONSTRUCTION: it never enters the
+        admission queue, the latency window, ``serve.requests_*`` counts,
+        tenant accounting or the request journal — it books only
+        ``canary.*`` counters and spans.
+        """
+        if self._thread is None or not self._thread.is_alive():
+            return self._canary_round()
+        self._canary_done.clear()
+        self._canary_probes = None
+        self._canary_pending.set()
+        if not self._canary_done.wait(timeout_s):
+            self._canary_pending.clear()
+            log.warning("serve: canary round timed out after %.1fs "
+                        "(worker busy)", timeout_s)
+            return None
+        return self._canary_probes
+
+    def _canary_round(self) -> List[Dict]:
+        from maskclustering_tpu_torch.models.pipeline import (run_scene_device,
+                                                              run_scene_host)
+        from maskclustering_tpu_torch.obs import digest as sentinel
+
+        probes: List[Dict] = []
+        for name, tensors in list(self._warm_cache):
+            t0 = time.monotonic()
+            with obs.span("serve.canary", scene=name):
+                handoff = run_scene_device(tensors, self.cfg, seq_name=name,
+                                           device=self.device)
+                result = run_scene_host(handoff, self.cfg, export=False)
+            obs.count("canary.probes")
+            probes.append({
+                "scene": name,
+                "coord": sentinel.digest_coord(result.digest),
+                "digest": result.digest,
+                "seconds": round(time.monotonic() - t0, 4),
+            })
+        return probes
 
     # -- introspection ------------------------------------------------------
 
     def latency_quantiles(self) -> Dict[str, Optional[float]]:
-        from maskclustering_tpu_torch.obs.metrics import percentile
+        from maskclustering_tpu_torch.obs.report import percentile
 
         vals = sorted(self._latencies)
         if not vals:

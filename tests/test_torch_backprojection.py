@@ -186,6 +186,97 @@ def test_estimate_spacing_rounds_as_jax_on_many_clouds(monkeypatch):
     assert any(t.view(np.uint32) != w.view(np.uint32) for t, w in zip(twice, want))
 
 
+def test_sqrt_f32_is_correctly_rounded():
+    """``sqrt_f32`` equals numpy's IEEE float32 root bit for bit: uniform
+    values over many binades, exact squares and their neighbours."""
+    rng = np.random.default_rng(3)
+    uni = rng.uniform(0, 4, 65536).astype(np.float32)
+    wide = np.exp2(rng.uniform(-60, 60, 65536)).astype(np.float32)
+    roots = rng.uniform(1e-3, 1e3, 8192).astype(np.float32)
+    sq = roots * roots
+    near = np.concatenate([np.nextafter(sq, np.float32(0)), sq,
+                           np.nextafter(sq, np.float32(np.inf))])
+    special = np.array([0.0, 1.0, np.inf, np.finfo(np.float32).tiny,
+                        np.finfo(np.float32).max], np.float32)
+    x = np.concatenate([uni, wide, near, special]).astype(np.float32)
+    got = geometry.sqrt_f32(torch.from_numpy(x)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), np.sqrt(x).view(np.uint32))
+
+
+def _round_f32(x):
+    """A rational rounded to the nearest float32, ties to even (exact)."""
+    from fractions import Fraction
+
+    f = np.float32(float(x))
+    best = None
+    for cand in (np.nextafter(f, np.float32(-np.inf)), f, np.nextafter(f, np.float32(np.inf))):
+        key = (abs(Fraction(float(cand)) - x), int(cand.view(np.uint32)) & 1)
+        if best is None or key < best[0]:
+            best = (key, cand)
+    return best[1]
+
+
+def test_fma_exact_route_is_a_true_fma(monkeypatch):
+    """The float64 route that ``fma`` takes where the CPU ``addcmul`` is no
+    FMA rounds once: bit-equal to the exact product-sum rounded to float32,
+    on random triples, near-cancellations and the check's own triple."""
+    from fractions import Fraction
+
+    rng = np.random.default_rng(4)
+    n = 65536
+    a = rng.uniform(-2, 2, n).astype(np.float32)
+    b = (rng.uniform(-2, 2, n) * np.exp2(rng.integers(-30, 30, n))).astype(np.float32)
+    c = rng.uniform(-2, 2, n).astype(np.float32)
+    c[: n // 4] = -(a[: n // 4].astype(np.float64) * b[: n // 4]).astype(np.float32)
+    eps = np.float32(2.0 ** -23)
+    a[0], b[0], c[0] = 1 + eps, 1 - eps, -1
+    ta, tb, tc = (torch.from_numpy(v) for v in (a, b, c))
+    got = geometry._fma_exact(ta, tb, tc).numpy()
+    idx = np.r_[0:2048, n // 4:n // 4 + 2048]
+    want = np.array([_round_f32(Fraction(float(a[i])) * Fraction(float(b[i]))
+                                + Fraction(float(c[i]))) for i in idx], np.float32)
+    np.testing.assert_array_equal(got[idx].view(np.uint32), want.view(np.uint32))
+    assert got[0] == -eps * eps
+    monkeypatch.setattr(geometry, "_cpu_addcmul_is_fma", lambda: False)
+    np.testing.assert_array_equal(geometry.fma(ta, tb, tc).numpy().view(np.uint32),
+                                  got.view(np.uint32))
+
+
+_SPACING_BITS = """
+import sys, numpy as np, torch
+sys.path.insert(0, {root!r})
+from maskclustering_tpu_torch.models import backprojection as bp
+rng = np.random.default_rng(11)
+out = []
+for _ in range(12):
+    c = (rng.uniform(-1, 1, (64, 3)) * rng.uniform(0.05, 2, 3)).astype(np.float32)
+    out.append(int(bp.estimate_spacing(torch.from_numpy(c)).numpy().view(np.uint32)))
+print(out)
+"""
+
+
+@pytest.mark.parametrize("capability", ["avx2", "default"])
+def test_estimate_spacing_same_under_every_cpu_dispatch(capability):
+    """The host's ATen dispatch level does not change ``estimate_spacing``'s
+    bits (the float32 root is the one operation that did)."""
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    code = _SPACING_BITS.format(root=root)
+
+    def run(env_extra):
+        env = dict(os.environ, OMP_NUM_THREADS="1", **env_extra)
+        env.pop("ATEN_CPU_CAPABILITY", None) if not env_extra else None
+        out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                             text=True, timeout=120, check=True)
+        return out.stdout.strip().splitlines()[-1]
+
+    assert run({"ATEN_CPU_CAPABILITY": capability}) == run({})
+
+
 def _frame_args(case, device="cpu"):
     t = [torch.from_numpy(np.asarray(case[k])).to(device)
          for k in ("points", "depth", "seg", "intrinsics", "cam_to_world")]

@@ -299,7 +299,8 @@ for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.fea
              "semantics.checkpoint", "semantics.tokenizer", "semantics.image_processor",
              "io.jpeg", "obs.digest", "models.streaming", "utils.faults", "parallel",
              "parallel.mesh", "parallel.sharded", "parallel.batch", "obs", "obs.events",
-             "obs.metrics", "obs.flight", "obs.tracer", "obs.telemetry", "obs.slo", "serve",
+             "obs.metrics", "obs.flight", "obs.tracer", "obs.telemetry", "obs.slo",
+             "obs.report", "obs.ledger", "obs.trace", "obs.top", "obs.canary", "serve",
              "serve.__main__", "serve.protocol", "serve.admission", "serve.router",
              "serve.wal", "serve.client", "serve.worker", "serve.daemon"):
     assert pkg.__name__ + "." + name in names, name

@@ -20,7 +20,8 @@ fields (``seconds`` / ``scene_seconds`` aside), digests included.
 Daemon tier (the port's daemon on a Unix socket, ``device="cpu"``): served
 digests equal the JAX worker's, ``queue_full``, ``draining`` and
 ``deadline`` rejects, the WAL replay and dedupe, the ``status`` op, the
-unported options' ``NotImplementedError`` and the CLI's digest line.
+unported options' ``NotImplementedError`` and the CLI's digest line. The
+canary sentinel's daemon tests are in ``tests/test_torch_canary.py``.
 """
 
 import dataclasses
@@ -524,8 +525,31 @@ def test_worker_batch_key_gates_equal(workers):
 
 
 def test_worker_canary_names_its_item(workers):
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        workers["port"].run_canary()
+    """The canary round is ported (ROADMAP A9b): a worker with no thread
+    runs it inline, and with no warm-up scene retained it probes nothing,
+    as the JAX worker does (``tests/test_torch_canary.py`` probes)."""
+    assert workers["port"].run_canary() == workers["jax"].run_canary() == []
+
+
+def test_worker_canary_round_equal(workers):
+    """A canary round over a retained warm-up scene gives the JAX worker's
+    probe (scene, coordinate, digest dict) and books no request."""
+    from maskclustering_tpu_torch.utils import synthetic as port_synthetic
+
+    pw, jw = workers["port"], workers["jax"]
+    spec = dict(SPEC_P, image_hw=tuple(SPEC_P["image_hw"]))
+    assert jw.warm_tensors("canary-p", to_scene_tensors(make_scene(**spec)))
+    assert pw.warm_tensors("canary-p", port_synthetic.to_scene_tensors(
+        port_synthetic.make_scene(**spec)))
+    before = pw.stats()["counts"]["requests"]
+    try:
+        rows = [[(p["scene"], p["coord"], p["digest"]) for p in w.run_canary()]
+                for w in (pw, jw)]
+    finally:
+        for w in (pw, jw):
+            w._warm_cache.clear()
+    assert rows[0] == rows[1] and len(rows[0]) == 1 and rows[0][0][2]["artifact"]
+    assert pw.stats()["counts"]["requests"] == before
 
 
 # ---------------------------------------------------------------------------
@@ -713,8 +737,9 @@ def test_daemon_unported_options_name_their_items(daemon):
         ServeDaemon(cfg, socket_path="/tmp/x.sock", isolate_worker=True, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
         ServeDaemon(cfg.replace(serve_workers=2), socket_path="/tmp/x.sock", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
-        ServeDaemon(cfg, socket_path="/tmp/x.sock", canary_interval_s=5.0, device="cpu")
+    # the canary sentinel is ported: the option arms it at start()
+    armed = ServeDaemon(cfg, socket_path="/tmp/x.sock", canary_interval_s=5.0, device="cpu")
+    assert armed.canary_interval_s == 5.0 and armed.sentinel is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeDaemon(cfg, socket_path="/tmp/x.sock")
@@ -722,7 +747,7 @@ def test_daemon_unported_options_name_their_items(daemon):
 
 @pytest.mark.parametrize("flags,item", [
     (["--isolate-worker"], "A9c"), (["--workers", "2"], "A9c"), (["--carve", "2x1"], "A9c"),
-    (["--tenants", "a:1"], "A9c"), (["--canary-interval", "5"], "A9b"),
+    (["--tenants", "a:1"], "A9c"), (["--workers", "4"], "A9c"),
     (["--retrace-sanitizer"], "A10"), (["--aot-cache"], "A10"), (["--no-freeze"], "A10"),
 ])
 def test_cli_refuses_unported_flags(flags, item):
