@@ -181,10 +181,37 @@ Imports nothing of JAX or of the JAX package. In order:
     spans equal to the chunks, one ``stream.finalize``, the digest of the
     same stream unarmed. ``PERF_LEDGER.jsonl`` and ``canary_goldens.json``
     keep their bytes.
+17. the crash-contained topology, every daemon a ``python -m
+    maskclustering_tpu_torch.serve --isolate-worker`` subprocess over phase
+    10's scans and config, files under a temporary directory. (a) One
+    isolated worker warm on a scan: spawn to ready, the child's warm-up
+    and no build in it; the three scans served with phase 10's digests,
+    their seconds beside phase 15's in-thread ones, polled for the
+    heartbeat age and again unpolled; the child holds a context and the
+    daemon none (``nvidia-smi``, or the open ``/dev/nvidiaN`` files where
+    its pids are not this namespace's); the child's ``bye`` counts one
+    launch of each association kernel a scan. (b) ``crash:<scan>.device:1``
+    with a 10 s heartbeat: ``worker_crash`` then ``ok`` at rung 1 with phase
+    10's digest, the respawn's seconds, the crash, requeue and respawn
+    counters 1 each, the dead child's context gone and the card's memory
+    back within 64 MiB after the drain. (c) ``wedge:<scan>.device:1`` with
+    a 5 s heartbeat: detected, SIGKILLed, respawned, ``ok``. (d) A pool of
+    two on the one card, tenants ``a:3,b:1:2``: three clients over two
+    buckets, both slices dispatching, affinity hits; a burst in which the
+    third queued ``b`` request gets a typed ``quota`` reject; a crash on
+    slice 0 rerouted to slice 1; ``recarve`` to one worker with a request
+    in flight; ``--carve 2x1`` refused at start; in this process, a pool
+    of two real children dispatching a held burst in the 3:1 order of the
+    stride scheduler. (e) A stream in chunks of 8 on a pool with
+    ``--stream-state``: its owner SIGKILLed with the second chunk in
+    flight, the stream resumed on the survivor from the snapshot, its
+    digest that of the in-process ``stream_scene``.
 
 Every perf-ledger row of the script goes to a temporary file
 (``MCT_PERF_LEDGER``). Any mismatch or failure exits non-zero. The last
-three lines are the card line, the per-kernel JSON and the result JSON.
+three lines are the card line, the per-kernel JSON (each association row
+with its launches in every path, ``isolated_launches`` read from the
+isolated child's ``bye``) and the result JSON.
 """
 
 from __future__ import annotations
@@ -274,6 +301,18 @@ SERVE_PER_THREAD = 2
 SERVE_STALL_S = 3.0
 SERVE_BATCH = 2
 SERVE_COLD_SPEC = {"num_boxes": 4, "num_frames": 40, "image_hw": [240, 320], "seed": 7}
+# phase 17: the crash and wedge drills' heartbeat budgets, the pool's
+# tenants (a weighs 3; b weighs 1 with at most 2 queued), the in-process
+# order check's burst, the stall that holds the stream's second chunk in
+# flight while its owner is killed, the polling period of the heartbeat
+# sampler, and how much card memory a killed child may leave behind
+ISO_CRASH_HB_S = 10.0
+ISO_WEDGE_HB_S = 5.0
+POOL_TENANTS = "a:3,b:1:2"
+ORDER_BURST = {"a": 12, "b": 4}
+ISO_STREAM_STALL_S = 3.0
+HB_SAMPLE_S = 0.05
+MEM_SLACK_MIB = 64
 
 
 def _say(msg: str) -> None:
@@ -2550,7 +2589,8 @@ def serve_phase(dev, card: str, dense, batch) -> dict:
     _say(f"[serve] launches through the daemons over the phase {json.dumps(launches)} "
          f"(the in-process reference stream's {json.dumps(outside)} left out)")
     _say(f"[serve] phase 15 in {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": launches}
+    return {"launches": launches, "cold_digest": c0["digest"]["artifact"],
+            "seq": [(scene, term["seconds"], wall) for scene, term, wall in rows]}
 
 
 def _wait_for(pred, timeout_s: float, what: str) -> None:
@@ -2890,6 +2930,534 @@ def obs_phase(dev, card: str, tensors, dense, batch) -> dict:
     return {"canary_launches": canary_launches}
 
 
+def _smi(query: str, fields: str):
+    """Rows of ``nvidia-smi --query-<query>=<fields>`` (csv, no header,
+    no units)."""
+    out = subprocess.run(["nvidia-smi", f"--query-{query}={fields}",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return [[c.strip() for c in line.split(",")] for line in out.splitlines() if line.strip()]
+
+
+def _compute_apps() -> dict:
+    """{pid: MiB} of the processes that hold a context on a card."""
+    return {int(r[0]): float(r[1]) for r in _smi("compute-apps", "pid,used_memory")
+            if r and r[0].isdigit()}
+
+
+def _used_mib() -> float:
+    return float(_smi("gpu", "memory.used")[0][0])
+
+
+def _context_holders(pids) -> tuple:
+    """(the pids among ``pids`` that hold a CUDA context, how that was read).
+    ``nvidia-smi``'s compute apps when it lists this process (which holds
+    one); in a PID namespace it cannot see, the processes that have a card's
+    device file open."""
+    apps = _compute_apps()
+    if os.getpid() in apps:
+        return {p for p in pids if p in apps}, f"nvidia-smi compute apps {json.dumps(apps)}"
+    held = set()
+    for pid in pids:
+        try:
+            fds = os.listdir(f"/proc/{pid}/fd")
+        except OSError:
+            continue
+        for fd in fds:
+            try:
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+            except OSError:
+                continue
+            if target.startswith("/dev/nvidia") and target[len("/dev/nvidia"):].isdigit():
+                held.add(pid)
+                break
+    return held, (f"nvidia-smi lists no process of this namespace ({json.dumps(apps)}); "
+                  f"read the open /dev/nvidiaN files instead")
+
+
+class _IsoDaemon:
+    """One ``python -m maskclustering_tpu_torch.serve --isolate-worker``
+    subprocess: its socket, log, events file and config name."""
+
+    def __init__(self, here: str, tmp: str, name: str, cfg, args, env=None,
+                 expect_fail: bool = False):
+        import tempfile
+
+        self.name = name
+        self.cfg_name = f"chip_smoke_iso_{name}"
+        knobs = {k: v for k, v in dataclasses.asdict(cfg).items()
+                 if k not in ("config_name", "data_root")}
+        cfg_path = os.path.join(tmp, f"{self.cfg_name}.json")
+        with open(cfg_path, "w") as fh:
+            json.dump(knobs, fh)
+        self.sock_dir = tempfile.mkdtemp(prefix="mc17", dir="/tmp")
+        self.sock = os.path.join(self.sock_dir, "s.sock")
+        self.log_path = os.path.join(tmp, f"{name}.log")
+        self.events = os.path.join(tmp, f"{name}_events.jsonl")
+        self.pred = os.path.join(tmp, f"prediction_{name}")
+        self.child_pids = set()
+        full_env = dict(os.environ)
+        full_env.update(env or {})
+        cmd = [sys.executable, "-m", "maskclustering_tpu_torch.serve", "--config", cfg_path,
+               "--socket", self.sock, "--device", "cuda", "--data_root", cfg.data_root,
+               "--prediction-root", self.pred, "--journal-dir",
+               os.path.join(tmp, f"journals_{name}"), "--obs_events", self.events,
+               "--isolate-worker", *args]
+        self.t0 = time.perf_counter()
+        with open(self.log_path, "w") as log:
+            self.proc = subprocess.Popen(cmd, cwd=here, env=full_env, stdout=subprocess.PIPE,
+                                         stderr=log, text=True)
+        deadline = time.monotonic() + 600
+        while not os.path.exists(self.sock) and self.proc.poll() is None:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{name}: daemon never bound its socket")
+            time.sleep(0.05)
+        if expect_fail:
+            self.proc.wait(600)
+            return
+        if self.proc.poll() is not None:
+            raise AssertionError(f"{name}: daemon exited rc {self.proc.returncode}:\n"
+                                 + self.log_tail())
+        from maskclustering_tpu_torch.serve import ServeClient
+
+        # the acceptor runs once the worker answered ready
+        with ServeClient(self.sock, timeout_s=600.0) as c:
+            self.ready = c.stats()
+        self.ready_s = time.perf_counter() - self.t0
+        self.note_children(self.ready)
+
+    def log_tail(self, n: int = 4000) -> str:
+        with open(self.log_path) as fh:
+            return fh.read()[-n:]
+
+    def note_children(self, stats) -> None:
+        panels = (stats.get("pool") or {}).get("workers") or [stats.get("worker") or {}]
+        self.child_pids |= {p["pid"] for p in panels if p.get("pid")}
+
+    def stats(self):
+        from maskclustering_tpu_torch.serve import ServeClient
+
+        with ServeClient(self.sock, timeout_s=600.0) as c:
+            st = c.stats()
+        self.note_children(st)
+        return st
+
+    def stop(self):
+        """Shutdown op, then the digest line the daemon prints last."""
+        from maskclustering_tpu_torch.serve import ServeClient
+
+        with ServeClient(self.sock, timeout_s=600.0) as c:
+            c.shutdown()
+        out, _ = self.proc.communicate(timeout=600)
+        if self.proc.returncode != 0:
+            raise AssertionError(f"{self.name}: daemon rc {self.proc.returncode}:\n"
+                                 + self.log_tail())
+        return json.loads(out.strip().splitlines()[-1])
+
+    def kill(self) -> None:
+        """Leave nothing running: the daemon, then any child it spawned."""
+        import shutil
+        import signal
+
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(60)
+        for pid in self.child_pids:
+            try:
+                os.kill(pid, signal.SIGKILL)
+            except OSError:
+                pass
+        shutil.rmtree(self.sock_dir, ignore_errors=True)
+
+
+def _timed_request(sock: str, scene: str, **kw):
+    """One request on its own connection: (terminal, [(seconds since the
+    send, event)], wall) — the status events with their arrival times."""
+    from maskclustering_tpu_torch.serve import ServeClient
+
+    with ServeClient(sock, timeout_s=300.0) as c:
+        t0 = time.perf_counter()
+        first = c.request_scene(scene, **kw)
+        seen = [(time.perf_counter() - t0, first)]
+        term = first
+        while term.get("kind") not in ("result", "reject"):
+            term = c.recv_event()
+            seen.append((time.perf_counter() - t0, term))
+    return term, seen, time.perf_counter() - t0
+
+
+def _states(seen):
+    return [ev.get("state") for _, ev in seen if ev.get("kind") == "status"]
+
+
+def _peak(cuda: dict) -> str:
+    """A child's ``torch.cuda.max_memory_allocated``, from its cuda key."""
+    peak = cuda.get("max_memory_allocated")
+    return "no card" if peak is None else f"{peak / 2**20:.1f} MiB"
+
+
+def _daemon_counters(events_path: str) -> dict:
+    from maskclustering_tpu_torch.obs.events import read_events
+
+    rows = list(read_events(events_path, kinds=["metrics"]))
+    return rows[-1]["metrics"]["counters"] if rows else {}
+
+
+def isolation_phase(dev, card: str, batch, serve) -> dict:
+    """Phase 17: the crash-contained topology on the card. Every daemon is
+    a ``python -m maskclustering_tpu_torch.serve --isolate-worker``
+    subprocess serving phase 10's scans with phase 10's config."""
+    import shutil
+    import signal
+    import tempfile
+
+    import torch
+
+    from maskclustering_tpu_torch.datasets import get_dataset
+    from maskclustering_tpu_torch.models.streaming import stream_scene
+    from maskclustering_tpu_torch.obs.digest import artifact_digest
+    from maskclustering_tpu_torch.serve import ServeClient, protocol
+    from maskclustering_tpu_torch.serve.admission import AdmissionQueue
+    from maskclustering_tpu_torch.serve.pool import WorkerPool
+    from maskclustering_tpu_torch.serve.router import Router
+
+    t_phase = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_iso_", dir="/tmp")
+    cfg = batch["cfg"]
+    want = {scene: dg["artifact"] for scene, (dg, _) in batch["scans"].items()}
+    first = BATCH_SCANS[0]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # this process's cached blocks out of the readings
+    daemons = []
+
+    def spawn(name, args, **kw):
+        daemons.append(_IsoDaemon(here, tmp, name, cfg, args, **kw))
+        return daemons[-1]
+
+    def check_ok(term, scene, label, digest=None):
+        want_dg = digest or want[scene]
+        if term.get("kind") != "result" or term.get("status") != "ok" \
+                or term["digest"]["artifact"] != want_dg:
+            raise AssertionError(f"{label}: {scene} answered {term}, want digest {want_dg}")
+
+    try:
+        # (a) one isolated worker: spawn to ready, three scans, the pipe's
+        # cost beside phase 15's in-thread figures, the parent device-free
+        d = spawn("one", ["--warm", first])
+        w = d.ready["worker"]
+        if w["cuda"]["build_s"]:
+            raise AssertionError(f"the child built kernels: {w['cuda']}")
+        held, how = _context_holders({w["pid"], d.proc.pid, os.getpid()})
+        if held != {w["pid"], os.getpid()}:
+            raise AssertionError(f"contexts held by {held} ({how}): child {w['pid']}, "
+                                 f"daemon {d.proc.pid}, this process {os.getpid()}")
+        _say(f"[iso] {card}: daemon pid {d.proc.pid} up in {d.ready_s:.2f} s, spawn to ready "
+             f"{d.ready['warmup_s']:.2f} s, the child's own warm-up {w['warmup_s']:.2f} s, no "
+             f"build in the child ({json.dumps(w['cuda'])}); the child {w['pid']} holds a "
+             f"context and the daemon holds none ({how})")
+        gaps, stop_sampler = [], threading.Event()
+
+        def sampler():
+            with ServeClient(d.sock, timeout_s=60.0) as c:
+                while not stop_sampler.is_set():
+                    gaps.append(c.stats()["worker"]["hb_age_s"])
+                    time.sleep(HB_SAMPLE_S)
+
+        th = threading.Thread(target=sampler, name="hb-sampler")
+        th.start()
+        try:
+            rows = [(scene, *_timed_request(d.sock, scene)) for scene in BATCH_SCANS]
+        finally:
+            stop_sampler.set()
+            th.join(60.0)
+        in_thread = {scene: (secs, wall) for scene, secs, wall in serve["seq"]}
+        for scene, term, seen, wall in rows:
+            check_ok(term, scene, "isolated")
+            if _states(seen) != ["running"]:
+                raise AssertionError(f"isolated {scene}: {seen}")
+            _say(f"[iso] {scene}: ok in {term['seconds']:.3f} s (client wall {wall:.3f} s) "
+                 f"against phase 15's in-thread {in_thread[scene][0]:.3f} s (wall "
+                 f"{in_thread[scene][1]:.3f} s); digest {term['digest']['artifact']} == "
+                 f"phase 10's")
+        max_gap = max(gaps)
+        # the same scans again with no status polling beside them
+        quiet = [(scene, *_timed_request(d.sock, scene)) for scene in BATCH_SCANS]
+        for scene, term, _, wall in quiet:
+            check_ok(term, scene, "isolated, unpolled")
+        _say("[iso] the same scans with no status polling: " + ", ".join(
+            f"{scene} {term['seconds']:.3f} s (wall {wall:.3f} s)"
+            for scene, term, _, wall in quiet))
+        digest_line = d.stop()
+        launches = digest_line["worker"]["cuda"]["launches"]
+        served = 1 + 2 * len(BATCH_SCANS)  # the warm scan, then the requests
+        if any(launches.get(n) != served for n in ASSOCIATION_KERNELS):
+            raise AssertionError(f"the child's bye launches {launches}, want {served} each")
+        _say(f"[iso] the child's bye: launches {json.dumps(launches)} (the warm scan and "
+             f"{2 * len(BATCH_SCANS)} requests: one of each association kernel a scan), peak "
+             f"{_peak(digest_line['worker']['cuda'])}; the "
+             f"longest heartbeat age sampled while it served ({len(gaps)} samples every "
+             f"{HB_SAMPLE_S} s) {max_gap:.3f} s, {ISO_WEDGE_HB_S - max_gap:.3f} s under the "
+             f"{ISO_WEDGE_HB_S:g} s wedge budget")
+        if max_gap >= ISO_WEDGE_HB_S:
+            raise AssertionError(f"a healthy busy child went {max_gap:.3f} s silent")
+
+        # (b) crash drill: the child SIGKILLs itself at the device seam
+        victim = BATCH_SCANS[1]
+        mem0 = _used_mib()
+        d = spawn("crash", ["--warm", first, "--fault-plan", f"crash:{victim}.device:1",
+                            "--set", f"worker_heartbeat_s={ISO_CRASH_HB_S:g}"])
+        pid1, mem1 = d.ready["worker"]["pid"], _used_mib()
+        term, seen, wall = _timed_request(d.sock, victim)
+        check_ok(term, victim, "crash drill")
+        if _states(seen) != ["running", "worker_crash", "running"] or term["rung"] != 1:
+            raise AssertionError(f"crash drill events {seen}")
+        t_crash = next(t for t, ev in seen if ev.get("state") == "worker_crash")
+        t_again = [t for t, ev in seen if ev.get("state") == "running"][1]
+        st = d.stats()
+        pid2, mem2 = st["worker"]["pid"], _used_mib()
+        held, how = _context_holders({pid1, pid2})
+        # the dead child's context is gone: only one child's memory is held
+        if pid2 == pid1 or held != {pid2} or mem2 - mem0 > 1.5 * (mem1 - mem0):
+            raise AssertionError(f"after the crash: pids {pid1} -> {pid2}, contexts {held} "
+                                 f"({how}), used {mem0} / {mem1} -> {mem2} MiB")
+        d.stop()
+        mem3 = _used_mib()
+        counters = _daemon_counters(d.events)
+        drill = {k: counters.get(f"serve.{k}") for k in
+                 ("worker_crashes", "requests_requeued", "worker_respawns")}
+        if drill != {k: 1.0 for k in drill} or abs(mem3 - mem0) > MEM_SLACK_MIB:
+            raise AssertionError(f"crash drill counters {drill}, used {mem0} -> {mem3} MiB")
+        _say(f"[iso] crash:{victim}.device:1 (heartbeat {ISO_CRASH_HB_S:g} s): running, "
+             f"worker_crash at {t_crash:.2f} s, running again at {t_again:.2f} s (the respawn, "
+             f"kill to ready and re-dispatch, {t_again - t_crash:.2f} s), ok at rung "
+             f"{term['rung']} in {wall:.2f} s, digest == phase 10's; counters "
+             f"{json.dumps(drill)}; the dead pid {pid1} holds no context, the respawned {pid2} "
+             f"does ({how.split(' (')[0]}); "
+             f"card used {mem0:.0f} MiB before the spawn, {mem1:.0f} with the child, "
+             f"{mem2:.0f} after the respawn, {mem3:.0f} after the drain")
+
+        # (c) wedge drill: the child silences its heartbeat and hangs
+        victim = BATCH_SCANS[2]
+        d = spawn("wedge", ["--warm", first, "--fault-plan", f"wedge:{victim}.device:1",
+                            "--set", f"worker_heartbeat_s={ISO_WEDGE_HB_S:g}"])
+        term, seen, wall = _timed_request(d.sock, victim)
+        check_ok(term, victim, "wedge drill")
+        if _states(seen) != ["running", "worker_crash", "running"]:
+            raise AssertionError(f"wedge drill events {seen}")
+        t_run = next(t for t, ev in seen if ev.get("state") == "running")
+        t_crash = next(t for t, ev in seen if ev.get("state") == "worker_crash")
+        detail = next(ev for _, ev in seen if ev.get("state") == "worker_crash")["detail"]
+        d.stop()
+        _say(f"[iso] wedge:{victim}.device:1 (heartbeat {ISO_WEDGE_HB_S:g} s): detected "
+             f"{t_crash - t_run:.2f} s after the request started ({detail!r}), SIGKILL, "
+             f"respawn, ok in {wall:.2f} s, digest == phase 10's")
+
+        # (d) a pool of two on the one card: both slices share cuda:0
+        crash_scene = BATCH_SCANS[2]
+        d = spawn("pool", ["--workers", "2", "--tenants", POOL_TENANTS, "--warm", first,
+                           "--fault-plan", f"crash:{crash_scene}.device:1",
+                           "--set", f"worker_heartbeat_s={ISO_CRASH_HB_S:g}"])
+        jobs = [(BATCH_SCANS[0], None), ("chip_smoke_serve_cold", SERVE_COLD_SPEC),
+                (BATCH_SCANS[1], None)]
+        results, errors = [], []
+
+        def client(i):
+            try:
+                for j in range(2):
+                    scene, spec = jobs[(i + j) % len(jobs)]
+                    term = _timed_request(d.sock, scene, synthetic=spec, tenant="a")[0]
+                    results.append((scene, term))
+            except Exception as e:  # noqa: BLE001 — surfaced below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(600.0)
+        wall = time.perf_counter() - t0
+        if errors or len(results) != 6:
+            raise AssertionError(f"pool clients: {errors} {results}")
+        for scene, term in results:
+            check_ok(term, scene, "pool", serve["cold_digest"] if scene.endswith("cold")
+                     else None)
+        # the cold bucket once more, twice in turn: known to the router now,
+        # a miss on the slice that first sees it, then a hit
+        for _ in range(2):
+            term = _timed_request(d.sock, jobs[1][0], synthetic=SERVE_COLD_SPEC,
+                                  tenant="a")[0]
+            check_ok(term, jobs[1][0], "pool", serve["cold_digest"])
+        st = d.stats()
+        per = [wk["dispatched"] for wk in st["pool"]["workers"]]
+        sched = st["pool"]["scheduler"]
+        if len(per) != 2 or not all(per) or not sched["affinity_hits"]:
+            raise AssertionError(f"pool slices dispatched {per}, scheduler {sched}")
+        _say(f"[iso] pool of 2 on one card ({card}; both slices share cuda:0, so seconds a "
+             f"request are not a throughput figure): 3 clients x 2 requests over two buckets "
+             f"in {wall:.2f} s and the cold bucket twice more, every digest == its "
+             f"reference; per-worker dispatched {per}, "
+             f"affinity hits {sched['affinity_hits']} misses {sched['affinity_misses']}; "
+             f"peak at ready (a full-size warm scan) "
+             + ", ".join(f"worker {wk['worker_id']} {_peak(wk['cuda'])}"
+                         for wk in st["pool"]["workers"]))
+        # quota: the slices' feeds and flights take 6 full-size scans, 2 more
+        # a queue in the pool, then b queues 2 and its third is refused
+        conns = [ServeClient(d.sock, timeout_s=600.0) for _ in range(11)]
+        try:
+            acks = [c.request_scene(BATCH_SCANS[i % 2], tenant="a")
+                    for i, c in enumerate(conns[:8])]
+            acks += [c.request_scene(BATCH_SCANS[i % 2], tenant="b")
+                     for i, c in enumerate(conns[8:])]
+            kinds = [a.get("kind") for a in acks]
+            if kinds != ["ack"] * 10 + ["reject"] or acks[-1].get("reason") != "quota":
+                raise AssertionError(f"quota burst answers {acks}")
+            for i, (c, a) in enumerate(zip(conns[:10], acks)):
+                check_ok(c.wait_result(), BATCH_SCANS[i % 2], "quota burst")
+        finally:
+            for c in conns:
+                c.close()
+        _say(f"[iso] quota: 8 a and 3 b requests at once: 10 ack, the third queued b a typed "
+             f"{acks[-1]['reason']!r} reject ({acks[-1]['detail']}); every admitted one ok")
+        # a crash on slice 0 reroutes its victim to slice 1: with both
+        # slices idle, a scene of no known bucket routes to slice 0
+        _wait_for(lambda: not any(wk.get("inflight") or wk.get("feed_depth")
+                                  for wk in d.stats()["pool"]["workers"]), 120, "an idle pool")
+        term, seen, wall = _timed_request(d.sock, crash_scene, tenant="a")
+        check_ok(term, crash_scene, "pool crash")
+        st = d.stats()
+        if "worker_crash" not in _states(seen) \
+                or st["pool"]["scheduler"]["crash_reroutes"] != 1:
+            raise AssertionError(f"pool crash: {seen} {st['pool']['scheduler']}")
+        _say(f"[iso] crash:{crash_scene}.device:1 on slice 0: states {_states(seen)}, "
+             f"crash_reroutes {st['pool']['scheduler']['crash_reroutes']}, ok in {wall:.2f} s "
+             f"on the neighbour, digest == phase 10's")
+        # recarve to one worker with a request in flight
+        inflight = {}
+
+        def slow_client():
+            inflight["term"] = _timed_request(d.sock, BATCH_SCANS[0], tenant="a")
+
+        th = threading.Thread(target=slow_client)
+        th.start()
+        _wait_for(lambda: any(wk.get("inflight") for wk in
+                              d.stats()["pool"]["workers"]), 120, "a request in flight")
+        t0 = time.perf_counter()
+        with ServeClient(d.sock, timeout_s=600.0) as c:
+            out = c.recarve(workers=1)
+        recarve_s = time.perf_counter() - t0
+        th.join(600.0)
+        check_ok(inflight["term"][0], BATCH_SCANS[0], "in flight across the recarve")
+        if out.get("kind") != "recarve" or not out.get("ok") or d.stats()["worker"]["pool"] != 1:
+            raise AssertionError(f"recarve: {out}")
+        final = d.stop()
+        _say(f"[iso] recarve to 1 worker with a request in flight: it drained ok, recarve "
+             f"answered in {recarve_s:.2f} s; after it the one slice's bye: launches "
+             f"{json.dumps(final['pool']['workers'][0]['cuda']['launches'])}, peak "
+             f"{_peak(final['pool']['workers'][0]['cuda'])}")
+        # a carve the one card cannot hold is refused at start
+        bad = spawn("carve", ["--workers", "2", "--carve", "2x1"], expect_fail=True)
+        msg = "serve_carve 2x1 needs 2 chips but the backend has 1"
+        if bad.proc.returncode == 0 or msg not in bad.log_tail(20000):
+            raise AssertionError(f"carve 2x1: rc {bad.proc.returncode}\n{bad.log_tail()}")
+        _say(f"[iso] --workers 2 --carve 2x1 refused at start (rc {bad.proc.returncode}): {msg}")
+
+        # the stride scheduler's dispatch order on real children: a pool in
+        # this process, dispatch held until the whole burst is queued
+        ocfg = cfg.replace(config_name="chip_smoke_iso_order", serve_workers=2,
+                           serve_tenants="a:3,b:1")
+        pool = WorkerPool(ocfg, AdmissionQueue(32), Router(ocfg), device="cuda",
+                          start_timeout_s=600.0, poll_s=0.1)
+        order, answers = [], {}
+        book = pool._book_dispatch
+        pool._book_dispatch = lambda req, wid: (order.append(req.tenant), book(req, wid))[1]
+        pool._pause.set()
+        pool.start()
+        try:
+            n = 0
+            for tenant, count in ORDER_BURST.items():
+                for _ in range(count):
+                    req = protocol.build_request({"op": "scene", "scene": MID_SCAN,
+                                                  "tenant": tenant}, f"o-{n:03d}")
+                    req.send = lambda ev, rid=req.id: (
+                        answers.__setitem__(rid, ev)
+                        if ev.get("kind") in ("result", "reject") else None)
+                    pool.admit(req)
+                    n += 1
+            pool._pause.clear()
+            _wait_for(lambda: len(answers) == n, 600, "the order burst's answers")
+        finally:
+            pool.stop(timeout_s=120.0)
+        if any(a.get("status") != "ok" for a in answers.values()):
+            raise AssertionError(f"order burst answers {answers}")
+        windows = [order[:4 * k].count("a") for k in range(1, 5)]
+        if windows != [3, 6, 9, 12]:
+            raise AssertionError(f"dispatch order {order}")
+        _say(f"[iso] weighted-fair a:3 b:1 on two real slices: dispatch order "
+             f"{''.join(order)} (3 a to 1 b in every window of 4, as the JAX stride "
+             f"scheduler gives), {n} ok")
+
+        # (e) stream failover: kill the owner slice with its second chunk in
+        # flight; the survivor resumes from the snapshot
+        sdir = os.path.join(tmp, "stream_state")
+        d = spawn("stream", ["--workers", "2", "--stream-state", sdir,
+                             "--fault-plan", f"stall:{MID_SCAN}.chunk:2"],
+                  env={"MCT_FAULT_STALL_S": str(ISO_STREAM_STALL_S)})
+        with ServeClient(d.sock, timeout_s=600.0) as c:
+            one, _ = c.stream_chunk(MID_SCAN, chunk=STREAM_CHUNK)
+        if one.get("status") != "ok" or one.get("done"):
+            raise AssertionError(f"stream chunk 1: {one}")
+        owners = [wk for wk in d.stats()["pool"]["workers"] if wk["open_streams"]]
+        if len(owners) != 1 or owners[0]["worker_id"] != 0:
+            raise AssertionError(f"stream owners {owners}")
+        owner_pid = owners[0]["pid"]
+        with ServeClient(d.sock, timeout_s=600.0) as c:
+            c.send({"op": "stream_chunk", "scene": MID_SCAN, "chunk": STREAM_CHUNK})
+            seen = [c.recv_event()]
+            while seen[-1].get("state") != "running":
+                seen.append(c.recv_event())
+            os.kill(owner_pid, signal.SIGKILL)
+            t_kill = time.perf_counter()
+            while seen[-1].get("kind") not in ("result", "reject"):
+                seen.append(c.recv_event())
+            resume_s = time.perf_counter() - t_kill
+            two = seen[-1]
+            end, _ = c.stream_end(MID_SCAN)
+        crash_ev = [ev for ev in seen if ev.get("state") == "worker_crash"]
+        st = d.stats()
+        if two.get("status") != "ok" or not two.get("done") or not crash_ev \
+                or not crash_ev[0].get("resuming") or end.get("status") != "ok":
+            raise AssertionError(f"stream failover: {seen} {end}")
+        final = d.stop()
+        ds = get_dataset("scannet", MID_SCAN, data_root=cfg.data_root)
+        tensors = ds.load_scene_tensors(cfg.step)
+        ref = stream_scene(tensors, cfg.replace(streaming_chunk=STREAM_CHUNK),
+                           seq_name=MID_SCAN, device=dev)
+        served = _served_artifact_digest(cfg.data_root, MID_SCAN, d.cfg_name,
+                                         tensors.num_points)
+        if served != artifact_digest(ref.objects):
+            raise AssertionError(f"failed-over stream {served} != in-process "
+                                 f"{artifact_digest(ref.objects)}")
+        _say(f"[iso] stream {MID_SCAN} in chunks of {STREAM_CHUNK} on the pool: owner slice 0 "
+             f"(pid {owner_pid}) SIGKILLed with chunk 2 in flight, resumed from the snapshot on "
+             f"the survivor (states {[ev.get('state') for ev in seen if ev.get('kind') == 'status']}, "
+             f"{resume_s:.2f} s to its answer, streams_resumed "
+             f"{final['worker']['streams_resumed']}, crash_reroutes "
+             f"{st['pool']['scheduler']['crash_reroutes']}); final digest {served} == the "
+             f"in-process stream_scene's")
+    except BaseException:
+        for dmn in daemons:
+            _say(f"[iso] {dmn.name} daemon's log, last lines:\n{dmn.log_tail()}")
+        raise
+    finally:
+        for dmn in daemons:
+            dmn.kill()
+        shutil.rmtree(tmp, ignore_errors=True)
+    _say(f"[iso] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": launches}
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "maskclustering_tpu_torch")):
@@ -3053,6 +3621,9 @@ def main() -> int:
     # 16. the run report, ledger, trace, top and the canary sentinel
     obs_run = obs_phase(dev, card, tensors, dense, batch)
 
+    # 17. the crash-contained topology: isolated worker, drills, the pool
+    iso = isolation_phase(dev, card, batch, serve)
+
     _say(f"[done] {time.perf_counter() - t_start:.1f} s")
     _say(card)
     rows = [{
@@ -3078,7 +3649,8 @@ def main() -> int:
             "stream_launches": stream["launches"][name],
             "mesh_launches": mesh["launches"][name],
             "serve_launches": serve["launches"][name],
-            "canary_launches": obs_run["canary_launches"].get(name, 0)})
+            "canary_launches": obs_run["canary_launches"].get(name, 0),
+            "isolated_launches": iso["launches"][name]})
     shutil.rmtree(ledger_dir, ignore_errors=True)
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -38,7 +38,7 @@ def parse_carve_spec(spec: str) -> Tuple[int, int]:
 
 def parse_tenant_spec(spec: str) -> Dict[str, Tuple[float, Optional[int]]]:
     """``"name:weight[:quota],..."`` -> {name: (weight, quota_or_None)}, with
-    the JAX config's errors (the worker pool's QoS table, ROADMAP A9c)."""
+    the JAX config's errors (the worker pool's QoS table, serve/pool.py)."""
     table: Dict[str, Tuple[float, Optional[int]]] = {}
     for entry in (e.strip() for e in spec.split(",")):
         if not entry:
@@ -240,6 +240,26 @@ class PipelineConfig:
 
     def replace(self, **kw) -> "PipelineConfig":
         return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        d = dataclasses.asdict(self)
+        d["mesh_shape"] = list(d["mesh_shape"])
+        return json.dumps(d, indent=2)
+
+
+def config_from_json(text: str) -> PipelineConfig:
+    """Inverse of ``PipelineConfig.to_json``.
+
+    The isolated serving worker's config transport: the daemon serializes
+    its EXACT config (every override applied) and the worker subprocess
+    rebuilds it field for field — re-deriving from a config name + CLI
+    overrides would silently drift the two processes apart. The text is
+    the JAX package's ``to_json`` shape, so either package reads the
+    other's; an unknown key raises.
+    """
+    raw = json.loads(text)
+    _check_keys(raw)
+    return _build(raw)
 
 
 def _check_keys(raw: Dict[str, Any], where: str = "") -> None:

@@ -43,7 +43,7 @@ from maskclustering_tpu_torch.obs.metrics import (count, count_transfer, gauge,
 from maskclustering_tpu_torch.obs.tracer import NULL_TRACER, NullTracer, Span, Tracer
 
 __all__ = [
-    "configure", "disable", "enabled", "events_path",
+    "configure", "configure_sink", "disable", "enabled", "events_path",
     "emit_event", "get_tracer", "scene_tracer", "span", "record_span", "traced",
     "flush_metrics",
     "count", "count_transfer", "gauge", "gauge_max", "observe", "registry",
@@ -108,6 +108,25 @@ def configure(path: str, *, fence: bool = True, annotations: bool = False,
         payload.update(meta)
     _sink.emit("meta", payload)
     _active = Tracer(_sink, fence=fence, annotations=annotations,
+                     sample_memory=sample_memory)
+    return _active
+
+
+def configure_sink(sink, *, fence: bool = False, annotations: bool = False,
+                   sample_memory: bool = False) -> Tracer:
+    """Arm tracing against an arbitrary sink object (anything with the
+    ``EventSink`` emit/close surface).
+
+    The telemetry relay's entry point (obs/telemetry.RelaySink): the
+    worker subprocess needs its spans CAPTURED but has no events file —
+    they ship up the supervisor pipe instead. Defaults are the zero-cost
+    posture (no fencing, no memory sampling): the relay must not add
+    device syncs the in-process topology would not pay.
+    """
+    global _active, _sink
+    disable()
+    _sink = sink
+    _active = Tracer(sink, fence=fence, annotations=annotations,
                      sample_memory=sample_memory)
     return _active
 

@@ -25,10 +25,12 @@ Design constraints, in order:
    max) next to the counters and gauges — the report digest and run
    digests consume all three sections, not just the scalars.
 
-``snapshot_delta``: counter increments + changed gauges between two
-snapshots, which the telemetry windows read (obs/telemetry.py). The JAX
-module's receiving half, ``merge_snapshot_delta``, folds a subprocess
-worker's relayed deltas and comes with that worker (ROADMAP A9c).
+Cross-process relay helpers (``snapshot_delta``/``merge_snapshot_delta``):
+the serving worker subprocess ships counter increments + changed gauges
+over its supervisor pipe and the parent folds them under the same flat
+names (obs/telemetry.py) — flat names are what make that fold one
+``count()`` per key. The delta schema is the JAX package's, so either
+package folds the other's deltas.
 """
 
 from __future__ import annotations
@@ -155,9 +157,13 @@ class Registry:
 def snapshot_delta(prev: Dict, cur: Dict) -> Dict:
     """Counter/gauge delta between two ``Registry.snapshot()`` dicts.
 
-    Counters come as INCREMENTS (cur - prev, changed keys only), gauges as
-    their current values (changed keys only — gauges are last-value
-    semantics). Histograms do not ride the delta.
+    The telemetry relay's wire shape (obs/telemetry.py): counters ship as
+    INCREMENTS (cur - prev, changed keys only — a fold is one ``count()``
+    per key), gauges ship as their current values (changed keys only —
+    gauges are last-value semantics, so a fold is one ``gauge()``).
+    Histograms do NOT ride the delta: the relay ships the completed spans
+    themselves and the receiver replays them, so the merged histograms
+    hold real samples.
     """
     prev_c = prev.get("counters") or {}
     cur_c = cur.get("counters") or {}
@@ -170,6 +176,24 @@ def snapshot_delta(prev: Dict, cur: Dict) -> Dict:
     gauges = {k: v for k, v in (cur.get("gauges") or {}).items()
               if prev_g.get(k) != v}
     return {"counters": counters, "gauges": gauges}
+
+
+def merge_snapshot_delta(delta: Dict, reg: Optional["Registry"] = None) -> None:
+    """Fold one ``snapshot_delta`` payload into a registry (the relay's
+    receiving half): counter increments via ``count``, gauges via ``gauge``
+    — except ``*high_water*`` names, which keep max-ever semantics so a
+    late-arriving stale relay line cannot LOWER a high-water mark."""
+    reg = reg or _REGISTRY
+    for k, v in (delta.get("counters") or {}).items():
+        if isinstance(v, (int, float)):
+            reg.count(str(k), float(v))
+    for k, v in (delta.get("gauges") or {}).items():
+        if not isinstance(v, (int, float)):
+            continue
+        if "high_water" in str(k):
+            reg.gauge_max(str(k), float(v))
+        else:
+            reg.gauge(str(k), float(v))
 
 
 _REGISTRY = Registry()
@@ -220,7 +244,10 @@ def sample_hbm() -> Optional[Dict[str, float]]:
         return None
     try:
         if dev is None:
-            if not torch.cuda.is_available() or not torch.cuda.is_initialized():
+            # is_initialized() reads a flag of this process; it asks the
+            # driver nothing, so a process that never used the card (the
+            # daemon of a subprocess worker) never loads it here
+            if not torch.cuda.is_initialized():
                 return None
             dev = torch.device("cuda", torch.cuda.current_device())
         stats = torch.cuda.memory_stats(dev)

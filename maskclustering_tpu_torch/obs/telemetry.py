@@ -3,10 +3,18 @@
 
 The port has no retrace sanitizer (the XLA compile surface, ROADMAP A10):
 its reads answer as the JAX package's do with the sanitizer off, its
-default — no ``retrace.live.*`` gauges and 0 post-warm violations. The
-JAX module's cross-process relay (``RelaySink``, ``ChildRelay``,
-``fold_telem``) serves the crash-contained subprocess worker and comes
-with it (ROADMAP A9c).
+default — no ``retrace.live.*`` gauges and 0 post-warm violations.
+
+- **cross-process relay** — the worker subprocess (serve/worker_main.py)
+  periodically, and at request boundaries, ships a ``telem`` line over its
+  stdio JSONL pipe: counter/gauge DELTAS of its metrics registry
+  (``metrics.snapshot_delta``) plus the spans completed since the last
+  flush. The supervisor folds counters into the parent registry under the
+  SAME flat names and REPLAYS the spans through ``obs.record_span`` — so
+  the Serving report, the span tables and the windowed aggregator read
+  alike in-process and isolated, modulo the ``worker.*`` relay bookkeeping
+  counters and a ``worker_pid`` span attr (the process tag). The wire
+  document is the JAX package's: either package folds the other's lines.
 
 - **windowed aggregation** — a rolling bounded ring of per-window rows
   (request latency by shape bucket, queue depth/wait, rejects by reason,
@@ -32,10 +40,15 @@ from collections import deque
 from typing import Any, Deque, Dict, List, Optional
 
 from maskclustering_tpu_torch.obs import metrics as _metrics
-from maskclustering_tpu_torch.obs.events import KIND_TELEMETRY
+from maskclustering_tpu_torch.obs.events import KIND_SPAN, KIND_TELEMETRY
 from maskclustering_tpu_torch.obs.metrics import Histogram
 
-TELEM_SCHEMA = 1          # the snapshot's own version stamp
+TELEM_SCHEMA = 1          # the pipe message's own version stamp
+KIND_TELEM = "telem"      # the stdio-pipe message kind (worker -> parent)
+
+# bounded relay buffers: a burst must cost dropped SPANS (counted), never
+# unbounded child memory or a pipe line the parent cannot parse
+RELAY_SPAN_CAP = 1024
 # counter families worth shipping verbatim in a window's cumulative view
 CUMULATIVE_PREFIXES = ("serve.", "retrace.", "aot_cache.", "worker.",
                       "pipeline.", "run.", "compile_cache.", "canary.")
@@ -49,6 +62,141 @@ def _bucket_key(bucket) -> str:
         return "x".join(str(int(b)) for b in bucket)
     except (TypeError, ValueError):
         return str(bucket)
+
+
+# ---------------------------------------------------------------------------
+# child half: relay sink + delta collector (serve/worker_main.py)
+# ---------------------------------------------------------------------------
+
+
+class RelaySink:
+    """An in-memory span buffer with the EventSink emit surface.
+
+    The worker subprocess arms its tracer with this instead of a file:
+    completed spans queue here (bounded; overflow counted, never blocking)
+    until the next ``telem`` flush ships them up the pipe. Metrics-flush
+    events are ignored — the relay ships registry DELTAS itself.
+    """
+
+    path = "<telemetry-relay>"
+
+    def __init__(self, cap: int = RELAY_SPAN_CAP):
+        self._lock = threading.Lock()
+        self._spans: Deque[Dict] = deque(maxlen=cap)
+        self._dropped = 0
+
+    def emit(self, kind: str, payload: Dict) -> None:
+        if kind != KIND_SPAN:
+            return
+        row = {"name": payload.get("name"),
+               "dur_s": payload.get("dur_s", 0.0),
+               "sync_s": payload.get("sync_s", 0.0),
+               "depth": payload.get("depth", 0),
+               "ts": time.time()}  # close time on the CHILD's epoch clock
+        if payload.get("parent"):
+            row["parent"] = payload["parent"]
+        if payload.get("attrs"):
+            row["attrs"] = payload["attrs"]
+        with self._lock:
+            if len(self._spans) == self._spans.maxlen:
+                self._dropped += 1
+            self._spans.append(row)
+
+    def close(self) -> None:
+        return None
+
+    def drain(self) -> tuple:
+        """(spans, dropped-since-last-drain) — one flush's payload."""
+        with self._lock:
+            spans = list(self._spans)
+            self._spans.clear()
+            dropped, self._dropped = self._dropped, 0
+        return spans, dropped
+
+
+class ChildRelay:
+    """The worker subprocess's telemetry source: one ``collect()`` per
+    flush returns the ``telem`` pipe document (or None when nothing
+    changed — idle heartbeat windows cost zero pipe traffic).
+
+    ``collect()`` is serialized by its own lock: worker_main flushes from
+    TWO threads (the heartbeat ticker and the card-owning worker thread at
+    request boundaries), and an unserialized read-modify-write of the
+    delta baseline would diff two snapshots against the SAME ``_prev``
+    and double-ship the increments. No ``retrace.live.*`` gauges ride the
+    delta: the port has no retrace sanitizer (ROADMAP A10).
+    """
+
+    def __init__(self, sink: Optional[RelaySink] = None):
+        self.sink = sink or RelaySink()
+        self._lock = threading.Lock()
+        self._seq = 0
+        self._prev: Dict = {}
+
+    def collect(self) -> Optional[Dict]:
+        with self._lock:
+            cur = _metrics.registry().snapshot(include_histograms=False)
+            delta = _metrics.snapshot_delta(self._prev, cur)
+            self._prev = cur
+            spans, dropped = self.sink.drain()
+            if not (delta["counters"] or delta["gauges"] or spans or dropped):
+                return None
+            self._seq += 1
+            seq = self._seq
+        doc: Dict = {"kind": KIND_TELEM, "v": TELEM_SCHEMA, "seq": seq,
+                     "metrics": delta}
+        if spans:
+            doc["spans"] = spans
+        if dropped:
+            doc["spans_dropped"] = dropped
+        return doc
+
+
+# ---------------------------------------------------------------------------
+# parent half: folding relayed telemetry into this process (supervisor)
+# ---------------------------------------------------------------------------
+
+
+def fold_telem(doc: Dict, *, child_pid: Optional[int] = None,
+               worker_id: Optional[int] = None) -> None:
+    """Fold one relayed ``telem`` line into THIS process's obs state.
+
+    Counters land under their own flat names (the Serving report cannot
+    tell a relayed ``d2h.bytes.post.drain`` from a locally-booked one);
+    spans replay through ``obs.record_span`` so the events file and the
+    span histograms carry real samples. The relay's own bookkeeping is the
+    ``worker.*`` process tag. ``worker_id`` (the pool slice that relayed
+    this doc) stamps every replayed span so the obs plane can attribute
+    device phases per worker.
+    """
+    from maskclustering_tpu_torch import obs
+
+    if doc.get("v") != TELEM_SCHEMA:
+        obs.count("worker.telem_unknown_version")
+        return
+    _metrics.merge_snapshot_delta(doc.get("metrics") or {})
+    obs.count("worker.telem_messages")
+    if doc.get("spans_dropped"):
+        obs.count("worker.telem_spans_dropped", float(doc["spans_dropped"]))
+    spans = doc.get("spans") or ()
+    if spans:
+        obs.count("worker.telem_spans", float(len(spans)))
+    for row in spans:
+        name = row.get("name")
+        dur = row.get("dur_s")
+        if not isinstance(name, str) or not isinstance(dur, (int, float)):
+            continue
+        attrs = dict(row.get("attrs") or {})
+        if child_pid is not None:
+            attrs["worker_pid"] = child_pid
+        if worker_id is not None:
+            attrs["worker_id"] = worker_id
+        if row.get("ts") is not None:
+            # the CHILD's close time: obs/trace.py anchors relayed spans on
+            # this, not on the (later) parent re-emit timestamp
+            attrs["end_ts"] = row["ts"]
+        obs.record_span(name, float(dur), parent=row.get("parent"),
+                        sync_s=float(row.get("sync_s") or 0.0), **attrs)
 
 
 # ---------------------------------------------------------------------------

@@ -70,6 +70,9 @@ class LaunchLog:
 
 
 LAUNCHES = LaunchLog()
+# {name: seconds} of every nvcc build this process ran (a serving worker
+# subprocess reports it on its ready/bye lines)
+BUILT: Dict[str, float] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # one nvcc per source at a time, and one binding per library
 _LOAD_LOCK = threading.Lock()
@@ -122,6 +125,7 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
             continue
         os.replace(tmp, out)  # atomic: a half-written library is never loaded
         seconds[name] = time.perf_counter() - t0
+    BUILT.update(seconds)
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds

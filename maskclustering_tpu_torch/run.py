@@ -1078,7 +1078,16 @@ def _run_pipeline_body(cfg: PipelineConfig, seq_names: Sequence[str], *, steps, 
     return report
 
 
-def main(argv=None) -> int:
+# the items the unported JAX flags wait for: XLA's tooling and the static
+# checks' lock sanitizer
+XLA_TOOLING_ITEM = "ROADMAP A10"
+LOCK_SANITIZER_ITEM = "ROADMAP A18"
+
+
+def build_parser():
+    """The CLI's parser: every option string of the JAX ``run.py`` parser,
+    plus ``--device``. The JAX flags whose subsystem the port does not have
+    are accepted and raise in ``main`` (``_refuse_unported``)."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -1120,6 +1129,12 @@ def main(argv=None) -> int:
     parser.add_argument("--encoder", default="hash",
                         help="feature encoder spec: hash[:dim] or hf:<local checkpoint dir> "
                              "(CLIP, on --device)")
+    parser.add_argument("--mask_command", default=None,
+                        help="external mask-predictor template with {seq_name}: run for "
+                             "each scene whose 2D masks are missing")
+    parser.add_argument("--profile_dir", default=None,
+                        help="the JAX driver's profiler trace of the cluster step (no "
+                             "torch counterpart yet: ROADMAP A10)")
     parser.add_argument("--report", default=None, help="run report JSON path")
     parser.add_argument("--obs_events", default=None,
                         help="obs span/metrics JSONL path (default: derived from "
@@ -1127,6 +1142,11 @@ def main(argv=None) -> int:
                              "maskclustering_tpu_torch.obs.report)")
     parser.add_argument("--no-obs", action="store_true",
                         help="disable obs capture even when --report is set")
+    parser.add_argument("--xprof", default=None, metavar="STAGE",
+                        help="span-triggered profiler capture (no torch counterpart "
+                             "yet: ROADMAP A10)")
+    parser.add_argument("--xprof_dir", default=None,
+                        help="trace output dir for --xprof (ROADMAP A10)")
     parser.add_argument("--ledger", default=None,
                         help="perf ledger JSONL the run digest appends to (default: "
                              "PERF_LEDGER_TORCH.jsonl / $MCT_PERF_LEDGER)")
@@ -1142,12 +1162,49 @@ def main(argv=None) -> int:
                              "scene_retries; 0 = fail fast)")
     parser.add_argument("--watchdog-device", type=float, default=None,
                         help="device-phase watchdog budget in seconds (0 = off)")
+    parser.add_argument("--transfer-guard", action="store_true",
+                        help="XLA's transfer guard around each scene's device phase "
+                             "(no torch counterpart yet: ROADMAP A10)")
+    parser.add_argument("--lock-sanitizer", action="store_true",
+                        help="the instrumented lock shim of the static checks (not "
+                             "ported yet: ROADMAP A18)")
+    parser.add_argument("--retrace-sanitizer", action="store_true",
+                        help="XLA's compile-event sanitizer (no torch counterpart "
+                             "yet: ROADMAP A10)")
+    parser.add_argument("--aot-cache", default=None, nargs="?", const="auto",
+                        metavar="DIR",
+                        help="XLA's persistent AOT executable cache (no torch "
+                             "counterpart yet: ROADMAP A10)")
     parser.add_argument("--data_root", default=None, help="override the config's data root")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the "
                              "plain torch path on the CPU)")
+    parser.add_argument("--init_timeout", type=float, default=120.0,
+                        help="watchdog seconds for the device's first use")
     parser.add_argument("--debug", action="store_true")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def _refuse_unported(args) -> None:
+    """Raise for a JAX flag whose subsystem the port does not have yet."""
+    for flag, given in (("--profile_dir", args.profile_dir is not None),
+                        ("--xprof", args.xprof is not None),
+                        ("--xprof_dir", args.xprof_dir is not None),
+                        ("--transfer-guard", args.transfer_guard),
+                        ("--retrace-sanitizer", args.retrace_sanitizer),
+                        ("--aot-cache", args.aot_cache is not None)):
+        if given:
+            raise NotImplementedError(
+                f"{flag} (XLA tooling) has no torch counterpart yet ({XLA_TOOLING_ITEM})")
+    if args.lock_sanitizer:
+        raise NotImplementedError(
+            f"--lock-sanitizer (the instrumented lock shim) is not ported yet "
+            f"({LOCK_SANITIZER_ITEM})")
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    _refuse_unported(args)
 
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -1185,12 +1242,19 @@ def main(argv=None) -> int:
     if args.no_obs:
         obs_events = None
 
+    device = resolve_device(args.device)
+    # the first use of the card creates its context: bounded, so a wedged
+    # driver fails the run instead of hanging it
+    faults.call_with_deadline(lambda: torch.zeros(1, device=device),
+                              args.init_timeout, seam="load", scene="device-init")
+
     t0 = time.time()
     report = run_pipeline(cfg, seq_names, steps=tuple(s for s in args.steps.split(",") if s),
                           workers=args.workers, resume=not args.no_resume, report_path=args.report,
                           obs_events=obs_events, ledger_path=args.ledger,
                           ledger=not args.no_ledger,
                           journal_path=args.journal, journal=not args.no_journal,
+                          mask_command=args.mask_command,
                           encoder_spec=args.encoder, device=args.device)
     total = time.time() - t0
     log.info("total time %.1f min (%.1f s/scene)", total / 60, total / max(len(seq_names), 1))

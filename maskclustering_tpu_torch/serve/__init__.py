@@ -16,12 +16,18 @@ and the router's warm shape buckets — alive across requests:
 - ``worker``    — the single card-owning thread driving
   ``run.SceneSupervisor`` per request (per-request retry/degradation,
   journal, obs spans, ``serve.*`` metrics), packed batches and streams;
+- ``supervisor`` / ``worker_main`` — the crash-contained topology: the
+  card-owning worker as a supervised subprocess over a stdio JSONL pipe
+  (heartbeats, SIGKILL on silence, bounded respawn, requeue, the telemetry
+  relay), the daemon's own process device-free;
+- ``pool``      — K supervised slices behind one affinity-aware,
+  weighted-fair tenant scheduler with quotas and live recarve;
 - ``daemon``    — socket front + lifecycle (SIGTERM drains in flight);
 - ``client``    — the one blocking client implementation.
 
 Start one with ``python -m maskclustering_tpu_torch.serve --config scannet
---socket /tmp/mct.sock`` (``--device cpu`` for the CPU). The crash-contained
-topology (``--isolate-worker``, worker pools) is ROADMAP A9c.
+--socket /tmp/mct.sock`` (``--device cpu`` for the CPU; ``--isolate-worker``
+for the subprocess worker, ``--workers K --isolate-worker`` for a pool).
 """
 
 from maskclustering_tpu_torch.serve.admission import AdmissionQueue, QueueFullReject

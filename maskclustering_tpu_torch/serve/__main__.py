@@ -5,10 +5,12 @@ The JAX CLI's flags (``maskclustering_tpu/serve/__main__.py``) plus
 under a watchdog, SIGTERM -> cooperative drain (exit 143), obs events
 armed when a path is given, and ONE machine-readable JSON digest line on
 stdout at shutdown (``daemon.stats()``); everything else goes to stderr
-via logging. Flags whose subsystem is not ported raise
-``NotImplementedError`` naming its item: ``--isolate-worker`` and
-``--workers``/``--carve``/``--tenants`` beyond one worker (ROADMAP A9c),
-``--retrace-sanitizer``, ``--no-freeze`` and ``--aot-cache`` (A10).
+via logging. ``--isolate-worker`` runs the worker as a supervised
+subprocess and ``--workers``/``--carve``/``--tenants`` a pool of them; the
+daemon's own process then never touches the card (the children initialise
+it under ``--init_timeout``). Flags whose subsystem is not ported raise
+``NotImplementedError`` naming its item: ``--retrace-sanitizer``,
+``--no-freeze`` and ``--aot-cache`` (ROADMAP A10).
 """
 
 from __future__ import annotations
@@ -29,17 +31,6 @@ XLA_TOOLING_ITEM = "ROADMAP A10"
 
 def _refuse_unported(args) -> None:
     """Raise for a flag whose subsystem the port does not have yet."""
-    from maskclustering_tpu_torch.serve.daemon import ISOLATION_ITEM
-
-    if args.isolate_worker:
-        raise NotImplementedError(
-            f"--isolate-worker (the supervised subprocess worker) is not ported "
-            f"yet ({ISOLATION_ITEM})")
-    for flag, value in (("--workers", args.workers), ("--carve", args.carve),
-                        ("--tenants", args.tenants)):
-        if value is not None and not (flag == "--workers" and int(value) <= 1):
-            raise NotImplementedError(
-                f"{flag} (the multi-worker pool) is not ported yet ({ISOLATION_ITEM})")
     if args.retrace_sanitizer:
         raise NotImplementedError(
             f"--retrace-sanitizer (XLA's compile-event sanitizer) has no torch "
@@ -169,18 +160,30 @@ def main(argv=None) -> int:
                              "yet: ROADMAP A10)")
     parser.add_argument("--fault-plan", default=None,
                         help="deterministic fault injection spec "
-                             "(testing/drill knob — never in production)")
+                             "(testing/drill knob — never in production; "
+                             "with --isolate-worker the plan is handed to "
+                             "the FIRST worker subprocess, so crash/wedge "
+                             "drills land on the supervised path)")
     parser.add_argument("--isolate-worker", action="store_true",
-                        help="run the worker as a supervised subprocess (not "
-                             "ported: ROADMAP A9c)")
+                        help="run the card-owning worker as a supervised "
+                             "SUBPROCESS (serve/supervisor.py): heartbeat "
+                             "watchdog, SIGKILL-on-wedge, bounded respawn "
+                             "with requeue — a CUDA fault costs a respawn, "
+                             "not the daemon")
     parser.add_argument("--workers", type=int, default=None,
-                        help="worker pool size (only 1 is ported; more: ROADMAP A9c)")
+                        help="run this many worker slices, one supervised "
+                             "subprocess each (serve/pool.py; needs "
+                             "--isolate-worker; shorthand for --set "
+                             "serve_workers=K)")
     parser.add_argument("--carve", default=None, metavar="KxC",
-                        help="worker pool carve (not ported: ROADMAP A9c)")
+                        help="explicit pool carve, K slices x C cards each "
+                             "(shorthand for --set serve_carve=KxC; K must "
+                             "equal --workers when both are given)")
     parser.add_argument("--tenants", default=None,
                         metavar="NAME:WEIGHT[:QUOTA],...",
-                        help="weighted-fair tenant QoS of the worker pool (not "
-                             "ported: ROADMAP A9c)")
+                        help="weighted-fair tenant QoS spec (shorthand for "
+                             "--set serve_tenants=...; unknown tenants get "
+                             "weight 1, no quota)")
     parser.add_argument("--aot-cache", default=None, nargs="?", const="auto",
                         metavar="DIR",
                         help="XLA's persistent AOT executable cache (no torch "
@@ -223,6 +226,12 @@ def main(argv=None) -> int:
     overrides.update(_parse_overrides(args.overrides))
     if args.point_shards is not None:
         overrides["point_shards"] = args.point_shards
+    if args.workers is not None:
+        overrides["serve_workers"] = args.workers
+    if args.carve is not None:
+        overrides["serve_carve"] = args.carve
+    if args.tenants is not None:
+        overrides["serve_tenants"] = args.tenants
     if args.config.endswith(".json") and os.path.isfile(args.config):
         cfg = load_config(os.path.basename(args.config)[:-len(".json")],
                           config_dir=os.path.dirname(os.path.abspath(args.config)),
@@ -239,15 +248,19 @@ def main(argv=None) -> int:
         obs.configure(args.obs_events, truncate=True,
                       meta={"tool": "serve", "config": cfg.config_name})
 
-    import torch
+    device = args.device
+    if not args.isolate_worker:
+        import torch
 
-    from maskclustering_tpu_torch.device import resolve_device
+        from maskclustering_tpu_torch.device import resolve_device
 
-    device = resolve_device(args.device)
-    # the first use of the card creates its context: bounded, so a wedged
-    # driver fails the start instead of hanging it
-    faults.call_with_deadline(lambda: torch.zeros(1, device=device),
-                              args.init_timeout, seam="load", scene="device-init")
+        device = resolve_device(args.device)
+        # the first use of the card creates its context: bounded, so a
+        # wedged driver fails the start instead of hanging it. Isolated
+        # workers do this in the child: this process stays device-free
+        faults.call_with_deadline(lambda: torch.zeros(1, device=device),
+                                  args.init_timeout, seam="load",
+                                  scene="device-init")
 
     journal_dir = None
     if not args.no_journal:
@@ -272,6 +285,8 @@ def main(argv=None) -> int:
         warm_scenes=tuple(s for s in (args.warm or "").split("+") if s),
         warm_baseline=args.warm_baseline,
         default_deadline_s=args.deadline,
+        isolate_worker=args.isolate_worker,
+        fault_plan_spec=args.fault_plan,
         telemetry_window_s=args.telemetry_window,
         slo_spec=args.slo_spec,
         flight_dir=args.flight_dir,

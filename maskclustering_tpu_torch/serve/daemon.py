@@ -37,12 +37,14 @@ byte-identical to ``run.py``'s.
 interval, at an idle queue, the worker replays its warm-up scenes and the
 digests are held against the committed goldens.
 
-Not ported yet, raising ``NotImplementedError`` that names its item: the
-crash-contained topology (``isolate_worker=True``, ``serve_workers > 1``:
-ROADMAP A9c). The JAX daemon's XLA tooling — the persistent compilation
-cache, the AOT warm start and the retrace sanitizer's freeze (ROADMAP
-A10) — has no step here: ``stats()["retrace"]`` is ``{}``, as in JAX with
-the sanitizer off.
+``isolate_worker=True`` moves the card owner into a supervised subprocess
+(serve/supervisor.py, serve/worker_main.py) and ``serve_workers > 1`` runs
+a pool of them (serve/pool.py): a crashed or wedged worker costs a
+respawn, not the daemon, and the daemon's own process never touches the
+card. The JAX daemon's XLA tooling — the persistent compilation cache,
+the AOT warm start and the retrace sanitizer's freeze (ROADMAP A10) — has
+no step here: ``stats()["retrace"]`` is ``{}``, as in JAX with the
+sanitizer off.
 """
 
 from __future__ import annotations
@@ -54,23 +56,25 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+import torch
+
 from maskclustering_tpu_torch import obs
-from maskclustering_tpu_torch.device import DeviceLike
+from maskclustering_tpu_torch.device import DeviceLike, resolve_device
 from maskclustering_tpu_torch.obs import flight as _flight
 from maskclustering_tpu_torch.obs import slo as _slo
 from maskclustering_tpu_torch.obs import telemetry
 from maskclustering_tpu_torch.serve import protocol
 from maskclustering_tpu_torch.serve import wal as _wal
 from maskclustering_tpu_torch.serve.admission import AdmissionQueue, QueueFullReject
+from maskclustering_tpu_torch.serve.pool import QuotaReject, WorkerPool
 from maskclustering_tpu_torch.serve.router import Router
+from maskclustering_tpu_torch.serve.supervisor import WorkerSupervisor
 from maskclustering_tpu_torch.serve.worker import ServeWorker
 from maskclustering_tpu_torch.utils import faults
 
 log = logging.getLogger("maskclustering_tpu_torch")
 
 DEFAULT_CAPACITY = 8
-# the item the daemon's unported options wait for
-ISOLATION_ITEM = "ROADMAP A9c"
 
 
 def _make_sender(conn: socket.socket):
@@ -132,10 +136,12 @@ class ServeDaemon:
 
     The JAX daemon's signature, plus ``device`` (the worker's card; None =
     the current CUDA device, raising without one; ``"cpu"`` for the plain
-    torch path). The JAX daemon's ``freeze_after_warm`` (the retrace
-    sanitizer's freeze, ROADMAP A10) and ``fault_plan_spec`` (the plan
-    handed to an isolated worker, ROADMAP A9c) are not here: a drill's plan
-    is the process's, ``faults.set_plan``.
+    torch path). Under ``isolate_worker`` it is the child's device, and
+    this process never touches it. The JAX daemon's ``freeze_after_warm``
+    (the retrace sanitizer's freeze, ROADMAP A10) is not here.
+    ``fault_plan_spec`` goes to the first worker subprocess only (pool
+    slice 0); an in-thread drill's plan is the process's,
+    ``faults.set_plan``.
     """
 
     def __init__(self, cfg, *,
@@ -150,6 +156,7 @@ class ServeDaemon:
                  warm_baseline: Optional[str] = None,
                  default_deadline_s: float = 0.0,
                  isolate_worker: bool = False,
+                 fault_plan_spec: Optional[str] = None,
                  telemetry_window_s: float = 5.0,
                  slo_spec: Optional[str] = None,
                  flight_dir: Optional[str] = None,
@@ -158,19 +165,13 @@ class ServeDaemon:
                  device: DeviceLike = None):
         if socket_path is None and host is None:
             raise ValueError("need a socket_path (AF_UNIX) or host/port (TCP)")
-        pool_size = max(int(cfg.serve_workers), 1)
-        if isolate_worker or pool_size > 1:
-            raise NotImplementedError(
-                f"the crash-contained serving topology (isolate_worker, "
-                f"serve_workers={pool_size}) is not ported yet ({ISOLATION_ITEM}: "
-                f"the supervised subprocess worker and the worker pool); the "
-                f"port serves with one in-thread worker")
         self.cfg = cfg
         self.socket_path = socket_path
         self.host = host
         self.port = port
         self.default_deadline_s = float(default_deadline_s)
         self.warm_scenes = tuple(warm_scenes)
+        self.isolate_worker = bool(isolate_worker)
         self.journal_dir = journal_dir
         # shared per-chunk stream snapshots (models/streaming save_state):
         # the worker ships them here and a crashed stream's session
@@ -180,12 +181,45 @@ class ServeDaemon:
             os.makedirs(stream_state_dir, exist_ok=True)
         self.queue = AdmissionQueue(capacity)
         self.router = Router(cfg, baseline_path=warm_baseline)
-        self.worker = ServeWorker(cfg, self.queue, self.router,
-                                  journal_dir=journal_dir,
-                                  prediction_root=prediction_root,
-                                  stream_state_dir=stream_state_dir,
-                                  device=device)
-        self.device = self.worker.device
+        pool_size = max(int(cfg.serve_workers), 1)
+        if pool_size > 1 and not isolate_worker:
+            raise ValueError(
+                f"serve_workers={pool_size} needs --isolate-worker: pool "
+                "slices are supervised subprocesses (one device owner per "
+                "slice), never threads")
+        if isolate_worker:
+            # the parent stays device-free: the child resolves and
+            # initialises the device; here it is a name. A missing card
+            # still fails here, as the in-thread worker's resolve does
+            if device is None and not torch.cuda.is_available():
+                resolve_device(None)  # raises the port's no-card error
+            self.device = torch.device("cuda" if device is None else device)
+            kw = dict(journal_dir=journal_dir,
+                      prediction_root=prediction_root,
+                      stream_state_dir=stream_state_dir,
+                      warm_scenes=self.warm_scenes,
+                      warm_baseline=warm_baseline,
+                      fault_plan_spec=fault_plan_spec,
+                      on_fatal=self.request_stop, device=self.device)
+            if pool_size > 1:
+                # the worker pool (serve/pool.py): K supervised slices
+                # behind one affinity-aware weighted-fair scheduler;
+                # exposes the WorkerSupervisor surface
+                self.worker = WorkerPool(cfg, self.queue, self.router, **kw)
+            else:
+                # crash containment (serve/supervisor.py): the card owner
+                # is a supervised SUBPROCESS — a SIGKILL'd/wedged worker
+                # costs a respawn, not the daemon; warm-up happens in the
+                # child
+                self.worker = WorkerSupervisor(cfg, self.queue, self.router,
+                                               **kw)
+        else:
+            self.worker = ServeWorker(cfg, self.queue, self.router,
+                                      journal_dir=journal_dir,
+                                      prediction_root=prediction_root,
+                                      stream_state_dir=stream_state_dir,
+                                      device=device)
+            self.device = self.worker.device
         self._lock = threading.Lock()
         self._ids = 0
         # admission WAL (serve/wal.py): armed whenever journaling is on —
@@ -249,11 +283,20 @@ class ServeDaemon:
 
     def start(self) -> None:
         self._started_at = time.monotonic()
-        # device-memory gauges at span ends read the worker's card
-        obs.metrics.set_device(self.device)
         self._bind()
-        self._prewarm()
-        self.worker.start()
+        if self.isolate_worker:
+            # the child owns warm-up end to end; start() blocks until its
+            # ready line, so the daemon accepts requests only against a
+            # warm worker — same contract as the in-thread _prewarm. No
+            # device-memory gauges here: reading them would touch the card
+            t0 = time.monotonic()
+            self.worker.start()
+            self._warmup_s = time.monotonic() - t0
+        else:
+            # device-memory gauges at span ends read the worker's card
+            obs.metrics.set_device(self.device)
+            self._prewarm()
+            self.worker.start()
         # durability plane: recover the predecessor's admission WAL (seed
         # the id counter, warm the dedupe cache, replay journaled-but-
         # unanswered requests into the queue), then the retention pass —
@@ -475,6 +518,7 @@ class ServeDaemon:
             _wal.compact(self._wal_path, state)
         self._wal = _wal.AdmissionWal(self._wal_path)
         replayed = 0
+        submit = getattr(self.worker, "admit", self.queue.submit)
         for rid, doc, idem in state.pending:
             try:
                 req = protocol.build_request(dict(doc), rid)
@@ -490,10 +534,12 @@ class ServeDaemon:
                 with self._lock:
                     self._wal_running[idem] = req
             try:
-                self.queue.submit(req)
-            except QueueFullReject as e:
+                submit(req)
+            except (QuotaReject, QueueFullReject) as e:
+                reason = ("queue_full" if isinstance(e, QueueFullReject)
+                          else "quota")
                 self._wal_terminal(rid, idem, protocol.reject(
-                    "queue_full", detail=f"WAL replay re-admission failed: {e}"))
+                    reason, detail=f"WAL replay re-admission failed: {e}"))
                 continue
             replayed += 1
             obs.count("serve.wal.replayed")
@@ -559,8 +605,8 @@ class ServeDaemon:
 
     def _wal_abort(self, req: Optional[protocol.SceneRequest],
                    event: Dict) -> None:
-        """An admission that WAL-journaled but failed to enqueue
-        (queue_full raised at submit) settles with the reject as its
+        """An admission that WAL-journaled but failed to enqueue (quota /
+        queue_full raised at submit) settles with the reject as its
         terminal row — replay must not resurrect it."""
         if req is not None and isinstance(req.send, _WalSend):
             self._wal_terminal(req.id, req.idem, event)
@@ -740,9 +786,12 @@ class ServeDaemon:
             # the queue — the worst torn state recovery must survive
             faults.inject("admission", req.scene)
             # submit + ack under the connection's send lock: the worker's
-            # first event for this request serializes AFTER the ack
+            # first event for this request serializes AFTER the ack. A
+            # pool worker gates admission through its tenant quotas
+            # (pool.admit raises the typed QuotaReject below)
+            submit = getattr(self.worker, "admit", self.queue.submit)
             with send.lock:
-                depth = self.queue.submit(req)
+                depth = submit(req)
                 send.raw(protocol.ack(req, queue_depth=depth))
         except protocol.ProtocolError as e:
             obs.count("serve.admission.rejects.bad_request")
@@ -761,11 +810,22 @@ class ServeDaemon:
                 detail=f"{e.depth}/{e.capacity} queued; retry with backoff")
             self._wal_abort(req, ev)
             send(ev)
+        except QuotaReject as e:
+            telemetry.record_reject(str(doc.get("tenant", "")))
+            ev = protocol.reject(
+                "quota", tag=tag,
+                detail=f"tenant {e.tenant!r} at its queued-request quota "
+                       f"({e.queued}/{e.limit}); retry after completions")
+            self._wal_abort(req, ev)
+            send(ev)
 
     # -- introspection ------------------------------------------------------
 
     def stats(self) -> Dict:
         w = self.worker.stats()
+        # compiles happen in the worker subprocess: its ready/bye digest,
+        # not this process's ({} in the port: no sanitizer, ROADMAP A10)
+        retrace = self.worker.child_retrace() if self.isolate_worker else {}
         return {
             "config": self.cfg.config_name,
             # perf-attribution coordinate (ledger serve rows + --regress
@@ -783,8 +843,7 @@ class ServeDaemon:
             "counts": w["counts"],
             "latency": w["latency"],
             "warm_buckets": [list(b) for b in w["warm_buckets"]],
-            # the JAX daemon's retrace-sanitizer digest ({} with it off)
-            "retrace": {},
+            "retrace": retrace,
             # drift-plane summary for load_gen verdicts + serve ledger
             # stamping (full matrix behind the "sentinel" status detail)
             "canary": ({"rounds": self.sentinel.stats()["rounds"],
@@ -799,8 +858,14 @@ class ServeDaemon:
                         "wal_deduped": self._wal_deduped,
                         "wal_reattached": self._wal_reattached,
                         "journals_pruned": self._journals_pruned},
-            # the packing scheduler's occupancy digest
+            # the packing scheduler's occupancy digest (in-thread worker
+            # only; under isolation the CHILD packs and its serve.batch.*
+            # counters relay up via telemetry instead)
             **({"batch": w["batch"]} if "batch" in w else {}),
+            **({"worker": w["worker"]} if "worker" in w else {}),
+            # the pool plane (serve/pool.py): per-slice liveness/warmth,
+            # scheduler affinity/share accounting, tenant QoS table
+            **({"pool": w["pool"]} if "pool" in w else {}),
         }
 
     def emit_serve_counters(self) -> None:

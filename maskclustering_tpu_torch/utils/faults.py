@@ -111,6 +111,24 @@ class DeviceStallError(RuntimeError):
             f"{budget_s:.3g}s (device stalled or wedged)")
 
 
+class WorkerCrashError(RuntimeError):
+    """The card-owning worker subprocess died under a request.
+
+    Raised (synthesized) by the serving worker supervisor
+    (serve/supervisor.py) when a child is SIGKILLed on a missed heartbeat
+    or dies outright (a CUDA fault, segfault, OOM kill, a ``crash`` fault
+    drill). Classified ``device`` — the card/runtime, not the scene, is the
+    story — so the requeue/ladder machinery composes with it like any other
+    device-class failure.
+    """
+
+    def __init__(self, scene: Optional[str], detail: str):
+        self.scene = scene
+        self.detail = detail
+        super().__init__(
+            f"device worker crashed under scene {scene!r}: {detail}")
+
+
 class InjectedFault(RuntimeError):
     """A FaultPlan-scripted failure; ``retryable`` steers classification."""
 
@@ -151,7 +169,8 @@ def classify_error(exc: BaseException) -> str:
     ``device`` (retryable and drives the degradation ladder: stalls, CUDA
     errors and out-of-memory, capacity overflows) or ``terminal`` (a retry
     cannot help: programming and configuration errors)."""
-    if isinstance(exc, DeviceStallError) or isinstance(exc, _DEVICE_ERROR_TYPES):
+    if isinstance(exc, (DeviceStallError, WorkerCrashError)) \
+            or isinstance(exc, _DEVICE_ERROR_TYPES):
         return "device"
     if isinstance(exc, InjectedFault):
         return "retryable" if exc.retryable else "terminal"
@@ -215,8 +234,8 @@ class Heartbeat:
     no beat landed within ``budget_s``: a loop that is merely slow keeps
     beating and lives, one whose next step never arrives dies within the
     budget. Thread-safe (the beating worker and the checking supervisor are
-    usually different threads). No loop of the port beats it yet; the JAX
-    package's subprocess worker supervisor (ROADMAP A9c) is its user.
+    usually different threads). The subprocess worker's supervisor
+    (serve/supervisor.py) beats it on every line its child writes.
     """
 
     def __init__(self, budget_s: float, *, seam: str = "device",

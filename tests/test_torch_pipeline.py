@@ -277,8 +277,8 @@ def _write_port_clip_dir(d):
 
 
 def test_port_imports_no_jax_and_no_reference_package(tmp_path):
-    """Every module of the port (the serving daemon and the obs core
-    included), imported in a fresh interpreter, pulls in
+    """Every module of the port (the serving daemon, its subprocess
+    worker, supervisor and pool, and the obs core included), imported in a fresh interpreter, pulls in
     neither jax nor anything of maskclustering_tpu, nor PIL, cv2, or the
     libraries of HF's CLIP path (transformers, tokenizers, safetensors,
     msgpack, regex, flax, ftfy); nor does building the CLIP encoder on a
@@ -302,7 +302,8 @@ for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.fea
              "obs.metrics", "obs.flight", "obs.tracer", "obs.telemetry", "obs.slo",
              "obs.report", "obs.ledger", "obs.trace", "obs.top", "obs.canary", "serve",
              "serve.__main__", "serve.protocol", "serve.admission", "serve.router",
-             "serve.wal", "serve.client", "serve.worker", "serve.daemon"):
+             "serve.wal", "serve.client", "serve.worker", "serve.daemon",
+             "serve.supervisor", "serve.pool", "serve.worker_main"):
     assert pkg.__name__ + "." + name in names, name
 from maskclustering_tpu_torch.config import load_config
 from maskclustering_tpu_torch.models.streaming import stream_scene

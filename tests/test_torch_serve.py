@@ -733,21 +733,38 @@ def test_daemon_drain_and_wal_replay(daemon, tmp_path, sockets):
 
 def test_daemon_unported_options_name_their_items(daemon):
     cfg = daemon["cfg"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
-        ServeDaemon(cfg, socket_path="/tmp/x.sock", isolate_worker=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A9c"):
+    jcfg = jax_load_config("scannet").replace(**CFG_KW, serve_workers=2)
+    # a pool without isolation is refused with the JAX daemon's message
+    with pytest.raises(ValueError) as port_err:
         ServeDaemon(cfg.replace(serve_workers=2), socket_path="/tmp/x.sock", device="cpu")
+    from maskclustering_tpu.serve.daemon import ServeDaemon as JaxServeDaemon
+
+    with pytest.raises(ValueError) as jax_err:
+        JaxServeDaemon(jcfg, socket_path="/tmp/x.sock")
+    assert str(port_err.value) == str(jax_err.value)
+    # the crash-contained topology is ported: the daemon holds a
+    # supervisor (or a pool) and never resolves the child's device
+    from maskclustering_tpu_torch.serve.pool import WorkerPool
+    from maskclustering_tpu_torch.serve.supervisor import WorkerSupervisor
+
+    iso = ServeDaemon(cfg, socket_path="/tmp/x.sock", isolate_worker=True, device="cpu",
+                      journal_dir=str(daemon["root"] / "iso_journals"))
+    assert isinstance(iso.worker, WorkerSupervisor) and str(iso.device) == "cpu"
+    pooled = ServeDaemon(cfg.replace(serve_workers=2), socket_path="/tmp/x.sock",
+                         isolate_worker=True, device="cpu",
+                         journal_dir=str(daemon["root"] / "iso_journals"))
+    assert isinstance(pooled.worker, WorkerPool) and pooled.worker.workers == 2
     # the canary sentinel is ported: the option arms it at start()
     armed = ServeDaemon(cfg, socket_path="/tmp/x.sock", canary_interval_s=5.0, device="cpu")
     assert armed.canary_interval_s == 5.0 and armed.sentinel is None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeDaemon(cfg, socket_path="/tmp/x.sock")
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            ServeDaemon(cfg, socket_path="/tmp/x.sock", isolate_worker=True)
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--isolate-worker"], "A9c"), (["--workers", "2"], "A9c"), (["--carve", "2x1"], "A9c"),
-    (["--tenants", "a:1"], "A9c"), (["--workers", "4"], "A9c"),
     (["--retrace-sanitizer"], "A10"), (["--aot-cache"], "A10"), (["--no-freeze"], "A10"),
 ])
 def test_cli_refuses_unported_flags(flags, item):
@@ -756,6 +773,58 @@ def test_cli_refuses_unported_flags(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         main(["--config", "scannet", "--socket", "/tmp/never.sock", "--device", "cpu",
               *flags])
+
+
+class _DaemonSeen(Exception):
+    """Raised by the stand-in daemon: the CLI built its arguments."""
+
+
+@pytest.mark.parametrize("flags,want", [
+    (["--isolate-worker"], dict(isolate_worker=True, serve_workers=1)),
+    (["--isolate-worker", "--workers", "2"], dict(isolate_worker=True, serve_workers=2)),
+    (["--isolate-worker", "--workers", "2", "--carve", "2x1"],
+     dict(isolate_worker=True, serve_workers=2, serve_carve="2x1")),
+    (["--isolate-worker", "--workers", "2", "--tenants", "a:3,b:1:2"],
+     dict(isolate_worker=True, serve_workers=2, serve_tenants="a:3,b:1:2")),
+    (["--workers", "4", "--fault-plan", "crash:s.device"],
+     dict(isolate_worker=False, serve_workers=4, fault_plan_spec="crash:s.device")),
+])
+def test_cli_topology_flags_reach_the_daemon(monkeypatch, flags, want):
+    """``--isolate-worker``, ``--workers``, ``--carve``, ``--tenants`` and
+    the child's fault plan reach the daemon as the JAX CLI passes them; an
+    isolated start never resolves the device in this process."""
+    import maskclustering_tpu_torch.serve.daemon as daemon_mod
+    from maskclustering_tpu_torch.serve.__main__ import main
+
+    seen = {}
+
+    def stand_in(cfg, **kw):
+        seen.update(kw, cfg=cfg)
+        raise _DaemonSeen()
+
+    monkeypatch.setattr(daemon_mod, "ServeDaemon", stand_in)
+    if want["isolate_worker"]:
+        monkeypatch.setattr(torch, "zeros", lambda *a, **k: pytest.fail("device touched"))
+    with pytest.raises(_DaemonSeen):
+        main(["--config", "scannet", "--socket", "/tmp/never.sock", "--device", "cpu",
+              "--no-journal", "--no-stream-state", *flags])
+    faults.set_plan(None)
+    for key, value in want.items():
+        got = getattr(seen["cfg"], key) if key.startswith("serve_") else seen[key]
+        assert got == value, key
+    assert seen["device"] == ("cpu" if want["isolate_worker"] else torch.device("cpu"))
+
+
+def test_cli_carve_without_workers_is_the_configs_error():
+    from maskclustering_tpu.serve.__main__ import main as jax_main
+    from maskclustering_tpu_torch.serve.__main__ import main
+
+    args = ["--config", "scannet", "--socket", "/tmp/never.sock", "--carve", "2x1"]
+    with pytest.raises(ValueError) as port_err:
+        main(args + ["--device", "cpu"])
+    with pytest.raises(ValueError) as jax_err:
+        jax_main(args)
+    assert str(port_err.value) == str(jax_err.value)
 
 
 def test_cli_serves_and_prints_the_digest_line(tmp_path, sockets):
@@ -780,3 +849,185 @@ def test_cli_serves_and_prints_the_digest_line(tmp_path, sockets):
     last = json.loads(out.strip().splitlines()[-1])
     assert last["kind"] == "digest" and last["config"] == "scannet" and last["draining"]
     assert os.path.exists(tmp_path / "events.jsonl")
+
+
+# ---------------------------------------------------------------------------
+# the crash-contained topology through the daemon
+# ---------------------------------------------------------------------------
+
+STUB = os.path.join(REPO, "tests", "worker_stub.py")
+
+
+def test_isolated_daemon_serves_the_in_thread_digests(daemon, workers, tmp_path, sockets,
+                                                      monkeypatch):
+    """``isolate_worker``: a real CPU child serves the JAX worker's digests,
+    its counters relay into this process, and the digest line's stats carry
+    the child's worker panel and its ``cuda`` key."""
+    from maskclustering_tpu_torch import obs
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    ref = _terminal(_capture(lambda reqs: workers["jax"]._serve_one(reqs[0]),
+                             [_req(jax_protocol, "bt-p", 80, synthetic=SPEC_P)])[0])
+    _, cfg = _cfgs(tmp_path, tmp_path, worker_heartbeat_s=60.0)
+    sock = sockets()
+    d = ServeDaemon(cfg, socket_path=sock, capacity=4, journal_dir=str(tmp_path / "j"),
+                    device="cpu", isolate_worker=True)
+    before = obs.registry().snapshot(include_histograms=False)["counters"]
+    d.start()
+    try:
+        with ServeClient(sock, timeout_s=120.0) as c:
+            term, statuses, _ = c.run_scene("bt-p", synthetic=SPEC_P, tag="iso")
+            stats = c.stats()
+    finally:
+        d.request_stop()
+        d.shutdown()
+    assert term["status"] == "ok" and term["digest"] == ref["digest"]
+    assert term["num_objects"] == ref["num_objects"] and term["tag"] == "iso"
+    assert [s["state"] for s in statuses] == ["running"]
+    w = stats["worker"]
+    assert w["isolated"] and w["alive"] and w["crashes"] == 0 and w["pid"] != os.getpid()
+    assert stats["retrace"] == {} and stats["counts"]["ok"] == 1
+    after = obs.registry().snapshot(include_histograms=False)["counters"]
+    # serve.requests is booked by the child and folded here by the relay
+    assert after.get("serve.requests", 0) - before.get("serve.requests", 0) == 1
+    assert after.get("worker.telem_messages", 0) > before.get("worker.telem_messages", 0)
+    final = d.stats()["worker"]
+    assert final["cuda"] == {"build_s": {}, "launches": {}, "max_memory_allocated": None}
+
+
+def test_pool_daemon_quota_reject_and_recarve_over_the_socket(tmp_path, sockets,
+                                                              monkeypatch):
+    """A pool daemon answers a tenant over its quota with a typed ``quota``
+    reject, and the ``recarve`` op reaches the pool (stub children)."""
+    monkeypatch.setenv("STUB_DIR", str(tmp_path))
+    _, cfg = _cfgs(tmp_path, tmp_path, serve_workers=2, serve_tenants="b:1:1",
+                   worker_heartbeat_s=5.0, retry_backoff_s=0.05)
+    sock = sockets()
+    d = ServeDaemon(cfg, socket_path=sock, capacity=8, journal_dir=str(tmp_path / "j"),
+                    device="cpu", isolate_worker=True)
+    d.worker.child_argv = [sys.executable, STUB]
+    d.worker.start_timeout_s = 15.0
+    d.worker._pause.set()  # hold dispatch: the first b request stays queued
+    d.start()
+    try:
+        with ServeClient(sock, timeout_s=30.0) as c1, ServeClient(sock, timeout_s=30.0) as c2:
+            assert c1.request_scene("stub-ok", tenant="b")["kind"] == "ack"
+            rej = c2.request_scene("stub-ok", tenant="b")
+            assert rej["kind"] == "reject" and rej["reason"] == "quota"
+            assert rej["detail"] == ("tenant 'b' at its queued-request quota (1/1); "
+                                     "retry after completions")
+            d.worker._pause.clear()
+            assert c1.wait_result()["status"] == "ok"
+        with ServeClient(sock, timeout_s=60.0) as c:
+            out = c.recarve(workers=1)
+            assert out["kind"] == "recarve" and out["ok"] and out["workers"] == 1
+            term, _, _ = c.run_scene("stub-ok", tenant="b")
+            assert term["status"] == "ok"
+            stats = c.stats()
+        assert stats["pool"]["scheduler"]["recarves"] == 1
+        assert stats["pool"]["tenants"]["b"]["quota"] == 1
+        assert stats["worker"]["pool"] == 1
+    finally:
+        d.request_stop()
+        d.shutdown()
+
+
+def test_isolated_daemon_calls_no_cuda_api(tmp_path, sockets, monkeypatch):
+    """The daemon of a subprocess worker on the card, obs armed (spans
+    sample device memory at their ends): serving a request over the stub
+    child calls no ``torch.cuda`` function that reaches the driver."""
+    from maskclustering_tpu_torch import obs
+
+    calls = []
+    for name in ("is_available", "init", "_lazy_init", "current_device", "device_count",
+                 "synchronize", "memory_stats"):
+        monkeypatch.setattr(torch.cuda, name,
+                            lambda *a, _n=name, **k: calls.append(_n))
+    monkeypatch.setenv("STUB_DIR", str(tmp_path))
+    _, cfg = _cfgs(tmp_path, tmp_path, worker_heartbeat_s=5.0)
+    sock = sockets()
+    obs.configure(str(tmp_path / "events.jsonl"), truncate=True)
+    d = ServeDaemon(cfg, socket_path=sock, journal_dir=str(tmp_path / "j"), device="cuda",
+                    isolate_worker=True)
+    d.worker.child_argv = [sys.executable, STUB]
+    d.worker.start_timeout_s = 15.0
+    d.start()
+    try:
+        with ServeClient(sock, timeout_s=30.0) as c:
+            term, _, _ = c.run_scene("stub-ok")
+            stats = c.stats()
+    finally:
+        d.request_stop()
+        d.shutdown()
+        obs.disable()
+    assert term["status"] == "ok" and stats["worker"]["isolated"]
+    assert str(d.device) == "cuda" and calls == []
+
+
+def _scene_arrays(path):
+    with np.load(path) as z:
+        return {k: (z[k].dtype.str, z[k].shape, z[k].tobytes()) for k in z.files}
+
+
+def test_export_root_of_the_scene_op_in_both_topologies(tmp_path, monkeypatch):
+    """ROADMAP C4: with a ``prediction_root`` outside ``data_root``, the JAX
+    scene op exports under ``<data_root>/prediction`` in-thread and in its
+    isolated child (its worker ignores the root), the port's under
+    ``prediction_root`` in both topologies; the arrays are equal bytes."""
+    from maskclustering_tpu.serve.supervisor import WorkerSupervisor as JaxSupervisor
+    from maskclustering_tpu.utils.synthetic import write_scannet_layout
+    from maskclustering_tpu_torch.serve.supervisor import WorkerSupervisor
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    root, pred = tmp_path / "data", tmp_path / "elsewhere"
+    scene = "scene0000_00"
+    write_scannet_layout(make_scene(num_boxes=3, num_frames=6, image_hw=(48, 64),
+                                    spacing=0.08, seed=11), str(root), scene)
+    kw = dict(step=1, distance_threshold=0.05, mask_pad_multiple=32,
+              worker_heartbeat_s=60.0)
+    jcfg = jax_load_config("scannet").replace(data_root=str(root), backend="cpu", **kw)
+    pcfg = load_config("scannet", data_root=str(root), **kw)
+    got = {}
+    for name, make in (
+            ("jx_thread", lambda c: JaxServeWorker(
+                c, jax_admission.AdmissionQueue(4, metered=False), jax_router.Router(c),
+                prediction_root=str(pred))),
+            ("pt_thread", lambda c: ServeWorker(
+                c, admission.AdmissionQueue(4, metered=False), router.Router(c),
+                prediction_root=str(pred), device="cpu"))):
+        cfg = (jcfg if name.startswith("jx") else pcfg).replace(config_name=name)
+        pmod = jax_protocol if name.startswith("jx") else protocol
+        term = _terminal(_capture(lambda reqs: make(cfg)._serve_one(reqs[0]),
+                                  [_req(pmod, scene, 90)])[0])
+        assert term["status"] == "ok", term
+        got[name] = term
+    for name, sup_cls, extra in (("jx_iso", JaxSupervisor, {}),
+                                 ("pt_iso", WorkerSupervisor, {"device": "cpu"})):
+        cfg = (jcfg if name.startswith("jx") else pcfg).replace(config_name=name)
+        pmod = jax_protocol if name.startswith("jx") else protocol
+        queue = (jax_admission if name.startswith("jx") else admission).AdmissionQueue(4)
+        rt = (jax_router if name.startswith("jx") else router).Router(cfg)
+        sup = sup_cls(cfg, queue, rt, prediction_root=str(pred), start_timeout_s=300.0,
+                      poll_s=0.1, **extra)
+        sup.start()
+        try:
+            events, done = [], threading.Event()
+            req = pmod.build_request({"op": "scene", "scene": scene}, "r-000091")
+            req.send = lambda ev, events=events, done=done: (
+                events.append(ev), ev.get("kind") in ("result", "reject") and done.set())
+            queue.submit(req)
+            assert done.wait(300.0)
+        finally:
+            sup.stop(timeout_s=60.0)
+        assert events[-1]["status"] == "ok", events
+        got[name] = events[-1]
+    where = {name: (root / "prediction" if name.startswith("jx") else pred)
+             / f"{name}_class_agnostic" / f"{scene}.npz" for name in got}
+    for name, path in where.items():
+        assert path.exists(), (name, path)
+    # nothing of the port's under the data root, nothing of JAX's outside it
+    assert not list((root / "prediction").glob("pt_*"))
+    assert not list(pred.glob("jx_*"))
+    arrays = {name: _scene_arrays(path) for name, path in where.items()}
+    assert arrays["pt_thread"] == arrays["jx_thread"] == arrays["pt_iso"] == arrays["jx_iso"]
+    assert len({t["digest"]["artifact"] for t in got.values()}) == 1
