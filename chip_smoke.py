@@ -50,14 +50,17 @@ Imports nothing of JAX or of the JAX package. In order:
 9. the default configuration on the mid-size scene of phase 6 on ``cuda``
    and on ``cpu``: equal artifact digests and assignments;
 10. the batch driver (``run.run_pipeline``) on scans on disk: the scene of
-    phase 4 written in the ScanNet layout by the port's writer under three
-    names and the mid-size scene as a fourth (``build/chip_smoke_scans``;
-    bytes and seconds per scan); each full-size scan loaded back and equal,
+    phase 4 written in the ScanNet layout by the port's writer once and
+    copied to two more names, the mid-size scene written as a fourth
+    (``build/chip_smoke_scans``; bytes and seconds per scan); each
+    full-size scan loaded back and equal,
     array for array, to what was written, its depth quantised to
     millimetres; the uint16 feed engaged and its decode on the card equal
     to the host float32 bit for bit, its host encode and upload timed
     beside the plain float32/int32 upload; one 16-bit frame of Paeth rows
-    decoded and timed. The three full-size scans through ``cluster`` and
+    decoded and timed; the first scan's id-maps (PIL's row filters) decoded
+    and timed, beside their rows through the wavefront alone and the same
+    pixels as filter-0 rows. The three full-size scans through ``cluster`` and
     ``eval_ca`` (``post_neighbor_cap`` 1024), overlapped and sequential,
     into two prediction roots: equal npz arrays, object dicts and AP, every
     digest equal to ``run_scene`` on the loaded scan, each association
@@ -102,7 +105,7 @@ Imports nothing of JAX or of the JAX package. In order:
     once a chunk; per chunk its seconds, plane bytes and launches, the
     three streaming programs timed again on each chunk's inputs, and the
     finalize with its host DBSCAN. (c) Peak device memory and wall, batch
-    against chunks of 16, on a 64-frame render of the full-size scene.
+    against chunks of 16, on a 48-frame render of the full-size scene.
     (d) Drills: on a mid-size scene streamed in three
     chunks, ``flaky:<scene>.chunk:1`` heals and
     ``stall:<scene>.chunk:1`` under a 5 s watchdog is retried while the
@@ -140,7 +143,7 @@ Imports nothing of JAX or of the JAX package. In order:
     and object count, one launch of each association kernel a request; a
     synthetic scene at a bucket this process never dispatched, cold then
     warm (``buckets_new``); the seconds of each beside phase 8's wall (obs
-    off). (c) Six requests from three client threads at capacity 2: every
+    off). (c) Three requests from three client threads at capacity 2: every
     admitted one ok with the same digests, any ``queue_full`` typed; p50,
     p95, requests a second and the queue high-water. (e) ``stream_chunk``
     x4 (chunks of 8) and ``stream_end`` over one scan: artifacts and digest
@@ -164,7 +167,8 @@ Imports nothing of JAX or of the JAX package. In order:
     maskclustering_tpu_torch.obs.report`` on the events file, ``--diff``
     against a second armed run, ``--history`` over both rows, ``--regress``
     passing against the first row (its headline at least the newest
-    row's) and failing against half the newest row's headline. (c) A
+    row's) and failing against half the newest row's headline, the five
+    runs at once (they only read files). (c) A
     daemon in the canary goldens' configuration with ``--warm-baseline``
     and the sentinel armed every second against ``canary_goldens.json``:
     two rounds or more, no drift, the SLO's ``correctness`` met; one more
@@ -173,7 +177,8 @@ Imports nothing of JAX or of the JAX package. In order:
     probe). (e) While it runs, one served request traced with ``python -m
     maskclustering_tpu_torch.obs.trace`` (queue wait, then the execution
     with the stage spans nested, then the journal's outcome) and ``python
-    -m maskclustering_tpu_torch.obs.top --once``. (d) The drift drill: goldens
+    -m maskclustering_tpu_torch.obs.top --once``, both at once. (d) The
+    drift drill: goldens
     with one artifact digest changed give the ``canary.drift`` event, a
     flight dump naming the coordinate, the counter, a window's ``drift``
     and a violated ``correctness``. (f) The mid-size scene streamed in
@@ -187,7 +192,7 @@ Imports nothing of JAX or of the JAX package. In order:
     isolated worker warm on a scan: spawn to ready, the child's warm-up
     and no build in it; the three scans served with phase 10's digests,
     their seconds beside phase 15's in-thread ones, polled for the
-    heartbeat age and again unpolled; the child holds a context and the
+    heartbeat age, and the first again unpolled; the child holds a context and the
     daemon none (``nvidia-smi``, or the open ``/dev/nvidiaN`` files where
     its pids are not this namespace's); the child's ``bye`` counts one
     launch of each association kernel a scan. (b) ``crash:<scan>.device:1``
@@ -200,18 +205,41 @@ Imports nothing of JAX or of the JAX package. In order:
     buckets, both slices dispatching, affinity hits; a burst in which the
     third queued ``b`` request gets a typed ``quota`` reject; a crash on
     slice 0 rerouted to slice 1; ``recarve`` to one worker with a request
-    in flight; ``--carve 2x1`` refused at start; in this process, a pool
+    in flight; ``--carve 2x1`` refused at start (while the order burst
+    below runs); in this process, a pool
     of two real children dispatching a held burst in the 3:1 order of the
     stride scheduler. (e) A stream in chunks of 8 on a pool with
     ``--stream-state``: its owner SIGKILLed with the second chunk in
     flight, the stream resumed on the survivor from the snapshot, its
     digest that of the in-process ``stream_scene``.
+18. the ingestion front, files under a temporary directory. (a) A
+    version-4 ``.sens`` capture of phase 4's scene through
+    ``preprocess.write_sens``: its 32 frames' zlib depth and phase 11's
+    textured 968x1296 colour as JPEG at quality 95 (bytes, seconds). (b)
+    ``export_sens_scene`` at frame skip 10: the depth PNGs decode to the
+    captured depth bit for bit, each colour file's SHA-256 is that of
+    ``encode_jpeg(decode_jpeg(payload), 95)``; a seeded probe image's JPEG
+    hashes to PIL's constant; one frame's decode, encode, resize and depth
+    seconds; the first frame exported again at ``image_size=(480, 640)``
+    (the bilinear path). (c) The cloud written, the masks step with
+    ``cropformer_path`` ``"grid"`` on the card; every id-map byte-equal
+    through ``device="cpu"``; ms a frame on each, sweeps, the largest id.
+    (d) ``run_pipeline`` (masks, cluster) over the exported scan on the card
+    in the default configuration and the exact one: objects, digests,
+    seconds, each kernel's launches (``ingest_launches``); each run's
+    objects and digests equal to the CPU route's on the same scan, which
+    ``--ingest-reference`` computes (minutes on the CPU) and
+    INGEST_CPU_DIGESTS keeps.
+
+``python3 chip_smoke.py --ingest-reference`` runs only that CPU route and
+needs no card.
 
 Every perf-ledger row of the script goes to a temporary file
 (``MCT_PERF_LEDGER``). Any mismatch or failure exits non-zero. The last
 three lines are the card line, the per-kernel JSON (each association row
 with its launches in every path, ``isolated_launches`` read from the
-isolated child's ``bye``) and the result JSON.
+isolated child's ``bye``, ``ingest_launches`` phase 18's) and the result
+JSON. ``[done]`` gives each phase's seconds.
 """
 
 from __future__ import annotations
@@ -274,13 +302,14 @@ CLIP_LABELS = 16
 CLIP_BATCH = 64
 CLIP_TOLERANCE = 1e-4
 # phase 13: the full-size scene's 32 frames in four chunks; a longer scan
-# (twice the frames: three times took phase 13 past 150 s) batch against
+# (one and a half times the frames: three times took phase 13 past 150 s,
+# and the script's budget took it down from twice) batch against
 # chunked; the mid-size drills'
 # watchdog and stall (the stall outlasts the watchdog, so the abandoned
 # attempt wakes while or after its retry runs); the CLI drill's watchdog,
 # which also covers its process's first device phase
 STREAM_CHUNK = 8
-LONG_FRAMES = 64
+LONG_FRAMES = 48
 LONG_CHUNK = 16
 DRILL_WATCHDOG_S = 5.0
 DRILL_STALL_S = 8.0
@@ -297,7 +326,7 @@ MESH_WORKERS = 2
 # (40 frames pad to 64 at the scannet frame multiple; the mid-size cloud)
 SERVE_CAPACITY = 2
 SERVE_THREADS = 3
-SERVE_PER_THREAD = 2
+SERVE_PER_THREAD = 1
 SERVE_STALL_S = 3.0
 SERVE_BATCH = 2
 SERVE_COLD_SPEC = {"num_boxes": 4, "num_frames": 40, "image_hw": [240, 320], "seed": 7}
@@ -309,10 +338,30 @@ SERVE_COLD_SPEC = {"num_boxes": 4, "num_frames": 40, "image_hw": [240, 320], "se
 ISO_CRASH_HB_S = 10.0
 ISO_WEDGE_HB_S = 5.0
 POOL_TENANTS = "a:3,b:1:2"
-ORDER_BURST = {"a": 12, "b": 4}
+ORDER_BURST = {"a": 6, "b": 2}
 ISO_STREAM_STALL_S = 3.0
 HB_SAMPLE_S = 0.05
 MEM_SLACK_MIB = 64
+# phase 18: the capture's colour quality (the export's, as the JAX export
+# saves), its depth shift, the export's frame skip (the JAX default, which
+# the scannet config's step matches), the bilinear probe's target size, and
+# a seeded probe image whose quality-95 JPEG hashes to this constant
+# (tests/test_torch_preprocess.py holds PIL's bytes to the same constant,
+# so the card's machine, which has no PIL, checks the encoder through it)
+INGEST_QUALITY = 95
+INGEST_DEPTH_SHIFT = 1000.0
+INGEST_FRAME_SKIP = 10
+INGEST_RESIZE_HW = (480, 640)
+INGEST_SCAN = "scene0100_00"
+# the exported scan's objects and digests through the CPU route, which the
+# card's must equal: ``python3 chip_smoke.py --ingest-reference`` masks and
+# clusters the same scan on the CPU and prints them (it takes minutes: the
+# exact configuration's plain ball query)
+INGEST_CPU_DIGESTS = {
+    "default": {"objects": 18, "artifact": "ea15759f", "plane": "2231b89a"},
+    "exact": {"objects": 23, "artifact": "b9f669d8", "plane": "0fa56ace"},
+}
+JPEG_PROBE_SHA256 = "1499cb8dc0cdff15ca0d935471e919a65603b6fb871b29b31f305cb0accfa903"
 
 
 def _say(msg: str) -> None:
@@ -409,7 +458,7 @@ def bound_ms(ops: int, nbytes: int):
 def check_and_time_groups(dev, groups):
     """Phase 5 over the scene's ball-query groups: the kernel bit-equal to
     the plain version on every group; its time at the largest group (20
-    launches) beside the plain version's (3) and the bound; its time summed
+    launches) beside the plain version's (1) and the bound; its time summed
     over all groups (3 launches each after one warm-up)."""
     import numpy as np
     import torch
@@ -448,8 +497,10 @@ def check_and_time_groups(dev, groups):
     args, k, r, pairs, nbytes = on_card[big]
     res = {"group": big, "shape": tuple(args[0].shape[:2]) + (args[1].shape[1],),
            "ms": cuda_time_ms(kernel(big), reps=20),
-           "plain_ms": cuda_time_ms(lambda: ball_query_reference(*args, k=k, radius=r), reps=3,
-                                    warmup=1),
+           # one call: the plain version takes ~1.7 s on an H100 at this
+           # group, and the check above ran it on the group already
+           "plain_ms": cuda_time_ms(lambda: ball_query_reference(*args, k=k, radius=r), reps=1,
+                                    warmup=0),
            "scene_ms": sum(cuda_time_ms(kernel(i), reps=3, warmup=1)
                            for i in range(len(on_card))),
            "max_abs_err": max_abs_err,
@@ -933,21 +984,32 @@ def _tree_bytes(path: str) -> int:
 
 
 def write_scans(root: str, scene, mid_scene):
-    """Phase 10's scans on disk, each written by the port's writer: the
-    full-size scene under BATCH_SCANS and the mid-size one as MID_SCAN.
-    Returns {name: (seconds, bytes)}."""
+    """Phase 10's scans on disk: the full-size scene written by the port's
+    writer as BATCH_SCANS[0] and copied to the other names (the writer is
+    deterministic, so the copies are the files it would write), the
+    mid-size one written as MID_SCAN. Returns {name: (how, seconds,
+    bytes)}."""
     import shutil
 
     from maskclustering_tpu_torch.utils.synthetic import write_scannet_layout
 
     shutil.rmtree(root, ignore_errors=True)
+    processed = os.path.join(root, "scannet", "processed")
+    gt = os.path.join(root, "scannet", "gt")
     out = {}
-    for name, sc in [(n, scene) for n in BATCH_SCANS] + [(MID_SCAN, mid_scene)]:
+    for name, sc in ((BATCH_SCANS[0], scene), (MID_SCAN, mid_scene)):
         t0 = time.perf_counter()
         write_scannet_layout(sc, root, name)
-        out[name] = (time.perf_counter() - t0,
-                     _tree_bytes(os.path.join(root, "scannet", "processed", name)))
-    return out
+        out[name] = ("wrote", time.perf_counter() - t0)
+    for name in BATCH_SCANS[1:]:
+        t0 = time.perf_counter()
+        shutil.copytree(os.path.join(processed, BATCH_SCANS[0]), os.path.join(processed, name))
+        os.rename(os.path.join(processed, name, f"{BATCH_SCANS[0]}_vh_clean_2.ply"),
+                  os.path.join(processed, name, f"{name}_vh_clean_2.ply"))
+        shutil.copyfile(os.path.join(gt, f"{BATCH_SCANS[0]}.txt"), os.path.join(gt, f"{name}.txt"))
+        out[name] = ("copied", time.perf_counter() - t0)
+    return {name: (how, sec, _tree_bytes(os.path.join(processed, name)))
+            for name, (how, sec) in out.items()}
 
 
 def load_scan(root: str, name: str, scene):
@@ -1040,6 +1102,51 @@ def paeth_decode_ms(depth_m) -> float:
     return min(times)
 
 
+def mask_decode_ms(mask_dir: str) -> dict:
+    """The id-maps of one scan as the writer gives them (PIL's adaptive row
+    filters): ms a file (host clock, summed over the files) for the whole
+    decode, for its row unfiltering, for the same rows through the
+    wavefront alone, and for the decode of the same pixels written with
+    filter 0 on every row; and the files' rows by filter type."""
+    import zlib
+
+    import numpy as np
+
+    from maskclustering_tpu_torch.io import png
+
+    tot = {"decode": 0.0, "unfilter": 0.0, "wavefront": 0.0, "filter0": 0.0}
+    rows_by_type = np.zeros(5, np.int64)
+    files = sorted(os.listdir(mask_dir))
+    for f in files:
+        with open(os.path.join(mask_dir, f), "rb") as fh:
+            data = fh.read()
+        t0 = time.perf_counter()
+        img = png.decode_png(data)
+        tot["decode"] += time.perf_counter() - t0
+        h = img.shape[0]
+        idat = b"".join(p for k, p in png._chunks(data) if k == b"IDAT")
+        rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+        bpp = img.itemsize * (img.shape[2] if img.ndim == 3 else 1)
+        rows_by_type += np.bincount(rows[:, 0], minlength=5)
+        t0 = time.perf_counter()
+        a = png.unfilter(rows, bpp)
+        tot["unfilter"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        b = png._unfilter_wavefront(rows[:, 0], rows[:, 1:], bpp)
+        tot["wavefront"] += time.perf_counter() - t0
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{f}: the row decode and the wavefront differ")
+        zero = png.encode_png(img)
+        t0 = time.perf_counter()
+        back = png.decode_png(zero)
+        tot["filter0"] += time.perf_counter() - t0
+        if not np.array_equal(back, img):
+            raise AssertionError(f"{f}: the filter-0 copy decodes wrong")
+    out = {k: 1e3 * v / len(files) for k, v in tot.items()}
+    out["files"], out["rows"] = len(files), rows_by_type.tolist()
+    return out
+
+
 def _artifacts_equal(root: str, pred_a: str, cfg_a: str, pred_b: str, cfg_b: str,
                      names) -> None:
     """The exported npz arrays and object dicts of two runs are equal."""
@@ -1112,8 +1219,8 @@ def batch_driver(dev, scene, mid_scene):
 
     root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_smoke_scans")
     written = write_scans(root, scene, mid_scene)
-    for name, (sec, nbytes) in written.items():
-        _say(f"[batch] wrote {name}: {nbytes} bytes in {sec:.3f} s")
+    for name, (how, sec, nbytes) in written.items():
+        _say(f"[batch] {how} {name}: {nbytes} bytes in {sec:.3f} s")
     loaded = {}
     for name in BATCH_SCANS:
         t, load_s, decode_s = load_scan(root, name, scene)
@@ -1128,6 +1235,13 @@ def batch_driver(dev, scene, mid_scene):
          f"float32/int32 upload {feed_ms['plain']:.2f} ms (best of 3)")
     _say(f"[batch] one 480x640 16-bit frame of Paeth rows decodes in "
          f"{paeth_decode_ms(scene.depths[0]):.1f} ms (host, best of 3)")
+    md = mask_decode_ms(os.path.join(root, "scannet", "processed", BATCH_SCANS[0], "output",
+                                     "mask"))
+    _say(f"[batch] {BATCH_SCANS[0]}'s {md['files']} id-maps (PIL's row filters, rows by type "
+         f"None/Sub/Up/Average/Paeth {md['rows']}): decode {md['decode']:.2f} ms a file, of it "
+         f"unfiltering {md['unfilter']:.2f} ms; the same rows through the wavefront alone "
+         f"{md['wavefront']:.2f} ms; the pixels as filter-0 rows decode in {md['filter0']:.2f} ms "
+         f"(host clock, mean over the files)")
 
     # the three full-size scans, overlapped and sequential
     # step 1: the synthetic scan's 32 frames stand for a real scan's step-10 frames
@@ -2061,6 +2175,16 @@ def _run_module(here: str, module: str, args, timeout: int = 600):
     return proc.returncode, proc.stdout, proc.stderr
 
 
+def _run_modules(here: str, calls):
+    """Several ``_run_module(here, module, args)`` at once, for CLIs that
+    only read files and time nothing: their results, in order."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(_run_module, here, module, args) for module, args in calls]
+        return [f.result() for f in futures]
+
+
 def _run_cli(here: str, args, timeout: int = 600):
     rc, _, err = _run_module(here, "maskclustering_tpu_torch.run", args, timeout)
     if rc != 0:
@@ -2709,29 +2833,33 @@ def obs_phase(dev, card: str, tensors, dense, batch) -> dict:
         raise AssertionError("the second armed run differs, or left obs armed")
     _say(f"[obs] the same scan armed in this process: {rep2.scenes[0].seconds:.3f} s")
     report_mod = "maskclustering_tpu_torch.obs.report"
-    rc, out, err = _run_module(here, report_mod, [events_path])
+    hist = ledger.read_ledger(led_path)
+    if len(hist) != 2:
+        raise AssertionError(f"the ledger holds {len(hist)} rows, not 2")
+    # the gate reads the newest row. The first row, its headline raised to
+    # the newest one's if lower (two runs of a scan differ by host noise),
+    # passes; half the newest row's headline reads a 100 % slowdown
+    bases = {}
+    for label, value in (("pass", max(hist[0]["value"], hist[1]["value"])),
+                         ("fail", hist[1]["value"] * 0.5)):
+        bases[label] = os.path.join(tmp, f"baseline_{label}.json")
+        with open(bases[label], "w") as fh:
+            json.dump(dict(hist[0], value=value), fh)
+    # the five CLI runs only read these files: all at once
+    (rc, out, err), (rc_d, out_d, err_d), (rc_h, out_h, err_h), *regress = _run_modules(
+        here, [(report_mod, [events_path]), (report_mod, [events_path, "--diff", events2]),
+               (report_mod, ["--history", "--ledger", led_path])]
+        + [(report_mod, ["--ledger", led_path, "--regress", bases[label]])
+           for label in ("pass", "fail")])
     if rc != 0 or "postprocess" not in out or "dev.p50" not in out:
         raise AssertionError(f"report CLI rc {rc}\n{out[-2000:]}{err[-2000:]}")
     table = [ln for ln in out.splitlines()
              if ln.split()[:1] and ln.split()[0] in ("associate", "graph", "cluster",
                                                      "postprocess")]
-    rc_d, out_d, err_d = _run_module(here, report_mod, [events_path, "--diff", events2])
-    rc_h, out_h, err_h = _run_module(here, report_mod, ["--history", "--ledger", led_path])
-    hist = ledger.read_ledger(led_path)
-    if rc_d != 0 or "A vs B" not in out_d or rc_h != 0 or "(2 rows)" not in out_h \
-            or len(hist) != 2:
+    if rc_d != 0 or "A vs B" not in out_d or rc_h != 0 or "(2 rows)" not in out_h:
         raise AssertionError(f"diff rc {rc_d} / history rc {rc_h}\n{err_d[-1500:]}"
                              f"{err_h[-1500:]}")
-    gates = {}
-    # the gate reads the newest row. The first row, its headline raised to
-    # the newest one's if lower (two runs of a scan differ by host noise),
-    # passes; half the newest row's headline reads a 100 % slowdown
-    for label, value in (("pass", max(hist[0]["value"], hist[1]["value"])),
-                         ("fail", hist[1]["value"] * 0.5)):
-        base = os.path.join(tmp, f"baseline_{label}.json")
-        with open(base, "w") as fh:
-            json.dump(dict(hist[0], value=value), fh)
-        gates[label] = _run_module(here, report_mod, ["--ledger", led_path, "--regress", base])
+    gates = dict(zip(("pass", "fail"), regress))
     if gates["pass"][0] != 0 or gates["fail"][0] == 0:
         raise AssertionError(f"regress gate rc pass {gates['pass'][0]} fail {gates['fail'][0]}"
                              f"\n{gates['pass'][1][-1500:]}{gates['fail'][1][-1500:]}")
@@ -2805,8 +2933,10 @@ def obs_phase(dev, card: str, tensors, dense, batch) -> dict:
              + f"; a round's launches {json.dumps(canary_launches)}")
 
         # (e) the traced request and top
-        rc_t, out_t, err_t = _run_module(here, "maskclustering_tpu_torch.obs.trace", [
-            term["id"], "--events", serve_events, "--journal", jdir])
+        (rc_t, out_t, err_t), (rc_top, out_top, err_top) = _run_modules(here, [
+            ("maskclustering_tpu_torch.obs.trace",
+             [term["id"], "--events", serve_events, "--journal", jdir]),
+            ("maskclustering_tpu_torch.obs.top", ["--socket", sock, "--once"])])
         lines = out_t.splitlines()
 
         def find(key, start):
@@ -2829,8 +2959,6 @@ def obs_phase(dev, card: str, tensors, dense, batch) -> dict:
                 break
         if rc_t != 0 or pos < 0:
             raise AssertionError(f"trace rc {rc_t}\n{out_t[-3000:]}{err_t[-1500:]}")
-        rc_top, out_top, err_top = _run_module(here, "maskclustering_tpu_torch.obs.top",
-                                               ["--socket", sock, "--once"])
         if rc_top != 0 or "mct-serve top" not in out_top:
             raise AssertionError(f"top rc {rc_top}\n{out_top[-1500:]}{err_top[-1500:]}")
         _say(f"[trace] request {term['id']} ({term['seconds']:.3f} s):\n" + out_t.rstrip())
@@ -2977,7 +3105,9 @@ def _context_holders(pids) -> tuple:
 
 class _IsoDaemon:
     """One ``python -m maskclustering_tpu_torch.serve --isolate-worker``
-    subprocess: its socket, log, events file and config name."""
+    subprocess: its socket, log, events file and config name. With
+    ``expect_fail`` (a daemon that must refuse to start) the constructor
+    returns once the process is started; the caller waits for ``proc``."""
 
     def __init__(self, here: str, tmp: str, name: str, cfg, args, env=None,
                  expect_fail: bool = False):
@@ -3007,14 +3137,13 @@ class _IsoDaemon:
         with open(self.log_path, "w") as log:
             self.proc = subprocess.Popen(cmd, cwd=here, env=full_env, stdout=subprocess.PIPE,
                                          stderr=log, text=True)
+        if expect_fail:
+            return
         deadline = time.monotonic() + 600
         while not os.path.exists(self.sock) and self.proc.poll() is None:
             if time.monotonic() > deadline:
                 raise AssertionError(f"{name}: daemon never bound its socket")
             time.sleep(0.05)
-        if expect_fail:
-            self.proc.wait(600)
-            return
         if self.proc.poll() is not None:
             raise AssertionError(f"{name}: daemon exited rc {self.proc.returncode}:\n"
                                  + self.log_tail())
@@ -3181,20 +3310,20 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
                  f"{in_thread[scene][1]:.3f} s); digest {term['digest']['artifact']} == "
                  f"phase 10's")
         max_gap = max(gaps)
-        # the same scans again with no status polling beside them
-        quiet = [(scene, *_timed_request(d.sock, scene)) for scene in BATCH_SCANS]
+        # the first scan again with no status polling beside it
+        quiet = [(scene, *_timed_request(d.sock, scene)) for scene in BATCH_SCANS[:1]]
         for scene, term, _, wall in quiet:
             check_ok(term, scene, "isolated, unpolled")
-        _say("[iso] the same scans with no status polling: " + ", ".join(
+        _say("[iso] the first scan with no status polling: " + ", ".join(
             f"{scene} {term['seconds']:.3f} s (wall {wall:.3f} s)"
             for scene, term, _, wall in quiet))
         digest_line = d.stop()
         launches = digest_line["worker"]["cuda"]["launches"]
-        served = 1 + 2 * len(BATCH_SCANS)  # the warm scan, then the requests
+        served = 1 + len(BATCH_SCANS) + len(quiet)  # the warm scan, then the requests
         if any(launches.get(n) != served for n in ASSOCIATION_KERNELS):
             raise AssertionError(f"the child's bye launches {launches}, want {served} each")
         _say(f"[iso] the child's bye: launches {json.dumps(launches)} (the warm scan and "
-             f"{2 * len(BATCH_SCANS)} requests: one of each association kernel a scan), peak "
+             f"{served - 1} requests: one of each association kernel a scan), peak "
              f"{_peak(digest_line['worker']['cuda'])}; the "
              f"longest heartbeat age sampled while it served ({len(gaps)} samples every "
              f"{HB_SAMPLE_S} s) {max_gap:.3f} s, {ISO_WEDGE_HB_S - max_gap:.3f} s under the "
@@ -3356,12 +3485,9 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
              f"answered in {recarve_s:.2f} s; after it the one slice's bye: launches "
              f"{json.dumps(final['pool']['workers'][0]['cuda']['launches'])}, peak "
              f"{_peak(final['pool']['workers'][0]['cuda'])}")
-        # a carve the one card cannot hold is refused at start
+        # a carve the one card cannot hold is refused at start; checked
+        # after the order burst below, which runs while it starts and fails
         bad = spawn("carve", ["--workers", "2", "--carve", "2x1"], expect_fail=True)
-        msg = "serve_carve 2x1 needs 2 chips but the backend has 1"
-        if bad.proc.returncode == 0 or msg not in bad.log_tail(20000):
-            raise AssertionError(f"carve 2x1: rc {bad.proc.returncode}\n{bad.log_tail()}")
-        _say(f"[iso] --workers 2 --carve 2x1 refused at start (rc {bad.proc.returncode}): {msg}")
 
         # the stride scheduler's dispatch order on real children: a pool in
         # this process, dispatch held until the whole burst is queued
@@ -3391,12 +3517,17 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
             pool.stop(timeout_s=120.0)
         if any(a.get("status") != "ok" for a in answers.values()):
             raise AssertionError(f"order burst answers {answers}")
-        windows = [order[:4 * k].count("a") for k in range(1, 5)]
-        if windows != [3, 6, 9, 12]:
+        windows = [order[:4 * k].count("a") for k in range(1, n // 4 + 1)]
+        if windows != [3 * k for k in range(1, n // 4 + 1)]:
             raise AssertionError(f"dispatch order {order}")
         _say(f"[iso] weighted-fair a:3 b:1 on two real slices: dispatch order "
              f"{''.join(order)} (3 a to 1 b in every window of 4, as the JAX stride "
              f"scheduler gives), {n} ok")
+        bad.proc.wait(600)
+        msg = "serve_carve 2x1 needs 2 chips but the backend has 1"
+        if bad.proc.returncode == 0 or msg not in bad.log_tail(20000):
+            raise AssertionError(f"carve 2x1: rc {bad.proc.returncode}\n{bad.log_tail()}")
+        _say(f"[iso] --workers 2 --carve 2x1 refused at start (rc {bad.proc.returncode}): {msg}")
 
         # (e) stream failover: kill the owner slice with its second chunk in
         # flight; the survivor resumes from the snapshot
@@ -3458,12 +3589,310 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
     return {"launches": launches}
 
 
+def jpeg_probe_image():
+    """Phase 18's seeded probe image: 45x61 (partial MCUs on both edges),
+    gradients under seeded noise."""
+    import numpy as np
+
+    rng = np.random.default_rng(20261017)
+    y, x = np.mgrid[0:45, 0:61]
+    img = np.stack([x * 4, y * 5, (x + y) * 2], axis=-1) + rng.integers(0, 24, (45, 61, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _sha(data: bytes) -> str:
+    import hashlib
+
+    return hashlib.sha256(data).hexdigest()
+
+
+def write_capture(path: str, scene, n_frames: int):
+    """Phase 18a: a version-4 ``.sens`` capture of the scene's first
+    ``n_frames`` frames through the port's ``write_sens``: zlib uint16 depth
+    in millimetres, phase 11's textured 968x1296 colour frames as JPEG at
+    INGEST_QUALITY, the poses and the depth intrinsics. Returns (header,
+    frames, the captured uint16 depths, the colour payloads, encode
+    seconds)."""
+    import zlib
+
+    import numpy as np
+
+    from maskclustering_tpu_torch.io.jpeg import encode_jpeg
+    from maskclustering_tpu_torch.preprocess.scannet import SensFrame, SensHeader, write_sens
+
+    h, w = scene.depths.shape[1:]
+    intr = np.eye(4, dtype=np.float32)
+    intr[:3, :3] = scene.intrinsics[0]
+    intr_color = intr.copy()
+    intr_color[0] *= COLOR_HW[1] / w
+    intr_color[1] *= COLOR_HW[0] / h
+    header = SensHeader(
+        sensor_name="chip_smoke", intrinsic_color=intr_color,
+        extrinsic_color=np.eye(4, dtype=np.float32), intrinsic_depth=intr,
+        extrinsic_depth=np.eye(4, dtype=np.float32), color_compression="jpeg",
+        depth_compression="zlib_ushort", color_width=COLOR_HW[1], color_height=COLOR_HW[0],
+        depth_width=w, depth_height=h, depth_shift=INGEST_DEPTH_SHIFT, num_frames=n_frames)
+    mm = np.round(scene.depths[:n_frames] * INGEST_DEPTH_SHIFT).astype(np.uint16)
+    payloads, enc_s = [], 0.0
+    for f in range(n_frames):
+        img = textured_frame(scene.segmentations[f], f)
+        t0 = time.perf_counter()
+        payloads.append(encode_jpeg(img, INGEST_QUALITY))
+        enc_s += time.perf_counter() - t0
+    frames = [SensFrame(index=f, camera_to_world=scene.cam_to_world[f].astype(np.float32),
+                        timestamp_color=f, timestamp_depth=f, color_bytes=payloads[f],
+                        depth_bytes=zlib.compress(mm[f].tobytes())) for f in range(n_frames)]
+    write_sens(path, header, frames)
+    return header, frames, mm, payloads, enc_s
+
+
+def ingest_configs(root: str) -> dict:
+    """Phase 18's two configurations over the exported scan: the default
+    (with phase 8's neighbour cap) and the exact one."""
+    from maskclustering_tpu_torch.config import load_config
+
+    base = load_config("scannet", data_root=root, config_name="chip_smoke_ingest",
+                       step=INGEST_FRAME_SKIP, distance_threshold=0.01,
+                       post_neighbor_cap=FULL_NEIGHBOR_CAP, cropformer_path="grid")
+    return {"default": base,
+            "exact": base.replace(config_name="chip_smoke_ingest_exact",
+                                  use_exact_ball_query=True, device_postprocess=False)}
+
+
+def export_capture(tmp: str, scene):
+    """Phase 18a-b: the capture of ``scene`` written to ``tmp`` and exported
+    at INGEST_FRAME_SKIP under ``<tmp>/data``, with the scene's cloud
+    beside it. Returns (data root, scan dir, capture path, header, frames,
+    captured uint16 depths, colour payloads, encode s, write s, export s)."""
+    from maskclustering_tpu_torch.io.ply import write_ply_points
+    from maskclustering_tpu_torch.preprocess.scannet import export_sens_scene
+
+    sens = os.path.join(tmp, "capture.sens")
+    t0 = time.perf_counter()
+    header, frames, mm, payloads, enc_s = write_capture(sens, scene, scene.depths.shape[0])
+    write_s = time.perf_counter() - t0
+    root = os.path.join(tmp, "data")
+    out = os.path.join(root, "scannet", "processed", INGEST_SCAN)
+    t0 = time.perf_counter()
+    n_exp = export_sens_scene(sens, out, frame_skip=INGEST_FRAME_SKIP)
+    export_s = time.perf_counter() - t0
+    if n_exp != len(range(0, len(frames), INGEST_FRAME_SKIP)):
+        raise AssertionError(f"exported {n_exp} of {len(frames)} frames at skip "
+                             f"{INGEST_FRAME_SKIP}")
+    write_ply_points(os.path.join(out, f"{INGEST_SCAN}_vh_clean_2.ply"), scene.scene_points)
+    return root, out, sens, header, frames, mm, payloads, enc_s, write_s, export_s
+
+
+def _cluster_export(cfg, device, pred_root: str):
+    """``run_pipeline`` with the masks and cluster steps over phase 18's
+    exported scan; fails unless it is ok with objects. Returns (its
+    SceneStatus, the run's wall seconds)."""
+    from maskclustering_tpu_torch.run import run_pipeline
+
+    t0 = time.perf_counter()
+    rep = run_pipeline(cfg, [INGEST_SCAN], steps=("masks", "cluster"), resume=False,
+                       journal=False, prediction_root=pred_root, device=device)
+    wall = time.perf_counter() - t0
+    (st,) = rep.scenes
+    if not rep.ok or st.status != "ok" or st.num_objects <= 0:
+        raise AssertionError(f"{cfg.config_name} on {device}: {st.status}, {st.num_objects} "
+                             f"objects, {st.error[-300:]} {rep.step_errors}")
+    return st, wall
+
+
+def _pinned(st) -> dict:
+    return {"objects": st.num_objects, "artifact": st.digest["artifact"],
+            "plane": st.digest["plane"]}
+
+
+def ingest_phase(dev, card: str, scene) -> dict:
+    """Phase 18: a ``.sens`` capture exported, masked on the card and
+    clustered on the card, each digest held to the CPU route's
+    (INGEST_CPU_DIGESTS). Returns the kernels' launches while the exported
+    scan is clustered on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from maskclustering_tpu_torch.datasets import get_dataset
+    from maskclustering_tpu_torch.device import synchronize
+    from maskclustering_tpu_torch.io.image import decode_rgb, read_rgb, resize_bilinear, \
+        write_depth_png
+    from maskclustering_tpu_torch.io.jpeg import decode_jpeg, encode_jpeg
+    from maskclustering_tpu_torch.io.png import read_png
+    from maskclustering_tpu_torch.mask_prediction import GridSegmenter, predict_scene_masks
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.preprocess.scannet import export_sens_scene, write_sens
+    from maskclustering_tpu_torch.run import check_masks
+
+    t_phase = time.perf_counter()
+    probe = _sha(encode_jpeg(jpeg_probe_image(), INGEST_QUALITY))
+    if probe != JPEG_PROBE_SHA256:
+        raise AssertionError(f"the probe image's JPEG hashes to {probe}, not PIL's "
+                             f"{JPEG_PROBE_SHA256}")
+    _say(f"[ingest] the probe image's quality-{INGEST_QUALITY} JPEG == PIL's bytes (SHA-256 "
+         f"{probe[:16]}...)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_")
+    try:
+        # (a) the capture and (b) its export at the JAX default frame skip
+        (root, out, sens, header, frames, mm, payloads, enc_s, write_s,
+         export_s) = export_capture(tmp, scene)
+        n_frames = len(frames)
+        _say(f"[ingest] capture: {n_frames} frames, {os.path.getsize(sens)} bytes written in "
+             f"{write_s:.2f} s, of it the colour encode {enc_s:.2f} s ({enc_s / n_frames:.3f} "
+             f"s a {COLOR_HW[0]}x{COLOR_HW[1]} q{INGEST_QUALITY} frame, "
+             f"{sum(map(len, payloads)) / n_frames:.0f} bytes a frame)")
+        kept = list(range(0, n_frames, INGEST_FRAME_SKIP))
+        for f in kept:
+            if not np.array_equal(read_png(os.path.join(out, "depth", f"{f}.png")), mm[f]):
+                raise AssertionError(f"exported depth {f} != the captured depth")
+            with open(os.path.join(out, "color", f"{f}.jpg"), "rb") as fh:
+                got = _sha(fh.read())
+            if got != _sha(encode_jpeg(decode_jpeg(payloads[f]), INGEST_QUALITY)):
+                raise AssertionError(f"exported colour {f} != encode(decode(payload))")
+        # the parts of one frame's export, timed alone
+        t = {}
+        t0 = time.perf_counter()
+        rgb = decode_rgb(payloads[0])
+        t["decode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        encode_jpeg(rgb, INGEST_QUALITY)
+        t["encode"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        small = resize_bilinear(rgb, *INGEST_RESIZE_HW)
+        t["resize"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        write_depth_png(os.path.join(tmp, "d.png"), frames[0].depth(header))
+        t["depth"] = time.perf_counter() - t0
+        # once more on the first frame alone, resized: the bilinear path
+        one = os.path.join(tmp, "one.sens")
+        write_sens(one, dataclasses.replace(header, num_frames=1), frames[:1])
+        resized = os.path.join(tmp, "resized")
+        export_sens_scene(one, resized, frame_skip=INGEST_FRAME_SKIP,
+                          image_size=INGEST_RESIZE_HW)
+        with open(os.path.join(resized, "color", "0.jpg"), "rb") as fh:
+            if _sha(fh.read()) != _sha(encode_jpeg(small, INGEST_QUALITY)):
+                raise AssertionError("the resized export != encode(resize_bilinear(decode))")
+        if read_rgb(os.path.join(resized, "color", "0.jpg")).shape != INGEST_RESIZE_HW + (3,):
+            raise AssertionError("the resized export has another size")
+        _say(f"[ingest] export: {len(kept)} of {n_frames} frames (skip {INGEST_FRAME_SKIP}) in "
+             f"{export_s:.2f} s, {export_s / len(kept):.3f} s a frame; depth PNGs == the "
+             f"capture, colour == encode(decode(payload)); one frame's parts (s): decode "
+             f"{t['decode']:.3f}, encode {t['encode']:.3f}, resize {COLOR_HW} -> "
+             f"{INGEST_RESIZE_HW} {t['resize']:.3f}, depth {t['depth']:.4f}; the resized "
+             f"export == encode(resize_bilinear(decode))")
+
+        # (c) the masks step on the card, every id-map held against the CPU's
+        cfgs = ingest_configs(root)
+        t0 = time.perf_counter()
+        missing = check_masks(cfgs["default"], [INGEST_SCAN],
+                              predictor_spec=cfgs["default"].cropformer_path, device=dev)
+        masks_s = time.perf_counter() - t0
+        if missing:
+            raise AssertionError(f"the masks step left {missing} without masks")
+        ds = get_dataset("scannet", INGEST_SCAN, data_root=root)
+        largest = max(int(read_png(os.path.join(ds.segmentation_dir, f"{f}.png")).max())
+                      for f in kept)
+        if largest == 0:
+            raise AssertionError("the grid segmenter found no mask")
+        card_seg = GridSegmenter(device=dev)
+        rgb = ds.get_rgb(kept[0])
+        card_seg(rgb)  # warm
+        synchronize(dev)
+        t0 = time.perf_counter()
+        regions = card_seg(rgb)[0].shape[0]
+        synchronize(dev)
+        card_ms = (time.perf_counter() - t0) * 1e3
+        cpu_dir = os.path.join(tmp, "cpu_masks")
+        t0 = time.perf_counter()
+        predict_scene_masks(ds, GridSegmenter(device="cpu"), stride=INGEST_FRAME_SKIP,
+                            output_dir=cpu_dir)
+        cpu_s = time.perf_counter() - t0
+        for f in kept:
+            with open(os.path.join(cpu_dir, f"{f}.png"), "rb") as a, \
+                    open(os.path.join(ds.segmentation_dir, f"{f}.png"), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"frame {f}: the cuda id-map != the cpu id-map")
+        _say(f"[ingest] masks step ('grid' on {dev}): {len(kept)} id-maps in {masks_s:.2f} s; "
+             f"the segmenter {card_ms:.1f} ms a frame on the card; the cpu's "
+             f"{len(kept)} id-maps in {cpu_s:.2f} s, {1e3 * cpu_s / len(kept):.1f} ms a frame, "
+             f"byte-equal to cuda's; {card_seg.last_sweeps} sweeps, {regions} regions kept; "
+             f"largest id {largest}")
+
+        # (d) the exported scan clustered on the card, default and exact,
+        # each held to the CPU route's digest; the launches of both runs are
+        # the kernels' ingest launches
+        launches = {}
+        for label, cfg in cfgs.items():
+            kernels.LAUNCHES.reset()
+            st, wall = _cluster_export(cfg, dev, os.path.join(tmp, "pred"))
+            got = dict(kernels.LAUNCHES.counts)
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            if _pinned(st) != INGEST_CPU_DIGESTS[label]:
+                raise AssertionError(f"{label} on {dev}: {_pinned(st)} != the cpu route's "
+                                     f"{INGEST_CPU_DIGESTS[label]}")
+            _say(f"[ingest] {label} on {dev}: {st.num_objects} objects, digest "
+                 f"{st.digest['artifact']} (plane {st.digest['plane']}) == the cpu route's, "
+                 f"scene {st.seconds:.2f} s, run {wall:.2f} s; launches {json.dumps(got)}")
+        for k in ASSOCIATION_KERNELS + ("ball_query",):
+            if not launches.get(k):
+                raise AssertionError(f"clustering the exported scan launched no {k}")
+        _say(f"[ingest] ingest launches {json.dumps(launches)}; phase 18 in "
+             f"{time.perf_counter() - t_phase:.1f} s ({card})")
+        return {"launches": launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def ingest_reference() -> int:
+    """``--ingest-reference``: phase 18's exported scan masked and clustered
+    through the CPU route in both configurations; prints each run's objects
+    and digests beside INGEST_CPU_DIGESTS and fails if they differ. Needs no
+    card."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ingest_ref_")
+    try:
+        root = export_capture(tmp, full_size_scene())[0]
+        got = {}
+        for label, cfg in ingest_configs(root).items():
+            st, wall = _cluster_export(cfg, "cpu", os.path.join(tmp, "pred"))
+            got[label] = _pinned(st)
+            _say(f"[ingest-reference] {label} on cpu ({torch.get_num_threads()} threads): "
+                 f"{json.dumps(got[label])} in {wall:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if got != INGEST_CPU_DIGESTS:
+        _say(f"[ingest-reference] differs from INGEST_CPU_DIGESTS {json.dumps(INGEST_CPU_DIGESTS)}")
+        return 1
+    _say("[ingest-reference] == INGEST_CPU_DIGESTS")
+    return 0
+
+
+def full_size_scene():
+    """Phase 4's scene: 8 boxes, 32 frames at 480x640, 2 mm depth noise."""
+    from maskclustering_tpu_torch.utils.synthetic import add_depth_noise, make_scene
+
+    scene = make_scene(num_boxes=8, num_frames=32, image_hw=(480, 640), spacing=0.008,
+                       floor_spacing=0.016, seed=0)
+    add_depth_noise(scene, sigma=0.002, seed=1000)
+    return scene
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "maskclustering_tpu_torch")):
         print("chip_smoke: the maskclustering_tpu_torch package is not beside this script",
               file=sys.stderr)
         return 2
+    if sys.argv[1:] == ["--ingest-reference"]:
+        sys.path.insert(0, here)
+        return ingest_reference()
     import torch
 
     if not torch.cuda.is_available():
@@ -3476,14 +3905,17 @@ def main() -> int:
     from maskclustering_tpu_torch.models import run_scene
     from maskclustering_tpu_torch.obs.digest import artifact_digest
     from maskclustering_tpu_torch.ops import cuda as kernels
-    from maskclustering_tpu_torch.utils.synthetic import (
-        add_depth_noise,
-        make_scene,
-        to_scene_tensors,
-    )
+    from maskclustering_tpu_torch.utils.synthetic import make_scene, to_scene_tensors
 
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
+    laps, t_lap = {}, [t_start]
+
+    def lap(phase: str) -> None:
+        """Book the seconds since the last lap to ``phase``."""
+        now = time.perf_counter()
+        laps[phase] = round(now - t_lap[0], 1)
+        t_lap[0] = now
     # every perf-ledger row of a reported run in this script lands here,
     # never in a ledger file of the checkout
     import shutil
@@ -3497,6 +3929,7 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     _say(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
+    lap("1")
     # 2. build
     t0 = time.perf_counter()
     built = kernels.build()
@@ -3504,15 +3937,15 @@ def main() -> int:
          f"{time.perf_counter() - t0:.2f} s "
          f"(nvcc per source: {json.dumps({k: round(v, 2) for k, v in built.items()})})")
 
+    lap("2")
     # 3. kernels against their plain versions on edge cases
     _say("[kernels] edge cases")
     check_ball_query_edges(dev)
 
+    lap("3")
     # 4. the slice at full size
     t0 = time.perf_counter()
-    scene = make_scene(num_boxes=8, num_frames=32, image_hw=(480, 640), spacing=0.008,
-                       floor_spacing=0.016, seed=0)
-    add_depth_noise(scene, sigma=0.002, seed=1000)
+    scene = full_size_scene()
     tensors = to_scene_tensors(scene)
     _say(f"[slice] scene built in {time.perf_counter() - t0:.1f} s: "
          f"N={tensors.num_points} F={tensors.num_frames} HxW={tensors.depths.shape[1:]}")
@@ -3554,6 +3987,7 @@ def main() -> int:
         raise AssertionError(f"{len(groups)} ball-query groups kept, "
                              f"{launches['ball_query']} launched")
 
+    lap("4")
     # 5. the kernel on every group of the scene, timed
     t0 = time.perf_counter()
     bq = check_and_time_groups(dev, groups)
@@ -3570,6 +4004,7 @@ def main() -> int:
          f"{bq['scene_pair_tests']} pair tests, {bq['scene_bytes']} bytes), "
          f"{100 * bq['scene_bound_ms'] / bq['scene_ms']:.1f} % of the bound")
 
+    lap("5")
     # 6. card against cpu on a mid-size scene
     mid = to_scene_tensors(make_scene(num_boxes=4, num_frames=12, image_hw=(240, 320), seed=1))
     mid_cfg = load_config("scannet", config_name="chip_smoke_mid", distance_threshold=0.03,
@@ -3585,6 +4020,7 @@ def main() -> int:
     if not on_card.objects.point_ids_list:
         raise AssertionError("the mid-size scene produced no objects")
 
+    lap("6")
     # 7. the association kernels on edge cases
     _say("[kernels] association edge cases")
     unfused = check_addcmul(dev)
@@ -3592,39 +4028,54 @@ def main() -> int:
          f"{unfused} of 1000003)")
     check_association_edges(dev)
 
+    lap("7")
     # 8. the default configuration at full size
     dense = dense_default_full(dev, tensors)
 
+    lap("8")
     # 9. the default configuration, card against cpu, on the mid-size scene
     mid_digests = dense_default_mid(dev)
 
+    lap("9")
     # 10. the batch driver on scans written to disk
     batch = batch_driver(dev, scene, make_scene(num_boxes=4, num_frames=12,
                                                 image_hw=(240, 320), seed=1))
 
+    lap("10")
     # 11. the plane digest lane and the semantic steps
     plane_digest_lane(dev, tensors, dense, mid_digests)
     semantic_steps(dev, scene, batch)
 
+    lap("11")
     # 12. the CLIP encoder at ViT-H-14's full width
     clip_encoder(dev, scene, batch)
 
+    lap("12")
     # 13. streaming and the fault drills
     stream = streaming_phase(dev, tensors, dense, batch)
 
+    lap("13")
     # 14. the fused multi-device path
     mesh = mesh_phase(dev, card, tensors, dense, mid_digests, batch)
 
+    lap("14")
     # 15. the scene-serving daemon
     serve = serve_phase(dev, card, dense, batch)
 
+    lap("15")
     # 16. the run report, ledger, trace, top and the canary sentinel
     obs_run = obs_phase(dev, card, tensors, dense, batch)
 
+    lap("16")
     # 17. the crash-contained topology: isolated worker, drills, the pool
     iso = isolation_phase(dev, card, batch, serve)
 
-    _say(f"[done] {time.perf_counter() - t_start:.1f} s")
+    lap("17")
+    # 18. the ingestion front: a .sens capture exported, masked, clustered
+    ingest = ingest_phase(dev, card, scene)
+
+    lap("18")
+    _say(f"[done] {time.perf_counter() - t_start:.1f} s; phases (s): {json.dumps(laps)}")
     _say(card)
     rows = [{
         "name": "ball_query", "route": "cuda", "kind": "pallas",
@@ -3632,7 +4083,8 @@ def main() -> int:
         "replaces": "maskclustering_tpu/ops/pallas/ball_query.py:127",
         "launches": launches["ball_query"], "max_abs_err": bq["max_abs_err"],
         "ms": bq["ms"], "plain_ms": bq["plain_ms"], "bound_ms": bq["bound_ms"],
-        "bound_by": bq["bound_by"], "library_ms": None, "scene_kernel_ms": bq["scene_ms"]}]
+        "bound_by": bq["bound_by"], "library_ms": None, "scene_kernel_ms": bq["scene_ms"],
+        "ingest_launches": ingest["launches"]["ball_query"]}]
     # the JAX lines each association kernel computes (associate_frame, :191)
     replaces = {"associate_table": "maskclustering_tpu/models/backprojection.py:264",
                 "associate_claim": "maskclustering_tpu/models/backprojection.py:229",
@@ -3650,7 +4102,8 @@ def main() -> int:
             "mesh_launches": mesh["launches"][name],
             "serve_launches": serve["launches"][name],
             "canary_launches": obs_run["canary_launches"].get(name, 0),
-            "isolated_launches": iso["launches"][name]})
+            "isolated_launches": iso["launches"][name],
+            "ingest_launches": ingest["launches"][name]})
     shutil.rmtree(ledger_dir, ignore_errors=True)
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -32,10 +32,25 @@ samples and 2- or 4-component (CMYK) images raise ``NotImplementedError``
 naming the file and the SOF marker; a truncated or corrupt stream raises
 ``ValueError``. Neither is ever returned as a wrong image.
 
-The encoder writes baseline 4:2:0 files with libjpeg's quality-scaled
-Annex K tables (``jcparam.c``) and the standard Huffman tables. It is not
-byte-equal to libjpeg's (its forward DCT and colour conversion are
-float64), only a valid file of the same kind.
+The encoder writes the bytes of PIL's ``Image.save(format="JPEG",
+quality=q)`` (libjpeg-turbo at PIL's defaults: baseline 4:2:0, islow DCT,
+the standard Huffman tables, no optimisation, no restart markers, JFIF
+density 1:1 without units) for every size and quality 1-100, following
+libjpeg step by step in integer numpy:
+
+- ``jcparam.c``'s quality-scaled Annex K tables, clamped to baseline;
+- ``jccolor.c``'s fixed-point RGB to YCbCr (``SCALEBITS`` 16, the
+  ``ONE_HALF - 1`` fudge on Cb and Cr);
+- ``jcprepct.c``'s bottom-edge replication and ``jcsample.c``'s
+  ``expand_right_edge`` and ``h2v2_downsample`` (a bias of 1, 2, 1, 2 along
+  each output row);
+- ``jfdctint.c``'s islow forward DCT, the mirror of ``idct_islow``;
+- ``jcdctmgr.c``'s quantisation through ``compute_reciprocal``, magnitude
+  first, sign after;
+- ``jccoefct.c``'s dummy blocks past the right and bottom edges of a
+  partial MCU (zero AC, a neighbour's DC);
+- ``jcmarker.c``'s segments: SOI, APP0, one DQT a table, SOF0, one DHT a
+  table (DC 0, AC 0, DC 1, AC 1), SOS, the entropy data, EOI.
 """
 
 from __future__ import annotations
@@ -689,20 +704,132 @@ def _code_table(bits: bytes, vals: bytes) -> Tuple[np.ndarray, np.ndarray]:
     return code_of, len_of
 
 
-def _fdct_matrix() -> np.ndarray:
-    k = np.arange(8)
-    c = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) * 0.5
-    c[0] /= np.sqrt(2.0)
-    return c
+def _fdct_1d(x, first: bool):
+    """One islow forward pass over the 8 inputs ``x[0..7]`` (int64 arrays),
+    ``jfdctint.c`` term for term: the row pass (``first``) keeps
+    ``PASS1_BITS`` of scale, the column pass removes it and leaves the
+    result scaled up by 8."""
+    tmp0, tmp7 = x[0] + x[7], x[0] - x[7]
+    tmp1, tmp6 = x[1] + x[6], x[1] - x[6]
+    tmp2, tmp5 = x[2] + x[5], x[2] - x[5]
+    tmp3, tmp4 = x[3] + x[4], x[3] - x[4]
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    s = _CONST_BITS - _PASS1_BITS if first else _CONST_BITS + _PASS1_BITS
+
+    def descale(v, n):
+        return (v + (1 << (n - 1))) >> n
+
+    if first:
+        o0, o4 = (tmp10 + tmp11) << _PASS1_BITS, (tmp10 - tmp11) << _PASS1_BITS
+    else:
+        o0, o4 = descale(tmp10 + tmp11, _PASS1_BITS), descale(tmp10 - tmp11, _PASS1_BITS)
+    z1 = (tmp12 + tmp13) * _FIX_0_541196100
+    o2 = descale(z1 + tmp13 * _FIX_0_765366865, s)
+    o6 = descale(z1 - tmp12 * _FIX_1_847759065, s)
+
+    z1, z2, z3, z4 = tmp4 + tmp7, tmp5 + tmp6, tmp4 + tmp6, tmp5 + tmp7
+    z5 = (z3 + z4) * _FIX_1_175875602
+    tmp4 = tmp4 * _FIX_0_298631336
+    tmp5 = tmp5 * _FIX_2_053119869
+    tmp6 = tmp6 * _FIX_3_072711026
+    tmp7 = tmp7 * _FIX_1_501321110
+    z1 = z1 * -_FIX_0_899976223
+    z2 = z2 * -_FIX_2_562915447
+    z3 = z3 * -_FIX_1_961570560 + z5
+    z4 = z4 * -_FIX_0_390180644 + z5
+    o7 = descale(tmp4 + z1 + z3, s)
+    o5 = descale(tmp5 + z2 + z4, s)
+    o3 = descale(tmp6 + z2 + z3, s)
+    o1 = descale(tmp7 + z1 + z4, s)
+    return o0, o1, o2, o3, o4, o5, o6, o7
+
+
+def fdct_islow(blocks: np.ndarray) -> np.ndarray:
+    """(n, 8, 8) uint8 samples -> (n, 8, 8) int64 coefficients scaled up by
+    8, ``jpeg_fdct_islow`` after ``convsamp``'s level shift."""
+    x = blocks.astype(np.int64) - 128
+    ws = np.stack(_fdct_1d([x[:, :, c] for c in range(8)], True), axis=2)  # rows
+    return np.stack(_fdct_1d([ws[:, r, :] for r in range(8)], False), axis=1)  # columns
+
+
+def _divisors(quant: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``jcdctmgr.c``'s ``compute_reciprocal`` for each islow divisor
+    ``quant << 3``: (reciprocal, correction, shift) so that a magnitude
+    quantises to ``((a + correction) * reciprocal) >> shift``."""
+    recip, corr, shift = [], [], []
+    for q in quant.tolist():
+        d = int(q) << 3
+        r = 16 + d.bit_length() - 1
+        fq, fr = divmod(1 << r, d)
+        c = d // 2
+        if fr == 0:  # a power of two: the reciprocal would not fit 16 bits
+            fq >>= 1
+            r -= 1
+        elif fr <= d // 2:
+            c += 1
+        else:
+            fq += 1
+        recip.append(fq)
+        corr.append(c)
+        shift.append(r)
+    return tuple(np.asarray(v, np.int64) for v in (recip, corr, shift))
+
+
+def _quantise(coef: np.ndarray, quant: np.ndarray) -> np.ndarray:
+    """(n, 8, 8) islow coefficients -> (n, 64) natural-order quantised
+    values: the magnitude divided through its reciprocal, then the sign."""
+    recip, corr, shift = _divisors(quant)
+    c = coef.reshape(-1, 64)
+    mag = ((np.abs(c) + corr) * recip) >> shift
+    return np.where(c < 0, -mag, mag)
+
+
+def _rgb_ycc_tables() -> np.ndarray:
+    """``jccolor.c``'s ``rgb_ycc_start``: (8, 256) int64 rows R->Y, G->Y,
+    B->Y, R->Cb, G->Cb, B->Cb (= R->Cr), G->Cr, B->Cr."""
+    i = np.arange(256, dtype=np.int64)
+    cbcr_offset = 128 << _SCALEBITS
+    return np.stack([
+        _fix(0.29900) * i, _fix(0.58700) * i, _fix(0.11400) * i + _ONE_HALF,
+        -_fix(0.16874) * i, -_fix(0.33126) * i,
+        # the rounding fudge 0.5 - epsilon keeps the largest output at 255
+        _fix(0.50000) * i + cbcr_offset + _ONE_HALF - 1,
+        -_fix(0.41869) * i, -_fix(0.08131) * i])
+
+
+_RGB_YCC = _rgb_ycc_tables()
+
+
+def rgb_to_ycc(rgb: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(H, W, 3) uint8 RGB -> three (H, W) int64 planes, ``rgb_ycc_convert``."""
+    r, g, b = (rgb[..., k].astype(np.int64) for k in range(3))
+    t = _RGB_YCC
+    y = (t[0][r] + t[1][g] + t[2][b]) >> _SCALEBITS
+    cb = (t[3][r] + t[4][g] + t[5][b]) >> _SCALEBITS
+    cr = (t[5][r] + t[6][g] + t[7][b]) >> _SCALEBITS
+    return y, cb, cr
+
+
+def _pad_edge(plane: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Replicate the last row and column out to (h, w): ``jcprepct.c``'s
+    ``expand_bottom_edge`` and ``jcsample.c``'s ``expand_right_edge``."""
+    return np.pad(plane, ((0, h - plane.shape[0]), (0, w - plane.shape[1])), mode="edge")
+
+
+def downsample_h2v2(plane: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
+    """``jcsample.c``'s ``h2v2_downsample`` of a full-size chroma plane to
+    (out_h, out_w): the plane edge-replicated to twice that, each 2x2 sum
+    plus a bias of 1, 2, 1, 2, ... along every output row, shifted by 2."""
+    p = _pad_edge(plane, 2 * out_h, 2 * out_w)
+    s = p.reshape(out_h, 2, out_w, 2).sum(axis=(1, 3))
+    bias = 1 + (np.arange(out_w) & 1)
+    return (s + bias) >> 2
 
 
 def _blocks_of(plane: np.ndarray, bh: int, bw: int) -> np.ndarray:
     """(bh*8, bw*8) plane -> (bh*bw, 8, 8) blocks in raster order."""
     return plane.reshape(bh, 8, bw, 8).transpose(0, 2, 1, 3).reshape(-1, 8, 8)
-
-
-def _pad_edge(plane: np.ndarray, h: int, w: int) -> np.ndarray:
-    return np.pad(plane, ((0, h - plane.shape[0]), (0, w - plane.shape[1])), mode="edge")
 
 
 def _bit_size(x: np.ndarray) -> np.ndarray:
@@ -782,36 +909,40 @@ def _segment(marker: int, payload: bytes) -> bytes:
 
 
 def encode_jpeg(rgb: np.ndarray, quality: int = 75) -> bytes:
-    """Baseline JFIF bytes of an (H, W, 3) uint8 RGB image, 4:2:0."""
+    """Baseline JFIF bytes of an (H, W, 3) uint8 RGB image, 4:2:0: the
+    bytes PIL's ``Image.save(format="JPEG", quality=quality)`` writes."""
     rgb = np.asarray(rgb)
     if rgb.dtype != np.uint8 or rgb.ndim != 3 or rgb.shape[2] != 3:
         raise ValueError(f"encode_jpeg takes (H, W, 3) uint8 RGB, got {rgb.shape} {rgb.dtype}")
     height, width = rgb.shape[:2]
     if not (0 < height < 65536 and 0 < width < 65536):
         raise ValueError(f"JPEG size {width}x{height} outside 1..65535")
-    f = rgb.astype(np.float64)
-    r, g, b = f[..., 0], f[..., 1], f[..., 2]
-    y = 0.299 * r + 0.587 * g + 0.114 * b
-    cb = -0.168735892 * r - 0.331264108 * g + 0.5 * b + 128.0
-    cr = 0.5 * r - 0.418687589 * g - 0.081312411 * b + 128.0
-    mcux, mcuy = -(-width // 16), -(-height // 16)
-    ch, cw = -(-height // 2), -(-width // 2)
-
-    def down(p):  # 2x2 mean over the edge-padded plane
-        p = _pad_edge(p, 2 * ch, 2 * cw)
-        return p.reshape(ch, 2, cw, 2).mean(axis=(1, 3))
-
     lq, cq = quant_tables(quality)
-    dct = _fdct_matrix()
+    y, cb, cr = rgb_to_ycc(rgb)
+    mcuy, mcux = -(-height // 16), -(-width // 16)
+    hb, wb = -(-height // 8), -(-width // 8)  # luma blocks that hold image rows / columns
 
-    def quantise(plane, bh, bw, q):
-        blocks = _blocks_of(_pad_edge(plane, bh * 8, bw * 8) - 128.0, bh, bw)
-        coef = dct @ blocks @ dct.T
-        return np.round(coef.reshape(-1, 64) / q).astype(np.int64)
+    # luma: edge-replicated to whole blocks; the MCU grid's blocks past
+    # them are jccoefct.c's dummies, all zero but for a copied DC
+    qy = _quantise(fdct_islow(_blocks_of(_pad_edge(y, 8 * hb, 8 * wb), hb, wb)), lq)
+    grid = np.zeros((2 * mcuy, 2 * mcux, 64), np.int64)
+    grid[:hb, :wb] = qy.reshape(hb, wb, 64)
+    if wb % 2:  # right dummies take the DC of the block on their left
+        grid[:hb, wb, 0] = grid[:hb, wb - 1, 0]
+    if hb % 2:  # a bottom row of dummies takes its MCU's top-right DC
+        grid[hb, :, 0] = np.repeat(grid[hb - 1, 1::2, 0], 2)
+    qy = grid.reshape(mcuy, 2, mcux, 2, 64)
 
-    qy = quantise(y, 2 * mcuy, 2 * mcux, lq).reshape(mcuy, 2, mcux, 2, 64)
-    qcb = quantise(down(cb), mcuy, mcux, cq).reshape(mcuy, mcux, 64)
-    qcr = quantise(down(cr), mcuy, mcux, cq).reshape(mcuy, mcux, 64)
+    # chroma: the full-size plane's rows made even, downsampled to the MCU
+    # grid's width, then its last row replicated to the grid's height
+    ch = -(-height // 2)
+
+    def chroma(plane):
+        small = downsample_h2v2(plane, ch, 8 * mcux)
+        return _quantise(fdct_islow(_blocks_of(_pad_edge(small, 8 * mcuy, 8 * mcux),
+                                               mcuy, mcux)), cq).reshape(mcuy, mcux, 64)
+
+    qcb, qcr = chroma(cb), chroma(cr)
     # scan order: Y00 Y01 Y10 Y11 Cb Cr for each MCU
     mcu = np.concatenate([qy.transpose(0, 2, 1, 3, 4).reshape(mcuy, mcux, 4, 64),
                           qcb[:, :, None], qcr[:, :, None]], axis=2).reshape(-1, 6, 64)
@@ -823,14 +954,17 @@ def encode_jpeg(rgb: np.ndarray, quality: int = 75) -> bytes:
     table = np.tile(np.array([0, 0, 0, 0, 1, 1]), len(zz))
     data = _huffman_stream(zz.reshape(-1, 64), table)
 
+    # jcmarker.c's order: a DQT a table, a DHT a table as the scan first
+    # needs it (DC 0, AC 0, DC 1, AC 1)
     out = [b"\xff\xd8", _segment(0xE0, b"JFIF\x00\x01\x01\x00\x00\x01\x00\x01\x00\x00")]
-    out.append(_segment(0xDB, b"\x00" + lq[_ZIGZAG].astype(np.uint8).tobytes()
-                        + b"\x01" + cq[_ZIGZAG].astype(np.uint8).tobytes()))
+    for tq, q in enumerate((lq, cq)):
+        out.append(_segment(0xDB, bytes([tq]) + q[_ZIGZAG].astype(np.uint8).tobytes()))
     out.append(_segment(0xC0, bytes([8]) + height.to_bytes(2, "big") + width.to_bytes(2, "big")
                         + bytes([3, 1, 0x22, 0, 2, 0x11, 1, 3, 0x11, 1])))
-    dht = b"".join(bytes([tc << 4 | th]) + bits + vals
-                   for (tc, th), (bits, vals) in sorted(_STD_HUFFMAN.items()))
-    out.append(_segment(0xC4, dht))
+    for th in (0, 1):
+        for tc in (0, 1):
+            bits, vals = _STD_HUFFMAN[(tc, th)]
+            out.append(_segment(0xC4, bytes([tc << 4 | th]) + bits + vals))
     out.append(_segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0])))
     out.append(data)
     out.append(b"\xff\xd9")

@@ -10,20 +10,26 @@ palette, a bit depth below 8 or Adam7 interlacing raises ``ValueError``.
 The reader undoes all five row filters of the PNG specification (§9).
 None, Sub and Up need nothing but the row or the row above; Average and
 Paeth depend on the reconstructed byte to the left, which makes a row a
-left-to-right recurrence. cv2 (libpng) and PIL choose a filter per row
-adaptively, so real files hold Paeth rows. The reader resolves the
-recurrence as a wavefront: byte (r, x) needs (r, x - bpp), (r - 1, x) and
-(r - 1, x - bpp) only, so every pixel on one anti-diagonal r + p is
-independent of the others. The image is stored skewed (pixel p of row r
-at column r + p) and decoded one diagonal a step, each step one vectorised
-numpy pass over every row: H + W - 1 steps instead of H * W. Files without
-Average or Paeth rows skip the wavefront: Sub rows are a running sum along
-the row, all rows at once, and Up rows add the row above in order (cv2
-writes Sub rows; this module's writer filter 0).
+left-to-right recurrence. Sub rows are a running sum along the row, all
+rows at once, and Up rows add the row above in order (cv2 writes Sub rows;
+this module's writer filter 0). A Paeth row is decoded whole given the row
+above: where the byte above equals the one above-left, the predictor picks
+the left byte, so the row is a running sum there; only the other bytes (a
+few an edge in an id-map, as PIL writes them) are resolved one by one.
+Average rows, and files whose Paeth rows hold too many such bytes (noise,
+photos), go through a wavefront instead: byte (r, x) needs (r, x - bpp),
+(r - 1, x) and (r - 1, x - bpp) only, so every pixel on one anti-diagonal
+r + p is independent of the others. The image is stored skewed (pixel p of
+row r at column r + p) and decoded one diagonal a step, each step one
+vectorised numpy pass over every row: H + W - 1 steps instead of H * W.
 
-The writer uses filter 0 on every row unless asked for another filter
-(any of the five, or one per row), which the tests and ``chip_smoke.py``
-use to build files of each kind.
+The writer ``encode_png`` uses filter 0 on every row unless asked for
+another filter (any of the five, or one per row), which the tests and
+``chip_smoke.py`` use to build files of each kind. Two more writers give
+the bytes of the JAX package's writers: ``encode_png_libpng`` those of
+cv2's ``imwrite`` (its depth frames) and ``encode_png_pillow`` those of
+PIL's ``save`` (its mask id-maps); both run the standard library's zlib
+with the parameters and row filters those libraries choose.
 """
 
 from __future__ import annotations
@@ -100,30 +106,46 @@ def _paeth(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
     return np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
 
 
-def unfilter(scanlines: np.ndarray, bpp: int) -> np.ndarray:
-    """Undo the row filters: (H, 1 + stride) uint8 scanlines, each led by
-    its filter type, to the (H, stride) uint8 image bytes; ``bpp`` is the
-    bytes of one pixel (the filters' left distance)."""
-    ftype = scanlines[:, 0]
-    data = scanlines[:, 1:]
-    if (ftype > 4).any():
-        raise ValueError(f"unknown PNG filter type {int(ftype.max())}")
-    if not ftype.any():
-        return np.ascontiguousarray(data)
+def _lane_cumsum(row: np.ndarray, bpp: int) -> np.ndarray:
+    """Running sum mod 256 of each byte lane of a flat uint8 row."""
+    return np.cumsum(row.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
+
+
+def _paeth_row(raw: np.ndarray, above: np.ndarray, bpp: int, budget: int):
+    """Decode one Paeth row: ``raw`` its flat filtered bytes, ``above`` the
+    decoded row above. Returns (row, n): n counts the bytes whose above
+    byte differs from the above-left one (only those can pick another
+    predictor than the left byte, and each is resolved in turn); the row is
+    None when n exceeds ``budget``."""
+    upleft = np.zeros_like(above)
+    upleft[bpp:] = above[:-bpp]
+    idx = np.flatnonzero(above != upleft)
+    # where the left byte is the predictor, a byte is the running sum of
+    # its lane plus an offset that changes only at the resolved bytes
+    csum = _lane_cumsum(raw, bpp)
+    n = idx.size
+    if n == 0 or n > budget:
+        return (csum if n == 0 else None), n
+    offset = [0] * bpp
+    steps = []
+    for j, r, b, c, cs in zip(idx.tolist(), raw[idx].tolist(), above[idx].tolist(),
+                              upleft[idx].tolist(), csum[idx].tolist()):
+        lane = j % bpp
+        a = (cs - r + offset[lane]) & 255  # the left byte, as resolved
+        pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+        v = (r + (a if pa <= pb and pa <= pc else b if pb <= pc else c)) & 255
+        step = (v - cs - offset[lane]) & 255
+        steps.append(step)
+        offset[lane] = (offset[lane] + step) & 255
+    delta = np.zeros_like(raw)
+    delta[idx] = steps
+    return csum + _lane_cumsum(delta, bpp), n
+
+
+def _unfilter_wavefront(ftype: np.ndarray, data: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo any mix of row filters, one anti-diagonal a step."""
     h, stride = data.shape
     w = stride // bpp
-    if not ((ftype == 3) | (ftype == 4)).any():
-        # no left-to-right recurrence: Sub is a running sum of each byte
-        # lane (uint8 wraps mod 256), for every row at once; Up rows then
-        # add the row above, in order
-        out = data.reshape(h, w, bpp).copy()
-        sub = ftype == 1
-        out[sub] = np.cumsum(out[sub], axis=1, dtype=np.uint8)
-        out = out.reshape(h, stride)
-        for r in np.flatnonzero(ftype == 2):
-            if r:
-                out[r] += out[r - 1]
-        return out
     x = data.reshape(h, w, bpp).astype(np.int16)
     # skewed layout: byte (r, p) of the image sits at column r + p + 2 of
     # row r + 1; row 0 and the two leading columns stay 0, which is what
@@ -155,6 +177,45 @@ def unfilter(scanlines: np.ndarray, bpp: int) -> np.ndarray:
     out = np.empty((h, w, bpp), np.uint8)
     for r in range(h):
         out[r] = recon[r + 1, r + 2:r + 2 + w]
+    return out.reshape(h, stride)
+
+
+def unfilter(scanlines: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the row filters: (H, 1 + stride) uint8 scanlines, each led by
+    its filter type, to the (H, stride) uint8 image bytes; ``bpp`` is the
+    bytes of one pixel (the filters' left distance)."""
+    ftype = scanlines[:, 0]
+    data = scanlines[:, 1:]
+    if (ftype > 4).any():
+        raise ValueError(f"unknown PNG filter type {int(ftype.max())}")
+    if not ftype.any():
+        return np.ascontiguousarray(data)
+    h, stride = data.shape
+    w = stride // bpp
+    if (ftype == 3).any():
+        return _unfilter_wavefront(ftype, data, bpp)
+    # Sub is a running sum of each byte lane (uint8 wraps mod 256), for
+    # every row at once; Up and Paeth rows then follow the row above, in
+    # order. Past this many bytes resolved one by one, the wavefront is
+    # the cheaper way through the rest of the file.
+    budget = 16 * (h + w)
+    sub = ftype == 1
+    if sub.all():
+        return np.cumsum(data.reshape(h, w, bpp), axis=1, dtype=np.uint8).reshape(h, stride)
+    out = data.reshape(h, w, bpp).copy()
+    out[sub] = np.cumsum(out[sub], axis=1, dtype=np.uint8)
+    out = out.reshape(h, stride)
+    zero = np.zeros(stride, np.uint8)
+    for r in np.flatnonzero(ftype >= 2).tolist():
+        above = out[r - 1] if r else zero
+        if ftype[r] == 2:
+            out[r] += above
+            continue
+        row, n = _paeth_row(out[r], above, bpp, budget)
+        if row is None:
+            return _unfilter_wavefront(ftype, data, bpp)
+        budget -= n
+        out[r] = row
     return out.reshape(h, stride)
 
 
@@ -201,36 +262,49 @@ def _chunk(kind: bytes, payload: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + payload) & 0xFFFFFFFF))
 
 
-def _filter_rows(raw: np.ndarray, bpp: int, filters) -> np.ndarray:
-    """Apply the row filters: (H, stride) uint8 image bytes to (H, 1 +
-    stride) scanlines; ``filters`` is one type for every row or one a row.
-    Each filter predicts from the unfiltered bytes, so all rows go at once."""
-    h = raw.shape[0]
-    types = np.broadcast_to(np.asarray(filters, np.uint8), (h,))
-    if (types > 4).any():
-        raise ValueError(f"PNG filter types are 0-4, got {sorted(set(types.tolist()))}")
+def _residuals(raw: np.ndarray, bpp: int, kinds) -> dict:
+    """{filter type: the (H, stride) uint8 bytes minus that filter's
+    prediction, mod 256} for each type in ``kinds``. Each filter predicts
+    from the unfiltered bytes, so all rows go at once."""
     x = raw.astype(np.int16)
     up = np.zeros_like(x)
     up[1:] = x[:-1]
     left = np.zeros_like(x)
     left[:, bpp:] = x[:, :-bpp]
-    upleft = np.zeros_like(x)
-    upleft[1:, bpp:] = x[:-1, :-bpp]
-    t = types[:, None]
-    pred = np.where(t == 1, left, 0)
-    pred = np.where(t == 2, up, pred)
-    pred = np.where(t == 3, (left + up) >> 1, pred)
-    pred = np.where(t == 4, _paeth(left, up, upleft), pred)
-    rows = np.empty((h, raw.shape[1] + 1), np.uint8)
+    out = {}
+    for k in kinds:
+        if k == 4:
+            upleft = np.zeros_like(x)
+            upleft[1:, bpp:] = x[:-1, :-bpp]
+            pred = _paeth(left, up, upleft)
+        else:
+            pred = (0, left, up, (left + up) >> 1)[k]
+        out[k] = ((x - pred) & 255).astype(np.uint8)
+    return out
+
+
+def _scanlines_of(types: np.ndarray, res: dict) -> np.ndarray:
+    """(H, 1 + stride) scanlines: row r is filter ``types[r]``'s residuals."""
+    rows = np.empty((types.size, next(iter(res.values())).shape[1] + 1), np.uint8)
     rows[:, 0] = types
-    rows[:, 1:] = (x - pred) & 255
+    for k, r in res.items():
+        pick = types == k
+        rows[pick, 1:] = r[pick]
     return rows
 
 
-def encode_png(img: np.ndarray, level: int = 6, filters=0) -> bytes:
-    """PNG file bytes of a uint8 or uint16 image, (H, W) grey or (H, W, C)
-    with C in 1-4; row filter ``filters`` (a type 0-4, or one a row), zlib
-    at ``level``."""
+def _filter_rows(raw: np.ndarray, bpp: int, filters) -> np.ndarray:
+    """Apply the row filters: (H, stride) uint8 image bytes to (H, 1 +
+    stride) scanlines; ``filters`` is one type for every row or one a row."""
+    types = np.broadcast_to(np.asarray(filters, np.uint8), (raw.shape[0],))
+    if (types > 4).any():
+        raise ValueError(f"PNG filter types are 0-4, got {sorted(set(types.tolist()))}")
+    return _scanlines_of(types, _residuals(raw, bpp, sorted(set(types.tolist()))))
+
+
+def _scanlines(img: np.ndarray) -> Tuple[np.ndarray, int, bytes]:
+    """(H, stride) image bytes, bytes a pixel and the IHDR payload of a
+    uint8 or uint16 image, (H, W) grey or (H, W, C) with C in 1-4."""
     img = np.asarray(img)
     if img.dtype == np.uint8:
         depth = 8
@@ -245,10 +319,86 @@ def encode_png(img: np.ndarray, level: int = 6, filters=0) -> bytes:
     h, w, ch = img.shape
     data = img.astype(">u2") if depth == 16 else img
     raw = np.ascontiguousarray(data).view(np.uint8).reshape(h, -1)
-    rows = _filter_rows(raw, ch * depth // 8, filters)
     header = struct.pack(">IIBBBBB", w, h, depth, _COLOR_TYPE[ch], 0, 0, 0)
-    return (SIGNATURE + _chunk(b"IHDR", header)
-            + _chunk(b"IDAT", zlib.compress(rows.tobytes(), level)) + _chunk(b"IEND", b""))
+    return raw, ch * depth // 8, header
+
+
+def _file(header: bytes, stream: bytes, idat_size: int) -> bytes:
+    idat = [_chunk(b"IDAT", stream[i:i + idat_size])
+            for i in range(0, max(len(stream), 1), idat_size)]
+    return SIGNATURE + _chunk(b"IHDR", header) + b"".join(idat) + _chunk(b"IEND", b"")
+
+
+def encode_png(img: np.ndarray, level: int = 6, filters=0) -> bytes:
+    """PNG file bytes of a uint8 or uint16 image, (H, W) grey or (H, W, C)
+    with C in 1-4; row filter ``filters`` (a type 0-4, or one a row), zlib
+    at ``level``."""
+    raw, bpp, header = _scanlines(img)
+    rows = _filter_rows(raw, bpp, filters)
+    return _file(header, zlib.compress(rows.tobytes(), level), 1 << 30)
+
+
+def encode_png_libpng(img: np.ndarray) -> bytes:
+    """The bytes cv2's ``imwrite`` writes through libpng with OpenCV's
+    defaults: the Sub filter on every row, zlib level 1 with ``Z_RLE``,
+    libpng's window cut to the data (``png_deflate_claim``) and its
+    stream header rewritten for it (``optimize_cmf``), 8192-byte IDATs.
+    libpng drops Sub for an image one pixel wide and writes None."""
+    raw, bpp, header = _scanlines(img)
+    data = _filter_rows(raw, bpp, 1 if raw.shape[1] > bpp else 0).tobytes()
+    wbits, size = 15, len(data)
+    if size <= 16384:
+        half = 1 << (wbits - 1)
+        while size + 262 <= half:
+            half >>= 1
+            wbits -= 1
+    z = zlib.compressobj(1, zlib.DEFLATED, wbits, 8, zlib.Z_RLE)
+    stream = bytearray(z.compress(data) + z.flush())
+    if size <= 16384 and (stream[0] & 0x0F) == 8 and (stream[0] & 0xF0) <= 0x70:
+        cinfo = stream[0] >> 4
+        half = 1 << (cinfo + 7)
+        if size <= half:
+            while True:
+                half >>= 1
+                cinfo -= 1
+                if not (cinfo > 0 and size <= half):
+                    break
+            cmf = (stream[0] & 0x0F) | (cinfo << 4)
+            flg = stream[1] & 0xE0
+            flg += 0x1F - ((cmf << 8) + flg) % 0x1F
+            stream[0], stream[1] = cmf, flg
+    return _file(header, bytes(stream), 8192)
+
+
+def _pillow_rows(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """The scanlines of Pillow's ``ZipEncode.c`` choice of a row filter: the
+    least sum of byte distances from zero, tried in the order None, Up,
+    Sub, Paeth, a later one only when strictly less and the sum so far is
+    not 0."""
+    res = _residuals(raw, bpp, (0, 2, 1, 4))
+    types = np.zeros(raw.shape[0], np.uint8)
+    best = None
+    for ftype, v in res.items():
+        v = v.astype(np.int32)
+        c = np.minimum(v, 256 - v).sum(axis=1)
+        if best is None:
+            best = c
+            continue
+        take = (best > 0) & (c < best)
+        types[take] = ftype
+        best = np.where(take, c, best)
+    return _scanlines_of(types, res)
+
+
+def encode_png_pillow(img: np.ndarray) -> bytes:
+    """The bytes ``PIL.Image.fromarray(img).save(path)`` writes for a
+    uint8 or 16-bit grey image with Pillow's defaults: its adaptive row
+    filter, zlib level 6 with ``Z_FILTERED`` and memory level 9, IDATs of
+    ``max(65536, 4 * width)`` bytes."""
+    raw, bpp, header = _scanlines(img)
+    data = _pillow_rows(raw, bpp).tobytes()
+    z = zlib.compressobj(6, zlib.DEFLATED, 15, 9, zlib.Z_FILTERED)
+    return _file(header, z.compress(data) + z.flush(), max(65536, 4 * raw.shape[1] // bpp))
 
 
 def write_png(path: str, img: np.ndarray, level: int = 6, filters=0) -> None:

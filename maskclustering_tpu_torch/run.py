@@ -226,35 +226,46 @@ def check_steps(steps: Sequence[str], encoder_spec: str = "hash") -> None:
 # ---------------------------------------------------------------------------
 
 
-def predictor_from_spec(spec: str):
-    """The in-process mask predictor of ``cfg.cropformer_path`` (the JAX
-    ``mask_prediction.predictor_from_spec``): not ported yet."""
-    raise NotImplementedError(
-        f"in-process mask prediction ({spec!r}) is not ported yet: ROADMAP.md "
-        f"queue A, item A13; precompute the masks or pass mask_command")
-
-
 def check_masks(cfg: PipelineConfig, seq_names: Sequence[str],
                 mask_command: Optional[str] = None,
-                predictor_spec: Optional[str] = None) -> List[str]:
+                mask_predictor=None,
+                predictor_spec: Optional[str] = None,
+                device: DeviceLike = None) -> List[str]:
     """Step 1: ensure 2D mask id-maps exist for every scene (``run.py:165-224``).
 
     The contract is a PNG id-map per frame under ``<scene>/output/mask``.
-    Scenes with missing masks are filled by ``mask_command`` (a template
-    with ``{seq_name}``, one subprocess a scene); returns the scenes still
-    missing. A ``predictor_spec`` is only tried when some scene misses
-    masks, and its failure (not ported: A13) is logged, not raised.
+    Scenes with missing masks are filled by ``mask_predictor`` (a
+    ``mask_prediction.MaskPredictor`` run in process) or ``mask_command``
+    (a template with ``{seq_name}``, one subprocess a scene); returns the
+    scenes still missing. ``predictor_spec`` (``cfg.cropformer_path``) is
+    built into a predictor on ``device`` lazily, only once some scene
+    misses masks; a spec that cannot be built is logged, not raised, and
+    a scene whose prediction fails stays missing for ``mask_command``.
     """
     missing = []
     for seq in seq_names:
         seg_dir = get_dataset(cfg.dataset, seq, data_root=cfg.data_root).segmentation_dir
         if not (os.path.isdir(seg_dir) and os.listdir(seg_dir)):
             missing.append(seq)
-    if missing and predictor_spec:
+    if missing and mask_predictor is None and predictor_spec:
+        from maskclustering_tpu_torch.mask_prediction import predictor_from_spec
+
         try:
-            predictor_from_spec(predictor_spec)
+            mask_predictor = predictor_from_spec(predictor_spec, device=device)
         except Exception:  # noqa: BLE001 — a bad spec must not abort the step
             log.exception("could not build mask predictor from spec %r", predictor_spec)
+    if missing and mask_predictor is not None:
+        from maskclustering_tpu_torch.mask_prediction import predict_scene_masks
+
+        for seq in missing:
+            try:
+                ds = get_dataset(cfg.dataset, seq, data_root=cfg.data_root)
+                log.info("predicting masks for %s", seq)
+                predict_scene_masks(ds, mask_predictor, stride=cfg.step)
+            except Exception:  # noqa: BLE001 — one corrupt scene must not abort the step
+                log.exception("mask prediction failed for %s", seq)
+        # mask_command stays the fallback for scenes the predictor could not fill
+        return check_masks(cfg, missing, mask_command=mask_command)
     if missing and mask_command:
         for seq in missing:
             cmd = mask_command.format(seq_name=seq)
@@ -917,6 +928,7 @@ def run_pipeline(
     workers: int = 1,
     resume: bool = True,
     mask_command: Optional[str] = None,
+    mask_predictor=None,
     report_path: Optional[str] = None,
     obs_events: Optional[str] = None,
     ledger_path: Optional[str] = None,
@@ -935,7 +947,10 @@ def run_pipeline(
     every visible card). Raises before any scene runs for an unknown or
     unported step, a malformed encoder spec or a missing card
     (``device=None``); a CLIP checkpoint that cannot be loaded
-    raises after ``cluster`` and ``eval_ca``, as in the JAX driver. A failed
+    raises after ``cluster`` and ``eval_ca``, as in the JAX ``run_pipeline``. The
+    ``masks`` step fills scenes without id-maps through ``mask_predictor``,
+    else a predictor built on ``device`` from ``cfg.cropformer_path``
+    (``"grid"``: ``mask_prediction.GridSegmenter``), else ``mask_command``. A failed
     scene or step is recorded in the report, not raised. ``prediction_root``
     defaults to ``<data_root>/prediction``.
 
@@ -948,8 +963,8 @@ def run_pipeline(
     """
     check_steps(steps, encoder_spec)
     kw = dict(steps=steps, workers=workers, resume=resume, mask_command=mask_command,
-              report_path=report_path, obs_events=obs_events, ledger_path=ledger_path,
-              ledger=ledger, journal_path=journal_path, journal=journal,
+              mask_predictor=mask_predictor, report_path=report_path, obs_events=obs_events,
+              ledger_path=ledger_path, ledger=ledger, journal_path=journal_path, journal=journal,
               prediction_root=prediction_root, encoder_spec=encoder_spec, device=device,
               mesh_devices=mesh_devices)
     if not obs_events:
@@ -966,9 +981,9 @@ def run_pipeline(
 
 
 def _run_pipeline_body(cfg: PipelineConfig, seq_names: Sequence[str], *, steps, workers,
-                       resume, mask_command, report_path, obs_events, ledger_path, ledger,
-                       journal_path, journal, prediction_root, encoder_spec, device,
-                       mesh_devices) -> RunReport:
+                       resume, mask_command, mask_predictor, report_path, obs_events,
+                       ledger_path, ledger, journal_path, journal, prediction_root,
+                       encoder_spec, device, mesh_devices) -> RunReport:
     device = resolve_device(device)
     if cfg.debug:
         log.setLevel(logging.DEBUG)
@@ -990,8 +1005,12 @@ def _run_pipeline_body(cfg: PipelineConfig, seq_names: Sequence[str], *, steps, 
         return out
 
     if "masks" in steps:
-        missing = timed("masks", lambda: check_masks(cfg, seq_names, mask_command,
-                                                     predictor_spec=cfg.cropformer_path))
+        # the spec's predictor is built lazily inside check_masks (so inside
+        # timed(): a bad spec lands in the log, runs with every mask on
+        # disk never build it) on the run's device
+        missing = timed("masks", lambda: check_masks(
+            cfg, seq_names, mask_command, mask_predictor=mask_predictor,
+            predictor_spec=cfg.cropformer_path, device=device))
         if missing:
             log.warning("scenes with no 2D masks (excluded): %s", missing)
             seq_names = [s for s in seq_names if s not in set(missing)]

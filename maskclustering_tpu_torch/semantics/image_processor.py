@@ -32,71 +32,15 @@ from typing import Sequence, Tuple
 
 import numpy as np
 
+from maskclustering_tpu_torch.io.image import resize_pil
+
 PIL_BICUBIC = 3
-# Pillow's Resample.c: 8-bit samples, coefficients in 32 - 8 - 2 bits
-PRECISION_BITS = 32 - 8 - 2
-
-
-def _bicubic(x: np.ndarray) -> np.ndarray:
-    """Pillow's ``bicubic_filter`` (a = -0.5, support 2), each operation in
-    float64 in Pillow's order."""
-    a = -0.5
-    x = np.abs(x)
-    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
-    far = (((x - 5) * x + 8) * x - 4) * a
-    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
-
-
-def resample_coefficients(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Pillow's ``precompute_coeffs`` + ``normalize_coeffs_8bpc`` for the
-    box (0, in_size): (out_size,) first source index and (out_size, ksize)
-    int32 fixed-point weights (zero past each row's taps)."""
-    scale = float(in_size) / out_size
-    filterscale = max(scale, 1.0)
-    support = 2.0 * filterscale
-    ksize = int(math.ceil(support)) * 2 + 1
-    center = (np.arange(out_size) + 0.5) * scale
-    # C's (int) casts truncate toward zero
-    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
-    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
-    taps = np.arange(ksize)
-    live = taps[None, :] < xmax[:, None]
-    w = np.where(live, _bicubic(((taps[None, :] + xmin[:, None]) - center[:, None] + 0.5)
-                                * (1.0 / filterscale)), 0.0)
-    ww = np.zeros(out_size)
-    for x in range(ksize):  # summed in tap order, as Pillow does
-        ww = ww + w[:, x]
-    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
-    one = float(1 << PRECISION_BITS)
-    kk = np.trunc(np.where(w < 0, -0.5 + w * one, 0.5 + w * one)).astype(np.int32)
-    return xmin, np.where(live, kk, 0)
-
-
-def _resample_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
-    """One pass of Pillow's 8-bit resample along ``axis`` (0 rows, 1 columns).
-
-    Sums in int32 as Pillow does: a sample times a weight and their running
-    sum stay below 2**31 (255 times the positive weights' sum, under 1.2).
-    """
-    in_size = img.shape[axis]
-    first, kk = resample_coefficients(in_size, out_size)
-    src = np.ascontiguousarray(np.moveaxis(img, axis, 0)).astype(np.int32)
-    acc = np.full((out_size,) + src.shape[1:], 1 << (PRECISION_BITS - 1), dtype=np.int32)
-    for x in range(kk.shape[1]):
-        idx = np.minimum(first + x, in_size - 1)
-        acc += src[idx] * kk[:, x].reshape((-1,) + (1,) * (src.ndim - 1))
-    out = np.clip(acc >> PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.moveaxis(out, 0, axis)
 
 
 def resize_bicubic(img: np.ndarray, height: int, width: int) -> np.ndarray:
     """``PIL.Image.fromarray(img).resize((width, height), BICUBIC)`` on an
     HxWxC uint8 array."""
-    if img.shape[1] != width:
-        img = _resample_axis(img, width, 1)
-    if img.shape[0] != height:
-        img = _resample_axis(img, height, 0)
-    return np.ascontiguousarray(img)
+    return resize_pil(img, height, width, "bicubic")
 
 
 def center_crop(img: np.ndarray, height: int, width: int) -> np.ndarray:

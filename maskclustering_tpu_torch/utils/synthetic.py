@@ -244,9 +244,10 @@ def write_scannet_layout(scene: SyntheticScene, data_root: str, seq_name: str,
     vh_clean_2 cloud, color/, and a benchmark GT txt (label * 1000 + inst +
     1; the unannotated floor = 1) under ``<data_root>/scannet/gt``. The
     colour frames are ``<frame id>.jpg`` with the JAX writer's pixels (the
-    id-map times 40, mod 256, as grey RGB), encoded by the port's baseline
-    4:2:0 quality-75 encoder (``io/jpeg.py``) where the JAX writer uses
-    PIL's: the files differ in bytes, not in kind.
+    id-map times 40, mod 256, as grey RGB). Every file is the JAX writer's,
+    byte for byte: the colour through the port's libjpeg-equal encoder at
+    PIL's quality 75 (``io/jpeg.py``), the depth and mask PNGs through the
+    writers that give cv2's and PIL's bytes (``io/image.py``).
     """
     root = os.path.join(data_root, "scannet", "processed", seq_name)
     for sub in ("color", "depth", "pose", "intrinsic", os.path.join("output", "mask")):

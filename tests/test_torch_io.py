@@ -94,6 +94,43 @@ def test_png_reader_full_size_depth_frames():
         np.testing.assert_array_equal(png.decode_png(data), img)
 
 
+@pytest.mark.parametrize("content", ["id_map", "noise"])
+@pytest.mark.parametrize("fmt", sorted(FORMATS))
+def test_png_reader_paeth_rows_resolved_and_by_wavefront(content, fmt):
+    """PIL's adaptive filter on an id-map of boxes puts Paeth rows with few
+    bytes to resolve (decoded a row at a time); noise with every row Paeth
+    holds so many that the reader takes the wavefront. Both give the
+    pixels back, and the wavefront alone gives them too."""
+    dtype, ch = FORMATS[fmt]
+    h, w = 60, 80
+    if content == "id_map":
+        img = np.zeros((h, w), np.int64)
+        rng = np.random.default_rng(5)
+        for k in range(1, 13):
+            y, x = rng.integers(0, h - 8), rng.integers(0, w - 8)
+            img[y:y + rng.integers(4, 30), x:x + rng.integers(4, 30)] = k * 19
+        if ch:
+            img = np.stack([img + 5 * c for c in range(ch)], -1)
+        img = img.astype(dtype)
+        bio = io.BytesIO()
+        Image.fromarray(img).save(bio, format="PNG")
+        data = bio.getvalue()
+    else:
+        img = _image(fmt, h, w, seed=6)
+        data = png.encode_png(img, filters=4)
+    assert 4 in _row_filters(data)
+    np.testing.assert_array_equal(png.decode_png(data), img)
+    idat = b"".join(p for k, p in png._chunks(data) if k == b"IDAT")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    bpp = rows.shape[1] // w
+    flat = img.astype(">u2") if dtype == np.uint16 else img
+    want = np.ascontiguousarray(flat).view(np.uint8).reshape(h, -1)
+    np.testing.assert_array_equal(png._unfilter_wavefront(rows[:, 0], rows[:, 1:], bpp), want)
+    resolved = [png._paeth_row(np.zeros(w * bpp, np.uint8), want[r - 1], bpp, 1 << 30)[1]
+                for r in range(1, h) if rows[r, 0] == 4]
+    assert (sum(resolved) <= 16 * (h + w)) == (content == "id_map")
+
+
 @pytest.mark.parametrize("fmt", sorted(FORMATS))
 @pytest.mark.parametrize("filt", ["none", "sub", "up", "average", "paeth", "mixed",
                                   "mixed_none_sub_up"])

@@ -303,7 +303,9 @@ for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.fea
              "obs.report", "obs.ledger", "obs.trace", "obs.top", "obs.canary", "serve",
              "serve.__main__", "serve.protocol", "serve.admission", "serve.router",
              "serve.wal", "serve.client", "serve.worker", "serve.daemon",
-             "serve.supervisor", "serve.pool", "serve.worker_main"):
+             "serve.supervisor", "serve.pool", "serve.worker_main", "preprocess",
+             "preprocess.scannet", "preprocess.matterport", "preprocess.scannetpp",
+             "preprocess.tasmap", "mask_prediction", "utils.clean_output"):
     assert pkg.__name__ + "." + name in names, name
 from maskclustering_tpu_torch.config import load_config
 from maskclustering_tpu_torch.models.streaming import stream_scene

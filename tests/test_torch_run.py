@@ -316,7 +316,7 @@ def test_eval_without_class_predictions_warns(runs):
 
 def test_check_masks_and_seq_name_list(runs, tmp_path):
     cfg = _cfg(runs["root"], "m", cropformer_path="cropformer.pth")
-    # the missing scene is reported; the unported predictor is logged, not raised
+    # the missing scene is reported; a spec that builds no predictor is logged, not raised
     assert check_masks(cfg, NAMES) == []
     assert check_masks(cfg, NAMES[:1] + ["ghost"]) == ["ghost"]
     (tmp_path / "scannet.txt").write_text("a\nb\n\n")
