@@ -132,9 +132,10 @@ Imports nothing of JAX or of the JAX package. In order:
     10's scans: the CLI with ``mesh_shape`` [1, 1] and ``--point-shards 1``,
     ``run_pipeline`` on a (2, 1) mesh with two point shards over the card
     four times (``mesh_devices``; the short last batch has a pad lane), and
-    the CLI with ``--workers 2`` over the four scans: npz, object dicts and
-    AP equal to phase 10's (the mid-size scan to an in-process run), the
-    seconds a scan beside phase 10's.
+    the CLI with ``--workers 2`` over the four scans, the two CLIs' processes
+    beside the in-process run: npz, object dicts and AP equal to phase
+    10's (the mid-size scan to an in-process run), the seconds a scan
+    beside phase 10's.
 15. the scene-serving daemon (``serve/``) in this process, one in-thread
     worker on the card, over phase 10's scans and config on a Unix socket.
     (a) Start with one scan warm, obs events armed: the warm-up seconds.
@@ -229,7 +230,25 @@ Imports nothing of JAX or of the JAX package. In order:
     seconds, each kernel's launches (``ingest_launches``); each run's
     objects and digests equal to the CPU route's on the same scan, which
     ``--ingest-reference`` computes (minutes on the CPU) and
-    INGEST_CPU_DIGESTS keeps.
+    INGEST_CPU_DIGESTS keeps;
+19. visualisation and the TASMap variant. (a) ``splat_depth`` and
+    ``splat_color`` (``ops/cuda/splat.cu``) bit-equal to their plain
+    versions on the cases of ``ops/splat_cases.py``, and
+    ``project_zbuffer`` on the card equal to the CPU's. (b) The ``vis`` and
+    ``top_images`` steps over phase 10's second full-size scan on the card,
+    the inputs of every splat kept: two launches an (object, representative
+    frame); the same steps on the CPU into a second root: every file
+    byte-equal. (c) Both kernels bit-equal to the plain version on every
+    kept splat (the step's zero colours and seeded ones), timed with CUDA
+    events at the largest beside the plain version and the byte bound, and
+    summed over the scan. (d) ``TASMAP_STEPS`` over the mid-size scan,
+    copied without its masks and masked by ``"grid"``, on the card and on
+    the CPU: every file equal (``tasmap_launches``);
+20. the static checks: ``python -m maskclustering_tpu_torch.analysis``
+    exits 0 against the port's baseline on the card's machine (no jax), while
+    ``python -m maskclustering_tpu_torch.run --lock-sanitizer`` clusters
+    phase 10's third scan: its ``locks.*`` counters in the events, its
+    observed lock-order graph embedded in the static one.
 
 ``python3 chip_smoke.py --ingest-reference`` runs only that CPU route and
 needs no card.
@@ -238,7 +257,8 @@ Every perf-ledger row of the script goes to a temporary file
 (``MCT_PERF_LEDGER``). Any mismatch or failure exits non-zero. The last
 three lines are the card line, the per-kernel JSON (each association row
 with its launches in every path, ``isolated_launches`` read from the
-isolated child's ``bye``, ``ingest_launches`` phase 18's) and the result
+isolated child's ``bye``, ``ingest_launches`` phase 18's,
+``tasmap_launches`` phase 19d's; the splat rows phase 19's) and the result
 JSON. ``[done]`` gives each phase's seconds.
 """
 
@@ -2182,7 +2202,8 @@ def _run_modules(here: str, calls):
 
     with ThreadPoolExecutor(len(calls)) as pool:
         futures = [pool.submit(_run_module, here, module, args) for module, args in calls]
-        return [f.result() for f in futures]
+        # each call is bounded by its subprocess timeout; this bounds the wait too
+        return [f.result(timeout=900.0) for f in futures]
 
 
 def _run_cli(here: str, args, timeout: int = 600):
@@ -2313,25 +2334,34 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
         _say(f"[mesh] {label}: npz and object dicts == phase 10's, AP {ap['all_ap']:.4f} AP50 "
              f"{ap['all_ap_50%']:.4f}; cluster {seconds:.3f} s; digest coord {coord}")
 
+    # the two CLI runs (their processes on the card) go beside the in-process
+    # mesh_devices run: each checks its artifacts, none of their seconds
+    # feeds the kernels line, and the launches counted are this process's
+    from concurrent.futures import ThreadPoolExecutor
+
     t0 = time.perf_counter()
     report_path = os.path.join(root, "mesh_cli_report.json")
-    _run_cli(here, ["--config", write_cfg("chip_smoke_mesh_cli", mesh_shape=[1, 1]),
-                    "--point-shards", "1", "--data_root", root, "--seq_name_list",
-                    "+".join(BATCH_SCANS), "--steps", "cluster,eval_ca", "--no-resume",
-                    "--report", report_path, "--no-obs"])
-    with open(report_path) as fh:
-        crep = json.load(fh)
-    check_run(f"CLI mesh_shape [1, 1] ({time.perf_counter() - t0:.1f} s with the process)",
-              os.path.join(root, "prediction"), "chip_smoke_mesh_cli", crep["scenes"],
-              crep["step_seconds"]["cluster"], "fused|bf16|1x1|r0|c0")
-
-    mcfg = ov_cfg.replace(config_name="chip_smoke_mesh_devices", mesh_shape=(2, 1),
-                          point_shards=2)
-    pred = os.path.join(root, "prediction_mesh_devices")
-    kernels.LAUNCHES.reset()
-    rep = run_pipeline(mcfg, BATCH_SCANS, steps=("cluster",), resume=False, journal=False,
-                       prediction_root=pred, device=dev, mesh_devices=[dev] * 4)
-    counts = dict(kernels.LAUNCHES.counts)
+    wreport_path = os.path.join(root, "workers_report.json")
+    names4 = list(BATCH_SCANS) + [MID_SCAN]
+    cli_args = [
+        ["--config", write_cfg("chip_smoke_mesh_cli", mesh_shape=[1, 1]), "--point-shards", "1",
+         "--data_root", root, "--seq_name_list", "+".join(BATCH_SCANS), "--steps",
+         "cluster,eval_ca", "--no-resume", "--report", report_path, "--no-obs"],
+        ["--config", write_cfg("chip_smoke_workers"), "--workers", str(MESH_WORKERS),
+         "--data_root", root, "--seq_name_list", "+".join(names4), "--steps", "cluster",
+         "--no-resume", "--report", wreport_path, "--no-obs"]]
+    with ThreadPoolExecutor(len(cli_args)) as pool:
+        clis = [pool.submit(_run_cli, here, args) for args in cli_args]
+        mcfg = ov_cfg.replace(config_name="chip_smoke_mesh_devices", mesh_shape=(2, 1),
+                              point_shards=2)
+        pred = os.path.join(root, "prediction_mesh_devices")
+        kernels.LAUNCHES.reset()
+        rep = run_pipeline(mcfg, BATCH_SCANS, steps=("cluster",), resume=False, journal=False,
+                           prediction_root=pred, device=dev, mesh_devices=[dev] * 4)
+        counts = dict(kernels.LAUNCHES.counts)
+        for f in clis:
+            f.result(timeout=900.0)
+    both = time.perf_counter() - t0
     lanes_run = 2 * -(-len(BATCH_SCANS) // 2)  # the short last batch has a pad lane
     if any(counts.get(n, 0) != lanes_run * 2 for n in ASSOCIATION_KERNELS):
         raise AssertionError(f"mesh_devices run launches {counts}, want {lanes_run * 2} each")
@@ -2339,23 +2369,21 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
               f"{json.dumps(counts)}", pred, mcfg.config_name,
               [dataclasses.asdict(s) for s in rep.scenes], rep.step_seconds["cluster"],
               "fused|bf16|2x1|r0|c0")
+    with open(report_path) as fh:
+        crep = json.load(fh)
+    check_run(f"CLI mesh_shape [1, 1] (beside the next two runs, {both:.1f} s for the three)",
+              os.path.join(root, "prediction"), "chip_smoke_mesh_cli", crep["scenes"],
+              crep["step_seconds"]["cluster"], "fused|bf16|1x1|r0|c0")
 
     # worker processes over the four scans; the mid-size scan's reference
     # is an in-process run of the same config
-    t0 = time.perf_counter()
-    report_path = os.path.join(root, "workers_report.json")
-    names4 = list(BATCH_SCANS) + [MID_SCAN]
-    _run_cli(here, ["--config", write_cfg("chip_smoke_workers"), "--workers", str(MESH_WORKERS),
-                    "--data_root", root, "--seq_name_list", "+".join(names4), "--steps",
-                    "cluster", "--no-resume", "--report", report_path, "--no-obs"])
-    with open(report_path) as fh:
+    with open(wreport_path) as fh:
         wrep = json.load(fh)
     bucket = wrep["scenes"][0]["digest_coord"].split("|")[0]
     if [s["status"] for s in wrep["scenes"]] != ["ok"] * len(names4):
         raise AssertionError(f"workers run statuses {[s['status'] for s in wrep['scenes']]}")
-    check_run(f"CLI --workers {MESH_WORKERS} over {len(names4)} scans "
-              f"({time.perf_counter() - t0:.1f} s with the processes)",
-              os.path.join(root, "prediction"), "chip_smoke_workers", wrep["scenes"],
+    check_run(f"CLI --workers {MESH_WORKERS} over {len(names4)} scans (beside the other two "
+              f"runs)", os.path.join(root, "prediction"), "chip_smoke_workers", wrep["scenes"],
               wrep["step_seconds"]["cluster"], f"{bucket}|bf16|single|r0|c0")
     inproc = os.path.join(root, "prediction_mid_inproc")
     run_pipeline(ov_cfg.replace(config_name="chip_smoke_mid_inproc"), [MID_SCAN],
@@ -2365,8 +2393,8 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
                      "chip_smoke_workers", [MID_SCAN])
     _say(f"[mesh] {card}: --workers {MESH_WORKERS} {wrep['step_seconds']['cluster']:.3f} s over "
          f"{len(names4)} scans = {wrep['step_seconds']['cluster'] / len(names4):.3f} s a scan "
-         f"against phase 10's {batch['cluster_s'] / len(BATCH_SCANS):.3f}; {MID_SCAN} == its "
-         f"in-process run")
+         f"(sharing the card with the other two runs) against phase 10's "
+         f"{batch['cluster_s'] / len(BATCH_SCANS):.3f}; {MID_SCAN} == its in-process run")
     _say(f"[mesh] phase 14 in {time.perf_counter() - t_phase:.1f} s")
     return {"launches": launches}
 
@@ -3874,6 +3902,344 @@ def ingest_reference() -> int:
     return 0
 
 
+# phase 19: the visualisation steps on phase 10's second full-size scan, the
+# TASMap variant on the mid-size scan (its masks made by the grid
+# segmenter), and the seeded colours each recorded splat is checked with
+VIS_SCAN = BATCH_SCANS[1]
+SPLAT_KERNELS = ("splat_depth", "splat_color")
+SPLAT_COLOR_SEED = 19
+
+
+@contextlib.contextmanager
+def recording_splats(calls):
+    """Keep the inputs of every ``project_zbuffer`` call on a CUDA device
+    (the top_images step's splats): ``(points, intrinsics, cam_to_world,
+    height, width)``, the points as the card tensor the step passed."""
+    import torch
+
+    from maskclustering_tpu_torch.visualize import top_images
+
+    real = top_images.project_zbuffer
+
+    def rec(points, colors, intrinsics, cam_to_world, height, width, *, device=None):
+        out = real(points, colors, intrinsics, cam_to_world, height, width, device=device)
+        if isinstance(points, torch.Tensor) and points.device.type == "cuda":
+            calls.append((points, intrinsics, cam_to_world, height, width))
+        return out
+
+    top_images.project_zbuffer = rec
+    try:
+        yield calls
+    finally:
+        top_images.project_zbuffer = real
+
+
+def _splat_inputs(dev, call, seed: int):
+    """(points, seeded colours in [0, 1), params) of a recorded call on the card."""
+    import numpy as np
+    import torch
+
+    from maskclustering_tpu_torch.visualize.top_images import splat_params
+
+    pts, intr, c2w, h, w = call
+    pts = pts.to(dev).contiguous()
+    cols = torch.from_numpy(np.random.default_rng(seed).random(
+        (pts.shape[0], 3), dtype=np.float32)).to(dev)
+    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32).to(dev)  # noqa: E731
+    return pts, cols, splat_params(f32(intr), f32(c2w))
+
+
+def _splat_both(dev, pts, cols, prm, h, w):
+    """The kernels' and the plain version's (zbuf, codebuf, visible) on the card."""
+    from maskclustering_tpu_torch.ops.cuda import splat_color_cuda, splat_depth_cuda
+    from maskclustering_tpu_torch.visualize import top_images as ti
+
+    zb = splat_depth_cuda(pts, prm, height=h, width=w)
+    got = (zb, *splat_color_cuda(pts, cols, prm, zb, height=h, width=w))
+    zr = ti.splat_depth_reference(pts, prm, h, w)
+    want = (zr, *ti.splat_color_reference(pts, cols, prm, zr, h, w))
+    return got, want
+
+
+def check_splat_edges(dev) -> None:
+    """The splat kernels bit-equal to their plain versions on the card, and
+    the card's ``project_zbuffer`` equal to the CPU's, on every case of
+    ``ops/splat_cases.py``."""
+    import torch
+
+    from maskclustering_tpu_torch.ops.splat_cases import SPLAT_CASES
+    from maskclustering_tpu_torch.visualize.top_images import project_zbuffer, splat_params
+
+    for name, c in SPLAT_CASES.items():
+        h, w = c["height"], c["width"]
+        pts = torch.from_numpy(c["points"]).to(dev)
+        cols = torch.from_numpy(c["colors"]).to(dev)
+        prm = splat_params(torch.from_numpy(c["intrinsics"]).to(dev),
+                           torch.from_numpy(c["cam_to_world"]).to(dev))
+        got, want = _splat_both(dev, pts, cols, prm, h, w)
+        card = project_zbuffer(c["points"], c["colors"], c["intrinsics"], c["cam_to_world"],
+                               h, w, device=dev)
+        host = project_zbuffer(c["points"], c["colors"], c["intrinsics"], c["cam_to_world"],
+                               h, w, device="cpu")
+        bad = [what for what, g, r in zip(("zbuf", "codebuf", "visible"), got, want)
+               if not torch.equal(g, r)]
+        bad += [what for what, g, r in zip(("image", "zmap", "visible"), card, host)
+                if not torch.equal(g.cpu().view(torch.uint8), r.view(torch.uint8))]
+        if bad:
+            raise AssertionError(f"splat case {name}: the card differs in {bad}")
+    _say(f"[vis] splat_depth and splat_color == plain on the {len(SPLAT_CASES)} cases of "
+         f"ops/splat_cases.py; project_zbuffer cuda == cpu on each")
+
+
+def _splat_bound_ms(n: int, h: int, w: int) -> dict:
+    """Each pass's least time from its bytes: inputs read once, outputs
+    written once (the depth pass: points, camera, the (H*W + 1) buffer; the
+    colour pass: points, colours, camera and the depth buffer in, the code
+    buffer and the visible bytes out)."""
+    pix = 4 * (h * w + 1)
+    depth = 12 * n + 64 + pix
+    color = 24 * n + 64 + pix + pix + n
+    return {"splat_depth": depth, "splat_color": color}
+
+
+def check_and_time_splats(dev, calls) -> dict:
+    """Phase 19: both kernels bit-equal to the plain version on every
+    recorded call (the step's zero colours and seeded ones), timed with
+    CUDA events at the largest call and summed over the scan."""
+    import torch
+
+    from maskclustering_tpu_torch.ops.cuda import splat_color_cuda, splat_depth_cuda
+    from maskclustering_tpu_torch.visualize import top_images as ti
+
+    scene_ms = {k: 0.0 for k in SPLAT_KERNELS}
+    scene_bytes = {k: 0 for k in SPLAT_KERNELS}
+    for i, call in enumerate(calls):
+        pts, cols, prm = _splat_inputs(dev, call, SPLAT_COLOR_SEED + i)
+        h, w = call[3], call[4]
+        for colours in (torch.zeros_like(cols), cols):
+            got, want = _splat_both(dev, pts, colours, prm, h, w)
+            bad = [what for what, g, r in zip(("zbuf", "codebuf", "visible"), got, want)
+                   if not torch.equal(g, r)]
+            if bad:
+                raise AssertionError(f"splat call {i} ({pts.shape[0]} points, {h}x{w}): the "
+                                     f"kernels differ from the plain version in {bad}")
+        zb = splat_depth_cuda(pts, prm, height=h, width=w)
+        scene_ms["splat_depth"] += cuda_time_ms(
+            lambda: splat_depth_cuda(pts, prm, height=h, width=w), 10)
+        scene_ms["splat_color"] += cuda_time_ms(
+            lambda: splat_color_cuda(pts, cols, prm, zb, height=h, width=w), 10)
+        for k, v in _splat_bound_ms(pts.shape[0], h, w).items():
+            scene_bytes[k] += v
+    big = max(range(len(calls)), key=lambda i: calls[i][0].shape[0])
+    pts, cols, prm = _splat_inputs(dev, calls[big], SPLAT_COLOR_SEED + big)
+    h, w = calls[big][3], calls[big][4]
+    zb = splat_depth_cuda(pts, prm, height=h, width=w)
+    zr = ti.splat_depth_reference(pts, prm, h, w)
+    timed = {
+        "splat_depth": (lambda: splat_depth_cuda(pts, prm, height=h, width=w),
+                        lambda: ti.splat_depth_reference(pts, prm, h, w)),
+        "splat_color": (lambda: splat_color_cuda(pts, cols, prm, zb, height=h, width=w),
+                        lambda: ti.splat_color_reference(pts, cols, prm, zr, h, w)),
+    }
+    nbytes = _splat_bound_ms(pts.shape[0], h, w)
+    out = {}
+    for k, (kern, plain) in timed.items():
+        out[k] = {"ms": cuda_time_ms(kern, 50), "plain_ms": cuda_time_ms(plain, 20),
+                  "bytes": nbytes[k], "bound_ms": nbytes[k] / PEAK_HBM_BYTES * 1e3,
+                  "bound_by": "bytes", "max_abs_err": 0.0, "scene_ms": scene_ms[k],
+                  "scene_bound_ms": scene_bytes[k] / PEAK_HBM_BYTES * 1e3,
+                  "shape": (int(pts.shape[0]), h, w)}
+    return out
+
+
+def _tree_files(root: str) -> dict:
+    """{relative path: SHA-256} of every file under ``root``."""
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(d, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = _sha(fh.read())
+    return out
+
+
+def _vis_steps(cfg, dev, pred: str):
+    """The vis and top_images steps over VIS_SCAN on ``dev``: (report, the
+    kernels' launch counts of the run)."""
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.run import run_pipeline
+
+    kernels.LAUNCHES.reset()
+    rep = run_pipeline(cfg, [VIS_SCAN], steps=("vis", "top_images"), resume=False,
+                       journal=False, prediction_root=pred, device=dev)
+    launches = dict(kernels.LAUNCHES.counts)
+    if not rep.ok:
+        raise AssertionError(f"the vis steps failed on {dev}: {rep.step_errors}")
+    return rep, launches
+
+
+def vis_phase(dev, card: str, batch) -> dict:
+    """Phase 19: visualisation and the TASMap variant on the card."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from maskclustering_tpu_torch.config import load_config
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.run import TASMAP_STEPS, run_pipeline
+
+    t_phase = time.perf_counter()
+    check_splat_edges(dev)
+    root, cfg, pred = batch["root"], batch["cfg"], batch["pred"]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_vis_")
+    try:
+        # (a) vis + top_images on the card, every splat's inputs kept
+        calls = []
+        with recording_splats(calls):
+            rep, launches = _vis_steps(cfg, dev, pred)
+        od = os.path.join(root, "scannet", "processed", VIS_SCAN, "output", "object",
+                          cfg.config_name, "object_dict.npy")
+        objects = np.load(od, allow_pickle=True).item()
+        frames = sum(len(o.get("repre_mask_list", [])) for o in objects.values())
+        if len(calls) != frames or frames == 0:
+            raise AssertionError(f"{len(calls)} splats recorded for {frames} (object, frame) pairs")
+        for k in SPLAT_KERNELS:
+            if launches.get(k, 0) != frames:
+                raise AssertionError(f"{k} launched {launches.get(k, 0)} times for {frames} "
+                                     f"(object, frame) pairs")
+        _say(f"[vis] vis + top_images on {dev} over {VIS_SCAN}: {len(objects)} objects, {frames} "
+             f"(object, frame) splats, steps (s) {json.dumps({k: round(v, 3) for k, v in rep.step_seconds.items()})}; "
+             f"launches {json.dumps(launches)}")
+        # (b) the same steps on the cpu into a second root (the scans linked)
+        root2 = os.path.join(tmp, "cpu_root")
+        os.makedirs(root2)
+        os.symlink(os.path.join(root, "scannet"), os.path.join(root2, "scannet"))
+        rep_cpu, cpu_launches = _vis_steps(cfg.replace(data_root=root2), "cpu", pred)
+        if cpu_launches:
+            raise AssertionError(f"the cpu run launched kernels: {cpu_launches}")
+        card_files = _tree_files(os.path.join(root, "vis", VIS_SCAN))
+        cpu_files = _tree_files(os.path.join(root2, "vis", VIS_SCAN))
+        if card_files != cpu_files or not card_files:
+            raise AssertionError(f"the vis files on {dev} and cpu differ: "
+                                 f"{sorted(set(card_files.items()) ^ set(cpu_files.items()))[:6]}")
+        _say(f"[vis] {len(card_files)} files on {dev} == cpu byte for byte; cpu steps (s) "
+             f"{json.dumps({k: round(v, 3) for k, v in rep_cpu.step_seconds.items()})}")
+        # (c) both kernels against the plain version on every splat, timed
+        timed = check_and_time_splats(dev, calls)
+        for k, t in timed.items():
+            _say(f"[kernels] {k} == plain on all {len(calls)} splats (zero and seeded colours); "
+                 f"at the largest {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
+                 f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}: {t['bytes']} bytes), "
+                 f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound (the launch sets the time "
+                 f"at this size); summed over the scan: kernel {t['scene_ms']:.4f} ms, bound "
+                 f"{t['scene_bound_ms']:.5f} ms")
+        # (d) TASMAP_STEPS on the mid-size scan, masks by the grid segmenter,
+        # on the card and on the cpu: every file equal
+        tas = {}
+        for d in (dev, "cpu"):
+            r = os.path.join(tmp, f"tasmap_{str(d).split(':')[0]}")
+            src = os.path.join(root, "scannet", "processed", MID_SCAN)
+            shutil.copytree(src, os.path.join(r, "scannet", "processed", MID_SCAN),
+                            ignore=shutil.ignore_patterns("output"))
+            tcfg = load_config("scannet", data_root=r, step=1, distance_threshold=0.03,
+                               few_points_threshold=10, config_name="chip_smoke_tasmap",
+                               cropformer_path="grid")
+            kernels.LAUNCHES.reset()
+            t0 = time.perf_counter()
+            trep = run_pipeline(tcfg, [MID_SCAN], steps=TASMAP_STEPS, resume=False,
+                                journal=False, device=d)
+            wall = time.perf_counter() - t0
+            got = dict(kernels.LAUNCHES.counts)
+            if not trep.ok or trep.scenes[0].num_objects == 0:
+                raise AssertionError(f"TASMAP_STEPS on {d}: {trep.step_errors} "
+                                     f"{[(s.status, s.error[-300:]) for s in trep.scenes]}")
+            tas[str(d)] = (_tree_files(r), got, trep)
+            _say(f"[vis] TASMAP_STEPS on {d} over {MID_SCAN} (masks by 'grid'): "
+                 f"{trep.scenes[0].num_objects} objects, digest "
+                 f"{trep.scenes[0].digest['artifact']}, steps (s) "
+                 f"{json.dumps({k: round(v, 3) for k, v in trep.step_seconds.items()})}, run "
+                 f"{wall:.2f} s; launches {json.dumps(got)}")
+        (f_card, tasmap_launches, _), (f_cpu, _, _) = tas[str(dev)], tas["cpu"]
+        if f_card != f_cpu:
+            raise AssertionError(f"TASMAP_STEPS files differ between {dev} and cpu: "
+                                 f"{sorted(set(f_card.items()) ^ set(f_cpu.items()))[:6]}")
+        for k in ASSOCIATION_KERNELS + SPLAT_KERNELS:
+            if not tasmap_launches.get(k):
+                raise AssertionError(f"TASMAP_STEPS on {dev} launched no {k}")
+        _say(f"[vis] TASMAP_STEPS: {len(f_card)} files on {dev} == cpu byte for byte (id-maps, "
+             f"npz, object dict, PLYs, bbox and grid PNGs); phase 19 in "
+             f"{time.perf_counter() - t_phase:.1f} s ({card})")
+        return {"launches": launches, "timed": timed, "tasmap_launches": tasmap_launches}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def static_checks_phase(dev, card: str, batch) -> None:
+    """Phase 20: the port's static checks on the card's machine (which has
+    no jax), and one full-size scan through the batch CLI under the lock
+    sanitizer, its observed lock graph embedded in the static one."""
+    import shutil
+    import tempfile
+
+    from maskclustering_tpu_torch.analysis.concurrency import build_lock_order_graph
+    from maskclustering_tpu_torch.analysis.lock_sanitizer import check_embeds
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_static_")
+    try:
+        cfg = batch["cfg"]
+        conf = os.path.join(tmp, "chip_smoke_locks.json")
+        with open(os.path.join(here, "configs", "scannet.json")) as fh:
+            doc = json.load(fh)
+        doc.update(step=1, distance_threshold=0.01, post_neighbor_cap=cfg.post_neighbor_cap)
+        with open(conf, "w") as fh:
+            json.dump(doc, fh)
+        report = os.path.join(tmp, "locks_run.json")
+        cli = ["--config", conf, "--data_root", batch["root"], "--seq_name_list",
+               BATCH_SCANS[2], "--steps", "cluster", "--no-resume", "--no-journal",
+               "--lock-sanitizer", "--report", report, "--ledger",
+               os.path.join(tmp, "ledger.jsonl")]
+        t0 = time.perf_counter()
+        (a_rc, a_out, a_err), (r_rc, _, r_err) = _run_modules(here, [
+            ("maskclustering_tpu_torch.analysis", ["--format", "json"]),
+            ("maskclustering_tpu_torch.run", cli)])
+        wall = time.perf_counter() - t0
+        if a_rc != 0:
+            raise AssertionError(f"python -m maskclustering_tpu_torch.analysis exited {a_rc}:\n"
+                                 f"{a_out[-2000:]}\n{a_err[-2000:]}")
+        res = json.loads(a_out)
+        if r_rc != 0:
+            raise AssertionError(f"the --lock-sanitizer run exited {r_rc}:\n{r_err[-3000:]}")
+        from maskclustering_tpu_torch.obs.report import RunData
+
+        counters = RunData(os.path.splitext(report)[0] + "_events.jsonl")._counters
+        locks = {k: v for k, v in counters.items() if k.startswith("locks.")}
+        if set(locks) != {"locks.acquisitions", "locks.order_edges", "locks.long_holds"} \
+                or not locks["locks.acquisitions"]:
+            raise AssertionError(f"the run's locks.* counters: {locks}")
+        with open(os.path.splitext(report)[0] + "_locks.json") as fh:
+            observed_doc = json.load(fh)
+        observed = {tuple(e.split(" -> ")) for e in observed_doc["order_edges"]}
+        nodes, edges = build_lock_order_graph(here)
+        violations = check_embeds(observed, edges, nodes)
+        if violations:
+            raise AssertionError("\n".join(violations))
+        _say(f"[static] python -m maskclustering_tpu_torch.analysis: exit 0, "
+             f"{len(res['findings'])} finding(s), {len(res['suppressed'])} suppressed by the "
+             f"port's baseline, {len(res['stale'])} stale, {res['elapsed_s']} s; the lock graph: "
+             f"{len(nodes)} named locks, {len(edges)} static order edge(s)")
+        _say(f"[static] run --lock-sanitizer over {BATCH_SCANS[2]}: {json.dumps(locks)}; "
+             f"{len(observed)} observed order edge(s), all in the static graph; "
+             f"{len(observed_doc['acquisitions'])} named locks taken, the longest holds (s) "
+             f"{json.dumps(dict(sorted(observed_doc['max_hold_s'].items(), key=lambda kv: -kv[1])[:3]))}; "
+             f"both processes at once in {wall:.1f} s; phase 20 in "
+             f"{time.perf_counter() - t_phase:.1f} s ({card})")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def full_size_scene():
     """Phase 4's scene: 8 boxes, 32 frames at 480x640, 2 mm depth noise."""
     from maskclustering_tpu_torch.utils.synthetic import add_depth_noise, make_scene
@@ -4075,6 +4441,14 @@ def main() -> int:
     ingest = ingest_phase(dev, card, scene)
 
     lap("18")
+    # 19. visualisation and the TASMap variant
+    vis = vis_phase(dev, card, batch)
+
+    lap("19")
+    # 20. the static checks, and a scan under the lock sanitizer
+    static_checks_phase(dev, card, batch)
+
+    lap("20")
     _say(f"[done] {time.perf_counter() - t_start:.1f} s; phases (s): {json.dumps(laps)}")
     _say(card)
     rows = [{
@@ -4084,7 +4458,8 @@ def main() -> int:
         "launches": launches["ball_query"], "max_abs_err": bq["max_abs_err"],
         "ms": bq["ms"], "plain_ms": bq["plain_ms"], "bound_ms": bq["bound_ms"],
         "bound_by": bq["bound_by"], "library_ms": None, "scene_kernel_ms": bq["scene_ms"],
-        "ingest_launches": ingest["launches"]["ball_query"]}]
+        "ingest_launches": ingest["launches"]["ball_query"],
+        "tasmap_launches": vis["tasmap_launches"].get("ball_query", 0)}]
     # the JAX lines each association kernel computes (associate_frame, :191)
     replaces = {"associate_table": "maskclustering_tpu/models/backprojection.py:264",
                 "associate_claim": "maskclustering_tpu/models/backprojection.py:229",
@@ -4103,7 +4478,17 @@ def main() -> int:
             "serve_launches": serve["launches"][name],
             "canary_launches": obs_run["canary_launches"].get(name, 0),
             "isolated_launches": iso["launches"][name],
-            "ingest_launches": ingest["launches"][name]})
+            "ingest_launches": ingest["launches"][name],
+            "tasmap_launches": vis["tasmap_launches"][name]})
+    for name, t in vis["timed"].items():
+        rows.append({
+            "name": name, "route": "cuda", "kind": "xla_program",
+            "source": "maskclustering_tpu_torch/ops/cuda/splat.cu",
+            "replaces": "maskclustering_tpu/visualize/top_images.py:25",
+            "launches": vis["launches"][name], "max_abs_err": t["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "scene_kernel_ms": t["scene_ms"],
+            "tasmap_launches": vis["tasmap_launches"][name]})
     shutil.rmtree(ledger_dir, ignore_errors=True)
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,7 +5,10 @@ package reads them with cv2 or PIL; the port has neither (the card's
 machine ships only torch, numpy and scipy), so this module decodes and
 encodes the formats the layouts use: 8- and 16-bit samples, grey, grey
 with alpha, RGB and RGBA (colour types 0, 4, 2, 6), not interlaced. A
-palette, a bit depth below 8 or Adam7 interlacing raises ``ValueError``.
+palette, a bit depth below 8 or Adam7 interlacing raises ``ValueError``
+there; ``decode_png_rgb`` reads every colour type and bit depth (the
+palette and low-bit files a directory of debug images may hold) as RGB,
+and Adam7 alone raises.
 
 The reader undoes all five row filters of the PNG specification (§9).
 None, Sub and Up need nothing but the row or the row above; Average and
@@ -28,7 +31,7 @@ another filter (any of the five, or one per row), which the tests and
 ``chip_smoke.py`` use to build files of each kind. Two more writers give
 the bytes of the JAX package's writers: ``encode_png_libpng`` those of
 cv2's ``imwrite`` (its depth frames) and ``encode_png_pillow`` those of
-PIL's ``save`` (its mask id-maps); both run the standard library's zlib
+PIL's ``save`` (its mask id-maps and RGB debug images); both run the standard library's zlib
 with the parameters and row filters those libraries choose.
 """
 
@@ -219,36 +222,98 @@ def unfilter(scanlines: np.ndarray, bpp: int) -> np.ndarray:
     return out.reshape(h, stride)
 
 
-def decode_png(data: bytes) -> np.ndarray:
-    """A PNG file's pixels: (H, W) for grey, (H, W, C) otherwise; uint8 or
-    uint16 (16-bit samples in native byte order)."""
+def _decode_rows(data: bytes, accept) -> Tuple[PngHeader, np.ndarray, bytes]:
+    """(header, unfiltered (H, stride) bytes, PLTE payload) of a PNG file
+    whose (colour type, bit depth) ``accept`` takes; a sample narrower than
+    a byte unfilters with one byte a pixel, as the specification says."""
     hdr = None
     idat = []
+    palette = b""
     for kind, payload in _chunks(data):
         if kind == b"IHDR":
             hdr = _parse_header(payload)
+        elif kind == b"PLTE":
+            palette = payload
         elif kind == b"IDAT":
             idat.append(payload)
     if hdr is None:
         raise ValueError("PNG file has no IHDR chunk")
-    if hdr.color_type not in _CHANNELS or hdr.bit_depth not in (8, 16):
-        raise ValueError(f"unsupported PNG format: colour type {hdr.color_type}, "
-                         f"bit depth {hdr.bit_depth} (8- or 16-bit grey, grey+alpha, "
-                         f"RGB or RGBA only)")
+    accept(hdr)
     if hdr.interlace:
         raise ValueError("interlaced PNG files are not supported")
-    ch = _CHANNELS[hdr.color_type]
-    bpp = ch * hdr.bit_depth // 8
-    stride = hdr.width * bpp
+    ch = 1 if hdr.color_type == 3 else _CHANNELS[hdr.color_type]
+    bits = ch * hdr.bit_depth
+    bpp = max(1, bits // 8)
+    stride = (hdr.width * bits + 7) // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != hdr.height * (stride + 1):
         raise ValueError(f"PNG image data holds {raw.size} bytes, expected "
                          f"{hdr.height * (stride + 1)}")
-    img = unfilter(raw.reshape(hdr.height, stride + 1), bpp)
-    if hdr.bit_depth == 16:
-        img = img.view(">u2").astype(np.uint16)
-    img = img.reshape(hdr.height, hdr.width, ch)
-    return img[:, :, 0] if ch == 1 else img
+    return hdr, unfilter(raw.reshape(hdr.height, stride + 1), bpp), palette
+
+
+def _accept_8_16(hdr: PngHeader) -> None:
+    if hdr.color_type not in _CHANNELS or hdr.bit_depth not in (8, 16):
+        raise ValueError(f"unsupported PNG format: colour type {hdr.color_type}, "
+                         f"bit depth {hdr.bit_depth} (8- or 16-bit grey, grey+alpha, "
+                         f"RGB or RGBA only)")
+
+
+def _samples(hdr: PngHeader, rows: np.ndarray) -> np.ndarray:
+    """(H, W, C) samples of unfiltered rows; uint16 for 16-bit files."""
+    ch = _CHANNELS[hdr.color_type]
+    img = rows.view(">u2").astype(np.uint16) if hdr.bit_depth == 16 else rows
+    return img.reshape(hdr.height, hdr.width, ch)
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """A PNG file's pixels: (H, W) for grey, (H, W, C) otherwise; uint8 or
+    uint16 (16-bit samples in native byte order)."""
+    hdr, rows, _ = _decode_rows(data, _accept_8_16)
+    img = _samples(hdr, rows)
+    return img[:, :, 0] if img.shape[2] == 1 else img
+
+
+# PIL's scaling of grey samples narrower than a byte to 8 bits ("1" is 0/255)
+_GREY_SCALE = {1: 255, 2: 85, 4: 17}
+
+
+def _accept_any(hdr: PngHeader) -> None:
+    legal = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16), 6: (8, 16)}
+    if hdr.bit_depth not in legal.get(hdr.color_type, ()):
+        raise ValueError(f"not a valid PNG format: colour type {hdr.color_type}, "
+                         f"bit depth {hdr.bit_depth}")
+
+
+def decode_png_rgb(data: bytes) -> np.ndarray:
+    """A PNG file as (H, W, 3) uint8 RGB, what PIL's ``Image.open(f).convert(
+    "RGB")`` gives: any colour type and bit depth, not interlaced. A palette
+    is looked up (an index past it is black); grey narrower than a byte is
+    scaled to 8 bits, 16-bit grey is clipped to 255, other 16-bit samples
+    keep their high byte; alpha is dropped."""
+    hdr, rows, palette = _decode_rows(data, _accept_any)
+    if hdr.bit_depth < 8:
+        bits = hdr.bit_depth
+        per = 8 // bits
+        shifts = (8 - bits * (1 + np.arange(per))).astype(np.uint8)
+        vals = (rows[:, :, None] >> shifts) & ((1 << bits) - 1)
+        idx = vals.reshape(hdr.height, -1)[:, :hdr.width]
+    elif hdr.color_type == 3:
+        idx = rows
+    else:
+        img = _samples(hdr, rows)
+        if hdr.bit_depth == 16:
+            img = (np.minimum(img, 255) if hdr.color_type == 0 else img >> 8).astype(np.uint8)
+        if img.shape[2] >= 3:
+            return np.ascontiguousarray(img[:, :, :3])
+        return np.repeat(img[:, :, :1], 3, axis=2)
+    if hdr.color_type == 3:
+        table = np.zeros((256, 3), np.uint8)
+        entries = np.frombuffer(palette[:len(palette) // 3 * 3], np.uint8).reshape(-1, 3)
+        table[:min(len(entries), 256)] = entries[:256]
+        return table[idx]
+    grey = (idx * _GREY_SCALE[hdr.bit_depth]).astype(np.uint8)
+    return np.repeat(grey[:, :, None], 3, axis=2)
 
 
 def read_png(path: str) -> np.ndarray:
@@ -392,7 +457,7 @@ def _pillow_rows(raw: np.ndarray, bpp: int) -> np.ndarray:
 
 def encode_png_pillow(img: np.ndarray) -> bytes:
     """The bytes ``PIL.Image.fromarray(img).save(path)`` writes for a
-    uint8 or 16-bit grey image with Pillow's defaults: its adaptive row
+    uint8 grey or RGB image or a 16-bit grey one with Pillow's defaults: its adaptive row
     filter, zlib level 6 with ``Z_FILTERED`` and memory level 9, IDATs of
     ``max(65536, 4 * width)`` bytes."""
     raw, bpp, header = _scanlines(img)

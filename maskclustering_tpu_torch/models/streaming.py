@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from maskclustering_tpu_torch import obs
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
 from maskclustering_tpu_torch.config import PipelineConfig
 from maskclustering_tpu_torch.datasets.base import SceneTensors
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
@@ -125,7 +126,7 @@ def slice_scene_frames(tensors: SceneTensors, start: int, stop: int) -> SceneTen
         segmentations=tensors.segmentations[start:stop],
         intrinsics=tensors.intrinsics[start:stop],
         cam_to_world=tensors.cam_to_world[start:stop],
-        frame_valid=np.asarray(tensors.frame_valid)[start:stop],
+        frame_valid=np.asarray(tensors.frame_valid)[start:stop],  # mct-ok: AST.HOSTSYNC (host numpy by SceneTensors contract, no device sync)
         frame_ids=list(tensors.frame_ids)[start:stop],
     )
 
@@ -382,7 +383,7 @@ class StreamAccumulator:
         # the abandoned-attempt fence: entry bumps the epoch, the bind
         # re-checks it under the lock
         self._epoch = 0
-        self._bind_lock = threading.Lock()
+        self._bind_lock = mct_lock("streaming.StreamAccumulator._bind_lock")
 
     # -- sizing -------------------------------------------------------------
 
@@ -504,7 +505,7 @@ class StreamAccumulator:
                     if self.chunks_done == 0:
                         self._alloc_state(self._presize_m_pad(table_k))
                         record_shape_bucket("stream", self.m_pad, self.f_alloc, self.n_pad)
-                        self.scene_points = np.asarray(chunk_tensors.scene_points)
+                        self.scene_points = np.asarray(chunk_tensors.scene_points)  # mct-ok: AST.HOSTSYNC # mct-ok: CONC.BLOCKING (host numpy by SceneTensors contract)
                     elif self.masks_used + table_k.m_pad > self.m_pad:
                         self._grow_state(self.masks_used + table_k.m_pad)
                         record_shape_bucket("stream", self.m_pad, self.f_alloc, self.n_pad)
@@ -581,7 +582,7 @@ class StreamAccumulator:
                 raise StaleChunkAttempt(self.seq_name, ci)
             if self.single:
                 self._single_assoc = assoc
-                self._single_points = np.asarray(padded.scene_points)
+                self._single_points = np.asarray(padded.scene_points)  # mct-ok: AST.HOSTSYNC (host numpy; pad_scene_tensors keeps host frames host)
                 self._single_frame_ids = list(padded.frame_ids)
                 self._single_table = table_k
             state_bytes = sum(t.numel() * t.element_size() for t in (

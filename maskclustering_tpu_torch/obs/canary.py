@@ -38,6 +38,7 @@ import time
 from typing import Callable, Dict, List, Optional
 
 from maskclustering_tpu_torch import obs
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
 from maskclustering_tpu_torch.obs import digest as digest_mod
 from maskclustering_tpu_torch.obs import flight
 
@@ -211,7 +212,7 @@ class CanarySentinel:
         self.is_idle = is_idle or (lambda: True)
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
-        self._lock = threading.Lock()
+        self._lock = mct_lock("obs.CanarySentinel._lock")
         # drift bookkeeping for the sentinel status panel / report section
         self._rounds = 0
         self._drift_total = 0
@@ -225,7 +226,7 @@ class CanarySentinel:
     def start(self) -> None:
         if self._thread is not None:
             return
-        self._thread = threading.Thread(
+        self._thread = threading.Thread(  # mct-thread: abandon(daemon-lifetime thread, bounded-joined in stop(); spawn/join spans methods)
             target=self._loop, daemon=True, name="canary-sentinel")
         self._thread.start()
 

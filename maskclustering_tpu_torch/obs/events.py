@@ -27,6 +27,8 @@ import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
+
 log = logging.getLogger("maskclustering_tpu_torch")
 
 SCHEMA_VERSION = 1
@@ -76,7 +78,7 @@ class EventSink:
 
     def __init__(self, path: str, *, truncate: bool = False):
         self.path = path
-        self._lock = threading.Lock()
+        self._lock = mct_lock("obs.events.EventSink._lock")
         self._dead = False
         d = os.path.dirname(path)
         if d:

@@ -50,6 +50,8 @@ from collections import deque
 import threading
 from typing import Dict, List, Optional, Tuple
 
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
+
 log = logging.getLogger("maskclustering_tpu_torch")
 
 FLIGHT_SCHEMA_VERSION = 1
@@ -82,7 +84,7 @@ class FlightRecorder:
     """
 
     def __init__(self, capacity: int = DEFAULT_CAPACITY):
-        self._lock = threading.Lock()
+        self._lock = mct_lock("obs.FlightRecorder._lock")
         self._ring: deque = deque(maxlen=max(int(capacity), 8))
         self._seq = 0          # total events ever recorded (ring evicts)
         self._dumps = 0

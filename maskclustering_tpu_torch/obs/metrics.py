@@ -41,6 +41,7 @@ from typing import Dict, List, Optional
 import torch
 
 # the one quantile rule every surface shares lives in the report module
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
 from maskclustering_tpu_torch.obs.report import percentile  # noqa: F401
 
 _HIST_CAP = 4096  # per-histogram value cap before stride decimation
@@ -100,7 +101,7 @@ class Registry:
         self._counters: Dict[str, float] = {}
         self._gauges: Dict[str, float] = {}
         self._hists: Dict[str, Histogram] = {}
-        self._lock = threading.Lock()
+        self._lock = mct_lock("obs.metrics.Registry._lock")
 
     # -- write paths (hot) --------------------------------------------------
     def count(self, name: str, delta: float = 1.0) -> None:

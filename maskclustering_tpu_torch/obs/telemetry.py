@@ -39,6 +39,7 @@ import time
 from collections import deque
 from typing import Any, Deque, Dict, List, Optional
 
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
 from maskclustering_tpu_torch.obs import metrics as _metrics
 from maskclustering_tpu_torch.obs.events import KIND_SPAN, KIND_TELEMETRY
 from maskclustering_tpu_torch.obs.metrics import Histogram
@@ -81,7 +82,7 @@ class RelaySink:
     path = "<telemetry-relay>"
 
     def __init__(self, cap: int = RELAY_SPAN_CAP):
-        self._lock = threading.Lock()
+        self._lock = mct_lock("obs.telemetry.RelaySink._lock")
         self._spans: Deque[Dict] = deque(maxlen=cap)
         self._dropped = 0
 
@@ -129,7 +130,7 @@ class ChildRelay:
 
     def __init__(self, sink: Optional[RelaySink] = None):
         self.sink = sink or RelaySink()
-        self._lock = threading.Lock()
+        self._lock = mct_lock("obs.telemetry.ChildRelay._lock")
         self._seq = 0
         self._prev: Dict = {}
 
@@ -283,7 +284,7 @@ class WindowAggregator:
 
     def __init__(self, window_s: float = 5.0, ring: int = 120):
         self.window_s = max(float(window_s), 0.05)
-        self._lock = threading.Lock()
+        self._lock = mct_lock("obs.telemetry.WindowAggregator._lock")
         self._windows: Deque[Dict] = deque(maxlen=max(int(ring), 2))
         self._t0 = time.time()
         self._latency: Dict[str, List[float]] = {}
@@ -576,7 +577,7 @@ class TelemetryTicker:
     def start(self) -> None:
         if self._thread is not None:
             return
-        self._thread = threading.Thread(
+        self._thread = threading.Thread(  # mct-thread: abandon(daemon-lifetime ticker, bounded-joined in stop(); the spawn/join pair spans methods, which the scope-local check cannot see)
             target=self._run, daemon=True, name="telemetry-ticker")
         self._thread.start()
 
@@ -609,7 +610,7 @@ class TelemetryTicker:
 # CLI, the worker subprocess) records into a no-op
 # ---------------------------------------------------------------------------
 
-_AGG_LOCK = threading.Lock()
+_AGG_LOCK = mct_lock("obs.telemetry._agg_lock")
 _AGGREGATOR: Optional[WindowAggregator] = None
 
 

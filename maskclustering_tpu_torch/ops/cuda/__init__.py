@@ -10,7 +10,8 @@ and PyTorch's current stream on that card, and return
 ``cudaGetLastError()``; the wrappers here raise when it is not 0.
 
 No fallback: a failed build or launch raises. The plain torch versions
-live beside the callers (``ops/neighbor.py``, ``models/backprojection.py``)
+live beside the callers (``ops/neighbor.py``, ``models/backprojection.py``,
+``visualize/top_images.py``)
 and run only for CPU tensors.
 
 Each wrapper adds one to ``LAUNCHES`` under its entry's name
@@ -34,6 +35,8 @@ from typing import Dict, Iterable, List, Tuple
 
 import torch
 
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
+
 _SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(_SRC_DIR)))
 BUILD_DIR = os.path.join(_REPO_ROOT, "build", "torch_kernels")
@@ -45,9 +48,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 # one shared library per source file
-KERNELS = ("ball_query", "associate")
+KERNELS = ("ball_query", "associate", "splat")
 # the launch counts' names: one per kernel entry
-ENTRIES = ("ball_query", "associate_table", "associate_claim", "associate_assign")
+ENTRIES = ("ball_query", "associate_table", "associate_claim", "associate_assign",
+           "splat_depth", "splat_color")
 
 
 class LaunchLog:
@@ -56,7 +60,7 @@ class LaunchLog:
     def __init__(self) -> None:
         self.counts: Counter = Counter()
         self.shapes: Dict[str, Counter] = {}
-        self._lock = threading.Lock()
+        self._lock = mct_lock("ops.cuda.LaunchLog._lock")
 
     def add(self, name: str, shape: Tuple[int, ...]) -> None:
         with self._lock:
@@ -75,7 +79,7 @@ LAUNCHES = LaunchLog()
 BUILT: Dict[str, float] = {}
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # one nvcc per source at a time, and one binding per library
-_LOAD_LOCK = threading.Lock()
+_LOAD_LOCK = mct_lock("ops.cuda._LOAD_LOCK")
 
 
 def nvcc_path() -> str:
@@ -156,6 +160,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.mc_associate_assign_scene.argtypes = [p, i, p, i, i, i, p, p, i, i, p, p, p, i, p]
         for entry in (lib.mc_associate_table, lib.mc_associate_claim_scene,
                       lib.mc_associate_assign_scene):
+            entry.restype = ctypes.c_int
+    elif name == "splat":
+        lib.mc_splat_depth.argtypes = [p, i, p, i, i, p, i, p]
+        lib.mc_splat_color.argtypes = [p, p, i, p, i, i, p, p, p, i, p]
+        for entry in (lib.mc_splat_depth, lib.mc_splat_color):
             entry.restype = ctypes.c_int
 
 
@@ -342,3 +351,80 @@ def associate_assign_scene_cuda(scene_points: torch.Tensor, table: torch.Tensor,
         raise RuntimeError(f"associate_assign kernel launch failed: CUDA error {err}")
     LAUNCHES.add("associate_assign", (f, n, h, w, (2 * window + 1) ** 2))
     return mop, first, last
+
+
+# the (16,) float32 parameters of a splat: world-to-camera rotation
+# (row-major 9) and translation (3), then fx, fy, cx, cy
+SPLAT_PARAMS = 16
+
+
+def _splat_inputs(name: str, points: torch.Tensor, params: torch.Tensor, height: int,
+                  width: int) -> None:
+    _check(points.dim() == 2 and points.shape[1] == 3 and points.dtype == torch.float32
+           and points.is_contiguous(),
+           f"{name}: points must be contiguous float32 (N, 3), got {tuple(points.shape)}")
+    _check(tuple(params.shape) == (SPLAT_PARAMS,) and params.dtype == torch.float32
+           and params.is_contiguous(),
+           f"{name}: params must be the contiguous float32 ({SPLAT_PARAMS},) camera, "
+           f"got {tuple(params.shape)}")
+    _check(height > 0 and width > 0 and height * width < 2 ** 31 - 1,
+           f"{name}: need a positive image size under 2**31 pixels, got {height}x{width}")
+    _check(points.shape[0] < 2 ** 31, f"{name}: at most 2**31 - 1 points")
+
+
+def splat_depth_cuda(points: torch.Tensor, params: torch.Tensor, *, height: int,
+                     width: int) -> torch.Tensor:
+    """The CUDA depth pass of a splat (see ``splat.cu``): the (H*W + 1) int32
+    buffer of the float32 bits of each pixel's nearest depth, +inf where no
+    point lands (the last slot is the dump slot, always +inf)."""
+    name = "splat_depth_cuda"
+    _splat_inputs(name, points, params, height, width)
+    dev = _on_one_card(name, (points, params))
+    zbuf = torch.full((height * width + 1,), 0x7F800000, dtype=torch.int32, device=dev)
+    n = points.shape[0]
+    if n == 0:
+        return zbuf
+    lib = load("splat")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mc_splat_depth(points.data_ptr(), n, params.data_ptr(), height, width,
+                                 zbuf.data_ptr(), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"splat_depth kernel launch failed: CUDA error {err}")
+    LAUNCHES.add("splat_depth", (n, height, width))
+    return zbuf
+
+
+def splat_color_cuda(points: torch.Tensor, colors: torch.Tensor, params: torch.Tensor,
+                     zbuf: torch.Tensor, *, height: int, width: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA colour pass of a splat (see ``splat.cu``) after
+    :func:`splat_depth_cuda`: ``(codebuf (H*W + 1) int32, visible (N,)
+    bool)``, each pixel's largest packed colour among its visible points (0
+    where none)."""
+    name = "splat_color_cuda"
+    _splat_inputs(name, points, params, height, width)
+    _check(colors.shape == points.shape and colors.dtype == torch.float32
+           and colors.is_contiguous(),
+           f"{name}: colors must be contiguous float32 of the points' shape "
+           f"{tuple(points.shape)}, got {tuple(colors.shape)}")
+    _check(tuple(zbuf.shape) == (height * width + 1,) and zbuf.dtype == torch.int32
+           and zbuf.is_contiguous(),
+           f"{name}: zbuf must be the contiguous int32 ({height * width + 1},) buffer of "
+           f"splat_depth_cuda, got {tuple(zbuf.shape)} {zbuf.dtype}")
+    dev = _on_one_card(name, (points, colors, params, zbuf))
+    n = points.shape[0]
+    codebuf = torch.zeros((height * width + 1,), dtype=torch.int32, device=dev)
+    visible = torch.zeros((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return codebuf, visible
+    lib = load("splat")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mc_splat_color(points.data_ptr(), colors.data_ptr(), n, params.data_ptr(),
+                                 height, width, zbuf.data_ptr(), codebuf.data_ptr(),
+                                 visible.data_ptr(), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"splat_color kernel launch failed: CUDA error {err}")
+    LAUNCHES.add("splat_color", (n, height, width))
+    return codebuf, visible

@@ -39,8 +39,15 @@ Port of ``maskclustering_tpu/run.py:42-1345, 1361-1605``:
 - **eval_ca** / **eval**: ScanNet-protocol AP of the class-agnostic /
   class-labelled predictions (``evaluation/``).
 
-The defaults are the JAX package's seven steps. ``vis`` and ``top_images``
-raise ``NotImplementedError`` naming ROADMAP A14 before any scene runs.
+- **vis**: instance-coloured scene clouds (``instances.ply``, ``rgb.ply``)
+  of every clustered scene (``visualize/scene.py``);
+- **top_images**: per object, its representative frames with a red box
+  around the pixels its points hit, and a 3x3 grid of them
+  (``visualize/top_images.py``): the z-buffered splat of the object into
+  each frame launches the kernels of ``ops/cuda/splat.cu`` on the card.
+
+The defaults are the JAX package's seven steps; ``TASMAP_STEPS`` is its
+TASMap variant (masks, cluster, vis, top_images).
 Everything runs on the CUDA card unless the caller passes ``device="cpu"``
 (``--device cpu``); a mesh runs on every visible card unless the caller
 passes ``mesh_devices`` (a list that may repeat a device). Exit codes: 0 ok, 1
@@ -85,13 +92,12 @@ from maskclustering_tpu_torch.utils.daemon_future import DaemonFuture
 
 log = logging.getLogger("maskclustering_tpu_torch")
 
-# the JAX package's steps (run.py:43-48); the port runs PORTED_STEPS
+# the JAX package's steps (run.py:43-48)
 DEFAULT_STEPS = ("masks", "cluster", "eval_ca", "features", "label_features",
                  "query", "eval")
-PORTED_STEPS = DEFAULT_STEPS
+# the TASMap/demo variant: no evaluation or CLIP, plus the visualisation
+TASMAP_STEPS = ("masks", "cluster", "vis", "top_images")
 ALL_STEPS = DEFAULT_STEPS + ("vis", "top_images")
-# steps not ported yet -> the ROADMAP.md queue-A item that ports them
-UNPORTED_STEPS = {"vis": "A14", "top_images": "A14"}
 
 # dataset -> (gt dir, split file) under data_root (run.py:50-59)
 _DATASET_LAYOUT = {
@@ -205,18 +211,12 @@ def make_encoder(spec: str, device: DeviceLike = None):
 
 
 def check_steps(steps: Sequence[str], encoder_spec: str = "hash") -> None:
-    """Raise, before any scene runs, for what the port cannot run: an
-    unknown step or a malformed encoder spec (``ValueError``), or an
-    unported step (``NotImplementedError``). The encoder itself is built by
-    the step that uses it."""
+    """Raise ``ValueError``, before any scene runs, for an unknown step or a
+    malformed encoder spec. The encoder itself is built by the step that
+    uses it."""
     unknown = set(steps) - set(ALL_STEPS)
     if unknown:
         raise ValueError(f"unknown steps {sorted(unknown)}; valid: {ALL_STEPS}")
-    for step in steps:
-        if step in UNPORTED_STEPS:
-            raise NotImplementedError(
-                f"step {step!r} is not ported yet: ROADMAP.md queue A, item "
-                f"{UNPORTED_STEPS[step]} (ported steps: {PORTED_STEPS})")
     if {"features", "label_features"} & set(steps):
         parse_encoder_spec(encoder_spec)
 
@@ -916,6 +916,82 @@ def query_step(cfg: PipelineConfig, seq_names: Sequence[str], *, resume: bool = 
 
 
 # ---------------------------------------------------------------------------
+# steps vis + top_images (the TASMap variant)
+# ---------------------------------------------------------------------------
+
+
+def _scene_points_cached(cfg: PipelineConfig, seq: str,
+                         cache: Optional[Dict[str, np.ndarray]]) -> np.ndarray:
+    """Load a scene's cloud once a run when the vis steps share a cache."""
+    if cache is not None and seq in cache:
+        return cache[seq]
+    pts = get_dataset(cfg.dataset, seq, data_root=cfg.data_root).get_scene_points()
+    if cache is not None:
+        cache[seq] = pts
+    return pts
+
+
+def vis_step(cfg: PipelineConfig, seq_names: Sequence[str],
+             prediction_root: Optional[str] = None, *, resume: bool = True,
+             scene_points_cache: Optional[Dict[str, np.ndarray]] = None,
+             device: DeviceLike = None) -> List[str]:
+    """Instance-coloured scene artifacts of each scene
+    (``run.py:1051-1073``): ``<data_root>/vis/<seq>/instances.ply``. A scene
+    with no prediction is skipped with a warning; with ``resume``, one whose
+    ``instances.ply`` exists is skipped. ``device`` is accepted for the
+    steps' common signature: the step runs on the host."""
+    from maskclustering_tpu_torch.visualize import vis_scene
+
+    del device
+    prediction_root = prediction_root or os.path.join(cfg.data_root, "prediction")
+    written = []
+    for seq in seq_names:
+        npz_path = os.path.join(prediction_root, cfg.config_name + "_class_agnostic",
+                                f"{seq}.npz")
+        if not os.path.exists(npz_path):
+            log.warning("no prediction for %s; run the cluster step first", seq)
+            continue
+        out_dir = os.path.join(cfg.data_root, "vis", seq)
+        if resume and os.path.exists(os.path.join(out_dir, "instances.ply")):
+            continue
+        pred = np.load(npz_path)
+        out = vis_scene(_scene_points_cached(cfg, seq, scene_points_cache),
+                        pred["pred_masks"], out_dir)
+        written.append(out["instances"])
+    return written
+
+
+def top_images_step(cfg: PipelineConfig, seq_names: Sequence[str],
+                    max_objects: Optional[int] = None, *, resume: bool = True,
+                    scene_points_cache: Optional[Dict[str, np.ndarray]] = None,
+                    device: DeviceLike = None) -> List[str]:
+    """Per-object bbox grids over the representative frames
+    (``run.py:1076-1099``), the splats on ``device`` (default: the CUDA
+    card): ``<data_root>/vis/<seq>/top_images/{grid,bbox}/``. A scene with no
+    ``object_dict.npy`` is skipped with a warning; with ``resume``, one whose
+    grid directory holds a file is skipped."""
+    from maskclustering_tpu_torch.visualize import save_debug_grids
+
+    device = resolve_device(device)
+    written = []
+    for seq in seq_names:
+        ds = get_dataset(cfg.dataset, seq, data_root=cfg.data_root)
+        od_path = os.path.join(ds.object_dict_dir, cfg.config_name, "object_dict.npy")
+        if not os.path.exists(od_path):
+            log.warning("no object_dict for %s; run the cluster step first", seq)
+            continue
+        out_dir = os.path.join(cfg.data_root, "vis", seq, "top_images")
+        grid_dir = os.path.join(out_dir, "grid")
+        if resume and os.path.isdir(grid_dir) and os.listdir(grid_dir):
+            continue
+        object_dict = np.load(od_path, allow_pickle=True).item()
+        written.extend(save_debug_grids(
+            ds, object_dict, _scene_points_cached(cfg, seq, scene_points_cache), out_dir,
+            max_objects=max_objects, device=device))
+    return written
+
+
+# ---------------------------------------------------------------------------
 # pipeline driver
 # ---------------------------------------------------------------------------
 
@@ -944,10 +1020,10 @@ def run_pipeline(
 
     ``workers > 1`` clusters in that many spawned processes; a config with
     a ``mesh_shape`` clusters on a mesh over ``mesh_devices`` (default:
-    every visible card). Raises before any scene runs for an unknown or
-    unported step, a malformed encoder spec or a missing card
-    (``device=None``); a CLIP checkpoint that cannot be loaded
-    raises after ``cluster`` and ``eval_ca``, as in the JAX ``run_pipeline``. The
+    every visible card). Raises before any scene runs for an unknown step, a
+    malformed encoder spec or a missing card (``device=None``); a CLIP
+    checkpoint that cannot be loaded raises after ``cluster`` and
+    ``eval_ca``, as in the JAX ``run_pipeline``. The
     ``masks`` step fills scenes without id-maps through ``mask_predictor``,
     else a predictor built on ``device`` from ``cfg.cropformer_path``
     (``"grid"``: ``mask_prediction.GridSegmenter``), else ``mask_command``. A failed
@@ -1060,8 +1136,22 @@ def _run_pipeline_body(cfg: PipelineConfig, seq_names: Sequence[str], *, steps, 
                                           prediction_root=prediction_root, device=device))
     if "eval" in steps:
         evaluate("eval", False)
+    if {"vis", "top_images"} & set(steps):
+        pts_cache: Dict[str, np.ndarray] = {}
+        if "vis" in steps:
+            timed("vis", lambda: vis_step(cfg, seq_names, prediction_root, resume=resume,
+                                          scene_points_cache=pts_cache, device=device))
+        if "top_images" in steps:
+            timed("top_images", lambda: top_images_step(
+                cfg, seq_names, resume=resume, scene_points_cache=pts_cache, device=device))
 
     if obs_events and obs.enabled():
+        from maskclustering_tpu_torch.analysis import lock_sanitizer
+
+        if lock_sanitizer.enabled():
+            # book the sanitizer digest (locks.* counters) before the
+            # flush so the report's Faults section renders it
+            lock_sanitizer.emit_counters()
         obs.flush_metrics()
         try:
             from maskclustering_tpu_torch.obs.report import RunData
@@ -1097,10 +1187,8 @@ def _run_pipeline_body(cfg: PipelineConfig, seq_names: Sequence[str], *, steps, 
     return report
 
 
-# the items the unported JAX flags wait for: XLA's tooling and the static
-# checks' lock sanitizer
+# the item the unported JAX flags wait for: XLA's tooling
 XLA_TOOLING_ITEM = "ROADMAP A10"
-LOCK_SANITIZER_ITEM = "ROADMAP A18"
 
 
 def build_parser():
@@ -1119,7 +1207,7 @@ def build_parser():
                         help="+-joined scene names (default: split file)")
     parser.add_argument("--splits_dir", default="splits")
     parser.add_argument("--steps", default=",".join(DEFAULT_STEPS),
-                        help=f"comma-separated subset of {PORTED_STEPS}")
+                        help=f"comma-separated subset of {ALL_STEPS}")
     parser.add_argument("--workers", type=int, default=1,
                         help="scene-queue worker processes (1 = in-process); worker i "
                              "runs on card i %% device_count")
@@ -1185,8 +1273,10 @@ def build_parser():
                         help="XLA's transfer guard around each scene's device phase "
                              "(no torch counterpart yet: ROADMAP A10)")
     parser.add_argument("--lock-sanitizer", action="store_true",
-                        help="the instrumented lock shim of the static checks (not "
-                             "ported yet: ROADMAP A18)")
+                        help="record every named lock's acquisition order and hold times "
+                             "(analysis/lock_sanitizer.py; also MCT_LOCK_SANITIZER=1): the "
+                             "report renders the locks.* counters, and with --report the "
+                             "observed order graph goes to <report>_locks.json")
     parser.add_argument("--retrace-sanitizer", action="store_true",
                         help="XLA's compile-event sanitizer (no torch counterpart "
                              "yet: ROADMAP A10)")
@@ -1215,10 +1305,6 @@ def _refuse_unported(args) -> None:
         if given:
             raise NotImplementedError(
                 f"{flag} (XLA tooling) has no torch counterpart yet ({XLA_TOOLING_ITEM})")
-    if args.lock_sanitizer:
-        raise NotImplementedError(
-            f"--lock-sanitizer (the instrumented lock shim) is not ported yet "
-            f"({LOCK_SANITIZER_ITEM})")
 
 
 def main(argv=None) -> int:
@@ -1247,6 +1333,13 @@ def main(argv=None) -> int:
                           config_dir=os.path.dirname(os.path.abspath(args.config)), **overrides)
     else:
         cfg = load_config(args.config, **overrides)
+    if args.lock_sanitizer:
+        from maskclustering_tpu_torch.analysis import lock_sanitizer
+
+        lock_sanitizer.arm(True)
+        # the plan/registry locks already exist (import time): re-wrap them
+        # in place; per-instance locks arm at creation from here on
+        lock_sanitizer.instrument_known_locks()
     if args.fault_plan:
         faults.set_plan(faults.FaultPlan.from_spec(args.fault_plan))
     faults.install_sigterm_handler()
@@ -1277,6 +1370,13 @@ def main(argv=None) -> int:
                           encoder_spec=args.encoder, device=args.device)
     total = time.time() - t0
     log.info("total time %.1f min (%.1f s/scene)", total / 60, total / max(len(seq_names), 1))
+    if args.lock_sanitizer and args.report:
+        # the observed graph, for the embeds-in-static cross-check
+        # (lock_sanitizer.check_embeds against concurrency.build_lock_order_graph)
+        from maskclustering_tpu_torch.analysis import lock_sanitizer
+
+        with open(os.path.splitext(args.report)[0] + "_locks.json", "w") as f:
+            json.dump(lock_sanitizer.report(), f, indent=2)
     if report.interrupted or faults.stop_requested():
         return 143
     return 0 if report.ok else 1

@@ -23,6 +23,7 @@ import threading
 import time
 from typing import Callable, List, Optional
 
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
 from maskclustering_tpu_torch.obs import flight as _flight
 from maskclustering_tpu_torch.serve.protocol import SceneRequest
 
@@ -75,7 +76,7 @@ class AdmissionQueue:
         # break topology invariance (the parent's queue is THE admission)
         self.metered = metered
         self._q: "queue.Queue[SceneRequest]" = queue.Queue(maxsize=capacity)
-        self._lock = threading.Lock()
+        self._lock = mct_lock("serve.AdmissionQueue._lock")
         self._high_water = 0
         self._admitted = 0
         # the batch scheduler's look-aside: requests popped while hunting

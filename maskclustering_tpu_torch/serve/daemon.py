@@ -59,6 +59,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 from maskclustering_tpu_torch import obs
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
 from maskclustering_tpu_torch.obs import flight as _flight
 from maskclustering_tpu_torch.obs import slo as _slo
@@ -86,7 +87,7 @@ def _make_sender(conn: socket.socket):
     it lands in the queue — cannot interleave a ``running`` status (or
     even the result) BEFORE the ack the protocol promises first.
     """
-    lock = threading.Lock()
+    lock = mct_lock("serve.Connection._send_lock")
 
     def raw(event: Dict) -> None:
         conn.sendall(protocol.encode(event))
@@ -220,7 +221,7 @@ class ServeDaemon:
                                       stream_state_dir=stream_state_dir,
                                       device=device)
             self.device = self.worker.device
-        self._lock = threading.Lock()
+        self._lock = mct_lock("serve.ServeDaemon._lock")
         self._ids = 0
         # admission WAL (serve/wal.py): armed whenever journaling is on —
         # journal_dir holds the per-request journals AND the daemon's one
@@ -312,7 +313,7 @@ class ServeDaemon:
         telemetry.install(self.aggregator)
         self._ticker.start()
         self._start_sentinel()
-        self._acceptor = threading.Thread(
+        self._acceptor = threading.Thread(  # mct-thread: abandon(daemon-lifetime thread, bounded-joined in shutdown(); the spawn/join pair spans methods, which the scope-local check cannot see)
             target=self._accept_loop, daemon=True, name="serve-acceptor")
         self._acceptor.start()
         log.info("mct-serve: accepting on %s (capacity %d, %d warm "
@@ -642,7 +643,7 @@ class ServeDaemon:
             while not self._stop.wait(interval):
                 self._prune_retention()
 
-        self._pruner = threading.Thread(
+        self._pruner = threading.Thread(  # mct-thread: abandon(daemon-lifetime retention timer, bounded-joined in shutdown(); the spawn/join pair spans methods, which the scope-local check cannot see)
             target=_loop, daemon=True, name="serve-pruner")
         self._pruner.start()
 
@@ -663,7 +664,7 @@ class ServeDaemon:
                 continue
             except OSError:
                 break  # listener closed under us: shutdown in progress
-            t = threading.Thread(
+            t = threading.Thread(  # mct-thread: abandon(per-connection reader, bounded-joined in shutdown(); clients may hold connections open for the daemon's lifetime)
                 target=self._handle_conn, args=(conn,), daemon=True,
                 name="serve-conn")
             with self._lock:

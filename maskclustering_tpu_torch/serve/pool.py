@@ -58,6 +58,7 @@ from typing import Deque, Dict, List, Optional, Set, Tuple
 import torch
 
 from maskclustering_tpu_torch import obs
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
 from maskclustering_tpu_torch.config import parse_carve_spec, parse_tenant_spec
 from maskclustering_tpu_torch.device import DeviceLike
 from maskclustering_tpu_torch.serve import protocol
@@ -158,7 +159,7 @@ class WorkerPool:
         carve = str(cfg.serve_carve or "")
         self.chips = parse_carve_spec(carve)[1] if carve else 0
         self._qos = parse_tenant_spec(str(cfg.serve_tenants or ""))
-        self._lock = threading.Lock()
+        self._lock = mct_lock("serve.WorkerPool._lock")
         self._stop = threading.Event()
         self._pause = threading.Event()  # recarve: dispatch suspended
         self._sched: Optional[threading.Thread] = None
@@ -286,7 +287,7 @@ class WorkerPool:
         check_carve(self.workers, self.chips, self._device_product())
         self._build_slices()
         self._start_slices()
-        self._sched = threading.Thread(
+        self._sched = threading.Thread(  # mct-thread: abandon(daemon-lifetime scheduler, bounded-joined in stop(); the spawn/join pair spans methods)
             target=self._schedule, daemon=True, name="pool-scheduler")
         self._sched.start()
 

@@ -37,6 +37,7 @@ from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 import numpy as np
 
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
 from maskclustering_tpu_torch.utils.compile_cache import scene_bucket
 
 log = logging.getLogger("maskclustering_tpu_torch")
@@ -72,7 +73,7 @@ class Router:
 
     def __init__(self, cfg, baseline_path: Optional[str] = None):
         self.cfg = cfg
-        self._lock = threading.Lock()
+        self._lock = mct_lock("serve.Router._lock")
         self._warm: Set[Bucket] = set()
         # scene name -> bucket, filled as requests classify: repeat
         # synthetic requests must not regenerate a whole scene host-side

@@ -62,6 +62,7 @@ from typing import Deque, Dict, Optional, Tuple
 import torch
 
 from maskclustering_tpu_torch import obs
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
 from maskclustering_tpu_torch.device import DeviceLike
 from maskclustering_tpu_torch.obs import flight as _flight
 from maskclustering_tpu_torch.obs import telemetry
@@ -153,7 +154,7 @@ class WorkerSupervisor:
         self._stop = threading.Event()
         self._idle = threading.Event()
         self._idle.set()
-        self._lock = threading.Lock()
+        self._lock = mct_lock("serve.WorkerSupervisor._lock")
         self._thread: Optional[threading.Thread] = None
         self._child: Optional[subprocess.Popen] = None
         self._reader: Optional[threading.Thread] = None
@@ -266,7 +267,7 @@ class WorkerSupervisor:
             return False
         self._child = child
         self.spawns += 1
-        reader = threading.Thread(
+        reader = threading.Thread(  # mct-thread: abandon(one reader per child, exits on the child's stdout EOF; the kill/respawn path closes the pipe, which IS the bounded join)
             target=self._read_child, args=(child,), daemon=True,
             name="worker-reader")
         reader.start()
@@ -417,7 +418,7 @@ class WorkerSupervisor:
             raise RuntimeError(
                 "device worker failed to start within the respawn budget; "
                 "see worker stderr above")
-        self._thread = threading.Thread(
+        self._thread = threading.Thread(  # mct-thread: abandon(daemon-lifetime pump, bounded-joined in stop(); the spawn/join pair spans methods, which the scope-local check cannot see)
             target=self._run, daemon=True, name="serve-supervisor")
         self._thread.start()
 

@@ -54,6 +54,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import torch
 
 from maskclustering_tpu_torch import obs
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
 from maskclustering_tpu_torch.obs import telemetry
 from maskclustering_tpu_torch.serve import protocol
@@ -147,7 +148,7 @@ class ServeWorker:
         self._stop = threading.Event()
         self._idle = threading.Event()  # set whenever no request is running
         self._idle.set()
-        self._lock = threading.Lock()
+        self._lock = mct_lock("serve.ServeWorker._lock")
         self._thread: Optional[threading.Thread] = None
         # bounded window (worker-thread appends only): a daemon that
         # serves for days must not grow per-request state without bound,
@@ -185,7 +186,7 @@ class ServeWorker:
     def start(self) -> None:
         if self._thread is not None:
             return
-        self._thread = threading.Thread(
+        self._thread = threading.Thread(  # mct-thread: abandon(daemon-lifetime thread, bounded-joined in stop(); the spawn/join pair spans methods, which the scope-local check cannot see)
             target=self._run, daemon=True, name="serve-worker")
         self._thread.start()
 

@@ -66,6 +66,8 @@ import sys
 import threading
 import time
 
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
+
 log = logging.getLogger("maskclustering_tpu_torch")
 
 
@@ -152,7 +154,7 @@ def main(argv=None) -> int:
         faults.set_plan(faults.FaultPlan.from_spec(args.fault_plan))
     faults.install_sigterm_handler()
 
-    out_lock = threading.Lock()
+    out_lock = mct_lock("serve.worker_main.out_lock")
 
     def emit_raw(doc: dict) -> None:
         with out_lock:
@@ -173,7 +175,7 @@ def main(argv=None) -> int:
     # before the other thread's (later) result line — otherwise a telem
     # line can land AFTER the result it accounts for and the parent's
     # fold-before-result ordering breaks
-    telem_lock = threading.Lock()
+    telem_lock = mct_lock("serve.worker_main.telem_lock")
 
     def flush_telem() -> None:
         if relay is None:
@@ -207,7 +209,7 @@ def main(argv=None) -> int:
     # identity reaches the parent BEFORE any crash that request can cause.
     # The lock covers only the snapshot cursor (never the pipe write); the
     # supervisor sorts retained rows on their ``seq`` at dump time.
-    flight_lock = threading.Lock()
+    flight_lock = mct_lock("serve.worker_main.flight_lock")
     flight_seq = [0]
 
     def ship_flight() -> None:

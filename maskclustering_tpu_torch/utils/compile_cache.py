@@ -24,13 +24,15 @@ from typing import Set, Tuple
 
 import numpy as np
 
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
+
 log = logging.getLogger("maskclustering_tpu_torch")
 
 K_MAX_CEILING = 1023
 
 # (kind, *bucket) keys this process has dispatched
 _SEEN_BUCKETS: Set[Tuple] = set()
-_SEEN_LOCK = threading.Lock()
+_SEEN_LOCK = mct_lock("compile_cache._SEEN_LOCK")
 
 
 def bucket_size(value: int, multiple: int) -> int:

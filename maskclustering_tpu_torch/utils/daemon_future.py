@@ -51,7 +51,8 @@ class DaemonFuture:
             finally:
                 self._done.set()
 
-        threading.Thread(target=work, daemon=True, name=name).start()
+        threading.Thread(  # mct-thread: abandon(one-shot daemon worker: result(timeout) bounds the consumer's wait and abandon() drops a late value; a join would re-create the shutdown stall this class exists to avoid)
+            target=work, daemon=True, name=name).start()
 
     def abandon(self) -> None:
         """Declare this future's consumer gone (its ``result`` timed out):

@@ -60,6 +60,8 @@ from typing import Callable, Dict, Iterable, List, Optional, Set
 
 import torch
 
+from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
+
 log = logging.getLogger("maskclustering_tpu_torch")
 
 
@@ -213,7 +215,8 @@ def call_with_deadline(fn: Callable, budget_s: float, *, seam: str = "device",
         finally:
             done.set()
 
-    threading.Thread(target=work, daemon=True, name=f"watchdog-{seam}-{scene}").start()
+    threading.Thread(  # mct-thread: abandon(a wedged native call can only be outwaited, never cancelled; the daemon flag keeps it off the shutdown path and the `abandoned` event drops its late result)
+        target=work, daemon=True, name=f"watchdog-{seam}-{scene}").start()
     if not done.wait(budget_s):
         abandoned.set()
         _count("run.device_stalls")
@@ -243,7 +246,7 @@ class Heartbeat:
         self.budget_s = budget_s
         self.seam = seam
         self.scene = scene
-        self._lock = threading.Lock()
+        self._lock = mct_lock("faults.Heartbeat._lock")
         self._last = time.monotonic()
 
     def beat(self) -> None:
@@ -381,7 +384,7 @@ class _FaultEntry:
         self.seam = seam
         self.scene = scene
         self.remaining = count  # None = every attempt
-        self.lock = threading.Lock()
+        self.lock = mct_lock("faults._FaultEntry.lock")
 
     def take(self) -> bool:
         """Consume one firing; False once the count is exhausted."""
@@ -543,7 +546,7 @@ class FaultPlan:
 
 _PLAN: Optional[FaultPlan] = None
 _PLAN_LOADED = False
-_PLAN_LOCK = threading.Lock()
+_PLAN_LOCK = mct_lock("faults._PLAN_LOCK")
 _WEDGE_HOOK: Optional[Callable] = None
 
 
@@ -686,7 +689,7 @@ class RunJournal:
         self.path = path
         self.config_name = config_name
         self.request_id = request_id
-        self._lock = threading.Lock()
+        self._lock = mct_lock("faults.RunJournal._lock")
         d = os.path.dirname(path)
         if d:
             os.makedirs(d, exist_ok=True)

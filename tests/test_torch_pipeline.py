@@ -278,8 +278,9 @@ def _write_port_clip_dir(d):
 
 def test_port_imports_no_jax_and_no_reference_package(tmp_path):
     """Every module of the port (the serving daemon, its subprocess
-    worker, supervisor and pool, and the obs core included), imported in a fresh interpreter, pulls in
-    neither jax nor anything of maskclustering_tpu, nor PIL, cv2, or the
+    worker, supervisor and pool, the obs core, the visualisation and the
+    static checks included), imported in a fresh interpreter, pulls in
+    neither jax nor anything of maskclustering_tpu, nor PIL, cv2, pyviz3d, or the
     libraries of HF's CLIP path (transformers, tokenizers, safetensors,
     msgpack, regex, flax, ftfy); nor does building the CLIP encoder on a
     checkpoint and encoding an image and a text, streaming a scene in chunks,
@@ -305,7 +306,11 @@ for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.fea
              "serve.wal", "serve.client", "serve.worker", "serve.daemon",
              "serve.supervisor", "serve.pool", "serve.worker_main", "preprocess",
              "preprocess.scannet", "preprocess.matterport", "preprocess.scannetpp",
-             "preprocess.tasmap", "mask_prediction", "utils.clean_output"):
+             "preprocess.tasmap", "mask_prediction", "utils.clean_output", "visualize",
+             "visualize.scene", "visualize.mask2d", "visualize.top_images",
+             "visualize.debug_viewers", "ops.splat_cases", "analysis", "analysis.__main__",
+             "analysis.findings", "analysis.ast_checks", "analysis.concurrency",
+             "analysis.lock_sanitizer"):
     assert pkg.__name__ + "." + name in names, name
 from maskclustering_tpu_torch.config import load_config
 from maskclustering_tpu_torch.models.streaming import stream_scene
@@ -328,7 +333,7 @@ enc = HFCLIPEncoder(sys.argv[1], device="cpu")
 img = enc.encode_images([np.full((20, 30, 3), 7, np.uint8)])
 txt = enc.encode_texts(["ab"])
 assert img.shape == txt.shape == (1, 8) and enc.layout == "torch", (img.shape, txt.shape)
-banned = ("jax", "maskclustering_tpu", "PIL", "cv2", "transformers", "tokenizers",
+banned = ("jax", "maskclustering_tpu", "PIL", "cv2", "pyviz3d", "transformers", "tokenizers",
           "safetensors", "msgpack", "regex", "flax", "ftfy")
 bad = sorted(m for m in sys.modules if m.split(".")[0] in banned)
 assert not bad, bad

@@ -268,10 +268,10 @@ def test_missing_clip_checkpoint_raises_where_jax_does(runs, steps):
 
 # explicit ids: each case keeps the name it has always had in test histories
 @pytest.mark.parametrize("kwargs,match", [
-    pytest.param(dict(steps=("cluster", "vis")), "A14", id="kwargs2-A14"),
-    pytest.param(dict(steps=("top_images",)), "A14", id="kwargs3-A14"),
-    # worker processes and meshes (A7) and streaming (A6) are ported: they
-    # pass the checks made before any scene
+    # the visualisation steps (A14), worker processes and meshes (A7) and
+    # streaming (A6) are ported: they pass the checks made before any scene
+    pytest.param(dict(steps=("cluster", "vis")), None, id="kwargs2-A14"),
+    pytest.param(dict(steps=("top_images",)), None, id="kwargs3-A14"),
     pytest.param(dict(workers=2), None, id="kwargs4-A7"),
     pytest.param(dict(cfg=dict(mesh_shape=(1, 2))), None, id="kwargs5-A7"),
     pytest.param(dict(cfg=dict(streaming_chunk=4)), None, id="kwargs6-A6"),
@@ -281,7 +281,8 @@ def test_unported_raise_before_any_scene(runs, kwargs, match):
     cfg = _cfg(runs["root"], "refused", **kwargs.pop("cfg", {}))
     kwargs.setdefault("steps", STEPS)
     if match is None:
-        assert cfg.mesh_shape or cfg.streaming_chunk or kwargs.get("workers", 1) > 1
+        assert (cfg.mesh_shape or cfg.streaming_chunk or kwargs.get("workers", 1) > 1
+                or {"vis", "top_images"} & set(kwargs["steps"]))
         check_steps(kwargs["steps"])
         return
     with pytest.raises(NotImplementedError, match=match):
@@ -526,3 +527,57 @@ def test_worker_processes_equal_the_in_process_run(runs, mesh_runs):
     assert _equal_with_nan(pw.evaluation["eval_ca"], runs["jx_ap"])
     rows = faults.read_journal(os.path.join(runs["root"], "pw_journal.jsonl"), config="pw")
     assert sorted(r["seq"] for r in rows if r.get("event") == "outcome") == NAMES
+
+
+def test_tasmap_variant_files_equal_to_jax(tmp_path):
+    """TASMAP_STEPS (masks, cluster, vis, top_images) on the scene of
+    tests/test_run.py's TASMap test, each package into a root of its own:
+    the npz, object_dict.npy, instances.ply and every grid and bbox PNG
+    equal; rerun with resume, nothing is rewritten."""
+    from maskclustering_tpu.run import TASMAP_STEPS as JAX_TASMAP_STEPS
+    from maskclustering_tpu_torch.run import TASMAP_STEPS
+
+    assert TASMAP_STEPS == JAX_TASMAP_STEPS
+    scene = make_scene(num_boxes=2, num_frames=8, image_hw=(48, 64), seed=11, spacing=0.05)
+    roots = {tag: str(tmp_path / tag) for tag in ("j", "p")}
+    for root in roots.values():
+        write_scannet_layout(scene, root, "scene0003_00")
+    kw = dict(config_name="tvar", step=1, distance_threshold=0.03, mask_pad_multiple=64)
+    jrep = jax_run_pipeline(jax_load_config("scannet").replace(data_root=roots["j"], **kw),
+                            ["scene0003_00"], steps=JAX_TASMAP_STEPS, journal=False,
+                            ledger=False)
+    prep = run_pipeline(load_config("scannet", data_root=roots["p"], **kw), ["scene0003_00"],
+                        steps=TASMAP_STEPS, journal=False, ledger=False, device="cpu")
+    assert set(prep.step_seconds) == set(jrep.step_seconds) == set(TASMAP_STEPS)
+    assert prep.ok and not prep.step_errors
+    vis = os.path.join("vis", "scene0003_00")
+    files = {}
+    for tag, root in roots.items():
+        files[tag] = sorted(os.path.relpath(os.path.join(d, f), root)
+                            for d, _, fs in os.walk(os.path.join(root, vis)) for f in fs)
+    assert files["p"] == files["j"] and len(files["p"]) >= 4
+    assert any("/grid/" in f for f in files["p"]) and any("/bbox/" in f for f in files["p"])
+    for rel in files["p"]:
+        with open(os.path.join(roots["j"], rel), "rb") as a, \
+                open(os.path.join(roots["p"], rel), "rb") as b:
+            assert a.read() == b.read(), rel
+    with np.load(os.path.join(roots["j"], "prediction", "tvar_class_agnostic",
+                              "scene0003_00.npz")) as a, \
+            np.load(os.path.join(roots["p"], "prediction", "tvar_class_agnostic",
+                                 "scene0003_00.npz")) as b:
+        assert sorted(a.files) == sorted(b.files)
+        assert all(np.array_equal(a[k], b[k]) for k in a.files)
+    od = os.path.join("scannet", "processed", "scene0003_00", "output", "object", "tvar",
+                      "object_dict.npy")
+    oa = np.load(os.path.join(roots["j"], od), allow_pickle=True).item()
+    ob = np.load(os.path.join(roots["p"], od), allow_pickle=True).item()
+    assert sorted(oa) == sorted(ob) and all(
+        np.array_equal(oa[k]["point_ids"], ob[k]["point_ids"])
+        and oa[k]["repre_mask_list"] == ob[k]["repre_mask_list"] for k in oa)
+    # resume: both steps skip a scene whose artifacts exist
+    grid = os.path.join(roots["p"], vis, "top_images", "grid")
+    stamp = {f: os.path.getmtime(os.path.join(grid, f)) for f in os.listdir(grid)}
+    again = run_pipeline(load_config("scannet", data_root=roots["p"], **kw), ["scene0003_00"],
+                         steps=("vis", "top_images"), journal=False, ledger=False,
+                         device="cpu")
+    assert again.ok and {f: os.path.getmtime(os.path.join(grid, f)) for f in stamp} == stamp

@@ -7,7 +7,9 @@ and ``main``) against the JAX package's (ROADMAP C3).
   ``maskclustering_tpu.run.main([])``.
 - Each JAX flag whose subsystem the port does not have is accepted by the
   parser and raises ``NotImplementedError`` naming its item (A10: XLA's
-  tooling; A18: the lock sanitizer), only when given.
+  tooling), only when given. ``--lock-sanitizer`` (A18) is ported: it arms
+  the sanitizer, the report renders the ``locks.*`` counters and the
+  observed graph goes beside the report.
 - ``--mask_command`` fills the missing masks of a scan, and the artifacts
   equal the JAX CLI's run with the same command.
 - ``--init_timeout`` bounds the device's first use.
@@ -82,10 +84,16 @@ def test_every_jax_option_is_known_to_the_port(jax_parser):
     (["--aot-cache", "/tmp/aot"], "A10"), (["--lock-sanitizer"], "A18"),
 ])
 def test_unported_flags_raise_naming_their_item(flags, item):
+    args = pt_run.build_parser().parse_args(["--config", "scannet", *flags])
+    if item == "A18":
+        # ported: the lock sanitizer passes the refusals (its run is in
+        # test_lock_sanitizer_flag_arms_and_writes_the_observed_graph)
+        assert args.lock_sanitizer and pt_run._refuse_unported(args) is None
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         pt_run.main(["--config", "scannet", "--device", "cpu", *flags])
     # accepted by the parser: only main refuses them
-    assert pt_run.build_parser().parse_args(["--config", "scannet", *flags])
+    assert args
 
 
 @pytest.fixture
@@ -149,3 +157,43 @@ def test_init_timeout_bounds_the_devices_first_use(monkeypatch, restore_faults):
     with pytest.raises(faults.DeviceStallError, match="device-init"):
         pt_run.main(["--config", "scannet", "--device", "cpu", "--init_timeout", "0.2",
                      "--seq_name_list", SCENE, "--steps", "cluster"])
+
+
+def test_lock_sanitizer_flag_arms_and_writes_the_observed_graph(tmp_path, restore_faults):
+    """``--lock-sanitizer`` on a scan (``run.py:1521-1527`` in JAX): the
+    known locks instrumented before the run, the ``locks.*`` counters booked
+    before the obs flush (the report's Faults section renders them), and the
+    observed order graph written beside the report."""
+    from maskclustering_tpu_torch.analysis import lock_sanitizer as ls
+    from maskclustering_tpu_torch.analysis.concurrency import build_lock_order_graph
+    from maskclustering_tpu_torch.obs import metrics
+    from maskclustering_tpu_torch.obs.report import RunData, render_report
+
+    root = str(tmp_path / "data")
+    write_scannet_layout(make_scene(num_boxes=2, num_frames=6, image_hw=(40, 56), seed=3,
+                                    spacing=0.05), root, SCENE)
+    report = str(tmp_path / "rep.json")
+    ls.reset()
+    try:
+        rc = pt_run.main(["--config", "scannet", "--data_root", root, "--seq_name_list", SCENE,
+                          "--steps", "cluster", "--device", "cpu", "--no-journal",
+                          "--lock-sanitizer", "--report", report, "--no-ledger"])
+        assert isinstance(faults._PLAN_LOCK, ls.InstrumentedLock)
+    finally:
+        # main arms the process for good: put the raw locks back
+        ls.arm(None)
+        for obj, attr in ((faults, "_PLAN_LOCK"), (metrics.registry(), "_lock")):
+            lock = getattr(obj, attr)
+            if isinstance(lock, ls.InstrumentedLock):
+                setattr(obj, attr, lock._lock)
+        ls.reset()
+    assert rc == 0
+    with open(str(tmp_path / "rep_locks.json")) as fh:
+        doc = json.load(fh)
+    assert doc["acquisitions"].get("obs.metrics.Registry._lock")
+    assert doc["acquisitions"].get("faults._PLAN_LOCK")
+    observed = {tuple(e.split(" -> ")) for e in doc["order_edges"]}
+    nodes, edges = build_lock_order_graph(REPO)
+    assert ls.check_embeds(observed, edges, nodes) == []
+    text = render_report(RunData(str(tmp_path / "rep_events.jsonl")))
+    assert "lock sanitizer: " in text and " acquisition(s)" in text, text
