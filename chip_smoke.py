@@ -114,7 +114,9 @@ Imports nothing of JAX or of the JAX package. In order:
     maskclustering_tpu_torch.run --fault-plan`` over phase 10's four scans
     with the JAX drill's four faults (load, a device stall, flaky twice, a
     post-process overflow): statuses, attempts and rungs of the port's
-    two-rung ladder, every healed scan's artifacts equal to phase 10's.
+    two-rung ladder, every healed scan's artifacts equal to phase 10's (the
+    CLI runs beside (a)-(d) from the head of the phase: it reads the scans
+    and writes under its own config name).
     (e) ``streaming_chunk`` 8 through the batch driver over phase 10's
     three scans: cluster seconds and AP beside the batch run's.
 14. the fused multi-device path (``parallel/``). (a) ``cluster_scene_batch``
@@ -201,8 +203,9 @@ Imports nothing of JAX or of the JAX package. In order:
     10's digest, the respawn's seconds, the crash, requeue and respawn
     counters 1 each, the dead child's context gone and the card's memory
     back within 64 MiB after the drain. (c) ``wedge:<scan>.device:1`` with
-    a 5 s heartbeat: detected, SIGKILLed, respawned, ``ok``. (d) A pool of
-    two on the one card, tenants ``a:3,b:1:2``: three clients over two
+    a 5 s heartbeat: detected, SIGKILLed, respawned, ``ok``; (d)'s daemon
+    starts and warms beside it, and (e)'s beside (d)'s order burst. (d) A
+    pool of two on the one card, tenants ``a:3,b:1:2``: three clients over two
     buckets, both slices dispatching, affinity hits; a burst in which the
     third queued ``b`` request gets a typed ``quota`` reject; a crash on
     slice 0 rerouted to slice 1; ``recarve`` to one worker with a request
@@ -249,6 +252,27 @@ Imports nothing of JAX or of the JAX package. In order:
     ``python -m maskclustering_tpu_torch.run --lock-sanitizer`` clusters
     phase 10's third scan: its ``locks.*`` counters in the events, its
     observed lock-order graph embedded in the static one.
+21. the tooling (ROADMAP A10). (c) First, with nothing beside it: the cost
+    observatory's five stages (``obs/cost.py``) on phase 8's scene padded as
+    the fused step takes it, each census row beside the stage's time on the
+    card (CUDA events) and its share of the roofline; the association
+    kernels' bytes in the census equal to phase 8's bound bytes. (d) Beside
+    the rest, in child processes: ``python -m maskclustering_tpu_torch.run
+    --aot-cache DIR`` over phase 10's first scan, cold (the three libraries
+    built), again (all three restored, no ``nvcc``, the same digest) and on
+    a copy of the cache whose entries carry another stamp (three
+    invalidated and rebuilt, the same digest); ``prune`` removes the stale
+    files. (f) Beside it too: ``python -m maskclustering_tpu_torch.analysis
+    --families ir,retrace`` exits 0. (a) ``run_pipeline(profile_dir=...)``
+    over that scan: the trace holds each association kernel once as a CUDA
+    kernel event inside the ``associate`` range; ``xprof_spans=("associate",)``
+    over the three scans writes exactly one trace. (b) Phase 8's scene under
+    the host-sync guard: phase 8's digest, the sanctioned pulls by name; a
+    sequential scan under the guard and ``set_sync_debug_mode("error")``;
+    an injected ``.item()`` in the guarded phase raises. (e) A daemon warm on
+    phase 10's first scan with the build/launch-surface sanitizer armed and
+    frozen serves the other two with 0 builds and 0 new launch keys; a
+    request in a new bucket after the freeze is a violation.
 
 ``python3 chip_smoke.py --ingest-reference`` runs only that CPU route and
 needs no card.
@@ -276,23 +300,9 @@ import time
 # NVIDIA's H100 SXM data sheet (dense, no sparsity), at its 700 W limit
 PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
-# per ball-query pair test: 3 subtractions, 3 multiplications, 2 additions
-# and the radius comparison
-BALL_QUERY_OPS_PER_PAIR = 9
-# the share of that bound a kernel without fused multiply-adds can reach:
-# the FP32 peak above counts an FMA as two operations
+# the share of the FP32 bound a kernel without fused multiply-adds can
+# reach: the peak above counts an FMA as two operations
 NO_FMA_CEILING = 0.5
-# FP32 operations of the association kernels (associate.cu), an FMA
-# counted as two and comparisons not at all. The pixel table, per pixel:
-# the backprojection (2 subtractions, 2 multiplies, 2 divisions) = 6. The
-# window walk, the same in the claim and the assignment: per point and
-# frame the rotation (3 multiplies, 6 FMAs, 3 additions = 18) and the
-# projection (2 divisions, 2 FMAs = 6); per window pixel that can claim (in
-# front, in the image and the window, depth and id set) the difference (3
-# subtractions) and the squared distance (a multiply and 2 FMAs) = 8
-TABLE_OPS_PER_PIXEL = 6
-CLAIM_OPS_PER_POINT = 24
-CLAIM_OPS_PER_PIXEL = 8
 # the association kernels, in the order the path launches them
 ASSOCIATION_KERNELS = ("associate_table", "associate_claim", "associate_assign")
 # phase 8's DBSCAN neighbour table: the smallest power of two holding the
@@ -382,6 +392,10 @@ INGEST_CPU_DIGESTS = {
     "exact": {"objects": 23, "artifact": "b9f669d8", "plane": "0fa56ace"},
 }
 JPEG_PROBE_SHA256 = "1499cb8dc0cdff15ca0d935471e919a65603b6fb871b29b31f305cb0accfa903"
+
+
+# processes started to run beside a phase, stopped when the script ends
+_CHILDREN: list = []
 
 
 def _say(msg: str) -> None:
@@ -483,7 +497,7 @@ def check_and_time_groups(dev, groups):
     import numpy as np
     import torch
 
-    from maskclustering_tpu_torch.ops.cuda import ball_query_cuda
+    from maskclustering_tpu_torch.ops.cuda import BALL_QUERY_OPS_PER_PAIR, ball_query_cuda
     from maskclustering_tpu_torch.ops.neighbor import ball_query_reference
 
     on_card = []
@@ -708,6 +722,12 @@ def association_bounds(call):
     needs. The claim and the assignment are counted as functions of the
     scene's depth and id stacks, not of the pixel table they read, which
     the table's own count holds as an output."""
+    from maskclustering_tpu_torch.ops.cuda import (
+        CLAIM_OPS_PER_PIXEL,
+        CLAIM_OPS_PER_POINT,
+        TABLE_OPS_PER_PIXEL,
+    )
+
     depths, segs, prm, k_max = call["table"]
     pts, _, _, _, window = call["claim"]
     f, n = depths.shape[0], pts.shape[0]
@@ -1876,6 +1896,56 @@ def _check_stream_result(res, num_points: int, label: str) -> None:
         raise AssertionError(f"{label}: assignment of shape {res.assignment.shape}")
 
 
+def _long_scene_tensors():
+    """Phase 13c's scan: phase 4's scene rendered with LONG_FRAMES frames,
+    as SceneTensors, and the seconds the render took (runs in a process of
+    its own; numpy only)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    from maskclustering_tpu_torch.utils.synthetic import (
+        add_depth_noise,
+        make_scene,
+        to_scene_tensors,
+    )
+
+    t0 = time.perf_counter()
+    scene = make_scene(num_boxes=8, num_frames=LONG_FRAMES, image_hw=(480, 640),
+                       spacing=0.008, floor_spacing=0.016, seed=0)
+    add_depth_noise(scene, sigma=0.002, seed=1000)
+    return to_scene_tensors(scene), time.perf_counter() - t0
+
+
+def _start_drill_cli(dev, batch) -> dict:
+    """Start the batch driver's CLI under the JAX drill's four faults over
+    phase 10's scans (a config file with phase 10's knobs); phase 13 joins
+    it after its in-process drills."""
+    root = batch["root"]
+    here = os.path.dirname(os.path.abspath(__file__))
+    knobs = {k: v for k, v in dataclasses.asdict(batch["cfg"]).items()
+             if k not in ("config_name", "data_root")}
+    drill_cfg = os.path.join(root, "chip_smoke_drill.json")
+    with open(drill_cfg, "w") as fh:
+        json.dump(knobs, fh)
+    names = [MID_SCAN] + list(BATCH_SCANS)
+    spec = (f"load:{MID_SCAN}, stall:{BATCH_SCANS[0]}.device, flaky:{BATCH_SCANS[1]}:2, "
+            f"fail:{BATCH_SCANS[2]}.post")
+    report_path = os.path.join(root, "drill_report.json")
+    env = dict(os.environ, MCT_FAULT_STALL_S="3600")
+    err = os.path.join(root, "drill_cli.log")
+    t0 = time.perf_counter()
+    with open(err, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "maskclustering_tpu_torch.run", "--config", drill_cfg,
+             "--data_root", root, "--seq_name_list", "+".join(names), "--steps", "cluster",
+             "--no-resume", "--fault-plan", spec, "--watchdog-device", str(CLI_WATCHDOG_S),
+             "--report", report_path, "--no-obs", "--device", str(dev)],
+            cwd=here, env=env, stdout=subprocess.DEVNULL, stderr=log, text=True)
+    _CHILDREN.append(proc)
+    return {"proc": proc, "t0": t0, "names": names, "spec": spec, "report": report_path,
+            "err": err}
+
+
 def streaming_phase(dev, tensors, dense, batch) -> dict:
     """Phase 13: the streaming entry point and the fault drills on the card."""
     import numpy as np
@@ -1888,14 +1958,19 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
     from maskclustering_tpu_torch.ops import cuda as kernels
     from maskclustering_tpu_torch.run import run_pipeline
     from maskclustering_tpu_torch.utils import faults
-    from maskclustering_tpu_torch.utils.synthetic import (
-        add_depth_noise,
-        make_scene,
-        to_scene_tensors,
-    )
+    from maskclustering_tpu_torch.utils.synthetic import make_scene, to_scene_tensors
 
     t_phase = time.perf_counter()
     cfg = dense["cfg"]
+    # 13d's CLI drill runs beside 13a-13d from the start: a process of its own
+    # that reads phase 10's scans and writes under its own config name
+    drill = _start_drill_cli(dev, batch)
+    # and 13c's longer scan renders in a process of its own from the start
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    long_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
+    long_f = long_pool.submit(_long_scene_tensors)
 
     # 13a: one chunk covering the scene is the batch path, digest dict and all
     kernels.LAUNCHES.reset()
@@ -1979,13 +2054,11 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
     # afresh (repeating the 32 frames would repeat their claims, and the
     # batch's post-process grows with the distinct views)
     t0 = time.perf_counter()
-    long_scene = make_scene(num_boxes=8, num_frames=LONG_FRAMES, image_hw=(480, 640),
-                            spacing=0.008, floor_spacing=0.016, seed=0)
-    add_depth_noise(long_scene, sigma=0.002, seed=1000)
-    lt = to_scene_tensors(long_scene)
-    del long_scene
-    _say(f"[stream] {LONG_FRAMES}-frame scene built in {time.perf_counter() - t0:.1f} s "
-         f"(N={lt.num_points})")
+    lt, built_s = long_f.result(900)
+    long_pool.shutdown()
+    _say(f"[stream] {LONG_FRAMES}-frame scene built in {built_s:.1f} s in a process of its "
+         f"own beside 13a-13b ({time.perf_counter() - t0:.1f} s of it waited for; "
+         f"N={lt.num_points})")
     mem = {}
     for label, c in (("batch", cfg), ("chunked", cfg.replace(streaming_chunk=LONG_CHUNK))):
         records = []
@@ -2064,30 +2137,16 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
          f"{DRILL_STALL_S:.0f} s and raised {stale[0]['error']} on its thread "
          f"{stale[0]['thread']}")
 
-    # the batch driver's CLI under the JAX drill's four faults, over phase
-    # 10's scans: a config file with phase 10's knobs
+    # the drill CLI started at the head of the phase: its result
     root = batch["root"]
-    here = os.path.dirname(os.path.abspath(__file__))
-    knobs = {k: v for k, v in dataclasses.asdict(batch["cfg"]).items()
-             if k not in ("config_name", "data_root")}
-    drill_cfg = os.path.join(root, "chip_smoke_drill.json")
-    with open(drill_cfg, "w") as fh:
-        json.dump(knobs, fh)
-    names = [MID_SCAN] + list(BATCH_SCANS)
-    spec = (f"load:{MID_SCAN}, stall:{BATCH_SCANS[0]}.device, flaky:{BATCH_SCANS[1]}:2, "
-            f"fail:{BATCH_SCANS[2]}.post")
-    report_path = os.path.join(root, "drill_report.json")
-    env = dict(os.environ, MCT_FAULT_STALL_S="3600")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "maskclustering_tpu_torch.run", "--config", drill_cfg,
-         "--data_root", root, "--seq_name_list", "+".join(names), "--steps", "cluster",
-         "--no-resume", "--fault-plan", spec, "--watchdog-device", str(CLI_WATCHDOG_S),
-         "--report", report_path, "--no-obs", "--device", str(dev)],
-        cwd=here, env=env, capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
+    names, spec, report_path = drill["names"], drill["spec"], drill["report"]
+    proc = drill["proc"]
+    proc.wait(timeout=900)
+    wall = time.perf_counter() - drill["t0"]
+    with open(drill["err"]) as fh:
+        err_text = fh.read()
     if proc.returncode != 1:  # one scan fails by design
-        raise AssertionError(f"drill CLI rc {proc.returncode}\n{proc.stderr[-3000:]}")
+        raise AssertionError(f"drill CLI rc {proc.returncode}\n{err_text[-3000:]}")
     with open(report_path) as fh:
         rep = json.load(fh)
     by = {s["seq_name"]: s for s in rep["scenes"]}
@@ -2100,7 +2159,8 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
         _say(f"[drill] {n}: {by[n]['status']}, attempts {by[n]['attempts']}, rung "
              f"{by[n]['degradation_rung']}, last error class {by[n]['error_class'] or '-'}, "
              f"{by[n]['seconds']:.2f} s")
-    _say(f"[drill] CLI --fault-plan '{spec}': rc {proc.returncode}, {wall:.1f} s, faults "
+    _say(f"[drill] CLI --fault-plan '{spec}': rc {proc.returncode}, {wall:.1f} s (beside "
+         f"13a-13d), faults "
          f"{json.dumps(rep['faults'])}")
     if (got != want or by[MID_SCAN]["error_class"] != "retryable"
             or "InjectedFault" not in by[MID_SCAN]["error"]
@@ -3135,10 +3195,13 @@ class _IsoDaemon:
     """One ``python -m maskclustering_tpu_torch.serve --isolate-worker``
     subprocess: its socket, log, events file and config name. With
     ``expect_fail`` (a daemon that must refuse to start) the constructor
-    returns once the process is started; the caller waits for ``proc``."""
+    returns once the process is started; the caller waits for ``proc``.
+    With ``wait=False`` it returns once the process is started too, and
+    ``wait_ready`` blocks until the daemon answers (a daemon that starts
+    beside other work)."""
 
     def __init__(self, here: str, tmp: str, name: str, cfg, args, env=None,
-                 expect_fail: bool = False):
+                 expect_fail: bool = False, wait: bool = True):
         import tempfile
 
         self.name = name
@@ -3165,8 +3228,13 @@ class _IsoDaemon:
         with open(self.log_path, "w") as log:
             self.proc = subprocess.Popen(cmd, cwd=here, env=full_env, stdout=subprocess.PIPE,
                                          stderr=log, text=True)
-        if expect_fail:
+        if expect_fail or not wait:
             return
+        self.wait_ready()
+
+    def wait_ready(self) -> None:
+        """Block until the daemon answers (its worker is warm)."""
+        name = self.name
         deadline = time.monotonic() + 600
         while not os.path.exists(self.sock) and self.proc.poll() is None:
             if time.monotonic() > deadline:
@@ -3398,6 +3466,12 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
         victim = BATCH_SCANS[2]
         d = spawn("wedge", ["--warm", first, "--fault-plan", f"wedge:{victim}.device:1",
                             "--set", f"worker_heartbeat_s={ISO_WEDGE_HB_S:g}"])
+        # (d)'s pool starts and warms beside the wedge drill, which reads
+        # no memory or context
+        crash_scene = BATCH_SCANS[2]
+        pool_d = spawn("pool", ["--workers", "2", "--tenants", POOL_TENANTS, "--warm", first,
+                                "--fault-plan", f"crash:{crash_scene}.device:1",
+                                "--set", f"worker_heartbeat_s={ISO_CRASH_HB_S:g}"], wait=False)
         term, seen, wall = _timed_request(d.sock, victim)
         check_ok(term, victim, "wedge drill")
         if _states(seen) != ["running", "worker_crash", "running"]:
@@ -3411,10 +3485,8 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
              f"respawn, ok in {wall:.2f} s, digest == phase 10's")
 
         # (d) a pool of two on the one card: both slices share cuda:0
-        crash_scene = BATCH_SCANS[2]
-        d = spawn("pool", ["--workers", "2", "--tenants", POOL_TENANTS, "--warm", first,
-                           "--fault-plan", f"crash:{crash_scene}.device:1",
-                           "--set", f"worker_heartbeat_s={ISO_CRASH_HB_S:g}"])
+        d = pool_d
+        d.wait_ready()
         jobs = [(BATCH_SCANS[0], None), ("chip_smoke_serve_cold", SERVE_COLD_SPEC),
                 (BATCH_SCANS[1], None)]
         results, errors = [], []
@@ -3516,6 +3588,12 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
         # a carve the one card cannot hold is refused at start; checked
         # after the order burst below, which runs while it starts and fails
         bad = spawn("carve", ["--workers", "2", "--carve", "2x1"], expect_fail=True)
+        # (e)'s pool starts and warms beside the order burst, which checks
+        # only the order of dispatch
+        sdir = os.path.join(tmp, "stream_state")
+        stream_d = spawn("stream", ["--workers", "2", "--stream-state", sdir,
+                                    "--fault-plan", f"stall:{MID_SCAN}.chunk:2"],
+                         env={"MCT_FAULT_STALL_S": str(ISO_STREAM_STALL_S)}, wait=False)
 
         # the stride scheduler's dispatch order on real children: a pool in
         # this process, dispatch held until the whole burst is queued
@@ -3559,10 +3637,8 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
 
         # (e) stream failover: kill the owner slice with its second chunk in
         # flight; the survivor resumes from the snapshot
-        sdir = os.path.join(tmp, "stream_state")
-        d = spawn("stream", ["--workers", "2", "--stream-state", sdir,
-                             "--fault-plan", f"stall:{MID_SCAN}.chunk:2"],
-                  env={"MCT_FAULT_STALL_S": str(ISO_STREAM_STALL_S)})
+        d = stream_d
+        d.wait_ready()
         with ServeClient(d.sock, timeout_s=600.0) as c:
             one, _ = c.stream_chunk(MID_SCAN, chunk=STREAM_CHUNK)
         if one.get("status") != "ok" or one.get("done"):
@@ -4240,6 +4316,313 @@ def static_checks_phase(dev, card: str, batch) -> None:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 21: the entry names of the association kernels in a profiler
+# trace (their __global__ functions in associate.cu), and a synthetic
+# request at a bucket no earlier phase dispatched (another image size)
+TRACE_KERNELS = {"associate_table": "table_kernel", "associate_claim": "claim_scene_kernel",
+                 "associate_assign": "assign_scene_kernel"}
+TOOLING_COLD_SPEC = {"num_boxes": 2, "num_frames": 8, "image_hw": [120, 160], "seed": 5}
+
+
+def _aot_child(here, conf, root, cache, label, tmp):
+    """One ``python -m maskclustering_tpu_torch.run --aot-cache`` over phase
+    10's first scan: (its aot stats, its nvcc builds, its digest)."""
+    report = os.path.join(tmp, f"aot_{label}.json")
+    rc, _, err = _run_module(here, "maskclustering_tpu_torch.run", [
+        "--config", conf, "--data_root", root, "--seq_name_list", BATCH_SCANS[0], "--steps",
+        "cluster", "--no-resume", "--no-journal", "--no-obs", "--report", report,
+        "--ledger", os.path.join(tmp, "ledger.jsonl"), "--aot-cache", cache])
+    if rc != 0:
+        raise AssertionError(f"aot child {label} exited {rc}:\n{err[-3000:]}")
+    mark = "; nvcc builds in this process: "
+    line = next(ln for ln in err.splitlines() if mark in ln)
+    stats, builds = line.split("aot cache: ", 1)[1].split(mark)
+    with open(report) as fh:
+        digest = json.load(fh)["scenes"][0]["digest"]["artifact"]
+    return json.loads(stats), json.loads(builds), digest
+
+
+def _trace_kernels(path: str) -> dict:
+    """The association kernels' CUDA events in a Chrome trace, and whether
+    each lies inside an ``associate`` range: {entry: (count, inside, us)}."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    ranges = [(ev["ts"], ev["ts"] + ev.get("dur", 0)) for ev in events
+              if ev.get("name") == "associate" and ev.get("ph") == "X"]
+    out = {}
+    for entry, fn in TRACE_KERNELS.items():
+        evs = [ev for ev in events if ev.get("cat") == "kernel" and fn in ev.get("name", "")]
+        inside = sum(1 for ev in evs if any(a <= ev["ts"] and ev["ts"] + ev.get("dur", 0) <= b
+                                            for a, b in ranges))
+        out[entry] = (len(evs), inside, sum(ev.get("dur", 0) for ev in evs))
+    return out
+
+
+def tooling_phase(dev, card: str, tensors, dense, batch) -> dict:
+    """Phase 21: the tooling on the card: the cost observatory, the kernel
+    build cache across processes, the analyzer, the profiler captures, the
+    host-sync guard and the build/launch-surface sanitizer."""
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from maskclustering_tpu_torch.analysis import retrace_sanitizer, transfer_guard
+    from maskclustering_tpu_torch.models import pipeline, run_scene
+    from maskclustering_tpu_torch.obs import cost
+    from maskclustering_tpu_torch.obs.report import render_cost
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.run import run_pipeline
+    from maskclustering_tpu_torch.serve import ServeClient
+    from maskclustering_tpu_torch.serve.daemon import ServeDaemon
+    from maskclustering_tpu_torch.utils import aot_cache
+    from maskclustering_tpu_torch.utils.compile_cache import scene_pads
+    from maskclustering_tpu_torch.utils.synthetic import make_scene, to_scene_tensors
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tooling_", dir="/tmp")
+    root, bcfg = batch["root"], batch["cfg"]
+    want = {scene: dg["artifact"] for scene, (dg, _) in batch["scans"].items()}
+    try:
+        # (c) first, nothing beside it: the observatory's five stages on
+        # phase 8's scene padded as the fused step takes it, each timed
+        cfg = dense["cfg"]
+        f_pad, n_pad = scene_pads(cfg, tensors.num_frames, tensors.num_points)
+        t = pipeline.pad_scene_tensors(tensors, f_pad, n_pad)
+        h, w = t.depths.shape[1:]
+        arrays = tuple(np.asarray(a)[None] for a in (
+            t.scene_points, t.depths, t.segmentations, t.intrinsics, t.cam_to_world,
+            t.frame_valid))
+        t0 = time.perf_counter()
+        rows = cost.observe_costs([(1, 1)], frames=f_pad, points=n_pad, image_hw=(h, w),
+                                  k_max=63, cfg=cfg, device=dev, batch=arrays,
+                                  time_stages=True)
+        cost_s = time.perf_counter() - t0
+        bad = [r for r in rows if "error" in r]
+        if bad or len(rows) != 5:
+            raise AssertionError(f"cost observatory rows: {bad or len(rows)}")
+        bound_bytes = {k: v["bytes"] for k, v in dense["timed"].items()}
+        for r in rows:
+            if r["stage"] in ("backprojection", "fused"):
+                got = {k: v["bytes"] for k, v in r["kernels"].items()}
+                if got != {k: float(v) for k, v in bound_bytes.items()}:
+                    raise AssertionError(f"{r['stage']}: kernel bytes {got}, the bound's "
+                                         f"{bound_bytes}")
+        _say(f"[tooling] cost observatory on {card}, phase 8's scene (F_pad={f_pad} "
+             f"N_pad={n_pad} {h}x{w} k_max 63, dense slots M_pad={f_pad * 63}), census and "
+             f"timing in {cost_s:.1f} s:\n" + render_cost(rows))
+        _say("[tooling] association kernel bytes in the census == phase 8's bound bytes: "
+             + json.dumps(bound_bytes))
+        for r in rows:
+            _say(f"[tooling] {r['stage']}: {r['device_ms']:.4f} ms on the card, bound "
+                 f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {r['flops']:.0f} FLOPs, "
+                 f"{r['hbm_bytes']:.0f} bytes), {100 * r['roofline_share']:.2f} % of it; "
+                 f"{r['ops']['aten']} aten ops, {r['counting_products']} counting products, "
+                 f"peak {r['peak_bytes'] / 2**20:.1f} MiB")
+
+        # (d) and (f) beside the rest: the build cache across three child
+        # processes, and the analyzer's ir and retrace families
+        knobs = {k: v for k, v in dataclasses.asdict(bcfg).items()
+                 if k not in ("config_name", "data_root")}
+        confs = {}
+        for label in ("chip_smoke_aot", "chip_smoke_aot_stamp"):
+            confs[label] = os.path.join(tmp, f"{label}.json")
+            with open(confs[label], "w") as fh:
+                json.dump(knobs, fh)
+        cache_a, cache_b = os.path.join(tmp, "aot_a"), os.path.join(tmp, "aot_b")
+
+        def build_cache_drill():
+            out = {"cold": _aot_child(here, confs["chip_smoke_aot"], root, cache_a, "cold", tmp)}
+            # another toolchain's cache: every entry's stamp changed, its
+            # file named for that stamp
+            shutil.copytree(cache_a, cache_b)
+            with open(os.path.join(cache_b, aot_cache.INDEX_NAME)) as fh:
+                doc = json.load(fh)
+            stale = {}
+            for i, (fname, entry) in enumerate(sorted(doc["entries"].items())):
+                new = f"libmc_{entry['kernel']}-stale{i}.so"
+                os.rename(os.path.join(cache_b, fname), os.path.join(cache_b, new))
+                stale[new] = dict(entry, stamp=dict(entry["stamp"], torch="0.0-other"))
+            doc["entries"] = stale
+            with open(os.path.join(cache_b, aot_cache.INDEX_NAME), "w") as fh:
+                json.dump(doc, fh)
+            with ThreadPoolExecutor(2) as ex:
+                warm = ex.submit(_aot_child, here, confs["chip_smoke_aot"], root, cache_a,
+                                 "warm", tmp)
+                changed = ex.submit(_aot_child, here, confs["chip_smoke_aot_stamp"], root,
+                                    cache_b, "stamp", tmp)
+                out["warm"], out["stamp"] = warm.result(900), changed.result(900)
+            out["stale"] = sorted(stale)
+            return out
+
+        bg = ThreadPoolExecutor(2)
+        drill_f = bg.submit(build_cache_drill)
+        analyzer_f = bg.submit(_run_module, here, "maskclustering_tpu_torch.analysis",
+                               ["--families", "ir,retrace", "--format", "json"])
+
+        # (a) the profiler: a --profile_dir run of one full-size scan, then
+        # --xprof associate over phase 10's three scans
+        prof = os.path.join(tmp, "profile")
+        t0 = time.perf_counter()
+        rep = run_pipeline(bcfg.replace(config_name="chip_smoke_profile"), BATCH_SCANS[:1],
+                           steps=("cluster",), resume=False, journal=False, ledger=False,
+                           prediction_root=os.path.join(tmp, "pred_profile"),
+                           obs_events=os.path.join(tmp, "profile_events.jsonl"), device=dev,
+                           profile_dir=prof)
+        prof_s = time.perf_counter() - t0
+        trace = os.path.join(prof, "trace.json")
+        if not rep.ok or rep.scenes[0].digest["artifact"] != want[BATCH_SCANS[0]]:
+            raise AssertionError(f"the profiled run: {rep.step_errors} {rep.scenes}")
+        found = _trace_kernels(trace)
+        if any(n != 1 or inside != 1 for n, inside, _ in found.values()):
+            raise AssertionError(f"the trace's association kernels (count, inside the "
+                                 f"associate range, us): {found}")
+        _say(f"[tooling] --profile_dir over {BATCH_SCANS[0]}: {prof_s:.2f} s with the "
+             f"profiler, trace {os.path.getsize(trace)} bytes; the association kernels as "
+             f"CUDA kernel events, each inside the 'associate' range: "
+             + json.dumps({k: f"{TRACE_KERNELS[k]} {us} us" for k, (_, _, us) in found.items()}))
+        xp_events = os.path.join(tmp, "xprof_events.jsonl")
+        t0 = time.perf_counter()
+        rep = run_pipeline(bcfg.replace(config_name="chip_smoke_xprof"), BATCH_SCANS,
+                           steps=("cluster",), resume=False, journal=False, ledger=False,
+                           prediction_root=os.path.join(tmp, "pred_xprof"),
+                           obs_events=xp_events, device=dev, xprof_spans=("associate",))
+        xp_dir = os.path.splitext(xp_events)[0] + "_xprof"
+        traces = sorted(os.listdir(xp_dir))
+        if not rep.ok or traces != ["associate-0"]:
+            raise AssertionError(f"--xprof associate over 3 scans wrote {traces}")
+        xp_trace = os.path.join(xp_dir, "associate-0", "trace.json")
+        xfound = _trace_kernels(xp_trace)
+        if any(n != 1 for n, _, _ in xfound.values()):
+            raise AssertionError(f"the xprof trace's association kernels: {xfound}")
+        _say(f"[tooling] --xprof associate over {len(BATCH_SCANS)} scans: one trace "
+             f"({os.path.getsize(xp_trace)} bytes, one launch of each association kernel) "
+             f"in {time.perf_counter() - t0:.2f} s")
+
+        # (b) the guard: phase 8's scene guarded, then a sequential scan
+        # under CUDA's own sync check, then an injected read
+        transfer_guard.arm(True)
+        try:
+            t0 = time.perf_counter()
+            res = run_scene(tensors, cfg, k_max=63, seq_name="chip_smoke_guard", device=dev)
+            guard_s = time.perf_counter() - t0
+            pulls = transfer_guard.scene_pulls()
+            if res.digest["artifact"] != dense["digest"]:
+                raise AssertionError(f"guarded digest {res.digest} != phase 8's {dense['digest']}")
+            transfer_guard.arm_cuda_sync_check(True)
+            try:
+                srep = run_pipeline(bcfg.replace(config_name="chip_smoke_guard_seq",
+                                                 scene_overlap=False), BATCH_SCANS[:1],
+                                    steps=("cluster",), resume=False, journal=False,
+                                    ledger=False, device=dev,
+                                    prediction_root=os.path.join(tmp, "pred_guard"))
+            finally:
+                transfer_guard.arm_cuda_sync_check(False)
+            seq_pulls = transfer_guard.scene_pulls()
+            if not srep.ok or srep.scenes[0].digest["artifact"] != want[BATCH_SCANS[0]]:
+                raise AssertionError(f"the guarded sequential scan: {srep.scenes}")
+            small = to_scene_tensors(make_scene(num_boxes=2, num_frames=4, image_hw=(64, 80),
+                                                seed=3, spacing=0.08))
+            real = pipeline.compute_graph_stats
+
+            def injected(mask_of_point, *a, **kw):
+                mask_of_point.sum().item()
+                return real(mask_of_point, *a, **kw)
+
+            pipeline.compute_graph_stats = injected
+            try:
+                pipeline.run_scene_device(small, cfg, device=dev)
+            except transfer_guard.HostSyncError as e:
+                raised = str(e).split(" outside")[0]
+            else:
+                raise AssertionError("an injected .item() in the guarded phase did not raise")
+            finally:
+                pipeline.compute_graph_stats = real
+        finally:
+            transfer_guard.arm(None)
+        _say(f"[tooling] guard: phase 8's scene guarded {guard_s:.2f} s, digest "
+             f"{res.digest['artifact']} == phase 8's; sanctioned pulls by name "
+             f"{json.dumps(pulls)} ({sum(pulls.values())} in all; JAX makes 1)")
+        _say(f"[tooling] guard + set_sync_debug_mode('error') over a sequential scan of "
+             f"{BATCH_SCANS[0]}: ok, digest == phase 10's, pulls {json.dumps(seq_pulls)}; an "
+             f"injected .item() raised HostSyncError ({raised})")
+
+        # (e) the sanitizer: a daemon warm on phase 15's scan, frozen
+        retrace_sanitizer.reset()
+        retrace_sanitizer.arm(True)
+        retrace_sanitizer.install()
+        sock = os.path.join(tempfile.mkdtemp(prefix="mc21", dir="/tmp"), "s.sock")
+        d = ServeDaemon(bcfg, socket_path=sock, capacity=2, device=dev,
+                        warm_scenes=(BATCH_SCANS[0],))
+        try:
+            d.start()
+            warm = retrace_sanitizer.digest()
+            keys = retrace_sanitizer.snapshot_keys()
+            with ServeClient(sock, timeout_s=300.0) as c:
+                for scene in BATCH_SCANS[1:]:
+                    term, _, _ = c.run_scene(scene)
+                    if term.get("status") != "ok" or term["digest"]["artifact"] != want[scene]:
+                        raise AssertionError(f"sanitized daemon: {scene} answered {term}")
+                frozen = c.stats()["retrace"]
+                if (retrace_sanitizer.snapshot_keys() != keys or frozen["post_freeze"]
+                        or frozen["compiles"] or not frozen["frozen"]):
+                    raise AssertionError(f"warm frozen daemon: {frozen}")
+                term, _, _ = c.run_scene("chip_smoke_tooling_cold", synthetic=TOOLING_COLD_SPEC)
+                after = c.stats()["retrace"]
+            if term.get("status") != "ok" or after["post_freeze"] < 1:
+                raise AssertionError(f"a new bucket after the freeze: {term} {after}")
+            viol = retrace_sanitizer.violations()
+        finally:
+            d.request_stop()
+            d.shutdown()
+            shutil.rmtree(os.path.dirname(sock), ignore_errors=True)
+            retrace_sanitizer.uninstall()
+            retrace_sanitizer.arm(None)
+        _say(f"[tooling] sanitizer: a daemon warm on {BATCH_SCANS[0]} and frozen ({warm['distinct_keys']} "
+             f"launch keys, {warm['compiles']} builds); {len(BATCH_SCANS) - 1} scans served with "
+             f"0 builds and 0 new keys ({json.dumps(frozen)}); a request in a new bucket "
+             f"{TOOLING_COLD_SPEC['image_hw']} after the freeze: {after['post_freeze']} "
+             f"violation(s) ({sorted({v['fn'] for v in viol})})")
+        retrace_sanitizer.reset()
+
+        # (d) and (f) done
+        drill = drill_f.result(900)
+        a_rc, a_out, a_err = analyzer_f.result(900)
+        bg.shutdown()
+        cold, warm_run, stamped = drill["cold"], drill["warm"], drill["stamp"]
+        libs = sorted(kernels.KERNELS)
+        if (cold[0] != {"restored": 0, "built": 3, "invalidated": 0} or cold[1] != libs
+                or warm_run[0] != {"restored": 3, "built": 0, "invalidated": 0}
+                or warm_run[1] != [] or warm_run[2] != cold[2]
+                or stamped[0] != {"restored": 0, "built": 3, "invalidated": 3}
+                or stamped[1] != libs or stamped[2] != cold[2]
+                or cold[2] != want[BATCH_SCANS[0]]):
+            raise AssertionError(f"build cache drill: {drill}")
+        removed = aot_cache.AotCache(cache_b).prune()
+        left = sorted(f for f in os.listdir(cache_b) if f.endswith(".so"))
+        if sorted(removed) != drill["stale"] or len(left) != 3 or set(left) & set(removed):
+            raise AssertionError(f"prune removed {removed}, left {left}")
+        _say(f"[tooling] build cache: a cold child built {cold[1]} "
+             f"({json.dumps(cold[0])}), a second child restored all ({json.dumps(warm_run[0])}, "
+             f"nvcc builds {warm_run[1]}), digest {warm_run[2]} == the cold child's == phase "
+             f"10's; a changed stamp: {json.dumps(stamped[0])}, rebuilt {stamped[1]}; prune "
+             f"removed the {len(removed)} stale files")
+        if a_rc != 0:
+            raise AssertionError(f"analyzer --families ir,retrace exited {a_rc}:\n{a_out[-3000:]}"
+                                 f"\n{a_err[-3000:]}")
+        res_a = json.loads(a_out)
+        _say(f"[tooling] python -m maskclustering_tpu_torch.analysis --families ir,retrace on "
+             f"the card: exit 0, {len(res_a['findings'])} finding(s), "
+             f"{len(res_a['suppressed'])} suppressed by the port's baseline "
+             f"({[f['id'] for f in res_a['suppressed']]}), {res_a['elapsed_s']} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    _say(f"[tooling] phase 21 in {time.perf_counter() - t_phase:.1f} s ({card})")
+    return {"cost": rows, "pulls": pulls}
+
+
 def full_size_scene():
     """Phase 4's scene: 8 boxes, 32 frames at 480x640, 2 mm depth noise."""
     from maskclustering_tpu_torch.utils.synthetic import add_depth_noise, make_scene
@@ -4449,6 +4832,11 @@ def main() -> int:
     static_checks_phase(dev, card, batch)
 
     lap("20")
+    # 21. the tooling: cost observatory, build cache, analyzer, profiler,
+    # guard, sanitizer
+    tooling_phase(dev, card, tensors, dense, batch)
+
+    lap("21")
     _say(f"[done] {time.perf_counter() - t_start:.1f} s; phases (s): {json.dumps(laps)}")
     _say(card)
     rows = [{
@@ -4497,4 +4885,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        for child in _CHILDREN:
+            if child.poll() is None:
+                child.kill()
+    sys.exit(rc)

@@ -4,14 +4,17 @@
 
     python -m maskclustering_tpu_torch.analysis \
         [--baseline maskclustering_tpu_torch/analysis/baseline.json] \
-        [--format text|json] [--families ast,concurrency] \
-        [--events out.jsonl] [--write-baseline PATH] [--root DIR]
+        [--format text|json] [--families ast,concurrency,ir,retrace] \
+        [--mesh SxF[xP] ...] [--device cpu] [--events out.jsonl] \
+        [--write-baseline PATH] [--write-surface PATH] [--root DIR]
 
 Counterpart of ``python -m maskclustering_tpu.analysis``. Exit codes: 0
 clean (every finding suppressed by the baseline), 2 on any unsuppressed
 finding, 1 on an analyzer crash or a bad baseline. Stale baseline entries
-are advisory (reported, never fatal). The ``ir`` and ``retrace`` families
-read XLA's lowerings and raise ``NotImplementedError`` naming ROADMAP A10.
+are advisory (reported, never fatal). The default families are the two
+that import no torch (``ast,concurrency``); ``ir`` runs the cost census of
+the fused step on ``--device`` (default: the CUDA card) and ``retrace``
+the launch-surface census and compile-site scan.
 
 Triage: read the finding's ``file:line`` and fix it, or, for an accepted
 trade, add its id to the baseline with a one-line justification.
@@ -38,10 +41,8 @@ from maskclustering_tpu_torch.analysis.findings import (
 
 log = logging.getLogger("maskclustering_tpu_torch")
 
-FAMILIES = ("ast", "concurrency")
-# the JAX package's families that read XLA's lowerings: ROADMAP A10
-XLA_FAMILIES = ("ir", "retrace")
-XLA_TOOLING_ITEM = "ROADMAP A10"
+FAMILIES = ("ast", "concurrency", "ir", "retrace")
+DEFAULT_FAMILIES = ("ast", "concurrency")
 
 
 def repo_root() -> str:
@@ -72,7 +73,8 @@ def _render_text(unsuppressed: List[Finding], suppressed: List[Finding],
     return "\n".join(out)
 
 
-def run_analysis(families: List[str], root: str) -> List[Finding]:
+def run_analysis(families: List[str], root: str, *, meshes=None,
+                 device: Optional[str] = None) -> List[Finding]:
     """The findings of ``families`` over the tree at ``root``."""
     findings: List[Finding] = []
     if "ast" in families:
@@ -83,6 +85,14 @@ def run_analysis(families: List[str], root: str) -> List[Finding]:
         from maskclustering_tpu_torch.analysis.concurrency import analyze_concurrency
 
         findings += analyze_concurrency(root)
+    if "ir" in families:
+        from maskclustering_tpu_torch.analysis.ir_checks import FULL_LATTICE, analyze_ir
+
+        findings += analyze_ir(meshes or FULL_LATTICE, device=device)[0]
+    if "retrace" in families:
+        from maskclustering_tpu_torch.analysis.retrace import analyze_retrace
+
+        findings += analyze_retrace(root)
     return findings
 
 
@@ -96,9 +106,17 @@ def main(argv: Optional[List[str]] = None) -> int:
                    help=f"suppression baseline (default: {DEFAULT_BASELINE} under the root "
                         f"when present)")
     p.add_argument("--format", choices=("text", "json"), default="text")
-    p.add_argument("--families", default=",".join(FAMILIES),
-                   help=f"comma-subset of {{{','.join(FAMILIES)}}} (default both); "
-                        f"{' and '.join(XLA_FAMILIES)} read XLA's lowerings ({XLA_TOOLING_ITEM})")
+    p.add_argument("--families", default=",".join(DEFAULT_FAMILIES),
+                   help=f"comma-subset of {{{','.join(FAMILIES)}}} (default "
+                        f"{','.join(DEFAULT_FAMILIES)})")
+    p.add_argument("--mesh", action="append", default=None, metavar="SxF[xP]",
+                   help="fused-step mesh for the ir family (repeatable; default: the "
+                        "lattice 1x8, 2x4, 4x2, 8x1, 1x2x4)")
+    p.add_argument("--device", default=None,
+                   help="torch device of the ir family's census (default: the CUDA card; "
+                        "'cpu' for the plain path)")
+    p.add_argument("--write-surface", default=None, metavar="PATH",
+                   help="write the launch-surface census (retrace family) to PATH and exit")
     p.add_argument("--events", default=None,
                    help="append findings as schema-versioned 'analysis' events to this "
                         "JSONL (render with python -m maskclustering_tpu_torch.obs.report)")
@@ -112,15 +130,25 @@ def main(argv: Optional[List[str]] = None) -> int:
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
     root = args.root or repo_root()
     families = [f for f in args.families.split(",") if f]
-    xla = sorted(set(families) & set(XLA_FAMILIES))
-    if xla:
-        raise NotImplementedError(
-            f"the {', '.join(xla)} famil{'ies' if len(xla) > 1 else 'y'} read XLA's "
-            f"lowerings and ha{'ve' if len(xla) > 1 else 's'} no torch counterpart yet "
-            f"({XLA_TOOLING_ITEM})")
     unknown = set(families) - set(FAMILIES)
     if unknown:
         p.error(f"unknown families {sorted(unknown)}")
+    if args.write_surface:
+        from maskclustering_tpu_torch.analysis import retrace
+
+        retrace.write_surface_baseline(args.write_surface, retrace.launch_surface(),
+                                       retrace.fused_surface_rows())
+        print(f"mct-check: wrote the launch-surface census to {args.write_surface} (audit the "
+              f"diff before committing)")
+        return 0
+    meshes = None
+    if args.mesh:
+        from maskclustering_tpu_torch.obs.cost import parse_mesh_specs
+
+        try:
+            meshes = parse_mesh_specs(args.mesh)
+        except ValueError as e:
+            p.error(str(e))
 
     baseline_path = args.baseline
     if baseline_path is None:
@@ -134,7 +162,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     t0 = time.perf_counter()
     try:
-        findings = run_analysis(families, root)
+        findings = run_analysis(families, root, meshes=meshes, device=args.device)
     except Exception:
         log.exception("mct-check: analyzer crashed")
         return 1

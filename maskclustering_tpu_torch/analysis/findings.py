@@ -34,7 +34,7 @@ class Finding:
 
     id: str  # stable: <CHECK>:<content coordinates>, no line numbers
     check: str  # e.g. "IR.DTYPE.CLASS", "AST.HOSTSYNC"
-    family: str  # "ast" | "concurrency"
+    family: str  # "ast" | "concurrency" | "ir" | "retrace"
     message: str  # one line, human-oriented
     file: str = ""  # repo-relative path ("" for whole-program IR findings)
     line: int = 0  # 1-based display anchor (0 = not line-anchored)
@@ -129,7 +129,9 @@ def stale_in_scope(stale: Sequence[str], families: Sequence[str]) -> List[str]:
     out: List[str] = []
     for fid in stale:
         family = ("ast" if fid.startswith("AST.")
-                  else "concurrency" if fid.startswith("CONC.") else None)
+                  else "concurrency" if fid.startswith("CONC.")
+                  else "ir" if fid.startswith("IR.")
+                  else "retrace" if fid.startswith("RETRACE.") else None)
         if family is not None and family not in families:
             continue
         out.append(fid)

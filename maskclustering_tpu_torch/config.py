@@ -153,6 +153,8 @@ class PipelineConfig:
     serve_journal_keep: int = 512
     serve_journal_max_age_s: float = 0.0
     serve_prune_interval_s: float = 300.0
+    # the kernel build cache's directory (utils/aot_cache.py; "auto": aot_cache/
+    # beside the perf ledger); "" = none unless $MCT_AOT_CACHE names one
     aot_cache_dir: str = ""
 
     # --- paths ---

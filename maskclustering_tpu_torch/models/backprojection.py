@@ -43,9 +43,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from maskclustering_tpu_torch.analysis.transfer_guard import sanctioned_pull
 from maskclustering_tpu_torch.datasets.base import PAD_DISTANCE_CUTOFF
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
 from maskclustering_tpu_torch.io.feed import to_device_frames
+from maskclustering_tpu_torch.ops import cuda as cuda_entries
 from maskclustering_tpu_torch.ops.geometry import (fma, invert_se3, rotate, sqrt_f32,
                                                    unproject_depth)
 
@@ -348,6 +350,7 @@ def pixel_table(depths, segs, params, *, k_max: int):
         from maskclustering_tpu_torch.ops.cuda import associate_table_cuda
 
         return associate_table_cuda(depths, segs, params, k_max=k_max)
+    cuda_entries.note_plain("associate_table", tuple(depths.shape))
     return pixel_table_reference(depths, segs, params, k_max=k_max)
 
 
@@ -443,6 +446,8 @@ def claim_frames(scene_points, depths, segs, intrinsics, cam_to_world, *, k_max:
         return FrameClaims(params, table, None,
                            claim_scene(scene_points, table, params, k_max=k_max, window=window))
     # the plain claim's candidates serve the assignment as they are
+    cuda_entries.note_plain("associate_claim", (*table.shape[:1], scene_points.shape[0],
+                                                *table.shape[1:3], (2 * window + 1) ** 2))
     cand, n_claimed = scene_candidates_reference(scene_points, table, params, k_max=k_max,
                                                  window=window)
     return FrameClaims(params, table, cand, n_claimed)
@@ -465,6 +470,8 @@ def assign_frames(scene_points, claims: FrameClaims, mask_valid, *, k_max: int, 
     if claims.cand is None:
         return assign_scene(scene_points, claims.table, claims.params, mask_valid, k_max=k_max,
                             window=window)
+    cuda_entries.note_plain("associate_assign", (*claims.table.shape[:1], scene_points.shape[0],
+                                                 *claims.table.shape[1:3], (2 * window + 1) ** 2))
     return assign_candidates_reference(claims.cand, mask_valid, k_max=k_max,
                                        n=scene_points.shape[0])
 
@@ -561,10 +568,14 @@ def associate_scene_tensors(tensors, cfg, k_max: int = 127, *,
     def up(a, dtype):
         return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
-    depths, segs = to_device_frames(tensors.depths, tensors.segmentations, dev)
+    with sanctioned_pull("scene.upload"):
+        depths, segs = to_device_frames(tensors.depths, tensors.segmentations, dev)
+        points, intrinsics = up(tensors.scene_points, torch.float32), up(tensors.intrinsics,
+                                                                         torch.float32)
+        cam_to_world, frame_valid = (up(tensors.cam_to_world, torch.float32),
+                                     up(tensors.frame_valid, torch.bool))
     return associate_scene(
-        up(tensors.scene_points, torch.float32), depths, segs, up(tensors.intrinsics, torch.float32),
-        up(tensors.cam_to_world, torch.float32), up(tensors.frame_valid, torch.bool), vox_size,
+        points, depths, segs, intrinsics, cam_to_world, frame_valid, vox_size,
         k_max=k_max, window=cfg.association_window,
         distance_threshold=cfg.distance_threshold, depth_trunc=cfg.depth_trunc,
         few_points_threshold=cfg.few_points_threshold,

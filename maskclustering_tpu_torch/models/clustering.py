@@ -11,7 +11,10 @@ propagation with pointer jumping, in place of networkx). The loop stops at
 the first +inf of the schedule, as the JAX ``while_loop`` does.
 
 Host traffic: the 20-float schedule is read once, and each propagation
-sweep reads one "changed" flag.
+sweep reads one "changed" flag, each in a named ``sanctioned_pull`` window
+(``cluster.schedule``, ``cluster.sweep``) of the host-sync guard
+(``analysis/transfer_guard.py``). The JAX package keeps both loops on the
+device (``lax.while_loop``); taking them off the host is ROADMAP B2.3.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from maskclustering_tpu_torch.analysis.transfer_guard import sanctioned_pull
 from maskclustering_tpu_torch.ops import counting
 
 
@@ -38,7 +42,8 @@ def _connected_components(adj: torch.Tensor) -> torch.Tensor:
         neigh = torch.where(adj, labels[None, :], sentinel)
         best = torch.minimum(labels, neigh.min(dim=1).values)
         best = torch.minimum(best, best[best])  # pointer jumping: two hops per sweep
-        changed = bool((best != labels).any())
+        with sanctioned_pull("cluster.sweep"):
+            changed = bool((best != labels).any())
         labels = best
         if not changed:
             return labels
@@ -65,7 +70,7 @@ def iterative_clustering(
     eye = torch.eye(m_pad, dtype=torch.bool, device=dev)
     vis_m = visible & active[:, None]
     con_m = contained & active[:, None]
-    consensus = torch.tensor(view_consensus_threshold, dtype=torch.float32, device=dev)
+    consensus = torch.full((), view_consensus_threshold, dtype=torch.float32, device=dev)
 
     def aggregate(assign):
         """Segment-OR of mask features into representative slots."""
@@ -75,7 +80,9 @@ def iterative_clustering(
         return v, c, onehot.any(dim=1)
 
     assign = arange if init is None else init.to(device=dev, dtype=arange.dtype)
-    is_inf = torch.isinf(schedule).cpu()  # one 20-float read decides the loop length
+    with sanctioned_pull("cluster.schedule"):
+        # one 20-float read decides the loop length
+        is_inf = torch.isinf(schedule).cpu().tolist()
     for t in range(schedule.shape[0]):
         if is_inf[t]:
             break

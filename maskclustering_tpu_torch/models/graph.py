@@ -78,8 +78,9 @@ class GraphStats(NamedTuple):
 def _f32(value: float, like: torch.Tensor) -> torch.Tensor:
     """A float32 threshold as a tensor on ``like``'s device, so comparisons
     and divisions run in float32 as the JAX package's weak-typed scalars do
-    (a CUDA division by a host scalar multiplies by its reciprocal)."""
-    return torch.tensor(value, dtype=torch.float32, device=like.device)
+    (a CUDA division by a host scalar multiplies by its reciprocal). A fill,
+    not an upload: no host copy, so the card never waits for it."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
 def cooccurrence_counts(mask_of_point: torch.Tensor, boundary: torch.Tensor,
@@ -144,8 +145,17 @@ def frame_segment_stats(c: torch.Tensor, mask_frame: torch.Tensor, f: int, k_max
 
 
 def observer_histogram(observers: torch.Tensor, nbins: int) -> torch.Tensor:
-    """Exact integer histogram of an observer-count matrix (values 0..nbins-1)."""
-    return torch.bincount(observers.reshape(-1).long(), minlength=nbins)[:nbins].to(torch.int32)
+    """Exact integer histogram of an observer-count matrix (values 0..nbins-1).
+
+    ``torch.bincount``'s bins, counted by an integer ``index_add_`` into a
+    fixed ``nbins + 1`` (values past the last bin land in the extra one,
+    which is dropped): CUDA's ``bincount`` reads the input's max on the
+    host to size its output, ``minlength`` or not."""
+    idx = observers.reshape(-1).long()
+    idx = torch.where(idx < nbins, idx, torch.full_like(idx, nbins))
+    hist = torch.zeros(nbins + 1, dtype=torch.int64, device=observers.device)
+    hist.index_add_(0, idx, torch.ones_like(idx))
+    return hist[:nbins].to(torch.int32)
 
 
 def compute_graph_stats(

@@ -27,6 +27,17 @@ planes; the host rung the claim planes), and the scene's digest vector
 counted in ``timings["pulls"]`` and on the ``pipeline.host_sync`` counter,
 and the span of each carries a ``host_pull`` attribute.
 
+Under the host-sync guard (``run.py --transfer-guard``,
+``analysis/transfer_guard.py``) the device phase runs inside
+``device_phase_guard`` and every host read or upload it keeps is a named
+``sanctioned_pull`` window: ``scene.upload`` and ``mask_table.upload`` (the
+explicit uploads, JAX's ``device_put``), ``mask_valid`` (the one pull JAX
+has), ``cluster.schedule`` and one ``cluster.sweep`` a propagation sweep
+(``models/clustering.py``), and ``fence.<stage>`` for each stage's
+synchronize; the exact-parity association, host numpy around the
+ball-query kernel by design, is one ``associate.exact`` window. Any other
+read raises.
+
 Stages book the JAX package's spans into ``obs.scene_tracer()``:
 ``associate``, ``graph`` (the mask-table pull), ``cluster`` (with its
 ``cluster.solve`` child), ``postprocess`` with its ``post.*`` children,
@@ -47,6 +58,7 @@ import numpy as np
 import torch
 
 from maskclustering_tpu_torch import obs
+from maskclustering_tpu_torch.analysis.transfer_guard import device_phase_guard, sanctioned_pull
 from maskclustering_tpu_torch.config import PipelineConfig
 from maskclustering_tpu_torch.datasets.base import SceneTensors
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device, synchronize
@@ -117,7 +129,8 @@ class _Stage:
 
     def __exit__(self, *exc):
         t1 = time.perf_counter()
-        synchronize(self.device)
+        with sanctioned_pull(f"fence.{self.name}"):
+            synchronize(self.device)
         now = time.perf_counter()
         self.span.sync_s += now - t1
         self.timings[self.name] = now - self.t0
@@ -165,8 +178,17 @@ def pad_scene_tensors(tensors: SceneTensors, f_pad: int, n_pad: int) -> SceneTen
 def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
                      k_max: Optional[int] = None, seq_name: Optional[str] = None,
                      device: DeviceLike = None) -> DeviceHandoff:
-    """Device phase of one scene: associate -> graph -> cluster."""
+    """Device phase of one scene: associate -> graph -> cluster, under the
+    host-sync guard when it is armed (``analysis/transfer_guard.py``)."""
     device = resolve_device(device)
+    with device_phase_guard():
+        return _run_scene_device_impl(tensors, cfg, k_max=k_max, seq_name=seq_name,
+                                      device=device)
+
+
+def _run_scene_device_impl(tensors: SceneTensors, cfg: PipelineConfig, *,
+                           k_max: Optional[int], seq_name: Optional[str],
+                           device: torch.device) -> DeviceHandoff:
     faults.inject("device", seq_name)
     timings: Dict[str, float] = {}
     if k_max is None:
@@ -176,8 +198,9 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
     with _Stage(timings, "associate", device, scene=seq_name, k_max=k_max,
                 num_frames=tensors.num_frames, num_points=n_real) as sp:
         if cfg.use_exact_ball_query:
-            assoc = associate_scene_exact(tensors, cfg, k_max=k_max, device=device,
-                                          timings=timings)
+            with sanctioned_pull("associate.exact"):
+                assoc = associate_scene_exact(tensors, cfg, k_max=k_max, device=device,
+                                              timings=timings)
         else:
             # the JAX package's shape bucket: the padded point count decides
             # the spacing sample, hence the coverage voxel size
@@ -190,14 +213,16 @@ def run_scene_device(tensors: SceneTensors, cfg: PipelineConfig, *,
     with _Stage(timings, "graph", device, scene=seq_name) as sp:
         # the one mid-program pull: M_pad depends on the valid-mask count
         faults.inject("pull", seq_name)
-        mask_valid_host = assoc.mask_valid.cpu().numpy()
+        with sanctioned_pull("mask_valid"):
+            mask_valid_host = assoc.mask_valid.cpu().numpy()
         _count_pulls(timings, 1)
         sp.set(host_pull="mask_valid")
         table = build_mask_table(mask_valid_host, pad_multiple=cfg.mask_pad_multiple)
         sp.set(m_pad=table.m_pad)
-        frame = torch.from_numpy(table.frame).to(device)
-        mask_id = torch.from_numpy(table.mask_id).to(device)
-        valid = torch.from_numpy(table.valid).to(device)
+        with sanctioned_pull("mask_table.upload"):
+            frame = torch.from_numpy(table.frame).to(device)
+            mask_id = torch.from_numpy(table.mask_id).to(device)
+            valid = torch.from_numpy(table.valid).to(device)
         stats = compute_graph_stats(
             assoc.mask_of_point, assoc.boundary, frame, mask_id, valid,
             k_max=k_max,

@@ -39,11 +39,13 @@ and ``stream.finalize`` spans; ``stream.chunks``, ``stream.frames``,
 ``stream.mask_capacity_growths``, ``stream.chunk_retries``,
 ``stream.state_saves`` and ``stream.state_resumes`` counters; and the
 ``stream.max_plane_bytes``, ``stream.state_bytes`` and
-``stream.partial_instances`` gauges. The JAX transfer-guard windows have no
-port (ROADMAP A10). Each chunk dict carries ``plane_bytes``,
-``partial_instances``, ``seconds`` and ``digest``, and the result's
-``stream.*`` timings add ``stream.finalize`` and its host DBSCAN,
-``stream.dbscan``.
+``stream.partial_instances`` gauges. The host reads keep the JAX module's
+``sanctioned_pull`` window names (``stream.mask_valid``,
+``stream.partials``, ``stream.rep_plane``, ``stream.assignment``,
+``stream.state_journal``; ``analysis/transfer_guard.py``). Each chunk dict
+carries ``plane_bytes``, ``partial_instances``, ``seconds`` and ``digest``,
+and the result's ``stream.*`` timings add ``stream.finalize`` and its host
+DBSCAN, ``stream.dbscan``.
 
 The state journal is the JAX package's npz (same keys, version 1), so a
 journal written by either package resumes in the other.
@@ -64,6 +66,7 @@ import torch
 
 from maskclustering_tpu_torch import obs
 from maskclustering_tpu_torch.analysis.lock_sanitizer import mct_lock
+from maskclustering_tpu_torch.analysis.transfer_guard import sanctioned_pull
 from maskclustering_tpu_torch.config import PipelineConfig
 from maskclustering_tpu_torch.datasets.base import SceneTensors
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
@@ -492,7 +495,8 @@ class StreamAccumulator:
 
             # the one pull a chunk needs: its mask table's bucket is data-dependent
             faults.inject("pull", self.seq_name)
-            mask_valid_host = assoc.mask_valid.cpu().numpy()
+            with sanctioned_pull("stream.mask_valid"):
+                mask_valid_host = assoc.mask_valid.cpu().numpy()
             obs.count("stream.host_sync")
             table_k = build_mask_table(mask_valid_host, pad_multiple=cfg.mask_pad_multiple)
             sp.set(m_pad=table_k.m_pad, plane_bytes=int(plane_bytes))
@@ -561,8 +565,9 @@ class StreamAccumulator:
                 min_points=max(cfg.dbscan_split_min_points, 1))
             # the per-chunk accumulator digest, pulled with the partial count
             chunk_vec_dev = sentinel.digest_stream(assignment, active, rep_plane)
-            partial = int(partial_t)
-            chunk_vec = sentinel.vector_host(chunk_vec_dev)
+            with sanctioned_pull("stream.partials"):
+                partial = int(partial_t)
+                chunk_vec = sentinel.vector_host(chunk_vec_dev)
             obs.count("stream.host_sync")
             # fault seam: silent corruption of the pulled chunk digest, seen
             # only as drift, never as a retryable error
@@ -623,9 +628,10 @@ class StreamAccumulator:
 
     def _objects_from_rep_plane(self) -> SceneObjects:
         cfg = self.cfg
-        rep_h = self.rep_plane.cpu().numpy()[:self.n_real]
-        assign_h = self.assignment.cpu().numpy()
-        active_h = self.active.cpu().numpy()
+        with sanctioned_pull("stream.rep_plane"):
+            rep_h = self.rep_plane.cpu().numpy()[:self.n_real]
+            assign_h = self.assignment.cpu().numpy()
+            active_h = self.active.cpu().numpy()
         obs.count("stream.host_sync")
         member_count = np.bincount(assign_h[active_h], minlength=self.m_pad) \
             if active_h.any() else np.zeros(self.m_pad, np.int64)
@@ -694,7 +700,8 @@ class StreamAccumulator:
         with obs.span("stream.finalize", scene=self.seq_name):
             t0 = time.perf_counter()
             objects = self._objects_from_rep_plane()
-            assignment = self.assignment.cpu().numpy()
+            with sanctioned_pull("stream.assignment"):
+                assignment = self.assignment.cpu().numpy()
             if export:
                 if self.seq_name is None or object_dict_dir is None:
                     raise ValueError("export=True requires seq_name and object_dict_dir")
@@ -718,32 +725,33 @@ class StreamAccumulator:
             return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         tmp = path + ".tmp.npz"
-        np.savez(
-            tmp,
-            version=STREAM_STATE_VERSION,
-            config_name=self.cfg.config_name,
-            count_dtype=self.cfg.count_dtype,
-            total_frames=self.total_frames,
-            chunk_frames=self.chunk_frames,
-            k_max=self.k_max,
-            n_pad=self.n_pad,
-            m_pad=self.m_pad,
-            masks_used=self.masks_used,
-            chunks_done=self.chunks_done,
-            frames_done=self.frames_done,
-            partial_instances=self.partial_instances,
-            g_frame=self.g_frame, g_mask_id=self.g_mask_id,
-            frame_ids=np.asarray(self.frame_ids, dtype=object),
-            visible=self.visible.cpu().numpy(),
-            contained=self.contained.cpu().numpy(),
-            active=self.active.cpu().numpy(),
-            n_tot=self.n_tot.cpu().numpy(),
-            assignment=self.assignment.cpu().numpy(),
-            node_visible=self.node_visible.cpu().numpy(),
-            rep_plane=self.rep_plane.cpu().numpy(),
-            rep_votes=self.rep_votes.cpu().numpy(),
-            scene_points=self.scene_points,
-        )
+        with sanctioned_pull("stream.state_journal"):
+            np.savez(
+                tmp,
+                version=STREAM_STATE_VERSION,
+                config_name=self.cfg.config_name,
+                count_dtype=self.cfg.count_dtype,
+                total_frames=self.total_frames,
+                chunk_frames=self.chunk_frames,
+                k_max=self.k_max,
+                n_pad=self.n_pad,
+                m_pad=self.m_pad,
+                masks_used=self.masks_used,
+                chunks_done=self.chunks_done,
+                frames_done=self.frames_done,
+                partial_instances=self.partial_instances,
+                g_frame=self.g_frame, g_mask_id=self.g_mask_id,
+                frame_ids=np.asarray(self.frame_ids, dtype=object),
+                visible=self.visible.cpu().numpy(),
+                contained=self.contained.cpu().numpy(),
+                active=self.active.cpu().numpy(),
+                n_tot=self.n_tot.cpu().numpy(),
+                assignment=self.assignment.cpu().numpy(),
+                node_visible=self.node_visible.cpu().numpy(),
+                rep_plane=self.rep_plane.cpu().numpy(),
+                rep_votes=self.rep_votes.cpu().numpy(),
+                scene_points=self.scene_points,
+            )
         os.replace(tmp, path)
         obs.count("stream.state_saves")
 

@@ -24,8 +24,9 @@ with::
     python -m maskclustering_tpu_torch.obs.report events.jsonl [--diff other.jsonl]
 
 Modules: tracer (spans + fencing), metrics (registry), events (JSONL
-sink/reader), flight (the always-on black box), telemetry (serving
-windows), slo (objectives over them), digest (scene digests), canary (the
+sink/reader), flight (the always-on black box), xprof
+(span-triggered profiler capture), cost (the cost observatory), telemetry
+(serving windows), slo (objectives over them), digest (scene digests), canary (the
 sentinel over them), ledger (perf trajectory), report, trace and top
 (CLIs).
 """
@@ -41,6 +42,7 @@ from maskclustering_tpu_torch.obs.metrics import (count, count_transfer, gauge,
                                                   gauge_max, observe, registry,
                                                   sample_hbm)
 from maskclustering_tpu_torch.obs.tracer import NULL_TRACER, NullTracer, Span, Tracer
+from maskclustering_tpu_torch.obs.xprof import XprofArm
 
 __all__ = [
     "configure", "configure_sink", "disable", "enabled", "events_path",
@@ -50,9 +52,6 @@ __all__ = [
     "sample_hbm", "read_events", "EventSink", "Tracer", "NullTracer",
     "Span", "NULL_TRACER", "SCHEMA_VERSION", "ReadStats",
 ]
-
-# the profiler capture the JAX package arms through configure(xprof_dir=...)
-XPROF_ITEM = "ROADMAP A10"
 
 _active = NULL_TRACER
 _sink: Optional[EventSink] = None
@@ -79,20 +78,18 @@ def configure(path: str, *, fence: bool = True, annotations: bool = False,
     False when several processes share one file by design (bench worker
     attempts + supervisor).
 
-    ``xprof_dir`` + ``xprof_spans``: the JAX package's span-triggered
-    profiler capture; the port has no counterpart yet and raises
-    ``NotImplementedError`` naming ``XPROF_ITEM``.
+    ``xprof_dir`` + ``xprof_spans``: arm span-triggered ``torch.profiler``
+    capture (obs/xprof.py): the first ``xprof_limit`` openings of each
+    named span are bracketed by a profiler session, its Chrome trace
+    written to ``xprof_dir/<span>-<k>/trace.json``. Off by default:
+    profiling is the one obs feature with real runtime cost.
     """
-    if xprof_dir or xprof_spans:
-        raise NotImplementedError(
-            f"span-triggered profiler capture (xprof_dir) is not ported yet "
-            f"({XPROF_ITEM}: torch.profiler counterparts of the XLA tooling)")
     global _active, _sink
     if (_sink is not None and _sink.path == path
             and isinstance(_active, Tracer)
-            and not truncate):
+            and not truncate and not (xprof_dir and xprof_spans)):
         # idempotent ONLY for a plain re-arm of the same path: a truncate
-        # request must reconfigure, not be silently dropped
+        # or xprof request must reconfigure, not be silently dropped
         return _active
     disable()
     if truncate:
@@ -107,8 +104,11 @@ def configure(path: str, *, fence: bool = True, annotations: bool = False,
     if meta:
         payload.update(meta)
     _sink.emit("meta", payload)
+    arm = None
+    if xprof_dir and xprof_spans:
+        arm = XprofArm(xprof_dir, xprof_spans, limit=xprof_limit)
     _active = Tracer(_sink, fence=fence, annotations=annotations,
-                     sample_memory=sample_memory)
+                     sample_memory=sample_memory, xprof=arm)
     return _active
 
 
@@ -149,6 +149,10 @@ def disable() -> None:
             _active.flush_metrics()
         except Exception:  # noqa: BLE001
             pass
+        xprof = getattr(_active, "xprof", None)
+        if xprof is not None:
+            # stops a capture left open by a crashed span body
+            xprof.close()
         _sink.close()
         _sink = None
     _active = NULL_TRACER

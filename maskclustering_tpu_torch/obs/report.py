@@ -15,9 +15,10 @@ non-zero exit when the newest headline p50 regresses past the threshold.
 The events files are the JAX package's format, and this module renders
 either package's files, every section included (pool, tenant and
 analysis rows come from JAX daemons and tools the port has not ported).
-The JAX report's compile-time cost observatory (``--cost`` and the
-count_dtype comparison) lowers XLA programs; it raises
-``NotImplementedError`` naming ``COST_ITEM``.
+``--cost`` renders the cost observatory's rows (``obs/cost.py``), the
+events file's or a live census, with the JAX tables and the H100's rates
+in place of the v5e's; rows measured on a card add their stage times
+beside the roofline.
 """
 
 from __future__ import annotations
@@ -34,10 +35,6 @@ from maskclustering_tpu_torch.obs.events import (KIND_ANALYSIS, KIND_COST,
                                            ReadStats, read_events)
 
 log = logging.getLogger("maskclustering_tpu_torch")
-
-# the XLA cost observatory behind --cost and the dtype comparison
-COST_ITEM = "ROADMAP A10"
-
 
 # the disjoint per-stage spans whose total duration is the overlap-ratio
 # numerator: the IO loads (daemon threads), the device-phase stages (main
@@ -796,25 +793,139 @@ def render_diff(run_a: RunData, run_b: RunData) -> str:
 
 
 # ---------------------------------------------------------------------------
-# cost observatory section (--cost): XLA tooling, not ported
+# cost observatory section (--cost)
 # ---------------------------------------------------------------------------
 
+# compact per-collective column labels for the census table
+_COLL_SHORT = (("all-gather", "ag"), ("all-reduce", "ar"),
+               ("reduce-scatter", "rs"), ("collective-permute", "cp"),
+               ("all-to-all", "a2a"), ("collective-broadcast", "cb"))
 
-def _cost_unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} reads the compile-time cost observatory, which lowers XLA "
-        f"programs and is not ported yet ({COST_ITEM})")
+
+def _fmt_count(v: Optional[float]) -> str:
+    if v is None:
+        return "-"
+    for unit, div in (("G", 1e9), ("M", 1e6), ("K", 1e3)):
+        if abs(v) >= div:
+            return f"{v / div:.1f}{unit}"
+    return f"{v:.0f}"
 
 
 def render_cost(rows: List[Dict]) -> str:
-    """The JAX report's per-mesh cost tables: not ported."""
-    raise _cost_unported("the cost observatory section (--cost)")
+    """Per-mesh tables of cost-observatory rows, either package's.
+
+    One table per mesh config in the JAX report's columns: FLOPs, bytes,
+    peak, cross-device bytes (``ici``: XLA's collective payload in a JAX
+    row, the copies between mesh coordinates in a port row), the
+    collective census (XLA's collectives; a port row has none), launch / copy /
+    transpose counts (``fus``: XLA's fusions in a JAX row, the port's
+    launching ops), output bytes and compile seconds. The context line
+    bounds the transfers and the bytes at the H100's rates (NVLink a
+    direction, HBM3); a JAX row's numbers are XLA's estimates for its own
+    program. Rows measured on a card add a table of stage times beside
+    their roofline.
+    """
+    from maskclustering_tpu_torch.obs.cost import H100_HBM_GBPS, H100_NVLINK_GBPS
+
+    if not rows:
+        return "== cost observatory: no cost events =="
+    by_mesh: Dict[tuple, List[Dict]] = {}
+    for r in rows:
+        by_mesh.setdefault(tuple(r.get("mesh") or ()), []).append(r)
+    out: List[str] = []
+    for mesh, mesh_rows in by_mesh.items():
+        fp = mesh_rows[0].get("fingerprint") or {}
+        label = (f"scene={mesh[0]} x frame={mesh[1]}" if len(mesh) == 2
+                 else str(mesh))
+        how = "census" if mesh_rows[0].get("census") else "AOT"
+        out.append(f"== cost observatory: mesh {label} "
+                   f"(F={fp.get('frames')} N={fp.get('points')} "
+                   f"k_max={fp.get('k_max')}, {fp.get('backend', '?')} {how}) ==")
+        headers = ["stage", "flops", "hbm", "peak/dev", "ici",
+                   "ag", "ar", "rs", "cp", "a2a", "fus", "copy", "trans",
+                   "out", "comp[s]"]
+        table = []
+        total_ici = 0.0
+        for r in mesh_rows:
+            if "error" in r:
+                table.append(([r["stage"], "ERROR"] + ["-"] * (len(headers) - 2)))
+                continue
+            colls = r.get("collectives") or {}
+            coll_cells = [str(int(colls[name]["count"])) if name in colls
+                          else "0" for name, _ in _COLL_SHORT[:5]]
+            ici = float(r.get("ici_bytes") or 0.0)
+            total_ici += ici
+            ops = r.get("ops") or {}
+            table.append([
+                r["stage"],
+                _fmt_count(r.get("flops")),
+                _fmt_bytes(r.get("hbm_bytes")),
+                _fmt_bytes(r.get("peak_bytes")),
+                _fmt_bytes(ici), *coll_cells,
+                str(ops.get("fusion", "-")), str(ops.get("copy", "-")),
+                str(ops.get("transpose", "-")),
+                _fmt_bytes(r.get("out_bytes")),
+                f"{r.get('compile_s', 0):.1f}",
+            ])
+        out.append(_render(headers, table))
+        link_us = total_ici / (H100_NVLINK_GBPS * 1e9) * 1e6
+        hbm_rows = [float(r.get("hbm_bytes") or 0.0) for r in mesh_rows if "error" not in r]
+        hbm_us = sum(hbm_rows) / (H100_HBM_GBPS * 1e9) * 1e6
+        out.append(f"cross-device total: {_fmt_bytes(total_ici)} "
+                   f"(>= {link_us:.1f} us at H100 NVLink {H100_NVLINK_GBPS:.0f} GB/s a "
+                   f"direction) | HBM traffic: >= {hbm_us:.0f} us at H100 "
+                   f"{H100_HBM_GBPS:.0f} GB/s")
+        timed = [r for r in mesh_rows if r.get("device_ms") is not None]
+        if timed:
+            out.append(_render(
+                ["stage", "device ms", "bound ms", "bound by", "share", "kernel bytes"],
+                [[r["stage"], f"{r['device_ms']:.4f}", f"{r['bound_ms']:.5f}",
+                  r.get("bound_by", "-"),
+                  "-" if r.get("roofline_share") is None
+                  else f"{100 * r['roofline_share']:.2f} %",
+                  _fmt_bytes(r.get("kernel_bytes"))] for r in timed]))
+        out.append("")
+    return "\n".join(out).rstrip()
 
 
 def render_dtype_compare(diffs: List[Dict],
                          planes: Optional[Dict] = None) -> str:
-    """The JAX report's count_dtype comparison: not ported."""
-    raise _cost_unported("the count_dtype comparison")
+    """The dtype census: count_dtype bf16 vs int8, diffed per (stage,
+    mesh), in the JAX report's columns (``obs.cost.compare_dtypes``)."""
+    out = ["== dtype census: count_dtype bf16 vs int8 (product classes) =="]
+    if not diffs:
+        out.append("no comparable (stage, mesh) rows — every run failed or meshes "
+                   "were skipped")
+        return "\n".join(out)
+
+    def _classes(d: Dict) -> str:
+        return (" ".join(f"{k}:{int(v['count'])}" for k, v in sorted(d.items())) or "-")
+
+    rows = []
+    for d in diffs:
+        mesh = d.get("mesh") or []
+        label = "x".join(str(m) for m in mesh) if mesh else "-"
+        ratio = d.get("operand_byte_ratio")
+        rows.append([
+            d["stage"], label,
+            _classes(d.get("narrowed_bf16") or {}),
+            _fmt_bytes(d.get("narrowed_bytes_bf16")),
+            _classes(d.get("narrowed_int8") or {}),
+            _fmt_bytes(d.get("narrowed_bytes_int8")),
+            "-" if ratio is None else f"{ratio:.2f}x",
+            _classes(d.get("stable_dots") or {}),
+            _fmt_bytes(d.get("peak_bytes_bf16")),
+            _fmt_bytes(d.get("peak_bytes_int8")),
+        ])
+    out.append(_render(
+        ["stage", "mesh", "bf16 dot classes", "op.bytes", "int8 dot classes", "op.bytes",
+         "ratio", "stays wide", "peak bf16", "peak int8"], rows))
+    if planes:
+        out.append(f"(F, N) first/last claim planes (unconditional int16): "
+                   f"{_fmt_bytes(planes.get('int16'))} resident vs "
+                   f"{_fmt_bytes(planes.get('int32_historical'))} at the historical int32 "
+                   f"layout (halved)")
+    return "\n".join(out)
 
 
 # ---------------------------------------------------------------------------
@@ -945,10 +1056,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--json", action="store_true",
                    help="emit the machine-readable summary instead of tables")
     p.add_argument("--cost", action="store_true",
-                   help="the JAX report's compile-time cost observatory "
-                        f"(not ported: {COST_ITEM})")
+                   help="render the cost observatory: from the events file's cost rows "
+                        "when given, else a live census (obs/cost.py)")
     p.add_argument("--cost-mesh", default="1x8,8x1",
-                   help=f"mesh configs for --cost (not ported: {COST_ITEM})")
+                   help="mesh configs for a live --cost run, e.g. 1x8,2x4")
+    p.add_argument("--device", default=None,
+                   help="torch device of a live --cost run (default: the CUDA card; "
+                        "'cpu' for the plain path)")
     p.add_argument("--ledger", default=None,
                    help="perf ledger path (default: PERF_LEDGER_TORCH.jsonl "
                         "or $MCT_PERF_LEDGER)")
@@ -967,8 +1081,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                         "renders only when the events file carries "
                         "telemetry windows)")
     args = p.parse_args(argv)
-    if args.cost:
-        raise _cost_unported("--cost")
 
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
     rc = 0
@@ -987,6 +1099,32 @@ def main(argv: Optional[List[str]] = None) -> int:
             sections.append(render_report(run, slo_spec=args.slo_spec))
             if args.diff:
                 sections.append(render_diff(run, RunData(args.diff)))
+        if args.cost:
+            if run.cost_rows:
+                if args.json:
+                    json_doc["cost"] = run.cost_rows
+                else:
+                    sections.append(render_cost(run.cost_rows))
+            elif not args.json:
+                sections.append(
+                    f"== cost observatory: no cost events in {args.events} (generate "
+                    f"with python -m maskclustering_tpu_torch.obs.cost --events <path>) ==")
+    elif args.cost:
+        # live mode: run the census right here
+        did_something = True
+        from maskclustering_tpu_torch.obs import cost as cost_mod
+
+        try:
+            meshes = cost_mod.parse_mesh_specs([args.cost_mesh])
+        except ValueError as e:
+            p.error(str(e))
+        rows = cost_mod.observe_costs(meshes, device=args.device)
+        if args.json:
+            json_doc["cost"] = rows
+        else:
+            sections.append(render_cost(rows))
+        if not any("error" not in r for r in rows):
+            rc = 1
 
     if args.history or args.regress:
         from maskclustering_tpu_torch.obs import ledger as led
@@ -1020,7 +1158,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     if not did_something:
         p.error("nothing to do: give an events file or one of "
-                "--history/--regress")
+                "--cost/--history/--regress")
     if args.json:
         # one-section --json keeps the historical flat shape (the summary
         # document test_run and run.py's digest embed); multi-section gets

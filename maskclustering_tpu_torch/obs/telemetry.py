@@ -1,9 +1,11 @@
 """Live serving telemetry plane: windowed snapshots (the port's copy of
 ``maskclustering_tpu/obs/telemetry.py``).
 
-The port has no retrace sanitizer (the XLA compile surface, ROADMAP A10):
-its reads answer as the JAX package's do with the sanitizer off, its
-default — no ``retrace.live.*`` gauges and 0 post-warm violations.
+With the build/launch-surface sanitizer armed
+(``analysis/retrace_sanitizer.py``) the ``retrace.live.*`` gauges ride the
+worker's delta as the JAX package's do, so the parent's windows show a
+post-warm violation the moment it happens; with it off there are none and
+0 post-warm violations.
 
 - **cross-process relay** — the worker subprocess (serve/worker_main.py)
   periodically, and at request boundaries, ships a ``telem`` line over its
@@ -124,8 +126,8 @@ class ChildRelay:
     TWO threads (the heartbeat ticker and the card-owning worker thread at
     request boundaries), and an unserialized read-modify-write of the
     delta baseline would diff two snapshots against the SAME ``_prev``
-    and double-ship the increments. No ``retrace.live.*`` gauges ride the
-    delta: the port has no retrace sanitizer (ROADMAP A10).
+    and double-ship the increments. With the sanitizer armed, its
+    ``retrace.live.*`` gauges ride the delta.
     """
 
     def __init__(self, sink: Optional[RelaySink] = None):
@@ -135,6 +137,13 @@ class ChildRelay:
         self._prev: Dict = {}
 
     def collect(self) -> Optional[Dict]:
+        # live retrace gauges ride the delta so the PARENT's windows can
+        # show a post-warm violation the moment it happens, not at bye
+        from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
+        if retrace_sanitizer.enabled():
+            for name, value in retrace_sanitizer.live_gauges().items():
+                _metrics.gauge(name, value)
         with self._lock:
             cur = _metrics.registry().snapshot(include_histograms=False)
             delta = _metrics.snapshot_delta(self._prev, cur)
@@ -440,9 +449,15 @@ class WindowAggregator:
 
     def _post_freeze_cum(self, gauges: Dict[str, float]) -> float:
         """Cumulative post-warm violations, live: the relayed gauge when a
-        worker subprocess ships one, else 0 (no sanitizer in the port)."""
+        worker subprocess ships one, else this process's own sanitizer."""
+        from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
         v = gauges.get("retrace.live.post_freeze")
-        return 0.0 if v is None else float(v)
+        if v is not None:
+            return float(v)
+        if retrace_sanitizer.enabled():
+            return float(retrace_sanitizer.summary()["post_freeze"])
+        return 0.0
 
     def roll(self) -> Dict:
         """Close the current window; returns the (JSON-able) window row."""

@@ -53,7 +53,7 @@ class Span:
     """One timed region. Created by ``Tracer.span``; close via the ctx mgr."""
 
     __slots__ = ("name", "attrs", "t0", "duration", "sync_s", "parent",
-                 "depth", "_tracer", "_annotation")
+                 "depth", "_tracer", "_annotation", "_owns_xprof")
 
     def __init__(self, tracer: "Tracer", name: str, attrs: Dict[str, Any],
                  parent: Optional[str], depth: int):
@@ -66,6 +66,7 @@ class Span:
         self.sync_s = 0.0
         self._tracer = tracer
         self._annotation = None
+        self._owns_xprof = False
 
     def set(self, **attrs) -> "Span":
         self.attrs.update(attrs)
@@ -94,6 +95,10 @@ class Span:
         self.parent = stack[-1].name if stack else self.parent
         self.depth = len(stack)
         stack.append(self)
+        if tr.xprof is not None:
+            # span-triggered profiler capture (obs/xprof.py): the span that
+            # starts the session owns it and stops it at close
+            self._owns_xprof = tr.xprof.maybe_start(self.name)
         if tr.annotations:
             try:
                 self._annotation = torch.profiler.record_function(self.name)
@@ -108,6 +113,8 @@ class Span:
         if self._annotation is not None:
             self._annotation.__exit__(exc_type, exc, tb)
         tr = self._tracer
+        if self._owns_xprof and tr.xprof is not None:
+            tr.xprof.stop(self.name)
         stack = tr._stack()
         if stack and stack[-1] is self:
             stack.pop()
@@ -150,6 +157,7 @@ class NullTracer:
     fence = False
     annotations = False
     enabled = False
+    xprof = None
 
     def span(self, name: str, **attrs):
         return _NULL_SPAN
@@ -179,8 +187,9 @@ class Tracer:
 
     def __init__(self, sink: Optional[EventSink] = None, *, fence: bool = True,
                  annotations: bool = False, sample_memory: bool = True,
-                 aggregate: bool = True):
+                 aggregate: bool = True, xprof=None):
         self.sink = sink
+        self.xprof = xprof  # Optional[obs.xprof.XprofArm]
         self.fence = fence and sink is not None
         self.annotations = annotations
         self.sample_memory = sample_memory and sink is not None

@@ -19,6 +19,16 @@ Each wrapper adds one to ``LAUNCHES`` under its entry's name
 main path went through the kernels. Building, loading and counting are
 thread-safe: the batch driver's overlapped executor calls in from two
 threads.
+
+The tooling observes this module through three seams, each idle unless
+armed: the kernel build cache (``utils/aot_cache.py``) moves the
+libraries into its directory and loads them at process start
+(:func:`adopt`); the retrace sanitizer (``analysis/retrace_sanitizer.py``)
+sees every ``nvcc`` run and every launch key through ``BUILD_HOOKS`` and
+``LAUNCH_HOOKS``; and the cost observatory's census (``obs/cost.py``)
+reads each launch's bytes and operations through ``KERNEL_CENSUS``, since
+a ``ctypes`` call is invisible to torch's dispatcher: each input counted
+read once, each output written once.
 """
 
 from __future__ import annotations
@@ -31,7 +41,7 @@ import subprocess
 import threading
 import time
 from collections import Counter
-from typing import Dict, Iterable, List, Tuple
+from typing import Callable, Dict, Iterable, List, Tuple
 
 import torch
 
@@ -74,6 +84,47 @@ class LaunchLog:
 
 
 LAUNCHES = LaunchLog()
+# observers of every nvcc run (name, library path) and every launch key
+# (name, shape); the retrace sanitizer installs itself here when armed
+BUILD_HOOKS: List[Callable[[str, str], None]] = []
+LAUNCH_HOOKS: List[Callable[[str, Tuple[int, ...]], None]] = []
+# the calling thread's cost census: ``KERNEL_CENSUS.book(name, ops, bytes)``
+# while obs/cost.py observes a stage on this thread
+KERNEL_CENSUS = threading.local()
+
+# FP32 operations a unit of work does, an FMA counted as two and
+# comparisons not at all (the count of the bounds in chip_smoke.py and of
+# the census bookings below). A ball-query pair test: 3 subtractions, 3
+# multiplications, 2 additions and the radius comparison. The pixel table,
+# per pixel: the backprojection (2 subtractions, 2 multiplies, 2
+# divisions). The window walk, the same in the claim and the assignment:
+# per point and frame the rotation (3 multiplies, 6 FMAs, 3 additions =
+# 18) and the projection (2 divisions, 2 FMAs = 6); per window pixel that
+# can claim (in front, in the image and the window, depth and id set) the
+# difference (3 subtractions) and the squared distance (a multiply and 2
+# FMAs) = 8, which depends on the data and is left out of the bookings
+BALL_QUERY_OPS_PER_PAIR = 9
+TABLE_OPS_PER_PIXEL = 6
+CLAIM_OPS_PER_POINT = 24
+CLAIM_OPS_PER_PIXEL = 8
+
+
+def note_plain(name: str, shape: Tuple[int, ...]) -> None:
+    """Tell the armed launch observers that entry ``name``'s plain version
+    ran at ``shape`` on the CPU (the same launch key the kernel would book;
+    ``LAUNCHES`` counts kernel launches only)."""
+    for hook in LAUNCH_HOOKS:
+        hook(name, shape)
+
+
+def _launched(name: str, shape: Tuple[int, ...], ops: int, nbytes: int) -> None:
+    """Count one launch of entry ``name`` and tell the armed observers."""
+    LAUNCHES.add(name, shape)
+    for hook in LAUNCH_HOOKS:
+        hook(name, shape)
+    book = getattr(KERNEL_CENSUS, "book", None)
+    if book is not None:
+        book(name, ops, nbytes)
 # {name: seconds} of every nvcc build this process ran (a serving worker
 # subprocess reports it on its ready/bye lines)
 BUILT: Dict[str, float] = {}
@@ -99,27 +150,57 @@ def nvcc_path() -> str:
                        "(set CUDA_HOME)")
 
 
+def source_path(name: str) -> str:
+    return os.path.join(_SRC_DIR, f"{name}.cu")
+
+
+def source_sha256(name: str) -> str:
+    """The SHA-256 of kernel ``name``'s source file."""
+    with open(source_path(name), "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
 def library_path(name: str) -> str:
-    """Where kernel ``name``'s shared library lives once built."""
-    with open(os.path.join(_SRC_DIR, f"{name}.cu"), "rb") as f:
+    """Where kernel ``name``'s shared library lives once built: the armed
+    build cache's directory, else ``BUILD_DIR``, under a name keyed by the
+    source and flags."""
+    from maskclustering_tpu_torch.utils import aot_cache
+
+    cache = aot_cache.active()
+    if cache is not None:
+        return cache.library_path(name)
+    with open(source_path(name), "rb") as f:
         key = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"libmc_{name}-{key}.so")
+
+
+def _start_nvcc(cmd: List[str]) -> subprocess.Popen:
+    """One ``nvcc`` run (tests without a toolkit replace this)."""
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _open_library(path: str) -> ctypes.CDLL:
+    """Load a built library (tests without a toolkit replace this)."""
+    return ctypes.CDLL(path)
 
 
 def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
     """Compile every kernel in ``names`` that is not built yet, one ``nvcc``
     per source, all started together. Returns {name: seconds} of the builds
     that ran; raises with the compiler's output if any fails."""
-    os.makedirs(BUILD_DIR, exist_ok=True)
+    from maskclustering_tpu_torch.utils import aot_cache
+
     procs = {}
     for name in names:
         out = library_path(name)
         if os.path.exists(out):
             continue
+        os.makedirs(os.path.dirname(out), exist_ok=True)
         tmp = f"{out}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, os.path.join(_SRC_DIR, f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                        text=True), tmp, out, time.perf_counter())
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
+        procs[name] = (_start_nvcc(cmd), tmp, out, time.perf_counter())
+        for hook in BUILD_HOOKS:
+            hook(name, out)
     seconds: Dict[str, float] = {}
     errors = []
     for name, (proc, tmp, out, t0) in procs.items():
@@ -130,6 +211,9 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, float]:
         os.replace(tmp, out)  # atomic: a half-written library is never loaded
         seconds[name] = time.perf_counter() - t0
     BUILT.update(seconds)
+    cache = aot_cache.active()
+    if cache is not None and seconds:
+        cache.record(seconds)
     if errors:
         raise RuntimeError("\n".join(errors))
     return seconds
@@ -143,10 +227,19 @@ def load(name: str) -> ctypes.CDLL:
             lib = _LIBS.get(name)
             if lib is None:
                 build([name])
-                lib = ctypes.CDLL(library_path(name))
+                lib = _open_library(library_path(name))
                 _bind(name, lib)
                 _LIBS[name] = lib
     return lib
+
+
+def adopt(name: str, path: str) -> None:
+    """Bind an already-built library of kernel ``name`` (the build cache's
+    warm start): later calls use it and build nothing."""
+    with _LOAD_LOCK:
+        lib = _open_library(path)
+        _bind(name, lib)
+        _LIBS[name] = lib
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
@@ -225,7 +318,11 @@ def ball_query_cuda(query: torch.Tensor, candidates: torch.Tensor,
                                 dev.index, stream)
     if err != 0:
         raise RuntimeError(f"ball_query kernel launch failed: CUDA error {err}")
-    LAUNCHES.add("ball_query", (b, p, s))
+    # each input read once, the output written once; operations: every
+    # query row against every candidate (the data-dependent early exit the
+    # chip smoke's bound counts is not known here)
+    nbytes = (query.numel() + candidates.numel()) * 4 + 8 * b + out.numel() * 4
+    _launched("ball_query", (b, p, s), b * p * s * BALL_QUERY_OPS_PER_PAIR, nbytes)
     return out
 
 
@@ -275,7 +372,8 @@ def associate_table_cuda(depths: torch.Tensor, segs: torch.Tensor, params: torch
                                      stream)
     if err != 0:
         raise RuntimeError(f"associate_table kernel launch failed: CUDA error {err}")
-    LAUNCHES.add("associate_table", (f, h, w))
+    nbytes = (depths.numel() + segs.numel() + params.numel() + table.numel()) * 4
+    _launched("associate_table", (f, h, w), depths.numel() * TABLE_OPS_PER_PIXEL, nbytes)
     return table
 
 
@@ -317,7 +415,13 @@ def associate_claim_scene_cuda(scene_points: torch.Tensor, table: torch.Tensor,
                                            n_claimed.data_ptr(), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"associate_claim kernel launch failed: CUDA error {err}")
-    LAUNCHES.add("associate_claim", (f, n, h, w, (2 * window + 1) ** 2))
+    # counted as a function of the depth and id stacks the table holds
+    # (8 bytes a pixel), as the chip smoke's bound does; operations: the
+    # per-(frame, point) projection only (the claiming pixels' share
+    # depends on the data)
+    nbytes = scene_points.numel() * 4 + f * h * w * 8 + params.numel() * 4 + n_claimed.numel() * 4
+    _launched("associate_claim", (f, n, h, w, (2 * window + 1) ** 2),
+              f * n * CLAIM_OPS_PER_POINT, nbytes)
     return n_claimed
 
 
@@ -349,7 +453,10 @@ def associate_assign_scene_cuda(scene_points: torch.Tensor, table: torch.Tensor,
             last.data_ptr(), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"associate_assign kernel launch failed: CUDA error {err}")
-    LAUNCHES.add("associate_assign", (f, n, h, w, (2 * window + 1) ** 2))
+    nbytes = (scene_points.numel() * 4 + f * h * w * 8 + params.numel() * 4
+              + mask_valid.numel() + f * n * (4 + 2 + 2))
+    _launched("associate_assign", (f, n, h, w, (2 * window + 1) ** 2),
+              f * n * CLAIM_OPS_PER_POINT, nbytes)
     return mop, first, last
 
 
@@ -391,7 +498,8 @@ def splat_depth_cuda(points: torch.Tensor, params: torch.Tensor, *, height: int,
                                  zbuf.data_ptr(), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"splat_depth kernel launch failed: CUDA error {err}")
-    LAUNCHES.add("splat_depth", (n, height, width))
+    pix = 4 * (height * width + 1)
+    _launched("splat_depth", (n, height, width), 0, 12 * n + 64 + pix)
     return zbuf
 
 
@@ -426,5 +534,6 @@ def splat_color_cuda(points: torch.Tensor, colors: torch.Tensor, params: torch.T
                                  visible.data_ptr(), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"splat_color kernel launch failed: CUDA error {err}")
-    LAUNCHES.add("splat_color", (n, height, width))
+    pix = 4 * (height * width + 1)
+    _launched("splat_color", (n, height, width), 0, 24 * n + 64 + pix + pix + n)
     return codebuf, visible

@@ -67,13 +67,16 @@ def _cpu_addcmul_is_fma() -> bool:
     (1 + 2^-23)(1 - 2^-23) - 1 is -2^-46 fused, but 0 when the product is
     rounded first; the odd lengths reach the vector kernels' scalar tails.
     """
+    from maskclustering_tpu_torch.analysis.transfer_guard import host_values
+
     eps = float(np.float32(2.0 ** -23))
-    for n in (1, 7, 16, 67):
-        a = torch.full((n,), 1 + eps, dtype=torch.float32)
-        b = torch.full((n,), 1 - eps, dtype=torch.float32)
-        got = torch.addcmul(torch.full((n,), -1.0), a, b)
-        if not bool((got == -eps * eps).all()):
-            return False
+    with host_values():  # host tensors made here: no device value is read
+        for n in (1, 7, 16, 67):
+            a = torch.full((n,), 1 + eps, dtype=torch.float32)
+            b = torch.full((n,), 1 - eps, dtype=torch.float32)
+            got = torch.addcmul(torch.full((n,), -1.0), a, b)
+            if not bool((got == -eps * eps).all()):
+                return False
     return True
 
 

@@ -31,6 +31,9 @@ def ball_query(query: torch.Tensor, candidates: torch.Tensor,
         return ball_query_cuda(query, candidates, query_lengths, candidate_lengths,
                                k=k, radius=radius)
     if query.device.type == "cpu":
+        from maskclustering_tpu_torch.ops.cuda import note_plain
+
+        note_plain("ball_query", (query.shape[0], query.shape[1], candidates.shape[1]))
         return ball_query_reference(query, candidates, query_lengths, candidate_lengths,
                                     k=k, radius=radius)
     raise ValueError(f"ball_query runs on cuda or cpu tensors, got {query.device}")

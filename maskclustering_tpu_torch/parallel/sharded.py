@@ -27,6 +27,14 @@ here one controller process places every shard itself (``parallel/mesh.py``):
   the same bytes), where the unchanged threshold code, the schedule and the
   clustering run.
 
+Every copy between two mesh coordinates goes through :func:`_send`, which
+books its bytes on the cost observatory's census (``obs/cost.py``) by
+coordinate, not by physical card: a mesh that repeats one card makes the
+copies no-ops, and they still count. ``build_stage_step`` and
+``stage_arg_shapes`` are the observatory's per-stage seams (JAX
+``parallel/sharded.py:302-388``); ``fused_step_aot_key`` names the launch
+keys the step makes, the census the retrace family pins.
+
 The fused step uses a *dense* mask slot table (slot = frame * k_max + id,
 ``M_pad = F_pad * k_max``) and never compacts masks, so it has no
 mid-program pull; the single-device path (``models/pipeline.py``) compacts
@@ -35,7 +43,7 @@ the valid masks first. Inactive slots change no artifact byte.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -98,6 +106,17 @@ class FusedStepResult(NamedTuple):
             num_objects=lanes(self.num_objects))
 
 
+def _send(x: torch.Tensor, row: np.ndarray, src: Tuple[int, int], dst: Tuple[int, int]
+          ) -> torch.Tensor:
+    """``x`` from the lane's (frame, point) coordinate ``src`` to ``dst``,
+    its bytes booked as a cross-device copy when the coordinates differ."""
+    if src != dst:
+        from maskclustering_tpu_torch.obs import cost
+
+        cost.book_transfer(x.numel() * x.element_size())
+    return x.to(row[dst])
+
+
 def _dense_mask_table(num_frames: int, k_max: int, device):
     """(frame, id) of every dense mask slot, int32 on ``device``."""
     mask_frame = torch.arange(num_frames, dtype=torch.int32, device=device).repeat_interleave(k_max)
@@ -158,34 +177,34 @@ def _assoc_stage(cfg, k_max: int, row: np.ndarray, scene_points, depths, segs, i
             intr, c2w = intrinsics[frames].to(dev), cam_to_world[frames].to(dev)
             if pi == 0:  # per frame, so once a frame shard, on its first device
                 n_pixels, n_voxels = _frame_counts(
-                    d, s, intr, c2w, vox_size.to(dev), k_max=k_max,
+                    d, s, intr, c2w, _send(vox_size, row, (0, 0), (fi, pi)), k_max=k_max,
                     distance_threshold=cfg.distance_threshold, depth_trunc=cfg.depth_trunc)
             pts = scene_points[pi * ns:(pi + 1) * ns].to(dev)
             claims.append((pts, claim_frames(pts, d, s, intr, c2w, **kw)))
             if held is not None:
                 held += [d, s]
         # a mask's claim count over the whole cloud: the point shards' partials
-        fhome = row[fi, 0]
         n_claimed = claims[0][1].n_claimed
-        for _, c in claims[1:]:
-            n_claimed = n_claimed + c.n_claimed.to(fhome)
+        for pi, (_, c) in enumerate(claims[1:], start=1):
+            n_claimed = n_claimed + _send(c.n_claimed, row, (fi, pi), (fi, 0))
         mask_valid = mask_validity(n_pixels, n_voxels, n_claimed, frame_valid[frames],
                                    k_max=k_max, few_points_threshold=cfg.few_points_threshold,
                                    coverage_threshold=cfg.coverage_threshold)
         for pi, (pts, c) in enumerate(claims):
-            blocks[fi][pi] = assign_frames(pts, c, mask_valid.to(row[fi, pi]), k_max=k_max,
-                                           window=cfg.association_window)
-        valid_rows.append(mask_valid.to(home))
+            blocks[fi][pi] = assign_frames(pts, c, _send(mask_valid, row, (fi, 0), (fi, pi)),
+                                           k_max=k_max, window=cfg.association_window)
+        valid_rows.append(_send(mask_valid, row, (fi, 0), (0, 0)))
         del claims  # the pixel tables
     shards = []
     for pi in range(p_axis):
         col = row[0, pi]
-        mop, first, last = (torch.cat([blocks[fi][pi][k].to(col) for fi in range(f_axis)])
+        mop, first, last = (torch.cat([_send(blocks[fi][pi][k], row, (fi, pi), (0, pi))
+                                       for fi in range(f_axis)])
                             for k in range(3))
         boundary = torch.zeros(ns, dtype=torch.bool, device=col)
         for fi in range(f_axis):  # the OR over frame shards, in shard order
             _, bf, bl = blocks[fi][pi]
-            boundary = boundary | (bf != bl).any(dim=0).to(col)
+            boundary = boundary | _send((bf != bl).any(dim=0), row, (fi, pi), (0, pi))
         shards.append((mop, first, last, boundary))
     return shards, torch.cat(valid_rows)
 
@@ -200,7 +219,7 @@ def _graph_stage(cfg, k_max: int, row: np.ndarray, shards, active0):
         mask_frame, mask_id = _dense_mask_table(f, k_max, row[0, pi])
         cp, tp = cooccurrence_counts(mop, boundary, mask_frame, mask_id, cfg.point_chunk,
                                      cfg.count_dtype)
-        cp, tp = cp.to(home), tp.to(home)
+        cp, tp = _send(cp, row, (0, pi), (0, 0)), _send(tp, row, (0, pi), (0, 0))
         c, n_tot = (cp, tp) if c is None else (c + cp, n_tot + tp)
     mask_frame, _ = _dense_mask_table(f, k_max, home)
     return graph_stats_from_counts(
@@ -238,7 +257,9 @@ def build_fused_step(mesh: Optional[Mesh], cfg, *, k_max: int = 15, donate: bool
     ``donate=True`` drops the step's references to its device copies of the
     depth and id stacks, the batch's largest tenants, as soon as the
     association has read them; ``donate=False`` holds them to the end of
-    the step. The results are the same.
+    the step. The results are the same. Each lane runs on a thread of its
+    own; when the calling thread is under the cost census, each lane is
+    observed too (``obs.cost.lane``).
     """
     grid = _device_grid(mesh, device)
 
@@ -267,8 +288,10 @@ def build_fused_step(mesh: Optional[Mesh], cfg, *, k_max: int = 15, donate: bool
             raise ValueError(f"a batch of {s} scenes does not split over a scene axis of "
                              f"{s_axis}")
         per_row = s // s_axis
-        futures = [DaemonFuture(lambda i=i: per_scene(grid[i // per_row],
-                                                      *(a[i] for a in arrays)),
+        from maskclustering_tpu_torch.obs import cost
+
+        futures = [DaemonFuture(cost.lane(lambda i=i: per_scene(grid[i // per_row],
+                                                                *(a[i] for a in arrays))),
                                 name=f"fused-lane-{i}")
                    for i in range(s)]
         lanes, errors = [], []
@@ -310,3 +333,188 @@ def fused_step_example_args(num_scenes: int = 2, num_frames: int = 8, num_points
         np.stack([s.cam_to_world for s in scenes]),
         np.stack([s.frame_valid for s in scenes]),
     )
+
+
+# ---------------------------------------------------------------------------
+# per-stage seams of the cost observatory (obs/cost.py) and the retrace census
+# ---------------------------------------------------------------------------
+
+# the stages the observatory runs one by one, in pipeline order; "fused"
+# (the whole step) is build_fused_step itself
+STAGE_NAMES = ("backprojection", "graph", "clustering", "postprocess")
+
+
+def build_stage_step(stage: str, mesh: Optional[Mesh], cfg, *, k_max: int = 15,
+                     r_pad: int = 64, device: DeviceLike = None):
+    """One pipeline stage as a callable over ``mesh`` (JAX
+    ``parallel/sharded.py:302-356``).
+
+    The stages are the very sections the fused step runs (``_assoc_stage``,
+    ``_graph_stage``, ``_cluster_stage``), over the batched (S, ...) inputs
+    of :func:`stage_arg_shapes`, lane after lane in the calling thread.
+    ``postprocess`` is the ``post.claims`` node-statistics kernel
+    (``models/postprocess_device._node_stats_kernel``) of one scene on the
+    lane's first device, whatever the mesh, as in production.
+    """
+    from maskclustering_tpu_torch.models.postprocess_device import _node_stats_kernel
+
+    if stage not in STAGE_NAMES:
+        raise ValueError(f"unknown stage {stage!r}; valid: {STAGE_NAMES}")
+    grid = _device_grid(mesh, device)
+
+    def lanes(arrays, fn):
+        arrays = [_host_tensor(a) for a in arrays]
+        s = arrays[0].shape[0]
+        if s % grid.shape[0]:
+            raise ValueError(f"a batch of {s} scenes does not split over a scene axis of "
+                             f"{grid.shape[0]}")
+        per_row = s // grid.shape[0]
+        return [fn(grid[i // per_row], *(a[i] for a in arrays)) for i in range(s)]
+
+    if stage == "postprocess":
+        home = grid[0, 0, 0]
+
+        def post(first, last, rep_tab, node_visible, live_slots, live_valid):
+            args = [_host_tensor(a).to(home) for a in (first, last, rep_tab, node_visible,
+                                                       live_slots, live_valid)]
+            return _node_stats_kernel(*args, r_pad=r_pad,
+                                      point_filter_threshold=float(cfg.point_filter_threshold),
+                                      count_dtype=cfg.count_dtype)
+
+        return post
+    if stage == "backprojection":
+        def assoc(row, scene_points, depths, segs, intrinsics, cam_to_world, frame_valid):
+            return _assoc_stage(cfg, k_max, row, scene_points, depths, segs, intrinsics,
+                                cam_to_world, frame_valid, None)
+
+        return lambda *arrays: lanes(arrays, assoc)
+    if stage == "graph":
+        def graph(row, mask_of_point, boundary, active0):
+            p_axis = row.shape[1]
+            ns = mask_of_point.shape[1] // p_axis
+            shards = [(mask_of_point[:, pi * ns:(pi + 1) * ns].to(row[0, pi]), None, None,
+                       boundary[pi * ns:(pi + 1) * ns].to(row[0, pi])) for pi in range(p_axis)]
+            return _graph_stage(cfg, k_max, row, shards, active0.to(row[0, 0]))
+
+        return lambda *arrays: lanes(arrays, graph)
+
+    def cluster(row, visible, contained, active, schedule):
+        home = row[0, 0]
+        return _cluster_stage(cfg, visible.to(home), contained.to(home), active.to(home),
+                              schedule.to(home))
+
+    return lambda *arrays: lanes(arrays, cluster)
+
+
+def stage_arg_shapes(stage: str, *, scenes: int = 1, frames: int = 8, points: int = 4096,
+                     image_hw: Tuple[int, int] = (32, 48), k_max: int = 15,
+                     max_iters: int = 20, r_pad: int = 64) -> Tuple[Tuple, ...]:
+    """The ((shape), dtype) of each argument of ``build_stage_step(stage)``
+    (JAX ``parallel/sharded.py:358-388``): the fused path's dense slot
+    layout, ``M_pad = F * k_max``; the clustering schedule is the
+    fixed-length observer-threshold vector; ``postprocess`` takes the claim
+    planes and the node-statistics tables of one scene (``k2 = k_max + 2``
+    local-id rows, ``r_pad`` live representative slots)."""
+    s, f, n = scenes, frames, points
+    h, w = image_hw
+    m_pad = f * k_max
+    if stage in ("backprojection", "fused"):
+        return (((s, n, 3), torch.float32), ((s, f, h, w), torch.float32),
+                ((s, f, h, w), torch.int32), ((s, f, 3, 3), torch.float32),
+                ((s, f, 4, 4), torch.float32), ((s, f), torch.bool))
+    if stage == "graph":
+        return (((s, f, n), torch.int32), ((s, n), torch.bool), ((s, m_pad), torch.bool))
+    if stage == "clustering":
+        return (((s, m_pad, f), torch.bool), ((s, m_pad, m_pad), torch.bool),
+                ((s, m_pad), torch.bool), ((s, max_iters), torch.float32))
+    if stage == "postprocess":
+        k2 = k_max + 2
+        return (((f, n), torch.int16), ((f, n), torch.int16), ((f, k2), torch.int32),
+                ((m_pad, f), torch.bool), ((r_pad,), torch.int32), ((r_pad,), torch.bool))
+    raise ValueError(f"unknown stage {stage!r}; valid: {STAGE_NAMES + ('fused',)}")
+
+
+def stage_example_args(stage: str, cfg, *, mesh: Optional[Mesh] = None,
+                       device: DeviceLike = None, scenes: int = 1, frames: int = 8,
+                       points: int = 4096, image_hw: Tuple[int, int] = (32, 48),
+                       k_max: int = 15, seed: int = 0, batch=None):
+    """Inputs of ``build_stage_step(stage)`` made from a seed: a synthetic
+    batch (``fused_step_example_args``, or ``batch``: the same six arrays of
+    a real scene set), run through the stages upstream of ``stage``.
+    Returns ``(args, r_pad)``; the args have :func:`stage_arg_shapes`'s
+    shapes and dtypes."""
+    from maskclustering_tpu_torch.models.postprocess_device import _prep_kernel, _rep_bucket
+
+    if batch is None:
+        batch = _seeded_batch(scenes, frames, points, image_hw, seed)
+    batch = tuple(_host_tensor(a) for a in batch)
+    batch = (batch[0].float(), batch[1].float(), batch[2].to(torch.int32), batch[3].float(),
+             batch[4].float(), batch[5].bool())
+    if stage in ("backprojection", "fused"):
+        return batch, 64
+    grid = _device_grid(mesh, device)
+    home = grid[0, 0, 0]
+    f = batch[1].shape[1]
+    mask_frame, mask_id = _dense_mask_table(f, k_max, home)
+    assoc = build_stage_step("backprojection", mesh, cfg, k_max=k_max, device=device)(*batch)
+    mops, bounds, actives = [], [], []
+    for shards, mask_valid in assoc:
+        mops.append(torch.cat([sh[0].to(home) for sh in shards], dim=1))
+        bounds.append(torch.cat([sh[3].to(home) for sh in shards]))
+        actives.append(mask_valid.to(home)[mask_frame.long(), mask_id.long()])
+    graph_args = (torch.stack(mops), torch.stack(bounds), torch.stack(actives))
+    if stage == "graph":
+        return graph_args, 64
+    stats = build_stage_step("graph", mesh, cfg, k_max=k_max, device=device)(*graph_args)
+    schedules = [observer_schedule_device(st.observer_hist, max_len=cfg.max_cluster_iterations)
+                 for st in stats]
+    cluster_args = (torch.stack([st.visible for st in stats]),
+                    torch.stack([st.contained for st in stats]),
+                    torch.stack([a & ~st.undersegment for a, st in zip(graph_args[2], stats)]),
+                    torch.stack(schedules))
+    if stage == "clustering":
+        return cluster_args, 64
+    # postprocess: lane 0's claim planes and its clustering's live reps
+    res = build_stage_step("clustering", None, cfg, k_max=k_max,
+                           device=home)(*(a[:1] for a in cluster_args))[0]
+    first = torch.cat([sh[1].to(home) for sh in assoc[0][0]], dim=1)
+    last = torch.cat([sh[2].to(home) for sh in assoc[0][0]], dim=1)
+    active = cluster_args[2][0]
+    m = int(cfg.min_masks_per_object)
+    live = int((torch.bincount(res.assignment[active].long(), minlength=active.shape[0])
+                >= m).sum())
+    r_pad = _rep_bucket(live)
+    rep_tab, live_slots, live_valid, *_ = _prep_kernel(
+        res.assignment, active, mask_frame, mask_id, r_pad=r_pad, f=f, k2=k_max + 2,
+        min_masks_per_object=m)
+    return (first, last, rep_tab, res.node_visible, live_slots, live_valid), r_pad
+
+
+def _seeded_batch(scenes: int, frames: int, points: int, image_hw, seed: int):
+    """``fused_step_example_args`` at the widest spacing step that fits
+    ``points`` (a small image needs sparser boxes to stay in budget)."""
+    for spacing in (0.08, 0.12, 0.16, 0.24, 0.32):
+        try:
+            return fused_step_example_args(num_scenes=scenes, num_frames=frames,
+                                           num_points=points, image_hw=image_hw, seed=seed,
+                                           spacing=spacing)
+        except ValueError:
+            continue
+    raise ValueError(f"no synthetic scene of {frames} frames at {image_hw} fits {points} points")
+
+
+def fused_step_aot_key(mesh_shape: Tuple[int, ...], cfg, *, frames: int, points: int,
+                       image_hw: Tuple[int, int], k_max: int) -> List[str]:
+    """The launch keys one lane of the fused step makes on a card, as the
+    retrace sanitizer names them (``entry shape`` rows): each (frame shard,
+    point shard) block builds its pixel table and claims and assigns its
+    points, one launch each (JAX ``parallel/sharded.py:269-290`` keys one
+    executable a mesh; the port's surface is its launches)."""
+    f_axis = mesh_shape[1]
+    p_axis = mesh_shape[2] if len(mesh_shape) == 3 else 1
+    fs, ns = frames // f_axis, points // p_axis
+    h, w = image_hw
+    taps = (2 * int(cfg.association_window) + 1) ** 2
+    return sorted({f"associate_table {fs}x{h}x{w}",
+                   f"associate_claim {fs}x{ns}x{h}x{w}x{taps}",
+                   f"associate_assign {fs}x{ns}x{h}x{w}x{taps}"})

@@ -786,6 +786,12 @@ class SceneSupervisor:
                 rung_name = ladder.degrade(reason=f"device-class failure(s) in round {round_no}")
                 if rung_name:
                     self._notify("degrade", rung=rung_name, rung_index=ladder.rung)
+                from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
+                if retrace_sanitizer.enabled():
+                    # a rung's first launches are new keys in a new context
+                    # (JAX run.py:866-876), never repeat violations
+                    retrace_sanitizer.set_context("+".join(ladder.applied_names) or "baseline")
             delay = policy.backoff(round_no)
             self.stats["scene_retries"] += len(retry)
             obs.count("run.scene_retries", len(retry))
@@ -1015,6 +1021,9 @@ def run_pipeline(
     encoder_spec: str = "hash",
     device: DeviceLike = None,
     mesh_devices: Optional[Sequence] = None,
+    profile_dir: Optional[str] = None,
+    xprof_spans: Optional[Sequence[str]] = None,
+    xprof_dir: Optional[str] = None,
 ) -> RunReport:
     """Run ``steps`` over ``seq_names`` (``run.py:1102-1345``).
 
@@ -1036,19 +1045,35 @@ def run_pipeline(
     ``ledger_path`` (default ``obs.ledger.default_ledger_path()``, never
     the JAX package's ``PERF_LEDGER.jsonl``); a ledger failure never
     fails the run.
+
+    ``profile_dir``: a ``torch.profiler`` trace of the ``cluster`` step
+    (CUDA and CPU activity) goes to ``<profile_dir>/trace.json``, with the
+    stage spans as ``record_function`` ranges when obs is armed.
+    ``xprof_spans`` (needs ``obs_events``): span-triggered captures
+    (``obs/xprof.py``) into ``xprof_dir``, default ``<events>_xprof``;
+    ``profile_dir`` owns the one profiler session and wins, with a
+    warning. A kernel build cache armed by ``cfg.aot_cache_dir`` or
+    ``$MCT_AOT_CACHE`` warms the process first (``utils/aot_cache.py``).
     """
     check_steps(steps, encoder_spec)
     kw = dict(steps=steps, workers=workers, resume=resume, mask_command=mask_command,
               mask_predictor=mask_predictor, report_path=report_path, obs_events=obs_events,
               ledger_path=ledger_path, ledger=ledger, journal_path=journal_path, journal=journal,
               prediction_root=prediction_root, encoder_spec=encoder_spec, device=device,
-              mesh_devices=mesh_devices)
+              mesh_devices=mesh_devices, profile_dir=profile_dir)
     if not obs_events:
         return _run_pipeline_body(cfg, seq_names, **kw)
+    if xprof_spans and profile_dir:
+        # one profiler session a process; the whole-step trace owns it
+        log.warning("--xprof ignored: --profile_dir already owns the profiler session")
+        xprof_spans = None
+    if xprof_spans and not xprof_dir:
+        xprof_dir = os.path.splitext(obs_events)[0] + "_xprof"
     # truncate: this call owns the path (typically derived from --report);
     # appending to an earlier run's capture would pool stale spans
-    obs.configure(obs_events, truncate=True,
-                  meta={"tool": "run", "config": cfg.config_name})
+    obs.configure(obs_events, truncate=True, annotations=bool(profile_dir),
+                  meta={"tool": "run", "config": cfg.config_name}, xprof_dir=xprof_dir,
+                  xprof_spans=tuple(xprof_spans) if xprof_spans else None)
     try:
         return _run_pipeline_body(cfg, seq_names, **kw)
     finally:
@@ -1059,8 +1084,19 @@ def run_pipeline(
 def _run_pipeline_body(cfg: PipelineConfig, seq_names: Sequence[str], *, steps, workers,
                        resume, mask_command, mask_predictor, report_path, obs_events,
                        ledger_path, ledger, journal_path, journal, prediction_root,
-                       encoder_spec, device, mesh_devices) -> RunReport:
+                       encoder_spec, device, mesh_devices, profile_dir=None) -> RunReport:
     device = resolve_device(device)
+    from maskclustering_tpu_torch.utils import aot_cache
+
+    # the kernel build cache (cfg.aot_cache_dir / --aot-cache /
+    # $MCT_AOT_CACHE): load every valid library before the first scene, so
+    # a warm process builds nothing; on a card, build the rest now
+    aot_stats = aot_cache.warm_start(cfg, device=device)
+    if aot_cache.active() is not None:
+        from maskclustering_tpu_torch.ops import cuda as ops_cuda
+
+        log.info("aot cache: %s; nvcc builds in this process: %s", json.dumps(aot_stats),
+                 json.dumps(sorted(ops_cuda.BUILT)))
     if cfg.debug:
         log.setLevel(logging.DEBUG)
     report = RunReport(config_name=cfg.config_name,
@@ -1103,9 +1139,19 @@ def _run_pipeline_body(cfg: PipelineConfig, seq_names: Sequence[str], *, steps, 
         sup = SceneSupervisor(cfg, workers=workers, resume=resume, journal=jr,
                               prediction_root=prediction_root, device=device,
                               mesh_devices=mesh_devices)
+        prof = None
+        if profile_dir:
+            from maskclustering_tpu_torch.obs.xprof import profiler_activities
+
+            os.makedirs(profile_dir, exist_ok=True)
+            prof = torch.profiler.profile(activities=profiler_activities())
+            prof.__enter__()
         try:
             report.scenes = timed("cluster", lambda: sup.run(seq_names)) or []
         finally:
+            if prof is not None:
+                prof.__exit__(None, None, None)
+                prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
             report.faults = sup.fault_summary(report.scenes)
             if jr is not None:
                 jr.end_run(interrupted=report.faults["interrupted"])
@@ -1146,12 +1192,16 @@ def _run_pipeline_body(cfg: PipelineConfig, seq_names: Sequence[str], *, steps, 
                 cfg, seq_names, resume=resume, scene_points_cache=pts_cache, device=device))
 
     if obs_events and obs.enabled():
-        from maskclustering_tpu_torch.analysis import lock_sanitizer
+        from maskclustering_tpu_torch.analysis import lock_sanitizer, retrace_sanitizer
 
         if lock_sanitizer.enabled():
             # book the sanitizer digest (locks.* counters) before the
             # flush so the report's Faults section renders it
             lock_sanitizer.emit_counters()
+        if retrace_sanitizer.enabled():
+            # the retrace digest (retrace.* counters): the report's
+            # Analysis section renders the build/launch line
+            retrace_sanitizer.emit_counters()
         obs.flush_metrics()
         try:
             from maskclustering_tpu_torch.obs.report import RunData
@@ -1187,14 +1237,9 @@ def _run_pipeline_body(cfg: PipelineConfig, seq_names: Sequence[str], *, steps, 
     return report
 
 
-# the item the unported JAX flags wait for: XLA's tooling
-XLA_TOOLING_ITEM = "ROADMAP A10"
-
-
 def build_parser():
     """The CLI's parser: every option string of the JAX ``run.py`` parser,
-    plus ``--device``. The JAX flags whose subsystem the port does not have
-    are accepted and raise in ``main`` (``_refuse_unported``)."""
+    plus ``--device``."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -1240,8 +1285,9 @@ def build_parser():
                         help="external mask-predictor template with {seq_name}: run for "
                              "each scene whose 2D masks are missing")
     parser.add_argument("--profile_dir", default=None,
-                        help="the JAX driver's profiler trace of the cluster step (no "
-                             "torch counterpart yet: ROADMAP A10)")
+                        help="write a torch.profiler trace of the cluster step here "
+                             "(trace.json: CUDA and CPU activity, the stage spans as "
+                             "ranges when obs is armed)")
     parser.add_argument("--report", default=None, help="run report JSON path")
     parser.add_argument("--obs_events", default=None,
                         help="obs span/metrics JSONL path (default: derived from "
@@ -1250,10 +1296,12 @@ def build_parser():
     parser.add_argument("--no-obs", action="store_true",
                         help="disable obs capture even when --report is set")
     parser.add_argument("--xprof", default=None, metavar="STAGE",
-                        help="span-triggered profiler capture (no torch counterpart "
-                             "yet: ROADMAP A10)")
+                        help="comma-joined span names to bracket with a torch.profiler "
+                             "session (first occurrence each; e.g. cluster or associate; "
+                             "needs obs capture, i.e. --report or --obs_events)")
     parser.add_argument("--xprof_dir", default=None,
-                        help="trace output dir for --xprof (ROADMAP A10)")
+                        help="trace output dir for --xprof (default: derived from the "
+                             "events path)")
     parser.add_argument("--ledger", default=None,
                         help="perf ledger JSONL the run digest appends to (default: "
                              "PERF_LEDGER_TORCH.jsonl / $MCT_PERF_LEDGER)")
@@ -1270,20 +1318,26 @@ def build_parser():
     parser.add_argument("--watchdog-device", type=float, default=None,
                         help="device-phase watchdog budget in seconds (0 = off)")
     parser.add_argument("--transfer-guard", action="store_true",
-                        help="XLA's transfer guard around each scene's device phase "
-                             "(no torch counterpart yet: ROADMAP A10)")
+                        help="guard every scene's device phase against host syncs "
+                             "(analysis/transfer_guard.py; default: $MCT_TRANSFER_GUARD): "
+                             "a read outside the named sanctioned pulls raises. Drill "
+                             "knob, results identical")
     parser.add_argument("--lock-sanitizer", action="store_true",
                         help="record every named lock's acquisition order and hold times "
                              "(analysis/lock_sanitizer.py; also MCT_LOCK_SANITIZER=1): the "
                              "report renders the locks.* counters, and with --report the "
                              "observed order graph goes to <report>_locks.json")
     parser.add_argument("--retrace-sanitizer", action="store_true",
-                        help="XLA's compile-event sanitizer (no torch counterpart "
-                             "yet: ROADMAP A10)")
+                        help="record every kernel build and launch key per ladder rung "
+                             "(analysis/retrace_sanitizer.py; default: "
+                             "$MCT_RETRACE_SANITIZER): retrace.* metrics, repeat builds "
+                             "flagged. Drill knob, results identical")
     parser.add_argument("--aot-cache", default=None, nargs="?", const="auto",
                         metavar="DIR",
-                        help="XLA's persistent AOT executable cache (no torch "
-                             "counterpart yet: ROADMAP A10)")
+                        help="arm the kernel build cache (utils/aot_cache.py): load the "
+                             "built CUDA libraries at start and index new builds. Flag "
+                             "alone: aot_cache/ next to the perf ledger; also armed by "
+                             "$MCT_AOT_CACHE or cfg.aot_cache_dir")
     parser.add_argument("--data_root", default=None, help="override the config's data root")
     parser.add_argument("--device", default=None,
                         help="torch device (default: the CUDA card; 'cpu' runs the "
@@ -1294,22 +1348,8 @@ def build_parser():
     return parser
 
 
-def _refuse_unported(args) -> None:
-    """Raise for a JAX flag whose subsystem the port does not have yet."""
-    for flag, given in (("--profile_dir", args.profile_dir is not None),
-                        ("--xprof", args.xprof is not None),
-                        ("--xprof_dir", args.xprof_dir is not None),
-                        ("--transfer-guard", args.transfer_guard),
-                        ("--retrace-sanitizer", args.retrace_sanitizer),
-                        ("--aot-cache", args.aot_cache is not None)):
-        if given:
-            raise NotImplementedError(
-                f"{flag} (XLA tooling) has no torch counterpart yet ({XLA_TOOLING_ITEM})")
-
-
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
 
     logging.basicConfig(level=logging.DEBUG if args.debug else logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
@@ -1328,6 +1368,8 @@ def main(argv=None) -> int:
         overrides["streaming_chunk"] = args.streaming_chunk
     if args.debug:
         overrides["debug"] = True
+    if args.aot_cache is not None:
+        overrides["aot_cache_dir"] = args.aot_cache
     if args.config.endswith(".json") and os.path.isfile(args.config):
         cfg = load_config(os.path.basename(args.config)[:-len(".json")],
                           config_dir=os.path.dirname(os.path.abspath(args.config)), **overrides)
@@ -1340,6 +1382,18 @@ def main(argv=None) -> int:
         # the plan/registry locks already exist (import time): re-wrap them
         # in place; per-instance locks arm at creation from here on
         lock_sanitizer.instrument_known_locks()
+    if args.transfer_guard:
+        from maskclustering_tpu_torch.analysis import transfer_guard
+
+        transfer_guard.arm(True)
+    from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
+    if args.retrace_sanitizer:
+        retrace_sanitizer.arm(True)
+    if retrace_sanitizer.enabled():
+        # hook the builds and launches before the first use of the card,
+        # so the warm-up's builds are on the books too
+        retrace_sanitizer.install()
     if args.fault_plan:
         faults.set_plan(faults.FaultPlan.from_spec(args.fault_plan))
     faults.install_sigterm_handler()
@@ -1353,6 +1407,14 @@ def main(argv=None) -> int:
         obs_events = os.path.splitext(args.report)[0] + "_events.jsonl"
     if args.no_obs:
         obs_events = None
+    xprof_spans = None
+    if args.xprof:
+        if obs_events is None:
+            log.warning("--xprof needs obs capture (--report or --obs_events); ignored")
+        else:
+            from maskclustering_tpu_torch.obs.xprof import parse_spans
+
+            xprof_spans = parse_spans(args.xprof)
 
     device = resolve_device(args.device)
     # the first use of the card creates its context: bounded, so a wedged
@@ -1367,7 +1429,9 @@ def main(argv=None) -> int:
                           ledger=not args.no_ledger,
                           journal_path=args.journal, journal=not args.no_journal,
                           mask_command=args.mask_command,
-                          encoder_spec=args.encoder, device=args.device)
+                          encoder_spec=args.encoder, device=args.device,
+                          profile_dir=args.profile_dir, xprof_spans=xprof_spans,
+                          xprof_dir=args.xprof_dir)
     total = time.time() - t0
     log.info("total time %.1f min (%.1f s/scene)", total / 60, total / max(len(seq_names), 1))
     if args.lock_sanitizer and args.report:

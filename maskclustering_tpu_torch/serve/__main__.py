@@ -8,9 +8,10 @@ stdout at shutdown (``daemon.stats()``); everything else goes to stderr
 via logging. ``--isolate-worker`` runs the worker as a supervised
 subprocess and ``--workers``/``--carve``/``--tenants`` a pool of them; the
 daemon's own process then never touches the card (the children initialise
-it under ``--init_timeout``). Flags whose subsystem is not ported raise
-``NotImplementedError`` naming its item: ``--retrace-sanitizer``,
-``--no-freeze`` and ``--aot-cache`` (ROADMAP A10).
+it under ``--init_timeout``). ``--retrace-sanitizer`` arms the
+build/launch-surface sanitizer (frozen after warm-up unless
+``--no-freeze``) and ``--aot-cache`` the kernel build cache, in the daemon
+or in each supervised child and pool slice.
 """
 
 from __future__ import annotations
@@ -24,26 +25,6 @@ import sys
 from maskclustering_tpu_torch.utils import faults
 
 log = logging.getLogger("maskclustering_tpu_torch")
-
-# the XLA tooling flags of the JAX CLI
-XLA_TOOLING_ITEM = "ROADMAP A10"
-
-
-def _refuse_unported(args) -> None:
-    """Raise for a flag whose subsystem the port does not have yet."""
-    if args.retrace_sanitizer:
-        raise NotImplementedError(
-            f"--retrace-sanitizer (XLA's compile-event sanitizer) has no torch "
-            f"counterpart yet ({XLA_TOOLING_ITEM})")
-    if args.no_freeze:
-        raise NotImplementedError(
-            f"--no-freeze (the retrace sanitizer's post-warm-up freeze) has no "
-            f"torch counterpart yet ({XLA_TOOLING_ITEM})")
-    if args.aot_cache is not None:
-        raise NotImplementedError(
-            f"--aot-cache (XLA's persistent AOT executable cache) has no torch "
-            f"counterpart yet ({XLA_TOOLING_ITEM})")
-
 
 def _parse_overrides(pairs) -> dict:
     """``--set key=value`` pairs -> typed config overrides.
@@ -127,8 +108,8 @@ def main(argv=None) -> int:
                              "surface baseline's workload (flag alone: "
                              "compile_surface_baseline.json)")
     parser.add_argument("--no-freeze", action="store_true",
-                        help="keep the retrace sanitizer unfrozen after warm-up "
-                             "(no torch counterpart yet: ROADMAP A10)")
+                        help="do not freeze the retrace sanitizer after warm-up "
+                             "(new launch keys while serving are then not violations)")
     parser.add_argument("--obs_events", default=None,
                         help="obs span/metrics JSONL path (the Serving "
                              "report section renders from it; telemetry "
@@ -156,8 +137,10 @@ def main(argv=None) -> int:
                              "(obs/telemetry.py ring; the status op's "
                              "detail=telemetry and obs.top read it)")
     parser.add_argument("--retrace-sanitizer", action="store_true",
-                        help="XLA's compile-event sanitizer (no torch counterpart "
-                             "yet: ROADMAP A10)")
+                        help="arm the build/launch-surface sanitizer (default: "
+                             "$MCT_RETRACE_SANITIZER); the daemon freezes it after "
+                             "warm-up, so a new kernel build or launch key while "
+                             "serving is a violation")
     parser.add_argument("--fault-plan", default=None,
                         help="deterministic fault injection spec "
                              "(testing/drill knob — never in production; "
@@ -186,8 +169,10 @@ def main(argv=None) -> int:
                              "weight 1, no quota)")
     parser.add_argument("--aot-cache", default=None, nargs="?", const="auto",
                         metavar="DIR",
-                        help="XLA's persistent AOT executable cache (no torch "
-                             "counterpart yet: ROADMAP A10)")
+                        help="arm the kernel build cache (utils/aot_cache.py) so a "
+                             "(re)started daemon, child or pool slice loads its CUDA "
+                             "libraries instead of building them (flag alone: "
+                             "aot_cache/ next to the perf ledger)")
     parser.add_argument("--point-shards", type=int, default=None,
                         help="shard the scene-point axis over this many "
                              "chips (third mesh axis of the fused path; "
@@ -218,7 +203,6 @@ def main(argv=None) -> int:
         format="%(asctime)s %(name)s %(levelname)s %(message)s")
     if args.socket is None and args.host is None:
         parser.error("need --socket PATH or --host HOST [--port N]")
-    _refuse_unported(args)
 
     from maskclustering_tpu_torch.config import load_config
 
@@ -232,6 +216,8 @@ def main(argv=None) -> int:
         overrides["serve_carve"] = args.carve
     if args.tenants is not None:
         overrides["serve_tenants"] = args.tenants
+    if args.aot_cache is not None:
+        overrides["aot_cache_dir"] = args.aot_cache
     if args.config.endswith(".json") and os.path.isfile(args.config):
         cfg = load_config(os.path.basename(args.config)[:-len(".json")],
                           config_dir=os.path.dirname(os.path.abspath(args.config)),
@@ -241,6 +227,12 @@ def main(argv=None) -> int:
     if args.fault_plan:
         faults.set_plan(faults.FaultPlan.from_spec(args.fault_plan))
     faults.install_sigterm_handler()
+    from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
+    if args.retrace_sanitizer:
+        retrace_sanitizer.arm(True)
+    if retrace_sanitizer.enabled():
+        retrace_sanitizer.install()
 
     if args.obs_events:
         from maskclustering_tpu_torch import obs
@@ -286,6 +278,7 @@ def main(argv=None) -> int:
         warm_baseline=args.warm_baseline,
         default_deadline_s=args.deadline,
         isolate_worker=args.isolate_worker,
+        freeze_after_warm=not args.no_freeze,
         fault_plan_spec=args.fault_plan,
         telemetry_window_s=args.telemetry_window,
         slo_spec=args.slo_spec,
@@ -307,6 +300,8 @@ def main(argv=None) -> int:
 
         if args.obs_events and obs.enabled():
             daemon.emit_serve_counters()
+            if retrace_sanitizer.enabled() and not args.isolate_worker:
+                retrace_sanitizer.emit_counters()
             obs.flush_metrics()
             obs.disable()
         # the one stdout line: the daemon's final digest

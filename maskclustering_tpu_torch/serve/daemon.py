@@ -41,10 +41,13 @@ digests are held against the committed goldens.
 (serve/supervisor.py, serve/worker_main.py) and ``serve_workers > 1`` runs
 a pool of them (serve/pool.py): a crashed or wedged worker costs a
 respawn, not the daemon, and the daemon's own process never touches the
-card. The JAX daemon's XLA tooling — the persistent compilation cache,
-the AOT warm start and the retrace sanitizer's freeze (ROADMAP A10) — has
-no step here: ``stats()["retrace"]`` is ``{}``, as in JAX with the
-sanitizer off.
+card. The JAX daemon's tooling steps are here on the port's surfaces:
+the kernel build cache's warm start (``utils/aot_cache.py``, armed by
+``cfg.aot_cache_dir`` or ``$MCT_AOT_CACHE``) before warm-up, and the
+build/launch-surface sanitizer's freeze after it (``freeze_after_warm``,
+``analysis/retrace_sanitizer.py``): ``stats()["retrace"]`` is the
+sanitizer's summary, ``{}`` with it off. The persistent compilation cache
+has no counterpart (nothing traces).
 """
 
 from __future__ import annotations
@@ -138,9 +141,10 @@ class ServeDaemon:
     The JAX daemon's signature, plus ``device`` (the worker's card; None =
     the current CUDA device, raising without one; ``"cpu"`` for the plain
     torch path). Under ``isolate_worker`` it is the child's device, and
-    this process never touches it. The JAX daemon's ``freeze_after_warm``
-    (the retrace sanitizer's freeze, ROADMAP A10) is not here.
-    ``fault_plan_spec`` goes to the first worker subprocess only (pool
+    this process never touches it. ``freeze_after_warm`` freezes the
+    build/launch-surface sanitizer after warm-up when it is armed (in the
+    child under ``isolate_worker``), so a new launch key while serving is
+    a violation. ``fault_plan_spec`` goes to the first worker subprocess only (pool
     slice 0); an in-thread drill's plan is the process's,
     ``faults.set_plan``.
     """
@@ -157,6 +161,7 @@ class ServeDaemon:
                  warm_baseline: Optional[str] = None,
                  default_deadline_s: float = 0.0,
                  isolate_worker: bool = False,
+                 freeze_after_warm: bool = True,
                  fault_plan_spec: Optional[str] = None,
                  telemetry_window_s: float = 5.0,
                  slo_spec: Optional[str] = None,
@@ -173,6 +178,7 @@ class ServeDaemon:
         self.default_deadline_s = float(default_deadline_s)
         self.warm_scenes = tuple(warm_scenes)
         self.isolate_worker = bool(isolate_worker)
+        self.freeze_after_warm = bool(freeze_after_warm)
         self.journal_dir = journal_dir
         # shared per-chunk stream snapshots (models/streaming save_state):
         # the worker ships them here and a crashed stream's session
@@ -200,6 +206,7 @@ class ServeDaemon:
                       stream_state_dir=stream_state_dir,
                       warm_scenes=self.warm_scenes,
                       warm_baseline=warm_baseline,
+                      freeze_after_warm=freeze_after_warm,
                       fault_plan_spec=fault_plan_spec,
                       on_fatal=self.request_stop, device=self.device)
             if pool_size > 1:
@@ -296,6 +303,11 @@ class ServeDaemon:
         else:
             # device-memory gauges at span ends read the worker's card
             obs.metrics.set_device(self.device)
+            from maskclustering_tpu_torch.utils import aot_cache
+
+            aot_stats = aot_cache.warm_start(self.cfg, device=self.device)
+            if any(aot_stats.values()):
+                log.info("mct-serve: aot cache %s", aot_stats)
             self._prewarm()
             self.worker.start()
         # durability plane: recover the predecessor's admission WAL (seed
@@ -401,6 +413,13 @@ class ServeDaemon:
         finally:
             faults.set_plan(drill)
         self._warmup_s = time.monotonic() - t0
+        from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
+        if self.freeze_after_warm and retrace_sanitizer.enabled():
+            # the serve-many contract's runtime half: from here on, every
+            # new build or launch key is a post-warm violation
+            retrace_sanitizer.freeze()
+            log.info("mct-serve: retrace sanitizer frozen after warm-up")
 
     def _warm_batch_from_disk(self) -> None:
         """Classify --warm disk scenes in the router and pay their width-S
@@ -824,9 +843,15 @@ class ServeDaemon:
 
     def stats(self) -> Dict:
         w = self.worker.stats()
-        # compiles happen in the worker subprocess: its ready/bye digest,
-        # not this process's ({} in the port: no sanitizer, ROADMAP A10)
-        retrace = self.worker.child_retrace() if self.isolate_worker else {}
+        # builds and launches happen in the worker subprocess: its
+        # ready/bye digest, not this process's
+        from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
+        retrace: Dict = {}
+        if self.isolate_worker:
+            retrace = self.worker.child_retrace()
+        elif retrace_sanitizer.enabled():
+            retrace = retrace_sanitizer.summary()
         return {
             "config": self.cfg.config_name,
             # perf-attribution coordinate (ledger serve rows + --regress

@@ -124,8 +124,8 @@ class _FeedQueue(AdmissionQueue):
 class WorkerPool:
     """K supervised card slices behind one affinity/QoS scheduler.
 
-    The JAX pool's signature, without ``freeze_after_warm`` (ROADMAP A10),
-    plus ``device``: every child's torch device (None: the CUDA card).
+    The JAX pool's signature, plus ``device``: every child's torch device
+    (None: the CUDA card). ``freeze_after_warm`` goes to every slice.
     """
 
     def __init__(self, cfg, queue: AdmissionQueue, router: Router, *,
@@ -134,6 +134,7 @@ class WorkerPool:
                  stream_state_dir: Optional[str] = None,
                  warm_scenes: Tuple[str, ...] = (),
                  warm_baseline: Optional[str] = None,
+                 freeze_after_warm: bool = True,
                  fault_plan_spec: Optional[str] = None,
                  child_argv: Optional[list] = None,
                  start_timeout_s: float = 600.0,
@@ -150,6 +151,7 @@ class WorkerPool:
         self.stream_state_dir = stream_state_dir
         self.warm_scenes = tuple(warm_scenes)
         self.warm_baseline = warm_baseline
+        self.freeze_after_warm = bool(freeze_after_warm)
         self.fault_plan_spec = fault_plan_spec
         self.child_argv = child_argv
         self.start_timeout_s = float(start_timeout_s)
@@ -236,6 +238,7 @@ class WorkerPool:
                 stream_state_dir=self.stream_state_dir,
                 warm_scenes=self.warm_scenes,
                 warm_baseline=self.warm_baseline,
+                freeze_after_warm=self.freeze_after_warm,
                 # drills target slice 0 only: the drill is one fault, not
                 # a fleet-wide crash storm
                 fault_plan_spec=self.fault_plan_spec if i == 0 else None,

@@ -101,10 +101,11 @@ def _closed_safe(lines):
 class WorkerSupervisor:
     """Parent-side supervision of one card-owning worker subprocess.
 
-    The JAX supervisor's signature, without ``freeze_after_warm`` (the
-    retrace sanitizer's freeze, ROADMAP A10), plus ``device``: the child's
-    torch device (None: the CUDA card), passed to it as ``--device`` and
-    never touched here.
+    The JAX supervisor's signature, plus ``device``: the child's torch
+    device (None: the CUDA card), passed to it as ``--device`` and never
+    touched here. ``freeze_after_warm`` goes to the child (``--no-freeze``
+    when off), with ``--retrace-sanitizer`` when this process has the
+    sanitizer armed.
     """
 
     def __init__(self, cfg, queue: AdmissionQueue, router: Router, *,
@@ -113,6 +114,7 @@ class WorkerSupervisor:
                  stream_state_dir: Optional[str] = None,
                  warm_scenes: Tuple[str, ...] = (),
                  warm_baseline: Optional[str] = None,
+                 freeze_after_warm: bool = True,
                  fault_plan_spec: Optional[str] = None,
                  child_argv: Optional[list] = None,
                  start_timeout_s: float = 600.0,
@@ -146,6 +148,7 @@ class WorkerSupervisor:
         self.stream_state_dir = stream_state_dir
         self.warm_scenes = tuple(warm_scenes)
         self.warm_baseline = warm_baseline
+        self.freeze_after_warm = bool(freeze_after_warm)
         self.fault_plan_spec = fault_plan_spec
         self.child_argv = child_argv
         self.start_timeout_s = float(start_timeout_s)
@@ -227,6 +230,8 @@ class WorkerSupervisor:
     def _child_cmd(self, first_spawn: bool) -> list:
         if self.child_argv is not None:
             return list(self.child_argv)
+        from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
         cmd = [sys.executable, "-m", "maskclustering_tpu_torch.serve.worker_main",
                "--cfg-json", self._cfg_path, "--device", str(self.device)]
         if self.worker_id:
@@ -241,6 +246,10 @@ class WorkerSupervisor:
             cmd += ["--warm", "+".join(self.warm_scenes)]
         if self.warm_baseline:
             cmd += ["--warm-baseline", self.warm_baseline]
+        if not self.freeze_after_warm:
+            cmd += ["--no-freeze"]
+        if retrace_sanitizer.enabled():
+            cmd += ["--retrace-sanitizer"]
         if first_spawn and self.fault_plan_spec:
             # drills target the FIRST worker; a respawn is the recovery
             # under test — re-arming the plan there would crash-loop it
@@ -946,8 +955,8 @@ class WorkerSupervisor:
 
     def child_retrace(self) -> Dict:
         """The worker's retrace digest (ready/bye lines), for the daemon's
-        stats + the Serving report: ``{}`` from the port's child, which
-        has no retrace sanitizer (ROADMAP A10)."""
+        stats + the Serving report: ``{}`` when the child's sanitizer is
+        off."""
         with self._lock:
             src = self.last_bye or self.last_ready
         return dict(src.get("retrace") or {})

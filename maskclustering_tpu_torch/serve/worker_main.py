@@ -23,9 +23,10 @@ package's, key for key):
   ``{"kind": "hb"}`` heartbeats at a fixed cadence, ``telem`` relay lines
   (obs/telemetry.py), the standard per-request ``status``/``result``
   events, and ``{"kind": "bye", ...}`` after a drain. ``ready`` and
-  ``bye`` carry ``retrace: {}`` and ``aot: {}``, as the JAX worker's do
-  with its XLA tooling off (the port has none: ROADMAP A10), and one
-  port-only key, ``cuda``: the seconds of each ``nvcc`` build this process
+  ``bye`` carry ``retrace`` (the build/launch-surface sanitizer's
+  summary, ``{}`` with it off) and ``aot`` (``ready``: the kernel build
+  cache's warm start, ``{}`` without a cache), as the JAX worker's do, and
+  one port-only key, ``cuda``: the seconds of each ``nvcc`` build this process
   ran (``ops.cuda.build``; ``{}`` when the libraries were already built),
   the kernel launch counts (``ops.cuda.LAUNCHES``) and the card's
   ``torch.cuda.max_memory_allocated`` — the only way the parent, which
@@ -81,6 +82,12 @@ def _wire_stdout():
     return wire
 
 
+def _retrace_digest() -> dict:
+    from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
+    return retrace_sanitizer.summary() if retrace_sanitizer.enabled() else {}
+
+
 def _cuda_digest(device) -> dict:
     """The ``cuda`` key of ``ready`` and ``bye``: builds, launches, peak."""
     import torch
@@ -133,6 +140,9 @@ def main(argv=None) -> int:
                              "0 disables the relay)")
     parser.add_argument("--init_timeout", type=float, default=120.0,
                         help="watchdog seconds for the device's first use")
+    parser.add_argument("--no-freeze", action="store_true",
+                        help="do not freeze the retrace sanitizer post-warm")
+    parser.add_argument("--retrace-sanitizer", action="store_true")
     parser.add_argument("--debug", action="store_true")
     args = parser.parse_args(argv)
 
@@ -153,6 +163,12 @@ def main(argv=None) -> int:
     if args.fault_plan:
         faults.set_plan(faults.FaultPlan.from_spec(args.fault_plan))
     faults.install_sigterm_handler()
+    from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
+    if args.retrace_sanitizer:
+        retrace_sanitizer.arm(True)
+    if retrace_sanitizer.enabled():
+        retrace_sanitizer.install()
 
     out_lock = mct_lock("serve.worker_main.out_lock")
 
@@ -235,6 +251,9 @@ def main(argv=None) -> int:
 
     from maskclustering_tpu_torch.device import resolve_device
 
+    from maskclustering_tpu_torch.utils import aot_cache
+
+    aot_stats: dict = {}
     t0 = time.monotonic()
     try:
         device = resolve_device(args.device)
@@ -243,6 +262,9 @@ def main(argv=None) -> int:
         faults.call_with_deadline(lambda: torch.zeros(1, device=device),
                                   args.init_timeout, seam="load",
                                   scene="device-init")
+        # the kernel build cache (cfg.aot_cache_dir / $MCT_AOT_CACHE): on a
+        # card, load its libraries and build the rest now
+        aot_stats = aot_cache.warm_start(cfg, device=device)
         if device.type == "cuda":
             if device.index is None:
                 # the worker thread pins its card by index (set_device)
@@ -315,6 +337,8 @@ def main(argv=None) -> int:
     finally:
         faults.set_plan(drill)
     warmup_s = time.monotonic() - t0
+    if not args.no_freeze and retrace_sanitizer.enabled():
+        retrace_sanitizer.freeze()
 
     worker.start()
     hb_thread = threading.Thread(target=hb_loop, daemon=True,
@@ -322,7 +346,9 @@ def main(argv=None) -> int:
     hb_thread.start()
     emit_raw({"kind": "ready", "pid": os.getpid(),
               "worker_id": args.worker_id,
-              "warmup_s": round(warmup_s, 2), "aot": {}, "retrace": {},
+              "warmup_s": round(warmup_s, 2),
+              "aot": aot_stats if aot_cache.active() is not None else {},
+              "retrace": _retrace_digest(),
               "device": str(device), "cuda": _cuda_digest(device)})
     flush_telem()  # warm-up's counters relay at once
     log.info("worker: ready on %s (warm-up %.1fs)", device, warmup_s)
@@ -382,8 +408,8 @@ def main(argv=None) -> int:
         rc = 1
     flush_telem()
     ship_flight()  # final ring delta: the parent's copy ends complete
-    emit_raw({"kind": "bye", "worker_id": args.worker_id, "retrace": {},
-              "aot": {}, "counts": worker.stats()["counts"],
+    emit_raw({"kind": "bye", "worker_id": args.worker_id, "retrace": _retrace_digest(),
+              "aot": aot_cache.stats_snapshot(), "counts": worker.stats()["counts"],
               "cuda": _cuda_digest(device)})
     if faults.stop_requested():
         # cooperative drain path, not the signal handler: the black box of

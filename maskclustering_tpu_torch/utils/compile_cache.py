@@ -85,11 +85,15 @@ def record_shape_bucket(kind: str, *bucket) -> bool:
     """Record a shape bucket; returns True (and logs) if new to the process."""
     from maskclustering_tpu_torch import obs
 
+    from maskclustering_tpu_torch.analysis import retrace_sanitizer
+
     key = (kind, *bucket)
     with _SEEN_LOCK:
         new = key not in _SEEN_BUCKETS
         _SEEN_BUCKETS.add(key)
         distinct = len(_SEEN_BUCKETS)
+    # one bucket vocabulary with the build/launch-surface sanitizer
+    retrace_sanitizer.note_bucket(new)
     if not new:
         obs.count("compile_cache.bucket_hit")
         return False

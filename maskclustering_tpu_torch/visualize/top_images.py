@@ -134,6 +134,10 @@ def project_zbuffer(points, colors, intrinsics, cam_to_world, height: int, width
         codebuf, visible = splat_color_cuda(pts, cols, params, zbuf, height=height,
                                             width=width)
     elif dev.type == "cpu":
+        from maskclustering_tpu_torch.ops.cuda import note_plain
+
+        for entry in ("splat_depth", "splat_color"):
+            note_plain(entry, (pts.shape[0], height, width))
         zbuf = splat_depth_reference(pts, params, height, width)
         codebuf, visible = splat_color_reference(pts, cols, params, zbuf, height, width)
     else:

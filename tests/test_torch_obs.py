@@ -398,7 +398,12 @@ def test_device_memory_gauge_is_none_on_the_cpu(fresh):
 
 
 def test_xprof_capture_names_its_item(fresh, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        obs.configure(str(tmp_path / "e.jsonl"), xprof_dir=str(tmp_path / "x"),
-                      xprof_spans=("graph",))
-    assert not obs.enabled()
+    """``configure(xprof_dir=...)`` is ported: it arms the span-triggered
+    capture (``obs/xprof.py``), whose first ``graph`` span writes a trace."""
+    obs.configure(str(tmp_path / "e.jsonl"), xprof_dir=str(tmp_path / "x"),
+                  xprof_spans=("graph",))
+    assert obs.enabled() and obs.get_tracer().xprof is not None
+    with obs.span("graph"):
+        pass
+    obs.disable()
+    assert os.listdir(str(tmp_path / "x")) == ["graph-0"]

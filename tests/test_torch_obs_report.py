@@ -200,10 +200,11 @@ def test_report_cli_history_regress_and_cost(runs, tmp_path, capsys):
             json.dump(dict(row, value=row["value"] * scale), fh)
         assert report.main(["--ledger", led, "--regress", base]) == rc
         assert jax_report.main(["--ledger", led, "--regress", base]) == rc
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        report.main(["--cost"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        report.render_cost([])
+    # --cost (ported: the cost observatory's census, live here)
+    capsys.readouterr()
+    assert report.main(["--cost", "--cost-mesh", "1x1", "--device", "cpu"]) == 0
+    assert "== cost observatory: mesh scene=1 x frame=1" in capsys.readouterr().out
+    assert report.render_cost([]) == jax_report.render_cost([])
 
 
 def _write_trace_inputs(tmp_path):

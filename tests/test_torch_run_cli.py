@@ -5,10 +5,10 @@ and ``main``) against the JAX package's (ROADMAP C3).
   parser. The JAX parser is captured without editing it: its
   ``parse_args`` is patched to hand the parser over during
   ``maskclustering_tpu.run.main([])``.
-- Each JAX flag whose subsystem the port does not have is accepted by the
-  parser and raises ``NotImplementedError`` naming its item (A10: XLA's
-  tooling), only when given. ``--lock-sanitizer`` (A18) is ported: it arms
-  the sanitizer, the report renders the ``locks.*`` counters and the
+- Every JAX tooling flag is ported: the A10 flags (profiler capture, the
+  host-sync guard, the build/launch-surface sanitizer, the kernel build
+  cache) each run a scan and change no digest; ``--lock-sanitizer`` (A18)
+  arms the sanitizer, the report renders the ``locks.*`` counters and the
   observed graph goes beside the report.
 - ``--mask_command`` fills the missing masks of a scan, and the artifacts
   equal the JAX CLI's run with the same command.
@@ -77,23 +77,66 @@ def test_every_jax_option_is_known_to_the_port(jax_parser):
         assert type(mine) is type(action), opt
 
 
+@pytest.fixture(scope="module")
+def tooling_scan(tmp_path_factory):
+    """One small scan and the digest of a plain CLI run over it."""
+    root = tmp_path_factory.mktemp("tooling")
+    data = str(root / "data")
+    write_scannet_layout(make_scene(num_boxes=2, num_frames=6, image_hw=(40, 56), seed=3,
+                                    spacing=0.05), data, SCENE)
+    rep = str(root / "plain.json")
+    assert pt_run.main(["--config", "scannet", "--data_root", data, "--seq_name_list", SCENE,
+                        "--steps", "cluster", "--device", "cpu", "--no-journal", "--no-resume",
+                        "--no-ledger", "--report", rep]) == 0
+    with open(rep) as fh:
+        return data, json.load(fh)["scenes"][0]["digest"]
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--profile_dir", "/tmp/p"], "A10"), (["--xprof", "cluster"], "A10"),
-    (["--xprof_dir", "/tmp/x"], "A10"), (["--transfer-guard"], "A10"),
+    (["--profile_dir", "{tmp}/p"], "A10"), (["--xprof", "cluster"], "A10"),
+    (["--xprof_dir", "{tmp}/x"], "A10"), (["--transfer-guard"], "A10"),
     (["--retrace-sanitizer"], "A10"), (["--aot-cache"], "A10"),
-    (["--aot-cache", "/tmp/aot"], "A10"), (["--lock-sanitizer"], "A18"),
+    (["--aot-cache", "{tmp}/aot"], "A10"), (["--lock-sanitizer"], "A18"),
 ])
-def test_unported_flags_raise_naming_their_item(flags, item):
+def test_unported_flags_raise_naming_their_item(flags, item, tooling_scan, tmp_path,
+                                                restore_faults):
+    """Every JAX tooling flag is ported: the A18 lock sanitizer (its run is
+    in test_lock_sanitizer_flag_arms_and_writes_the_observed_graph) and
+    each A10 flag, which passes the parser, runs a scan on the CPU and
+    changes no digest."""
     args = pt_run.build_parser().parse_args(["--config", "scannet", *flags])
     if item == "A18":
-        # ported: the lock sanitizer passes the refusals (its run is in
-        # test_lock_sanitizer_flag_arms_and_writes_the_observed_graph)
-        assert args.lock_sanitizer and pt_run._refuse_unported(args) is None
+        assert args.lock_sanitizer
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        pt_run.main(["--config", "scannet", "--device", "cpu", *flags])
-    # accepted by the parser: only main refuses them
-    assert args
+    from maskclustering_tpu_torch.analysis import retrace_sanitizer, transfer_guard
+    from maskclustering_tpu_torch.utils import aot_cache
+
+    data, digest = tooling_scan
+    flags = [f.replace("{tmp}", str(tmp_path)) for f in flags]
+    rep = str(tmp_path / "r.json")
+    try:
+        rc = pt_run.main(["--config", "scannet", "--data_root", data, "--seq_name_list", SCENE,
+                          "--steps", "cluster", "--device", "cpu", "--no-journal",
+                          "--no-resume", "--no-ledger", "--report", rep, *flags])
+        armed = (transfer_guard.enabled(), retrace_sanitizer.enabled(), aot_cache.active())
+    finally:
+        transfer_guard.arm(None)
+        retrace_sanitizer.arm(None)
+        retrace_sanitizer.uninstall()
+        retrace_sanitizer.reset()
+        aot_cache.reset()
+    assert rc == 0
+    with open(rep) as fh:
+        assert json.load(fh)["scenes"][0]["digest"] == digest
+    if "--profile_dir" in flags:
+        assert os.path.isfile(str(tmp_path / "p" / "trace.json"))
+    if "--xprof" in flags:
+        assert os.listdir(str(tmp_path / "r_events_xprof")) == ["cluster-0"]
+    assert armed[0] == ("--transfer-guard" in flags)
+    assert armed[1] == ("--retrace-sanitizer" in flags)
+    assert (armed[2] is not None) == ("--aot-cache" in flags)
+    if "{tmp}/aot" in " ".join(f.replace(str(tmp_path), "{tmp}") for f in flags):
+        assert armed[2].root == str(tmp_path / "aot")
 
 
 @pytest.fixture

@@ -20,7 +20,7 @@ fields (``seconds`` / ``scene_seconds`` aside), digests included.
 Daemon tier (the port's daemon on a Unix socket, ``device="cpu"``): served
 digests equal the JAX worker's, ``queue_full``, ``draining`` and
 ``deadline`` rejects, the WAL replay and dedupe, the ``status`` op, the
-unported options' ``NotImplementedError`` and the CLI's digest line. The
+tooling options reaching the daemon and the CLI's digest line. The
 canary sentinel's daemon tests are in ``tests/test_torch_canary.py``.
 """
 
@@ -767,12 +767,33 @@ def test_daemon_unported_options_name_their_items(daemon):
 @pytest.mark.parametrize("flags,item", [
     (["--retrace-sanitizer"], "A10"), (["--aot-cache"], "A10"), (["--no-freeze"], "A10"),
 ])
-def test_cli_refuses_unported_flags(flags, item):
+def test_cli_refuses_unported_flags(monkeypatch, flags, item):
+    """The A10 flags are ported: each reaches the daemon as the JAX CLI
+    passes it (the sanitizer armed and hooked, the cache directory in the
+    config, the freeze off)."""
+    import maskclustering_tpu_torch.serve.daemon as daemon_mod
+    from maskclustering_tpu_torch.analysis import retrace_sanitizer
     from maskclustering_tpu_torch.serve.__main__ import main
 
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        main(["--config", "scannet", "--socket", "/tmp/never.sock", "--device", "cpu",
-              *flags])
+    seen = {}
+
+    def stand_in(cfg, **kw):
+        seen.update(kw, cfg=cfg, sanitizer=retrace_sanitizer.enabled())
+        raise _DaemonSeen()
+
+    monkeypatch.setattr(daemon_mod, "ServeDaemon", stand_in)
+    try:
+        with pytest.raises(_DaemonSeen):
+            main(["--config", "scannet", "--socket", "/tmp/never.sock", "--device", "cpu",
+                  "--no-journal", "--no-stream-state", *flags])
+    finally:
+        retrace_sanitizer.arm(None)
+        retrace_sanitizer.uninstall()
+        faults.set_plan(None)
+    assert item == "A10"
+    assert seen["sanitizer"] == ("--retrace-sanitizer" in flags)
+    assert seen["freeze_after_warm"] == ("--no-freeze" not in flags)
+    assert seen["cfg"].aot_cache_dir == ("auto" if "--aot-cache" in flags else "")
 
 
 class _DaemonSeen(Exception):
