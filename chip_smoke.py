@@ -234,19 +234,27 @@ Imports nothing of JAX or of the JAX package. In order:
     objects and digests equal to the CPU route's on the same scan, which
     ``--ingest-reference`` computes (minutes on the CPU) and
     INGEST_CPU_DIGESTS keeps;
-19. visualisation and the TASMap variant. (a) ``splat_depth`` and
-    ``splat_color`` (``ops/cuda/splat.cu``) bit-equal to their plain
-    versions on the cases of ``ops/splat_cases.py``, and
-    ``project_zbuffer`` on the card equal to the CPU's. (b) The ``vis`` and
-    ``top_images`` steps over phase 10's second full-size scan on the card,
-    the inputs of every splat kept: two launches an (object, representative
-    frame); the same steps on the CPU into a second root: every file
-    byte-equal. (c) Both kernels bit-equal to the plain version on every
-    kept splat (the step's zero colours and seeded ones), timed with CUDA
-    events at the largest beside the plain version and the byte bound, and
-    summed over the scan. (d) ``TASMAP_STEPS`` over the mid-size scan,
-    copied without its masks and masked by ``"grid"``, on the card and on
-    the CPU: every file equal (``tasmap_launches``);
+19. visualisation and the TASMap variant. (a) ``splat_depth``,
+    ``splat_color`` and ``splat_bbox`` (``ops/cuda/splat.cu``) bit-equal to
+    their plain versions, over F cameras and at F = 1, on the cases and
+    batches of ``ops/splat_cases.py``; ``project_zbuffer`` and
+    ``bbox(es)_by_projection`` on the card equal to the CPU's. (b) The
+    ``vis`` and ``top_images`` steps over phase 10's second full-size scan
+    on the card, the box inputs of every object kept: one ``splat_bbox``
+    launch and one pull an object, no depth or colour pass; the same steps
+    on the CPU into a second root: every file byte-equal. (c) The three
+    entries bit-equal to their plain versions on every kept object, batched
+    and at F = 1 (zero colours and seeded ones), the box equal to the one
+    taken from the plain z-buffer with ``isfinite`` and ``nonzero``; each
+    timed with CUDA events over the wrapper and as kernel-only time from a
+    ``torch.profiler`` trace, at the largest object beside the plain
+    version and the byte bound, and summed over the scan, beside the
+    step's old schedule of two F = 1 passes a frame run through these
+    kernels. (e) ``project_zbuffer``, the render entry, into every (object,
+    frame) pair on the card, counts set to 0 just before: one depth and one
+    colour launch a frame, equal to the CPU. (d) ``TASMAP_STEPS`` over
+    the mid-size scan, copied without its masks and masked by ``"grid"``,
+    on the card and on the CPU: every file equal (``tasmap_launches``);
 20. the static checks: ``python -m maskclustering_tpu_torch.analysis``
     exits 0 against the port's baseline on the card's machine (no jax), while
     ``python -m maskclustering_tpu_torch.run --lock-sanitizer`` clusters
@@ -282,7 +290,9 @@ Every perf-ledger row of the script goes to a temporary file
 three lines are the card line, the per-kernel JSON (each association row
 with its launches in every path, ``isolated_launches`` read from the
 isolated child's ``bye``, ``ingest_launches`` phase 18's,
-``tasmap_launches`` phase 19d's; the splat rows phase 19's) and the result
+``tasmap_launches`` phase 19d's; the depth and colour rows' ``launches``
+phase 19e's, ``splat_bbox``'s the top_images step's, each beside its
+``step_launches``) and the result
 JSON. ``[done]`` gives each phase's seconds.
 """
 
@@ -3980,152 +3990,350 @@ def ingest_reference() -> int:
 
 # phase 19: the visualisation steps on phase 10's second full-size scan, the
 # TASMap variant on the mid-size scan (its masks made by the grid
-# segmenter), and the seeded colours each recorded splat is checked with
+# segmenter), and the seeded colours each recorded object is checked with
 VIS_SCAN = BATCH_SCANS[1]
-SPLAT_KERNELS = ("splat_depth", "splat_color")
+SPLAT_KERNELS = ("splat_depth", "splat_color", "splat_bbox")
+# the kernels of the render entry (project_zbuffer); the top_images step
+# launches only splat_bbox
+RENDER_KERNELS = ("splat_depth", "splat_color")
 SPLAT_COLOR_SEED = 19
+# each splat entry's kernels in a profiler trace (their __global__ functions
+# in splat.cu; the colour pass's zeroing is a memset)
+SPLAT_TRACE = {"splat_depth": ("fill_kernel", "splat_depth_kernel"),
+               "splat_color": ("Memset", "splat_color_kernel"),
+               "splat_bbox": ("box_init_kernel", "splat_bbox_kernel")}
 
 
 @contextlib.contextmanager
-def recording_splats(calls):
-    """Keep the inputs of every ``project_zbuffer`` call on a CUDA device
-    (the top_images step's splats): ``(points, intrinsics, cam_to_world,
-    height, width)``, the points as the card tensor the step passed."""
+def recording_boxes(calls):
+    """Keep the inputs of every ``bboxes_by_projection`` call on a CUDA
+    device (the top_images step's boxes, one call an object):
+    ``(points, intrinsics (F, 3, 3), cam_to_world (F, 4, 4), height,
+    width)``, the points as the card tensor the step passed."""
     import torch
 
     from maskclustering_tpu_torch.visualize import top_images
 
-    real = top_images.project_zbuffer
+    real = top_images.bboxes_by_projection
 
-    def rec(points, colors, intrinsics, cam_to_world, height, width, *, device=None):
-        out = real(points, colors, intrinsics, cam_to_world, height, width, device=device)
+    def rec(points, intrinsics, cam_to_world, image_hw, *, device=None):
+        out = real(points, intrinsics, cam_to_world, image_hw, device=device)
         if isinstance(points, torch.Tensor) and points.device.type == "cuda":
-            calls.append((points, intrinsics, cam_to_world, height, width))
+            calls.append((points, intrinsics, cam_to_world, *image_hw))
         return out
 
-    top_images.project_zbuffer = rec
+    top_images.bboxes_by_projection = rec
     try:
         yield calls
     finally:
-        top_images.project_zbuffer = real
+        top_images.bboxes_by_projection = real
 
 
 def _splat_inputs(dev, call, seed: int):
-    """(points, seeded colours in [0, 1), params) of a recorded call on the card."""
+    """(points, seeded colours in [0, 1), (F, 16) cameras) of a recorded
+    object on the card, the cameras made as the step makes them."""
     import numpy as np
     import torch
 
-    from maskclustering_tpu_torch.visualize.top_images import splat_params
+    from maskclustering_tpu_torch.visualize.top_images import _camera_params
 
-    pts, intr, c2w, h, w = call
+    pts, intr, c2w, _, _ = call
     pts = pts.to(dev).contiguous()
     cols = torch.from_numpy(np.random.default_rng(seed).random(
         (pts.shape[0], 3), dtype=np.float32)).to(dev)
-    f32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.float32).to(dev)  # noqa: E731
-    return pts, cols, splat_params(f32(intr), f32(c2w))
+    return pts, cols, _camera_params(intr, c2w, dev)
 
 
-def _splat_both(dev, pts, cols, prm, h, w):
-    """The kernels' and the plain version's (zbuf, codebuf, visible) on the card."""
-    from maskclustering_tpu_torch.ops.cuda import splat_color_cuda, splat_depth_cuda
+def _splat_all(pts, cols, prm, h, w):
+    """The kernels' and the plain versions' (zbuf, codebuf, visible, box) on
+    the card, for (F, 16) cameras or one (16,)."""
+    from maskclustering_tpu_torch.ops.cuda import (
+        splat_bbox_cuda,
+        splat_color_cuda,
+        splat_depth_cuda,
+    )
     from maskclustering_tpu_torch.visualize import top_images as ti
 
     zb = splat_depth_cuda(pts, prm, height=h, width=w)
-    got = (zb, *splat_color_cuda(pts, cols, prm, zb, height=h, width=w))
+    got = (zb, *splat_color_cuda(pts, cols, prm, zb, height=h, width=w),
+           splat_bbox_cuda(pts, prm, height=h, width=w))
     zr = ti.splat_depth_reference(pts, prm, h, w)
-    want = (zr, *ti.splat_color_reference(pts, cols, prm, zr, h, w))
+    want = (zr, *ti.splat_color_reference(pts, cols, prm, zr, h, w),
+            ti.splat_bbox_reference(pts, prm, h, w))
     return got, want
 
 
+def _splat_differs(pts, cols, prm, h, w) -> list:
+    """What the three entries get wrong against their plain versions, over
+    the (F, 16) cameras and over each one alone (F = 1)."""
+    import torch
+
+    bad = []
+    for label, cams in [("batched", prm)] + [(f"frame {k}", prm[k:k + 1])
+                                             for k in range(prm.shape[0])]:
+        got, want = _splat_all(pts, cols, cams, h, w)
+        bad += [f"{label} {what}" for what, g, r in zip(
+            ("zbuf", "codebuf", "visible", "box"), got, want) if not torch.equal(g, r)]
+    return bad
+
+
 def check_splat_edges(dev) -> None:
-    """The splat kernels bit-equal to their plain versions on the card, and
-    the card's ``project_zbuffer`` equal to the CPU's, on every case of
-    ``ops/splat_cases.py``."""
+    """The three splat entries bit-equal to their plain versions on the
+    card, batched and at F = 1, on every case and batch of
+    ``ops/splat_cases.py``; the card's ``project_zbuffer`` (each frame of a
+    batch) and ``bbox(es)_by_projection`` equal to the CPU's on each."""
     import torch
 
-    from maskclustering_tpu_torch.ops.splat_cases import SPLAT_CASES
-    from maskclustering_tpu_torch.visualize.top_images import project_zbuffer, splat_params
-
-    for name, c in SPLAT_CASES.items():
-        h, w = c["height"], c["width"]
-        pts = torch.from_numpy(c["points"]).to(dev)
-        cols = torch.from_numpy(c["colors"]).to(dev)
-        prm = splat_params(torch.from_numpy(c["intrinsics"]).to(dev),
-                           torch.from_numpy(c["cam_to_world"]).to(dev))
-        got, want = _splat_both(dev, pts, cols, prm, h, w)
-        card = project_zbuffer(c["points"], c["colors"], c["intrinsics"], c["cam_to_world"],
-                               h, w, device=dev)
-        host = project_zbuffer(c["points"], c["colors"], c["intrinsics"], c["cam_to_world"],
-                               h, w, device="cpu")
-        bad = [what for what, g, r in zip(("zbuf", "codebuf", "visible"), got, want)
-               if not torch.equal(g, r)]
-        bad += [what for what, g, r in zip(("image", "zmap", "visible"), card, host)
-                if not torch.equal(g.cpu().view(torch.uint8), r.view(torch.uint8))]
-        if bad:
-            raise AssertionError(f"splat case {name}: the card differs in {bad}")
-    _say(f"[vis] splat_depth and splat_color == plain on the {len(SPLAT_CASES)} cases of "
-         f"ops/splat_cases.py; project_zbuffer cuda == cpu on each")
-
-
-def _splat_bound_ms(n: int, h: int, w: int) -> dict:
-    """Each pass's least time from its bytes: inputs read once, outputs
-    written once (the depth pass: points, camera, the (H*W + 1) buffer; the
-    colour pass: points, colours, camera and the depth buffer in, the code
-    buffer and the visible bytes out)."""
-    pix = 4 * (h * w + 1)
-    depth = 12 * n + 64 + pix
-    color = 24 * n + 64 + pix + pix + n
-    return {"splat_depth": depth, "splat_color": color}
-
-
-def check_and_time_splats(dev, calls) -> dict:
-    """Phase 19: both kernels bit-equal to the plain version on every
-    recorded call (the step's zero colours and seeded ones), timed with
-    CUDA events at the largest call and summed over the scan."""
-    import torch
-
-    from maskclustering_tpu_torch.ops.cuda import splat_color_cuda, splat_depth_cuda
+    from maskclustering_tpu_torch.ops.splat_cases import SPLAT_BATCHES, SPLAT_CASES
     from maskclustering_tpu_torch.visualize import top_images as ti
 
-    scene_ms = {k: 0.0 for k in SPLAT_KERNELS}
-    scene_bytes = {k: 0 for k in SPLAT_KERNELS}
+    for one, name, c in [*((True, *kv) for kv in SPLAT_CASES.items()),
+                         *((False, *kv) for kv in SPLAT_BATCHES.items())]:
+        h, w = c["height"], c["width"]
+        bad = []
+        if not one:  # each batch holds its case's own camera: F = 1 there
+            pts = torch.from_numpy(c["points"]).to(dev)
+            cols = torch.from_numpy(c["colors"]).to(dev)
+            prm = ti._camera_params(c["intrinsics"], c["cam_to_world"], dev)
+            bad += _splat_differs(pts, cols, prm, h, w)
+        box = ti.bbox_by_projection if one else ti.bboxes_by_projection
+        cams = [(c["intrinsics"], c["cam_to_world"])] if one else \
+            list(zip(c["intrinsics"], c["cam_to_world"]))
+        for intr, c2w in cams:
+            args = (c["points"], c["colors"], intr, c2w, h, w)
+            card = ti.project_zbuffer(*args, device=dev)
+            host = ti.project_zbuffer(*args, device="cpu")
+            bad += [what for what, g, r in zip(("image", "zmap", "visible"), card, host)
+                    if not torch.equal(g.cpu().view(torch.uint8), r.view(torch.uint8))]
+        args = (c["points"], c["intrinsics"], c["cam_to_world"], (h, w))
+        if box(*args, device=dev) != box(*args, device="cpu"):
+            bad.append("box")
+        if bad:
+            raise AssertionError(f"splat {'case' if one else 'batch'} {name}: the card "
+                                 f"differs in {bad}")
+    _say(f"[vis] splat_depth, splat_color and splat_bbox == plain, batched and at F = 1, on the "
+         f"{len(SPLAT_CASES)} cases and {len(SPLAT_BATCHES)} batches of ops/splat_cases.py; "
+         f"project_zbuffer and bbox(es)_by_projection cuda == cpu on each")
+
+
+def _plain_box(zbuf, h: int, w: int) -> list:
+    """Each frame's box from a depth buffer as JAX takes it: ``isfinite``,
+    then ``nonzero``."""
+    import torch
+
+    out = []
+    for row in zbuf:
+        ys, xs = torch.nonzero(torch.isfinite(row[:h * w].view(torch.float32).reshape(h, w)),
+                               as_tuple=True)
+        out.append(None if ys.numel() == 0 else (int(xs.min()), int(ys.min()),
+                                                 int(xs.max()), int(ys.max())))
+    return out
+
+
+def _trace_events(path: str) -> list:
+    """[(name, ms)] of the kernels and memsets of a chrome trace, in the
+    order they started."""
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [(name, ms) for _, name, ms in sorted(
+        (float(ev["ts"]), ev["name"], float(ev["dur"]) / 1e3) for ev in events
+        if ev.get("cat") in ("kernel", "gpu_memset") and "dur" in ev)]
+
+
+def _entry_device_ms(events: list, entry: str, calls: int):
+    """(kernel ms of each of ``calls`` launches of ``entry``'s main kernel,
+    device ms of each of those calls with its fill) from a list of
+    :func:`_trace_events`, or None when it holds other counts."""
+    fill, main = SPLAT_TRACE[entry]
+    kern = [ms for name, ms in events if main in name]
+    pre = [ms for name, ms in events if fill in name]
+    if len(kern) != calls or len(pre) != calls:
+        return None
+    return kern, [a + b for a, b in zip(pre, kern)]
+
+
+# profiled rounds of a window: a trace may lose the first events of a
+# window, so only the last round is read
+SPLAT_PROFILE_ROUNDS = 3
+
+
+def profile_splats(objects, tmp: str):
+    """Kernel-only device times from two ``torch.profiler`` windows, each of
+    SPLAT_PROFILE_ROUNDS rounds of which the last is read: every entry once
+    on every recorded object, then the step's old schedule through these
+    kernels (a depth and a colour pass a frame at F = 1). Returns ({entry:
+    (kernel ms of each object's launch, device ms of each object's call)},
+    the F = 1 schedule's device ms over the scan); None where the trace does
+    not hold the round whole."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from maskclustering_tpu_torch.ops.cuda import (
+        splat_bbox_cuda,
+        splat_color_cuda,
+        splat_depth_cuda,
+    )
+
+    def window(label, fn, per_round):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(SPLAT_PROFILE_ROUNDS):
+                fn()
+            torch.cuda.synchronize()
+        path = os.path.join(tmp, f"splat_{label}.json")
+        prof.export_chrome_trace(path)
+        events = _trace_events(path)
+        return events[-per_round:] if len(events) >= per_round else []
+
+    def new():
+        for pts, cols, prm, h, w in objects:
+            zb = splat_depth_cuda(pts, prm, height=h, width=w)
+            splat_color_cuda(pts, cols, prm, zb, height=h, width=w)
+            splat_bbox_cuda(pts, prm, height=h, width=w)
+
+    def single():
+        for pts, _, prm, h, w in objects:
+            zeros = torch.zeros_like(pts)
+            for k in range(prm.shape[0]):
+                zb = splat_depth_cuda(pts, prm[k:k + 1], height=h, width=w)
+                splat_color_cuda(pts, zeros, prm[k:k + 1], zb, height=h, width=w)
+
+    # a round's device events: each entry's kernel and its fill an object;
+    # the F = 1 schedule's zero colours and four events a frame
+    events = window("batched", new, 6 * len(objects))
+    per = {k: _entry_device_ms(events, k, len(objects)) for k in SPLAT_KERNELS}
+    frames = sum(prm.shape[0] for _, _, prm, _, _ in objects)
+    f1_events = window("f1", single, len(objects) + 4 * frames)
+    whole = sum(1 for name, _ in f1_events if "splat_depth_kernel" in name) == frames
+    return per, (sum(ms for _, ms in f1_events) if whole else None)
+
+
+def check_and_time_splats(dev, calls, tmp: str) -> dict:
+    """Phase 19 (c): the three entries bit-equal to their plain versions on
+    every recorded object, batched and at F = 1 (the step's zero colours and
+    seeded ones), and the box equal to the one JAX takes from the plain
+    z-buffer; each entry timed with CUDA events over its wrapper and as
+    kernel-only device time from a profiler trace, at the largest object and
+    summed over the scan, beside the step's old schedule run through these
+    kernels (two F = 1 passes a frame; not the parent's code, whose
+    separate fills and host work it leaves out)."""
+    import torch
+
+    from maskclustering_tpu_torch.ops.cuda import (
+        splat_bbox_cuda,
+        splat_bytes,
+        splat_color_cuda,
+        splat_depth_cuda,
+    )
+    from maskclustering_tpu_torch.visualize import top_images as ti
+
+    t0 = time.perf_counter()
+    objects = []
     for i, call in enumerate(calls):
         pts, cols, prm = _splat_inputs(dev, call, SPLAT_COLOR_SEED + i)
         h, w = call[3], call[4]
         for colours in (torch.zeros_like(cols), cols):
-            got, want = _splat_both(dev, pts, colours, prm, h, w)
-            bad = [what for what, g, r in zip(("zbuf", "codebuf", "visible"), got, want)
-                   if not torch.equal(g, r)]
+            bad = _splat_differs(pts, colours, prm, h, w)
             if bad:
-                raise AssertionError(f"splat call {i} ({pts.shape[0]} points, {h}x{w}): the "
-                                     f"kernels differ from the plain version in {bad}")
+                raise AssertionError(f"splat object {i} ({pts.shape[0]} points, {prm.shape[0]} "
+                                     f"frames, {h}x{w}): the kernels differ from the plain "
+                                     f"version in {bad}")
+        rows = splat_bbox_cuda(pts, prm, height=h, width=w).cpu().tolist()
+        boxes = [None if r[0] > r[2] else tuple(r) for r in rows]
+        if boxes != _plain_box(ti.splat_depth_reference(pts, prm, h, w), h, w):
+            raise AssertionError(f"splat object {i}: splat_bbox {boxes} is not the box of the "
+                                 f"plain z-buffer's finite pixels")
+        objects.append((pts, cols, prm, h, w))
+
+    def entries(pts, cols, prm, h, w, zb, zr):
+        return {"splat_depth": (lambda: splat_depth_cuda(pts, prm, height=h, width=w),
+                                lambda: ti.splat_depth_reference(pts, prm, h, w)),
+                "splat_color": (lambda: splat_color_cuda(pts, cols, prm, zb, height=h, width=w),
+                                lambda: ti.splat_color_reference(pts, cols, prm, zr, h, w)),
+                "splat_bbox": (lambda: splat_bbox_cuda(pts, prm, height=h, width=w),
+                               lambda: ti.splat_bbox_reference(pts, prm, h, w))}
+
+    def f1_schedule(pts, prm, h, w):
+        zeros = torch.zeros_like(pts)
+
+        def run():
+            for k in range(prm.shape[0]):
+                zb = splat_depth_cuda(pts, prm[k:k + 1], height=h, width=w)
+                splat_color_cuda(pts, zeros, prm[k:k + 1], zb, height=h, width=w)
+        return run
+
+    seconds = {"check": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    scene_ms = {k: 0.0 for k in SPLAT_KERNELS}
+    scene_bytes = {k: 0 for k in SPLAT_KERNELS}
+    f1_scene_ms = 0.0
+    for pts, cols, prm, h, w in objects:
         zb = splat_depth_cuda(pts, prm, height=h, width=w)
-        scene_ms["splat_depth"] += cuda_time_ms(
-            lambda: splat_depth_cuda(pts, prm, height=h, width=w), 10)
-        scene_ms["splat_color"] += cuda_time_ms(
-            lambda: splat_color_cuda(pts, cols, prm, zb, height=h, width=w), 10)
-        for k, v in _splat_bound_ms(pts.shape[0], h, w).items():
-            scene_bytes[k] += v
-    big = max(range(len(calls)), key=lambda i: calls[i][0].shape[0])
-    pts, cols, prm = _splat_inputs(dev, calls[big], SPLAT_COLOR_SEED + big)
-    h, w = calls[big][3], calls[big][4]
+        for k, (kern, _) in entries(pts, cols, prm, h, w, zb, None).items():
+            scene_ms[k] += cuda_time_ms(kern, 10)
+            scene_bytes[k] += splat_bytes(k, pts.shape[0], prm.shape[0], h, w)
+        f1_scene_ms += cuda_time_ms(f1_schedule(pts, prm, h, w), 10)
+    big = max(range(len(objects)), key=lambda i: objects[i][0].shape[0])
+    pts, cols, prm, h, w = objects[big]
     zb = splat_depth_cuda(pts, prm, height=h, width=w)
     zr = ti.splat_depth_reference(pts, prm, h, w)
-    timed = {
-        "splat_depth": (lambda: splat_depth_cuda(pts, prm, height=h, width=w),
-                        lambda: ti.splat_depth_reference(pts, prm, h, w)),
-        "splat_color": (lambda: splat_color_cuda(pts, cols, prm, zb, height=h, width=w),
-                        lambda: ti.splat_color_reference(pts, cols, prm, zr, h, w)),
-    }
-    nbytes = _splat_bound_ms(pts.shape[0], h, w)
+    nbytes = {k: splat_bytes(k, pts.shape[0], prm.shape[0], h, w) for k in SPLAT_KERNELS}
+    f1_big_ms = cuda_time_ms(f1_schedule(pts, prm, h, w), 50)
+    seconds["time"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    device, f1_device = profile_splats(objects, tmp)
+    seconds["profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     out = {}
-    for k, (kern, plain) in timed.items():
+    for k, (kern, plain) in entries(pts, cols, prm, h, w, zb, zr).items():
+        traced = device.get(k)
         out[k] = {"ms": cuda_time_ms(kern, 50), "plain_ms": cuda_time_ms(plain, 20),
                   "bytes": nbytes[k], "bound_ms": nbytes[k] / PEAK_HBM_BYTES * 1e3,
                   "bound_by": "bytes", "max_abs_err": 0.0, "scene_ms": scene_ms[k],
                   "scene_bound_ms": scene_bytes[k] / PEAK_HBM_BYTES * 1e3,
-                  "shape": (int(pts.shape[0]), h, w)}
+                  "kernel_ms": traced[0][big] if traced else None,
+                  "device_ms": traced[1][big] if traced else None,
+                  "scene_kernel_ms": sum(traced[0]) if traced else None,
+                  "scene_device_ms": sum(traced[1]) if traced else None,
+                  "shape": (int(pts.shape[0]), int(prm.shape[0]), h, w)}
+    seconds["time largest"] = time.perf_counter() - t0
+    out["f1_schedule"] = {"ms": f1_big_ms, "scene_ms": f1_scene_ms,
+                          "scene_device_ms": f1_device, "frames": int(prm.shape[0]),
+                          "seconds": {k: round(v, 2) for k, v in seconds.items()}}
     return out
+
+
+def render_frames(dev, calls) -> dict:
+    """Phase 19 (e): ``project_zbuffer``, the render entry a user calls,
+    into each frame of every recorded object with its seeded colours on the
+    card, the counts set to 0 just before and read just after; each image,
+    depth and visibility equal to the CPU's. Returns the counts: one depth
+    and one colour launch a frame."""
+    import torch
+
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.visualize.top_images import project_zbuffer
+
+    inputs = []
+    for i, (pts, intr, c2w, h, w) in enumerate(calls):
+        cols = _splat_inputs(dev, (pts, intr, c2w, h, w), SPLAT_COLOR_SEED + i)[1]
+        inputs += [(pts, cols, intr[k], c2w[k], h, w) for k in range(len(intr))]
+    kernels.LAUNCHES.reset()
+    card = [project_zbuffer(*args, device=dev) for args in inputs]
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES.counts)
+    for i, (args, got) in enumerate(zip(inputs, card)):
+        want = project_zbuffer(args[0].cpu(), args[1].cpu(), *args[2:], device="cpu")
+        bad = [what for what, g, r in zip(("image", "zmap", "visible"), got, want)
+               if not torch.equal(g.cpu().view(torch.uint8), r.view(torch.uint8))]
+        if bad:
+            raise AssertionError(f"project_zbuffer (object, frame) {i}: cuda and cpu differ "
+                                 f"in {bad}")
+    for k in RENDER_KERNELS:
+        if launches.get(k, 0) != len(inputs):
+            raise AssertionError(f"project_zbuffer launched {k} {launches.get(k, 0)} times for "
+                                 f"{len(inputs)} (object, frame) pairs")
+    return launches
 
 
 def _tree_files(root: str) -> dict:
@@ -4166,26 +4374,41 @@ def vis_phase(dev, card: str, batch) -> dict:
     from maskclustering_tpu_torch.run import TASMAP_STEPS, run_pipeline
 
     t_phase = time.perf_counter()
+    parts, t_part = {}, [t_phase]
+
+    def part(name: str) -> None:
+        """Book the seconds since the last part of the phase to ``name``."""
+        now = time.perf_counter()
+        parts[name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
     check_splat_edges(dev)
+    part("cases")
     root, cfg, pred = batch["root"], batch["cfg"], batch["pred"]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_vis_")
     try:
-        # (a) vis + top_images on the card, every splat's inputs kept
+        # (a) vis + top_images on the card, every object's box inputs kept
         calls = []
-        with recording_splats(calls):
+        with recording_boxes(calls):
             rep, launches = _vis_steps(cfg, dev, pred)
+        part("steps cuda")
         od = os.path.join(root, "scannet", "processed", VIS_SCAN, "output", "object",
                           cfg.config_name, "object_dict.npy")
         objects = np.load(od, allow_pickle=True).item()
-        frames = sum(len(o.get("repre_mask_list", [])) for o in objects.values())
-        if len(calls) != frames or frames == 0:
-            raise AssertionError(f"{len(calls)} splats recorded for {frames} (object, frame) pairs")
-        for k in SPLAT_KERNELS:
-            if launches.get(k, 0) != frames:
-                raise AssertionError(f"{k} launched {launches.get(k, 0)} times for {frames} "
-                                     f"(object, frame) pairs")
+        framed = [o for o in objects.values() if o.get("repre_mask_list")]
+        frames = sum(len(o["repre_mask_list"]) for o in framed)
+        if len(calls) != len(framed) or frames == 0 \
+                or sum(len(c[1]) for c in calls) != frames:
+            raise AssertionError(f"{len(calls)} box calls recorded for {len(framed)} objects "
+                                 f"with {frames} (object, frame) pairs")
+        # one splat_bbox launch and one (F, 4) pull an object; no z-buffer
+        if launches.get("splat_bbox", 0) != len(calls) \
+                or any(launches.get(k, 0) for k in RENDER_KERNELS):
+            raise AssertionError(f"the top_images step launched {json.dumps(launches)} for "
+                                 f"{len(calls)} objects")
         _say(f"[vis] vis + top_images on {dev} over {VIS_SCAN}: {len(objects)} objects, {frames} "
-             f"(object, frame) splats, steps (s) {json.dumps({k: round(v, 3) for k, v in rep.step_seconds.items()})}; "
+             f"(object, frame) boxes in {len(calls)} splat_bbox launches and {len(calls)} pulls, "
+             f"steps (s) {json.dumps({k: round(v, 3) for k, v in rep.step_seconds.items()})}; "
              f"launches {json.dumps(launches)}")
         # (b) the same steps on the cpu into a second root (the scans linked)
         root2 = os.path.join(tmp, "cpu_root")
@@ -4199,17 +4422,40 @@ def vis_phase(dev, card: str, batch) -> dict:
         if card_files != cpu_files or not card_files:
             raise AssertionError(f"the vis files on {dev} and cpu differ: "
                                  f"{sorted(set(card_files.items()) ^ set(cpu_files.items()))[:6]}")
+        part("steps cpu")
         _say(f"[vis] {len(card_files)} files on {dev} == cpu byte for byte; cpu steps (s) "
              f"{json.dumps({k: round(v, 3) for k, v in rep_cpu.step_seconds.items()})}")
-        # (c) both kernels against the plain version on every splat, timed
-        timed = check_and_time_splats(dev, calls)
+        # (c) the three entries against the plain versions on every object,
+        # timed; (e) the render entry into every frame, its launches counted
+        timed = check_and_time_splats(dev, calls, tmp)
+        f1 = timed.pop("f1_schedule")
+        fmt = lambda v, d=4: "not measured" if v is None else f"{v:.{d}f} ms"  # noqa: E731
+        # the bound counts each entry's fill, so its share is read against
+        # the time that does the fill too: the wrapper's or the device's
+        share = lambda b, t: "not measured" if not t else f"{100 * b / t:.1f} %"  # noqa: E731
         for k, t in timed.items():
-            _say(f"[kernels] {k} == plain on all {len(calls)} splats (zero and seeded colours); "
-                 f"at the largest {t['shape']}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} "
-                 f"ms, bound {t['bound_ms']:.5f} ms ({t['bound_by']}: {t['bytes']} bytes), "
-                 f"{100 * t['bound_ms'] / t['ms']:.1f} % of the bound (the launch sets the time "
-                 f"at this size); summed over the scan: kernel {t['scene_ms']:.4f} ms, bound "
-                 f"{t['scene_bound_ms']:.5f} ms")
+            _say(f"[kernels] {k} == plain on all {len(calls)} objects, batched and at F = 1 (zero "
+                 f"and seeded colours); at the largest (N, F, H, W) {t['shape']}: wrapper "
+                 f"{t['ms']:.4f} ms (CUDA events), kernel {fmt(t['kernel_ms'])} and with its "
+                 f"fill {fmt(t['device_ms'])} (profiler), plain {t['plain_ms']:.4f} ms, bound "
+                 f"{t['bound_ms']:.5f} ms ({t['bound_by']}: {t['bytes']} bytes), "
+                 f"bound/time {share(t['bound_ms'], t['ms'])} by the wrapper, "
+                 f"{share(t['bound_ms'], t['device_ms'])} by the kernel with its fill; "
+                 f"summed over the scan: wrapper {t['scene_ms']:.4f} ms, kernel "
+                 f"{fmt(t['scene_kernel_ms'])}, with fills {fmt(t['scene_device_ms'])}, bound "
+                 f"{t['scene_bound_ms']:.5f} ms, bound/time "
+                 f"{share(t['scene_bound_ms'], t['scene_device_ms'])} with fills")
+        _say(f"[kernels] the step's old schedule through these kernels (a splat_depth and a "
+             f"splat_color launch at F = 1 a frame; not the parent's code): {f1['ms']:.4f} ms "
+             f"at the largest object ({f1['frames']} frames), {f1['scene_ms']:.4f} ms summed "
+             f"over the scan (CUDA events), {fmt(f1['scene_device_ms'])} of device time "
+             f"(profiler); the step now launches splat_bbox alone: "
+             f"{timed['splat_bbox']['scene_ms']:.4f} ms summed; (s) {json.dumps(f1['seconds'])}")
+        part("objects")
+        render_launches = render_frames(dev, calls)
+        part("render")
+        _say(f"[vis] project_zbuffer into the {frames} (object, frame) pairs on {dev} == cpu; "
+             f"launches {json.dumps(render_launches)}")
         # (d) TASMAP_STEPS on the mid-size scan, masks by the grid segmenter,
         # on the card and on the cpu: every file equal
         tas = {}
@@ -4240,13 +4486,17 @@ def vis_phase(dev, card: str, batch) -> dict:
         if f_card != f_cpu:
             raise AssertionError(f"TASMAP_STEPS files differ between {dev} and cpu: "
                                  f"{sorted(set(f_card.items()) ^ set(f_cpu.items()))[:6]}")
-        for k in ASSOCIATION_KERNELS + SPLAT_KERNELS:
+        for k in ASSOCIATION_KERNELS + ("splat_bbox",):
             if not tasmap_launches.get(k):
                 raise AssertionError(f"TASMAP_STEPS on {dev} launched no {k}")
+        if any(tasmap_launches.get(k, 0) for k in RENDER_KERNELS):
+            raise AssertionError(f"TASMAP_STEPS on {dev} rendered z-buffers: {tasmap_launches}")
+        part("tasmap")
         _say(f"[vis] TASMAP_STEPS: {len(f_card)} files on {dev} == cpu byte for byte (id-maps, "
              f"npz, object dict, PLYs, bbox and grid PNGs); phase 19 in "
-             f"{time.perf_counter() - t_phase:.1f} s ({card})")
-        return {"launches": launches, "timed": timed, "tasmap_launches": tasmap_launches}
+             f"{time.perf_counter() - t_phase:.1f} s ({card}), parts (s) {json.dumps(parts)}")
+        return {"launches": launches, "render_launches": render_launches, "timed": timed,
+                "tasmap_launches": tasmap_launches}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4868,15 +5118,22 @@ def main() -> int:
             "isolated_launches": iso["launches"][name],
             "ingest_launches": ingest["launches"][name],
             "tasmap_launches": vis["tasmap_launches"][name]})
+    # the render entry's kernels count project_zbuffer's launches over the
+    # scan's (object, frame) pairs; the box counts the top_images step's
     for name, t in vis["timed"].items():
         rows.append({
             "name": name, "route": "cuda", "kind": "xla_program",
             "source": "maskclustering_tpu_torch/ops/cuda/splat.cu",
-            "replaces": "maskclustering_tpu/visualize/top_images.py:25",
-            "launches": vis["launches"][name], "max_abs_err": t["max_abs_err"],
+            "replaces": ("maskclustering_tpu/visualize/top_images.py:66" if name == "splat_bbox"
+                         else "maskclustering_tpu/visualize/top_images.py:25"),
+            "launches": (vis["launches"] if name == "splat_bbox"
+                         else vis["render_launches"]).get(name, 0),
+            "max_abs_err": t["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": None, "scene_kernel_ms": t["scene_ms"],
-            "tasmap_launches": vis["tasmap_launches"][name]})
+            "trace_kernel_ms": t["kernel_ms"], "trace_scene_kernel_ms": t["scene_kernel_ms"],
+            "step_launches": vis["launches"].get(name, 0),
+            "tasmap_launches": vis["tasmap_launches"].get(name, 0)})
     shutil.rmtree(ledger_dir, ignore_errors=True)
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -61,7 +61,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 KERNELS = ("ball_query", "associate", "splat")
 # the launch counts' names: one per kernel entry
 ENTRIES = ("ball_query", "associate_table", "associate_claim", "associate_assign",
-           "splat_depth", "splat_color")
+           "splat_depth", "splat_color", "splat_bbox")
 
 
 class LaunchLog:
@@ -255,9 +255,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
                       lib.mc_associate_assign_scene):
             entry.restype = ctypes.c_int
     elif name == "splat":
-        lib.mc_splat_depth.argtypes = [p, i, p, i, i, p, i, p]
-        lib.mc_splat_color.argtypes = [p, p, i, p, i, i, p, p, p, i, p]
-        for entry in (lib.mc_splat_depth, lib.mc_splat_color):
+        lib.mc_splat_depth.argtypes = [p, i, p, i, i, i, p, i, p]
+        lib.mc_splat_color.argtypes = [p, p, i, p, i, i, i, p, p, p, i, p]
+        lib.mc_splat_bbox.argtypes = [p, i, p, i, i, i, p, i, p]
+        for entry in (lib.mc_splat_depth, lib.mc_splat_color, lib.mc_splat_bbox):
             entry.restype = ctypes.c_int
 
 
@@ -460,80 +461,137 @@ def associate_assign_scene_cuda(scene_points: torch.Tensor, table: torch.Tensor,
     return mop, first, last
 
 
-# the (16,) float32 parameters of a splat: world-to-camera rotation
+# the (16,) float32 parameters of a splat camera: world-to-camera rotation
 # (row-major 9) and translation (3), then fx, fy, cx, cy
 SPLAT_PARAMS = 16
 
 
 def _splat_inputs(name: str, points: torch.Tensor, params: torch.Tensor, height: int,
-                  width: int) -> None:
+                  width: int) -> int:
+    """Check the inputs every splat entry takes; returns F, the number of
+    cameras of ``params`` (F, 16)."""
     _check(points.dim() == 2 and points.shape[1] == 3 and points.dtype == torch.float32
            and points.is_contiguous(),
            f"{name}: points must be contiguous float32 (N, 3), got {tuple(points.shape)}")
-    _check(tuple(params.shape) == (SPLAT_PARAMS,) and params.dtype == torch.float32
-           and params.is_contiguous(),
-           f"{name}: params must be the contiguous float32 ({SPLAT_PARAMS},) camera, "
+    _check(params.dim() == 2 and params.shape[1] == SPLAT_PARAMS
+           and params.dtype == torch.float32 and params.is_contiguous(),
+           f"{name}: params must be the contiguous float32 (F, {SPLAT_PARAMS}) cameras, "
            f"got {tuple(params.shape)}")
     _check(height > 0 and width > 0 and height * width < 2 ** 31 - 1,
            f"{name}: need a positive image size under 2**31 pixels, got {height}x{width}")
     _check(points.shape[0] < 2 ** 31, f"{name}: at most 2**31 - 1 points")
+    return params.shape[0]
+
+
+def _splat_buffers(name: str, dev: torch.device, f: int, height: int,
+                   width: int) -> torch.Tensor:
+    """The (F, H*W + 1) int32 buffers an entry fills itself, 16-byte aligned
+    for its vector stores."""
+    buf = torch.empty((f, height * width + 1), dtype=torch.int32, device=dev)
+    _check(buf.data_ptr() % 16 == 0, f"{name}: the allocator gave an unaligned buffer")
+    return buf
+
+
+def splat_bytes(name: str, n: int, f: int, height: int, width: int) -> int:
+    """The bytes splat entry ``name`` must move for N points and F cameras,
+    each input read once and each output written once. The depth pass:
+    points and cameras in, the (F, H*W + 1) buffers out (their fill
+    included). The colour pass: points, colours and cameras in, the depth
+    of each pixel a point lands on (at most one a point and frame, at most
+    the buffer), the code buffers and the (F, N) visible bytes out. The
+    box: points and cameras in, (F, 4) int32 out."""
+    pix = f * (height * width + 1)
+    head = 12 * n + 4 * SPLAT_PARAMS * f
+    if name == "splat_depth":
+        return head + 4 * pix
+    if name == "splat_color":
+        return head + 12 * n + 4 * min(f * n, pix) + 4 * pix + f * n
+    if name == "splat_bbox":
+        return head + 16 * f
+    raise ValueError(f"no splat entry {name!r}")
 
 
 def splat_depth_cuda(points: torch.Tensor, params: torch.Tensor, *, height: int,
                      width: int) -> torch.Tensor:
-    """The CUDA depth pass of a splat (see ``splat.cu``): the (H*W + 1) int32
-    buffer of the float32 bits of each pixel's nearest depth, +inf where no
-    point lands (the last slot is the dump slot, always +inf)."""
+    """The CUDA depth pass of a splat into the F frames of ``params`` (F,
+    16), one launch (see ``splat.cu``): the (F, H*W + 1) int32 buffers of
+    the float32 bits of each pixel's nearest depth, +inf where no point
+    lands (the last slot of each is the dump slot, always +inf)."""
     name = "splat_depth_cuda"
-    _splat_inputs(name, points, params, height, width)
+    f = _splat_inputs(name, points, params, height, width)
     dev = _on_one_card(name, (points, params))
-    zbuf = torch.full((height * width + 1,), 0x7F800000, dtype=torch.int32, device=dev)
-    n = points.shape[0]
-    if n == 0:
+    zbuf = _splat_buffers(name, dev, f, height, width)
+    if f == 0:
         return zbuf
+    n = points.shape[0]
     lib = load("splat")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mc_splat_depth(points.data_ptr(), n, params.data_ptr(), height, width,
+        err = lib.mc_splat_depth(points.data_ptr(), n, params.data_ptr(), f, height, width,
                                  zbuf.data_ptr(), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"splat_depth kernel launch failed: CUDA error {err}")
-    pix = 4 * (height * width + 1)
-    _launched("splat_depth", (n, height, width), 0, 12 * n + 64 + pix)
+    _launched("splat_depth", (f, n, height, width), 0,
+              splat_bytes("splat_depth", n, f, height, width))
     return zbuf
 
 
 def splat_color_cuda(points: torch.Tensor, colors: torch.Tensor, params: torch.Tensor,
                      zbuf: torch.Tensor, *, height: int, width: int
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The CUDA colour pass of a splat (see ``splat.cu``) after
-    :func:`splat_depth_cuda`: ``(codebuf (H*W + 1) int32, visible (N,)
-    bool)``, each pixel's largest packed colour among its visible points (0
-    where none)."""
+    """The CUDA colour pass of a splat into the F frames of ``params`` (F,
+    16), one launch (see ``splat.cu``), after :func:`splat_depth_cuda`:
+    ``(codebuf (F, H*W + 1) int32, visible (F, N) bool)``, each pixel's
+    largest packed colour among its visible points (0 where none)."""
     name = "splat_color_cuda"
-    _splat_inputs(name, points, params, height, width)
+    f = _splat_inputs(name, points, params, height, width)
     _check(colors.shape == points.shape and colors.dtype == torch.float32
            and colors.is_contiguous(),
            f"{name}: colors must be contiguous float32 of the points' shape "
            f"{tuple(points.shape)}, got {tuple(colors.shape)}")
-    _check(tuple(zbuf.shape) == (height * width + 1,) and zbuf.dtype == torch.int32
-           and zbuf.is_contiguous(),
-           f"{name}: zbuf must be the contiguous int32 ({height * width + 1},) buffer of "
-           f"splat_depth_cuda, got {tuple(zbuf.shape)} {zbuf.dtype}")
+    want = (f, height * width + 1)
+    _check(tuple(zbuf.shape) == want and zbuf.dtype == torch.int32 and zbuf.is_contiguous(),
+           f"{name}: zbuf must be the contiguous int32 {want} buffer of splat_depth_cuda, "
+           f"got {tuple(zbuf.shape)} {zbuf.dtype}")
     dev = _on_one_card(name, (points, colors, params, zbuf))
     n = points.shape[0]
-    codebuf = torch.zeros((height * width + 1,), dtype=torch.int32, device=dev)
-    visible = torch.zeros((n,), dtype=torch.bool, device=dev)
-    if n == 0:
+    codebuf = _splat_buffers(name, dev, f, height, width)
+    visible = torch.empty((f, n), dtype=torch.bool, device=dev)
+    if f == 0:
         return codebuf, visible
     lib = load("splat")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mc_splat_color(points.data_ptr(), colors.data_ptr(), n, params.data_ptr(),
+        err = lib.mc_splat_color(points.data_ptr(), colors.data_ptr(), n, params.data_ptr(), f,
                                  height, width, zbuf.data_ptr(), codebuf.data_ptr(),
                                  visible.data_ptr(), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"splat_color kernel launch failed: CUDA error {err}")
-    pix = 4 * (height * width + 1)
-    _launched("splat_color", (n, height, width), 0, 24 * n + 64 + pix + pix + n)
+    _launched("splat_color", (f, n, height, width), 0,
+              splat_bytes("splat_color", n, f, height, width))
     return codebuf, visible
+
+
+def splat_bbox_cuda(points: torch.Tensor, params: torch.Tensor, *, height: int,
+                    width: int) -> torch.Tensor:
+    """The CUDA box of a splat into the F frames of ``params`` (F, 16), one
+    launch (see ``splat.cu``): (F, 4) int32 (min px, min py, max px, max py)
+    of the pixels whose depth :func:`splat_depth_cuda` would leave finite;
+    (INT32_MAX, INT32_MAX, INT32_MIN, INT32_MIN) where none is."""
+    name = "splat_bbox_cuda"
+    f = _splat_inputs(name, points, params, height, width)
+    dev = _on_one_card(name, (points, params))
+    box = torch.empty((f, 4), dtype=torch.int32, device=dev)
+    if f == 0:
+        return box
+    n = points.shape[0]
+    lib = load("splat")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mc_splat_bbox(points.data_ptr(), n, params.data_ptr(), f, height, width,
+                                box.data_ptr(), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"splat_bbox kernel launch failed: CUDA error {err}")
+    _launched("splat_bbox", (f, n, height, width), 0,
+              splat_bytes("splat_bbox", n, f, height, width))
+    return box

@@ -4,11 +4,15 @@
 A case (``SPLAT_CASES``) is a dict with the inputs of
 ``visualize.top_images.project_zbuffer``: ``points`` (N, 3) f32,
 ``colors`` (N, 3) f32, ``intrinsics`` (3, 3) f32, ``cam_to_world`` (4, 4)
-f32, ``height`` and ``width``. They are made with numpy from a fixed seed
-or planted by hand, and aim at the kernels' structure
-(``ops/cuda/splat.cu``): one thread a point in blocks of 256, integer
-atomics on the depth bits and the packed colour, the rounding of the pixel
-coordinate (half to even, saturating conversions) and of the colour
+f32, ``height`` and ``width``. A batch (``SPLAT_BATCHES``) holds F cameras
+instead, (F, 3, 3) and (F, 4, 4), as ``bboxes_by_projection`` and the
+kernels' (F, 16) cameras take them: every case under three cameras, and a
+frame no point lands in between two full ones. They are made with numpy
+from a fixed seed or planted by hand, and aim at the kernels' structure
+(``ops/cuda/splat.cu``): one thread a point in blocks of 256 looping over
+the frames, integer atomics on the depth bits and the packed colour, the
+box's warp and block reductions, the rounding of the pixel coordinate
+(half to even, saturating conversions, NaN to 0) and of the colour
 (truncation toward zero, then a clip).
 """
 
@@ -99,7 +103,61 @@ def _cases() -> Dict[str, Case]:
     # one row and one column images
     out["one_row"] = _random_cloud(5, 300, 1, 64)
     out["one_column"] = _random_cloud(6, 300, 48, 1)
+    # the box's traps. A point at z = +inf lands (its pixel x is NaN, which
+    # converts to column 0) but leaves +inf there: it must not widen the box
+    out["z_inf_in_bounds"] = _case([[0.0, 0.0, np.inf], [0.1, 0.1, 2.0], [0.2, 0.0, 2.0]],
+                                   np.full((3, 3), 0.5))
+    # a NaN pixel x (fx NaN) converts to 0: every point in front lands in
+    # column 0, which fills
+    k_nan = _K.copy()
+    k_nan[0, 0] = np.nan
+    out["nan_x"] = _case([[0.1, 0.1, 2.0], [-0.2, -0.3, 1.5], [0.3, 0.2, 3.0], [0, 0, -1.0]],
+                         np.full((4, 3), 0.75), k_nan)
+    # every point behind the camera: no box
+    out["all_behind"] = _case([[0.1, 0.1, -2.0], [0.0, 0.0, -1e-3], [-0.2, 0.3, -5.0]],
+                              np.full((3, 3), 0.5))
     return out
 
 
 SPLAT_CASES: Dict[str, Case] = _cases()
+
+
+def _turned_round(c2w: np.ndarray) -> np.ndarray:
+    """The camera rotated half a turn about its x axis: what was in front is
+    behind it."""
+    return (c2w @ np.diag([1.0, -1.0, -1.0, 1.0])).astype(np.float32)
+
+
+def _moved_back(c2w: np.ndarray, dist: float = 0.25) -> np.ndarray:
+    out = c2w.copy()
+    out[:3, 3] -= np.float32(dist) * c2w[:3, 2]
+    return out
+
+
+def batched(case: Case) -> Case:
+    """The case's points under three cameras, as the F-camera entries take
+    them: ``intrinsics`` (3, 3, 3) and ``cam_to_world`` (3, 4, 4), its own
+    camera, the same turned round and the same moved back along its axis."""
+    c2w = case["cam_to_world"]
+    out = dict(case)
+    out["intrinsics"] = np.stack([case["intrinsics"]] * 3)
+    out["cam_to_world"] = np.stack([c2w, _turned_round(c2w), _moved_back(c2w)])
+    return out
+
+
+def _batches() -> Dict[str, Case]:
+    out = {name: batched(c) for name, c in SPLAT_CASES.items()}
+    # a frame no point lands in between two full ones: every point is in
+    # front of the first and the last camera and behind the middle one
+    rng = np.random.default_rng(7)
+    n = 777
+    pts = np.stack([rng.uniform(-0.5, 0.5, n), rng.uniform(-0.4, 0.4, n),
+                    rng.uniform(1.0, 3.0, n)], 1).astype(np.float32)
+    eye = np.eye(4, dtype=np.float32)
+    out["empty_between"] = _case(pts, rng.uniform(0, 1, (n, 3)), np.stack([_K] * 3),
+                                 np.stack([eye, _turned_round(eye), _moved_back(eye)]))
+    return out
+
+
+# the F-camera cases: intrinsics (F, 3, 3), cam_to_world (F, 4, 4)
+SPLAT_BATCHES: Dict[str, Case] = _batches()

@@ -98,6 +98,14 @@ def _closed_safe(lines):
         yield line
 
 
+def _count_key(terminal: Dict, counts: Dict[str, int]) -> str:
+    """The stats digest's count a child terminal books under."""
+    status = terminal.get("status") or terminal.get("reason") or "failed"
+    if terminal.get("kind") == "reject":
+        return "deadline" if status == "deadline" else "failed"
+    return status if status in counts else "failed"
+
+
 class WorkerSupervisor:
     """Parent-side supervision of one card-owning worker subprocess.
 
@@ -371,6 +379,11 @@ class WorkerSupervisor:
             if kind in ("result", "reject"):
                 entry["terminal"] = doc
                 self._track_stream(entry["req"], doc)
+                # book the status before the client can see the terminal:
+                # a stats() call right after it must count this request
+                with self._lock:
+                    key = _count_key(doc, self._counts)
+                    self._counts[key] = self._counts.get(key, 0) + 1
                 _send(entry["req"], doc)
                 entry["done"].set()
             else:
@@ -723,15 +736,11 @@ class WorkerSupervisor:
 
     def _book_result(self, req: protocol.SceneRequest, terminal: Dict,
                      t0: float) -> None:
-        status = terminal.get("status") or terminal.get("reason") or "failed"
-        key = status if status in self._counts else "failed"
-        if terminal.get("kind") == "reject":
-            key = "deadline" if status == "deadline" else "failed"
         # per-status obs counters arrive via the relay (the child booked
-        # them); only the internal stats digest and the telemetry window's
-        # latency-by-bucket are parent-side bookings here
-        with self._lock:
-            self._counts[key] = self._counts.get(key, 0) + 1
+        # them) and the stats digest's count was booked by the reader
+        # before the terminal went out; only the latency and the telemetry
+        # window's latency-by-bucket are booked here
+        key = _count_key(terminal, self._counts)
         latency = time.monotonic() - t0
         self._latencies.append(latency)
         bucket = terminal.get("bucket")

@@ -1,9 +1,10 @@
 """Visualisation and debug images (``maskclustering_tpu/visualize/``).
 
 Host-side artifact writers plus one hot op, the z-buffered splat of an
-object into a frame (``top_images.project_zbuffer``), which launches the
-hand-written kernels of ``ops/cuda/splat.cu`` on the card. Every file is
-written through the port's own PNG and PLY writers, byte for byte what
+object into a frame (``top_images.project_zbuffer``) and the box of its
+pixels in each of its frames (``top_images.bboxes_by_projection``, one
+launch an object), which launch the hand-written kernels of
+``ops/cuda/splat.cu`` on the card. Every file is written through the port's own PNG and PLY writers, byte for byte what
 the JAX package writes (the label glyphs of ``vis_mask_frame`` aside).
 """
 
@@ -20,6 +21,7 @@ from maskclustering_tpu_torch.visualize.mask2d import (  # noqa: F401
 from maskclustering_tpu_torch.visualize.top_images import (  # noqa: F401
     project_zbuffer,
     bbox_by_projection,
+    bboxes_by_projection,
     draw_bbox,
     save_debug_grids,
 )

@@ -916,6 +916,43 @@ def test_isolated_daemon_serves_the_in_thread_digests(daemon, workers, tmp_path,
     assert final["cuda"] == {"build_s": {}, "launches": {}, "max_memory_allocated": None}
 
 
+def test_isolated_stats_count_the_terminal_the_client_holds(tmp_path, sockets, monkeypatch):
+    """The supervisor books a child terminal's status before it sends it:
+    with the batch loop held after the terminal (before it books the
+    latency), ``stats()`` already counts the request the client holds."""
+    from maskclustering_tpu_torch.serve.supervisor import WorkerSupervisor
+
+    release, held = threading.Event(), threading.Event()
+    book = WorkerSupervisor._book_result
+
+    def held_book(self, *args, **kwargs):
+        held.set()
+        release.wait(30.0)
+        return book(self, *args, **kwargs)
+
+    monkeypatch.setattr(WorkerSupervisor, "_book_result", held_book)
+    monkeypatch.setenv("STUB_DIR", str(tmp_path))
+    _, cfg = _cfgs(tmp_path, tmp_path, worker_heartbeat_s=5.0)
+    sock = sockets()
+    d = ServeDaemon(cfg, socket_path=sock, journal_dir=str(tmp_path / "j"), device="cpu",
+                    isolate_worker=True)
+    d.worker.child_argv = [sys.executable, STUB]
+    d.worker.start_timeout_s = 15.0
+    d.start()
+    try:
+        with ServeClient(sock, timeout_s=30.0) as c:
+            term, _, _ = c.run_scene("stub-ok")
+            assert held.wait(30.0)
+            counts = c.stats()["counts"]
+            release.set()
+    finally:
+        release.set()
+        d.request_stop()
+        d.shutdown()
+    assert term["status"] == "ok"
+    assert counts["requests"] == 1 and counts["ok"] == 1
+
+
 def test_pool_daemon_quota_reject_and_recarve_over_the_socket(tmp_path, sockets,
                                                               monkeypatch):
     """A pool daemon answers a tenant over its quota with a typed ``quota``

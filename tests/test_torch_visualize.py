@@ -24,7 +24,7 @@ import torch
 
 from maskclustering_tpu_torch import visualize as pv
 from maskclustering_tpu_torch.io.png import decode_png_rgb, encode_png_pillow
-from maskclustering_tpu_torch.ops.splat_cases import SPLAT_CASES
+from maskclustering_tpu_torch.ops.splat_cases import SPLAT_BATCHES, SPLAT_CASES
 from maskclustering_tpu_torch.visualize import top_images as pt
 
 # one intra-op thread: the suite runs in parallel worker processes
@@ -134,7 +134,7 @@ def test_cuda_tensor_never_takes_the_plain_version_here():
     from maskclustering_tpu_torch.ops.cuda import splat_depth_cuda
 
     with pytest.raises(ValueError, match="needs CUDA tensors"):
-        splat_depth_cuda(torch.zeros((2, 3)), torch.zeros(16), height=4, width=4)
+        splat_depth_cuda(torch.zeros((2, 3)), torch.zeros((1, 16)), height=4, width=4)
 
 
 @pytest.mark.parametrize("name", ["behind_camera", "half_pixel", "depth_ties", "all_invalid",
@@ -151,6 +151,130 @@ def test_bbox_by_projection_equal_to_jax(name):
     c = _JAX_TEST_CASES["bbox_half_even"]
     assert pv.bbox_by_projection(c["points"], c["intrinsics"], c["cam_to_world"], (48, 64),
                                  device="cpu") == (32, 24, 37, 26)
+
+
+def _random_batch(seed, frames):
+    """A random case's points under ``frames`` random posed cameras."""
+    cams = [_random_case(seed * 100 + k) for k in range(frames)]
+    case = dict(_random_case(seed))
+    case["intrinsics"] = np.stack([c["intrinsics"] for c in cams])
+    case["cam_to_world"] = np.stack([c["cam_to_world"] for c in cams])
+    return case
+
+
+_BATCH_NAMES = sorted(SPLAT_BATCHES) + ["random_f4", "random_f5"]
+
+
+def _batch(name):
+    if name in SPLAT_BATCHES:
+        return SPLAT_BATCHES[name]
+    return _random_batch(int(name[-1]), int(name[-1]))
+
+
+def _frame(case, k):
+    out = dict(case)
+    out["intrinsics"], out["cam_to_world"] = case["intrinsics"][k], case["cam_to_world"][k]
+    return out
+
+
+def _params(case):
+    return pt.splat_params(torch.from_numpy(case["intrinsics"]),
+                           torch.from_numpy(case["cam_to_world"]))
+
+
+@pytest.mark.parametrize("name", _BATCH_NAMES)
+def test_bboxes_by_projection_equal_to_jax(name):
+    """F cameras (F = 3..5) and each alone (F = 1): the batched box, its
+    plain version and the one-frame call equal F calls of the JAX
+    ``bbox_by_projection``."""
+    case = _batch(name)
+    hw = (case["height"], case["width"])
+    f = case["intrinsics"].shape[0]
+    jt = _jax("visualize.top_images")
+    want = [jt.bbox_by_projection(case["points"], case["intrinsics"][k],
+                                  case["cam_to_world"][k], hw) for k in range(f)]
+    got = pv.bboxes_by_projection(case["points"], case["intrinsics"], case["cam_to_world"], hw,
+                                  device="cpu")
+    assert got == want
+    pts = torch.from_numpy(case["points"])
+    box = pt.splat_bbox_reference(pts, _params(case), *hw)
+    assert box.shape == (f, 4) and box.dtype == torch.int32
+    for k in range(f):
+        row = tuple(box[k].tolist())
+        assert (None if row[0] > row[2] else row) == want[k]
+        one = _frame(case, k)
+        assert pv.bbox_by_projection(case["points"], one["intrinsics"], one["cam_to_world"], hw,
+                                     device="cpu") == want[k]
+        assert tuple(pt.splat_bbox_reference(pts, _params(one)[None], *hw)[0].tolist()) == row
+    if want.count(None):  # an empty frame keeps the reduction's start values
+        k = want.index(None)
+        assert box[k].tolist() == [2 ** 31 - 1, 2 ** 31 - 1, -2 ** 31, -2 ** 31]
+
+
+@pytest.mark.parametrize("name", _BATCH_NAMES)
+def test_project_zbuffers_equal_to_jax(name):
+    """The F-camera plain depth and colour passes (the kernels' plain
+    versions, one pass for all the frames) equal F calls of the JAX
+    ``project_zbuffer``, frame by frame, and each frame alone equals the
+    port's ``project_zbuffer``."""
+    case = _batch(name)
+    h, w = case["height"], case["width"]
+    pts, cols = torch.from_numpy(case["points"]), torch.from_numpy(case["colors"])
+    prm = _params(case)
+    zbuf = pt.splat_depth_reference(pts, prm, h, w)
+    codebuf, visible = pt.splat_color_reference(pts, cols, prm, zbuf, h, w)
+    f = case["intrinsics"].shape[0]
+    assert zbuf.shape == codebuf.shape == (f, h * w + 1) and visible.shape == (f, len(pts))
+    for k in range(f):
+        got = (pt._unpack(codebuf[k], h, w), zbuf[k, :h * w].view(torch.float32).reshape(h, w),
+               visible[k])
+        one = _frame(case, k)
+        port = pv.project_zbuffer(one["points"], one["colors"], one["intrinsics"],
+                                  one["cam_to_world"], h, w, device="cpu")
+        for what, g, p, r in zip(("image", "zbuf", "visible"), got, port, _jax_zbuffer(one)):
+            g = g.numpy()
+            assert g.dtype == r.dtype and g.shape == r.shape, what
+            assert np.array_equal(_bits(g), _bits(r)), f"{name} frame {k}: {what} differs"
+            assert np.array_equal(_bits(p.numpy()), _bits(r)), f"{name} frame {k}: {what}"
+
+
+def test_box_traps_are_live():
+    """The cases aim where they say: the point at z = +inf lands in the
+    image and leaves its pixel +inf; the NaN pixel x fills column 0; the
+    middle frame of ``empty_between`` is empty between two full ones."""
+    c = SPLAT_CASES["z_inf_in_bounds"]
+    prm = _params(c)[None]
+    valid, lin, z = pt._project(torch.from_numpy(c["points"]), prm, c["height"], c["width"])
+    assert bool(valid[0, 0]) and torch.isinf(z[0, 0]) and int(lin[0, 0]) == 0
+    zbuf = pt.splat_depth_reference(torch.from_numpy(c["points"]), prm, c["height"], c["width"])
+    assert int(zbuf[0, 0]) == 0x7F800000
+    c = SPLAT_CASES["nan_x"]
+    _, zmap, _ = pv.project_zbuffer(c["points"], c["colors"], c["intrinsics"],
+                                    c["cam_to_world"], c["height"], c["width"], device="cpu")
+    filled = torch.isfinite(zmap)
+    assert filled[:, 0].any() and not filled[:, 1:].any()
+    boxes = pv.bboxes_by_projection(SPLAT_BATCHES["empty_between"]["points"],
+                                    SPLAT_BATCHES["empty_between"]["intrinsics"],
+                                    SPLAT_BATCHES["empty_between"]["cam_to_world"], (48, 64),
+                                    device="cpu")
+    assert boxes[0] is not None and boxes[1] is None and boxes[2] is not None
+
+
+def test_stacked_splat_params_bit_equal_to_single_calls():
+    """A stack of cameras gives each camera's bits as a call of its own."""
+    rng = np.random.default_rng(11)
+    for f in (1, 2, 5, 9):
+        cases = [_random_case(int(rng.integers(1000))) for _ in range(f)]
+        intr = np.stack([c["intrinsics"] for c in cases])
+        c2w = np.stack([c["cam_to_world"] for c in cases])
+        c2w[-1, :3, 3] *= np.float32(1e30)  # far translations round on their own
+        if f > 2:
+            c2w[1] = np.inf  # an invalid pose: its row is NaN, the others not
+        stacked = pt.splat_params(torch.from_numpy(intr), torch.from_numpy(c2w))
+        assert stacked.shape == (f, 16) and stacked.dtype == torch.float32
+        single = torch.stack([pt.splat_params(torch.from_numpy(intr[k]),
+                                              torch.from_numpy(c2w[k])) for k in range(f)])
+        assert np.array_equal(_bits(stacked.numpy()), _bits(single.numpy()))
 
 
 def test_draw_bbox_equal_to_jax():
@@ -253,6 +377,25 @@ def test_save_debug_grids_files_equal_to_jax(tmp_path):
     # max_objects keeps the first keys
     assert len(pv.save_debug_grids(ds, objects, cloud, str(tmp_path / "m"), max_objects=2,
                                    device="cpu")) == 2
+
+
+def test_save_debug_grids_books_one_splat_bbox_an_object(tmp_path, monkeypatch):
+    """On the CPU the step books one ``splat_bbox`` plain launch key an
+    object with frames, with all its frames, and no depth or colour pass."""
+    from maskclustering_tpu_torch.ops import cuda as kernels
+
+    keys = []
+    monkeypatch.setattr(kernels, "LAUNCH_HOOKS", [lambda name, shape: keys.append((name, shape))])
+    ds = _DS(seed=3, n_frames=4, hw=(36, 48))
+    cloud = np.random.default_rng(4).uniform(-0.5, 0.5, (400, 3)) + [0.0, 0.0, 2.0]
+    objects = {
+        1: {"point_ids": np.arange(0, 150), "mask_list": [],
+            "repre_mask_list": [(0, 1, 0.5), (2, 1, 0.25), (3, 2, 0.75)]},
+        2: {"point_ids": np.arange(150, 400), "mask_list": [], "repre_mask_list": [(1, 1, 0.5)]},
+        4: {"point_ids": np.arange(5), "mask_list": [], "repre_mask_list": []},
+    }
+    pv.save_debug_grids(ds, objects, cloud, str(tmp_path), device="cpu")
+    assert keys == [("splat_bbox", (3, 150, 36, 48)), ("splat_bbox", (1, 250, 36, 48))]
 
 
 def test_vis_scene_files_equal_to_jax(tmp_path):
@@ -461,13 +604,30 @@ def test_splat_kernels_equal_to_plain_on_the_card(name):
     dev = torch.device("cuda", 0)
     pts, cols = (torch.from_numpy(c[k]).to(dev) for k in ("points", "colors"))
     prm = pt.splat_params(torch.from_numpy(c["intrinsics"]).to(dev),
-                          torch.from_numpy(c["cam_to_world"]).to(dev))
+                          torch.from_numpy(c["cam_to_world"]).to(dev))[None]
     h, w = c["height"], c["width"]
     zb = kernels.splat_depth_cuda(pts, prm, height=h, width=w)
     cb, vis = kernels.splat_color_cuda(pts, cols, prm, zb, height=h, width=w)
     zr = pt.splat_depth_reference(pts, prm, h, w)
     cr, vr = pt.splat_color_reference(pts, cols, prm, zr, h, w)
     assert torch.equal(zb, zr) and torch.equal(cb, cr) and torch.equal(vis, vr)
+    assert torch.equal(kernels.splat_bbox_cuda(pts, prm, height=h, width=w),
+                       pt.splat_bbox_reference(pts, prm, h, w))
+    # the three entries over F cameras: the case's own and two more
+    b = SPLAT_BATCHES[name]
+    prm = pt.splat_params(torch.from_numpy(b["intrinsics"]).to(dev),
+                          torch.from_numpy(b["cam_to_world"]).to(dev))
+    zb = kernels.splat_depth_cuda(pts, prm, height=h, width=w)
+    cb, vis = kernels.splat_color_cuda(pts, cols, prm, zb, height=h, width=w)
+    zr = pt.splat_depth_reference(pts, prm, h, w)
+    cr, vr = pt.splat_color_reference(pts, cols, prm, zr, h, w)
+    assert torch.equal(zb, zr) and torch.equal(cb, cr) and torch.equal(vis, vr)
+    assert torch.equal(kernels.splat_bbox_cuda(pts, prm, height=h, width=w),
+                       pt.splat_bbox_reference(pts, prm, h, w))
+    assert pv.bboxes_by_projection(b["points"], b["intrinsics"], b["cam_to_world"], (h, w),
+                                   device=dev) == \
+        pv.bboxes_by_projection(b["points"], b["intrinsics"], b["cam_to_world"], (h, w),
+                                device="cpu")
     card = pv.project_zbuffer(c["points"], c["colors"], c["intrinsics"], c["cam_to_world"],
                               h, w, device=dev)
     host = pv.project_zbuffer(c["points"], c["colors"], c["intrinsics"], c["cam_to_world"],
