@@ -203,10 +203,11 @@ Imports nothing of JAX or of the JAX package. In order:
     10's digest, the respawn's seconds, the crash, requeue and respawn
     counters 1 each, the dead child's context gone and the card's memory
     back within 64 MiB after the drain. (c) ``wedge:<scan>.device:1`` with
-    a 5 s heartbeat: detected, SIGKILLed, respawned, ``ok``; (d)'s daemon
-    starts and warms beside it, and (e)'s beside (d)'s order burst. (d) A
-    pool of two on the one card, tenants ``a:3,b:1:2``: three clients over two
-    buckets, both slices dispatching, affinity hits; a burst in which the
+    a 5 s heartbeat, in a child with no warm scan: detected, SIGKILLed,
+    respawned, ``ok``; (d)'s daemon starts and warms beside it, and (e)'s
+    beside (d)'s order burst. (d) A pool of two on the one card, tenants
+    ``a:3,b:1:2``: three clients, a request each, over two buckets, both
+    slices dispatching, affinity hits; a burst in which the
     third queued ``b`` request gets a typed ``quota`` reject; a crash on
     slice 0 rerouted to slice 1; ``recarve`` to one worker with a request
     in flight; ``--carve 2x1`` refused at start (while the order burst
@@ -282,6 +283,18 @@ Imports nothing of JAX or of the JAX package. In order:
     frozen serves the other two with 0 builds and 0 new launch keys; a
     request in a new bucket after the freeze is a violation.
 
+22. the zero-download demo (``python -m maskclustering_tpu_torch.demo``)
+    at the JAX demo's default size (32 frames, 6 objects, 240x320, the nine
+    steps on the hash encoder), in this process on the card (``demo.main``)
+    and as a ``--device cpu`` child started before phase 17 and joined
+    here: every file of the two roots equal, byte for byte (the vis and
+    top-image PNGs, both evaluation files, the npz, object dict and PLY)
+    but ``report.json`` and ``run_journal.jsonl``, field for field with
+    their time fields set aside (DEMO_TIME_FIELDS); the ``[demo]`` lines
+    equal but for their seconds and root; the association kernels and
+    ``splat_bbox`` launched on the card (``demo_launches``); each step's
+    seconds on both devices.
+
 ``python3 chip_smoke.py --ingest-reference`` runs only that CPU route and
 needs no card.
 
@@ -290,9 +303,10 @@ Every perf-ledger row of the script goes to a temporary file
 three lines are the card line, the per-kernel JSON (each association row
 with its launches in every path, ``isolated_launches`` read from the
 isolated child's ``bye``, ``ingest_launches`` phase 18's,
-``tasmap_launches`` phase 19d's; the depth and colour rows' ``launches``
-phase 19e's, ``splat_bbox``'s the top_images step's, each beside its
-``step_launches``) and the result
+``tasmap_launches`` phase 19d's, ``demo_launches`` phase 22's; the depth
+and colour rows' ``launches`` phase 19e's, ``splat_bbox``'s the top_images
+step's, each beside its ``step_launches``, and ``splat_bbox``'s
+``demo_launches`` phase 22's) and the result
 JSON. ``[done]`` gives each phase's seconds.
 """
 
@@ -3255,9 +3269,22 @@ class _IsoDaemon:
                                  + self.log_tail())
         from maskclustering_tpu_torch.serve import ServeClient
 
-        # the acceptor runs once the worker answered ready
-        with ServeClient(self.sock, timeout_s=600.0) as c:
-            self.ready = c.stats()
+        # the socket file appears at bind(), a moment before listen(): a
+        # connect in between is refused (seen once, with the host's cores
+        # busy), so it is tried again until the daemon listens or exits.
+        # The acceptor runs once the worker answered ready.
+        while True:
+            try:
+                with ServeClient(self.sock, timeout_s=600.0) as c:
+                    self.ready = c.stats()
+                break
+            except ConnectionRefusedError:
+                if self.proc.poll() is not None:
+                    raise AssertionError(f"{name}: daemon exited rc {self.proc.returncode}:\n"
+                                         + self.log_tail()) from None
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.05)
         self.ready_s = time.perf_counter() - self.t0
         self.note_children(self.ready)
 
@@ -3474,7 +3501,9 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
 
         # (c) wedge drill: the child silences its heartbeat and hangs
         victim = BATCH_SCANS[2]
-        d = spawn("wedge", ["--warm", first, "--fault-plan", f"wedge:{victim}.device:1",
+        # cut: no warm scan in this daemon's child or its respawn (the drill
+        # reads no memory, and (a) and (d) hold the warm path)
+        d = spawn("wedge", ["--fault-plan", f"wedge:{victim}.device:1",
                             "--set", f"worker_heartbeat_s={ISO_WEDGE_HB_S:g}"])
         # (d)'s pool starts and warms beside the wedge drill, which reads
         # no memory or context
@@ -3502,11 +3531,11 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
         results, errors = [], []
 
         def client(i):
+            # cut: one request a client (two before), each bucket still sent
             try:
-                for j in range(2):
-                    scene, spec = jobs[(i + j) % len(jobs)]
-                    term = _timed_request(d.sock, scene, synthetic=spec, tenant="a")[0]
-                    results.append((scene, term))
+                scene, spec = jobs[i]
+                term = _timed_request(d.sock, scene, synthetic=spec, tenant="a")[0]
+                results.append((scene, term))
             except Exception as e:  # noqa: BLE001 — surfaced below
                 errors.append(repr(e))
 
@@ -3517,7 +3546,7 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
         for th in threads:
             th.join(600.0)
         wall = time.perf_counter() - t0
-        if errors or len(results) != 6:
+        if errors or len(results) != len(jobs):
             raise AssertionError(f"pool clients: {errors} {results}")
         for scene, term in results:
             check_ok(term, scene, "pool", serve["cold_digest"] if scene.endswith("cold")
@@ -3534,7 +3563,7 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
         if len(per) != 2 or not all(per) or not sched["affinity_hits"]:
             raise AssertionError(f"pool slices dispatched {per}, scheduler {sched}")
         _say(f"[iso] pool of 2 on one card ({card}; both slices share cuda:0, so seconds a "
-             f"request are not a throughput figure): 3 clients x 2 requests over two buckets "
+             f"request are not a throughput figure): 3 clients x 1 request over two buckets "
              f"in {wall:.2f} s and the cold bucket twice more, every digest == its "
              f"reference; per-worker dispatched {per}, "
              f"affinity hits {sched['affinity_hits']} misses {sched['affinity_misses']}; "
@@ -4873,6 +4902,139 @@ def tooling_phase(dev, card: str, tensors, dense, batch) -> dict:
     return {"cost": rows, "pulls": pulls}
 
 
+DEMO_SEQ = "demo0001_00"
+# the demo's files compared field for field, and their fields that hold a
+# wall time or the writing process, never a result: the report's step
+# seconds and each scene's seconds and stage walls (``timings``), the
+# journal's stamp, pid and seconds. Every other file is compared byte for byte.
+DEMO_TIME_FIELDS = {"report.json": ("step_seconds", "seconds", "timings"),
+                    "run_journal.jsonl": ("ts", "pid", "seconds")}
+# the CPU demo's intra-op threads: it runs beside phase 17's daemons, so
+# it leaves them most of the host's cores
+DEMO_CPU_THREADS = 2
+
+
+def start_demo_cpu() -> dict:
+    """Start ``python -m maskclustering_tpu_torch.demo --device cpu`` at the
+    JAX demo's default size as a child process; phase 22 joins it."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_demo_")
+    root = os.path.join(tmp, "cpu")
+    log = os.path.join(tmp, "cpu.log")
+    env = dict(os.environ, OMP_NUM_THREADS=str(DEMO_CPU_THREADS))
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, "-m", "maskclustering_tpu_torch.demo",
+                                 "--device", "cpu", "--out", root], cwd=here, env=env,
+                                stdout=fh, stderr=subprocess.STDOUT, text=True)
+    _CHILDREN.append(proc)
+    return {"proc": proc, "t0": t0, "tmp": tmp, "root": root, "log": log}
+
+
+def _demo_fields(path: str, keys) -> object:
+    """A JSON or JSON-lines file with the fields ``keys`` dropped at every depth."""
+    def drop(obj):
+        if isinstance(obj, dict):
+            return {k: drop(v) for k, v in obj.items() if k not in keys}
+        if isinstance(obj, list):
+            return [drop(v) for v in obj]
+        return obj
+
+    with open(path) as fh:
+        if path.endswith(".jsonl"):
+            return [drop(json.loads(line)) for line in fh if line.strip()]
+        return drop(json.load(fh))
+
+
+def demo_differences(root_a: str, root_b: str) -> list:
+    """The relative paths whose files differ between two demo roots: every
+    file byte for byte, the DEMO_TIME_FIELDS files field for field."""
+    a, b = _tree_files(root_a), _tree_files(root_b)
+    bad = sorted(set(a) ^ set(b))
+    for rel in sorted(set(a) & set(b)):
+        keys = DEMO_TIME_FIELDS.get(os.path.basename(rel))
+        if keys is None:
+            same = a[rel] == b[rel]
+        else:
+            same = _demo_fields(os.path.join(root_a, rel), keys) == _demo_fields(
+                os.path.join(root_b, rel), keys)
+        if not same:
+            bad.append(rel)
+    return bad
+
+
+def demo_phase(dev, card: str, cpu: dict) -> dict:
+    """Phase 22: the zero-download demo on the card against the CPU child
+    started in phase 17, file for file."""
+    import io
+    import re
+    import shutil
+
+    from maskclustering_tpu_torch import demo
+    from maskclustering_tpu_torch.ops import cuda as kernels
+
+    t_phase = time.perf_counter()
+    root = os.path.join(cpu["tmp"], "cuda")
+    try:
+        out = io.StringIO()
+        kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = demo.main(["--out", root, "--device", str(dev)])
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES.counts)
+        text = out.getvalue()
+        if rc != 0 or "MISSING" in text or "FAILED" in text:
+            raise AssertionError(f"the demo on {dev} exited {rc}:\n{text[-3000:]}")
+        for k in ASSOCIATION_KERNELS + ("splat_bbox",):
+            if not launches.get(k):
+                raise AssertionError(f"the demo on {dev} launched no {k}: {launches}")
+        t_wait = time.perf_counter()
+        cpu["proc"].wait(timeout=900)
+        waited = time.perf_counter() - t_wait
+        with open(cpu["log"]) as fh:
+            cpu_text = fh.read()
+        if cpu["proc"].returncode != 0:
+            raise AssertionError(f"the demo on cpu exited {cpu['proc'].returncode}:\n"
+                                 f"{cpu_text[-3000:]}")
+        strip = lambda t, r: [ln.replace(r, "<out>") for ln in t.splitlines()  # noqa: E731
+                              if ln.startswith("[demo]") and " step " not in ln
+                              and "pipeline finished" not in ln]
+        if strip(text, root) != strip(cpu_text, cpu["root"]):
+            raise AssertionError(f"the demo's lines differ between {dev} and cpu:\n{text}\n"
+                                 f"{cpu_text}")
+        bad = demo_differences(root, cpu["root"])
+        files = _tree_files(root)
+        pngs = [r for r in files if r.endswith(".png") and r.startswith("vis")]
+        listed = [r for r in demo.artifacts(DEMO_SEQ) if not r.endswith("grid")]
+        if bad or not pngs or any(os.path.normpath(r) not in files for r in listed):
+            raise AssertionError(f"the demo's files differ between {dev} and cpu: {bad[:8]} "
+                                 f"({len(files)} files, {len(pngs)} PNGs under vis)")
+        steps = {}
+        for d, r in ((str(dev), root), ("cpu", cpu["root"])):
+            with open(os.path.join(r, "report.json")) as fh:
+                steps[d] = {k: round(v, 3) for k, v in json.load(fh)["step_seconds"].items()}
+        for ln in text.splitlines():
+            if ln.startswith("[demo]") and ("objects recovered" in ln or "," in ln):
+                _say(ln)
+        cpu_s = re.search(r"pipeline finished in ([0-9.]+)s", cpu_text).group(1)
+        _say(f"[demo] {card}: the demo (32 frames, 6 objects, 240x320, nine steps) on {dev} in "
+             f"{wall:.2f} s; on cpu, a child started in phase 17 with {DEMO_CPU_THREADS} "
+             f"threads, its pipeline {cpu_s} s by its own clock (waited {waited:.1f} s for it "
+             f"here); "
+             f"{len(files)} files equal ({len(pngs)} PNGs under vis/, both evaluation files, "
+             f"the npz, object dict and PLY byte for byte; report.json and run_journal.jsonl "
+             f"field for field but {json.dumps(DEMO_TIME_FIELDS)}); launches on {dev} "
+             f"{json.dumps(launches)}")
+        _say(f"[demo] step seconds: {json.dumps(steps)}; phase 22 in "
+             f"{time.perf_counter() - t_phase:.1f} s")
+        return {"launches": launches, "wall": wall, "steps": steps}
+    finally:
+        shutil.rmtree(cpu["tmp"], ignore_errors=True)
+
+
 def full_size_scene():
     """Phase 4's scene: 8 boxes, 32 frames at 480x640, 2 mm depth noise."""
     from maskclustering_tpu_torch.utils.synthetic import add_depth_noise, make_scene
@@ -5066,6 +5228,8 @@ def main() -> int:
     obs_run = obs_phase(dev, card, tensors, dense, batch)
 
     lap("16")
+    # 22's cpu run starts here, a child process beside phases 17-21
+    demo_cpu = start_demo_cpu()
     # 17. the crash-contained topology: isolated worker, drills, the pool
     iso = isolation_phase(dev, card, batch, serve)
 
@@ -5087,6 +5251,10 @@ def main() -> int:
     tooling_phase(dev, card, tensors, dense, batch)
 
     lap("21")
+    # 22. the zero-download demo on the card against its cpu child
+    demo_run = demo_phase(dev, card, demo_cpu)
+
+    lap("22")
     _say(f"[done] {time.perf_counter() - t_start:.1f} s; phases (s): {json.dumps(laps)}")
     _say(card)
     rows = [{
@@ -5117,7 +5285,8 @@ def main() -> int:
             "canary_launches": obs_run["canary_launches"].get(name, 0),
             "isolated_launches": iso["launches"][name],
             "ingest_launches": ingest["launches"][name],
-            "tasmap_launches": vis["tasmap_launches"][name]})
+            "tasmap_launches": vis["tasmap_launches"][name],
+            "demo_launches": demo_run["launches"][name]})
     # the render entry's kernels count project_zbuffer's launches over the
     # scan's (object, frame) pairs; the box counts the top_images step's
     for name, t in vis["timed"].items():
@@ -5133,7 +5302,8 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": None, "scene_kernel_ms": t["scene_ms"],
             "trace_kernel_ms": t["kernel_ms"], "trace_scene_kernel_ms": t["scene_kernel_ms"],
             "step_launches": vis["launches"].get(name, 0),
-            "tasmap_launches": vis["tasmap_launches"].get(name, 0)})
+            "tasmap_launches": vis["tasmap_launches"].get(name, 0),
+            **({"demo_launches": demo_run["launches"][name]} if name == "splat_bbox" else {})})
     shutil.rmtree(ledger_dir, ignore_errors=True)
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,6 +5,12 @@ segmentation id-maps are 8- or 16-bit PNGs, resized to the depth
 resolution with nearest-neighbour sampling so ids stay intact; colour
 frames are JPEG (or PNG). All of it goes through the port's own codecs
 (``io/png.py``, ``io/jpeg.py``), never PIL or cv2.
+
+The colour readers follow the JAX package's two routes. :func:`read_rgb`
+stands in for ``cv2.imread(path)``: cv2's PNG transforms and the EXIF
+orientation turn (``io/exif.py``). :func:`read_rgb_pil` stands in for
+PIL's ``convert("RGB")`` (debug images, GIF frames) and :func:`decode_rgb`
+decodes the ``.sens`` reader's frames, both unturned as PIL leaves them.
 """
 
 from __future__ import annotations
@@ -14,10 +20,13 @@ from typing import Tuple
 
 import numpy as np
 
+from maskclustering_tpu_torch.io import exif
 from maskclustering_tpu_torch.io.jpeg import decode_jpeg
 from maskclustering_tpu_torch.io.png import (
     SIGNATURE,
     decode_png,
+    decode_png_cv2,
+    decode_png_rgb,
     encode_png_libpng,
     encode_png_pillow,
     read_png,
@@ -38,16 +47,21 @@ def read_mask_png(path: str) -> np.ndarray:
     return read_png(path)
 
 
+def _grey_to_rgb(img: np.ndarray) -> np.ndarray:
+    return img if img.ndim == 3 else np.repeat(img[:, :, None], 3, axis=2)
+
+
 def decode_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """Decode a colour frame's JPEG or PNG bytes to (H, W, 3) uint8 RGB.
+    """Decode a colour frame's JPEG or PNG bytes to (H, W, 3) uint8 RGB,
+    with no EXIF turn (the ``.sens`` reader's frames, which the JAX
+    package decodes with PIL).
 
     JPEG decodes through ``io/jpeg.py``, pixel for pixel what cv2 and PIL
     give (libjpeg-turbo's defaults); a greyscale file is replicated to three
     channels, as both do. PNG keeps its route through ``io/png.py``.
     """
     if data[:2] == b"\xff\xd8":
-        img = decode_jpeg(data, name=name)
-        return img if img.ndim == 3 else np.repeat(img[:, :, None], 3, axis=2)
+        return _grey_to_rgb(decode_jpeg(data, name=name))
     if data[:8] != SIGNATURE:
         raise ValueError(f"{name}: neither a JPEG nor a PNG file")
     img = decode_png(data)
@@ -60,10 +74,36 @@ def decode_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
 
 
 def read_rgb(path: str) -> np.ndarray:
-    """Read a colour frame as (H, W, 3) uint8 RGB (``io/image.py:49-56``),
-    through :func:`decode_rgb`."""
+    """Read a colour frame as (H, W, 3) uint8 RGB, what the JAX package's
+    ``cv2.imread`` gives (``io/image.py:49-56``): a JPEG through the port's
+    decoder, a PNG of any colour type, bit depth and interlace through
+    libpng's transforms (``decode_png_cv2``), then turned by the EXIF
+    orientation of the JPEG's ``Exif`` APP1 segments or the PNG's ``eXIf``
+    chunk (``io/exif.py``)."""
     with open(path, "rb") as f:
-        return decode_rgb(f.read(), name=path)
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        img = _grey_to_rgb(decode_jpeg(data, name=path))
+        blocks = exif.jpeg_exif_blocks(data)
+    elif data[:8] == SIGNATURE:
+        png = decode_png_cv2(data)
+        img = png.samples
+        blocks = [png.exif] if png.exif is not None else []
+    else:
+        raise ValueError(f"{path}: neither a JPEG nor a PNG file")
+    return exif.apply_orientation(img, exif.orientation(blocks))
+
+
+def read_rgb_pil(path: str) -> np.ndarray:
+    """An image file as (H, W, 3) uint8, what PIL's ``Image.open(path).
+    convert("RGB")`` gives (the JAX package's debug images and GIF frames):
+    a PNG of any colour type and bit depth, a baseline or progressive JPEG,
+    with no EXIF turn; ``ValueError`` for anything else."""
+    with open(path, "rb") as f:
+        data = f.read()
+    if data[:2] == b"\xff\xd8":
+        return _grey_to_rgb(decode_jpeg(data, name=path))
+    return decode_png_rgb(data)
 
 
 def _write(path: str, data: bytes) -> None:

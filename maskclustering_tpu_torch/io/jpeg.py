@@ -10,6 +10,15 @@ library. It follows libjpeg-turbo's defaults step by step:
   byte stuffing and fill bytes. It is the one sequential part: a table of
   all 65,536 16-bit peeks gives, in one lookup, the code length, the zero
   run and, where it fits in the peek, the coefficient itself;
+- **progressive Huffman scans** (SOF2, ``jdphuff.c``) into the same
+  coefficient store: DC first (interleaved or not) and DC refine; AC first
+  bands of one component with end-of-band runs across blocks; AC refine
+  bands (a correction bit for each coefficient already nonzero, new
+  coefficients of magnitude ``1 << Al`` placed past ``r`` zero ones); a
+  non-interleaved band covers the component's own blocks, not its MCUs;
+  restart intervals in every scan. libjpeg block-smooths a component whose
+  DC or first nine AC coefficients never receive all their bits
+  (``jdcoefct.c``); such a file is refused, never decoded unsmoothed;
 - **dequantisation and the islow integer IDCT** (``jidctint.c``:
   ``CONST_BITS`` 13, ``PASS1_BITS`` 2), vectorised over all blocks of a
   component. The output saturates to 0..255 as the SIMD IDCT that PIL and
@@ -27,9 +36,9 @@ library. It follows libjpeg-turbo's defaults step by step:
   the Adobe APP14 transform flag, else the component ids ('R', 'G', 'B'
   means RGB).
 
-Progressive, arithmetic-coded, lossless and hierarchical files, 12-bit
-samples and 2- or 4-component (CMYK) images raise ``NotImplementedError``
-naming the file and the SOF marker; a truncated or corrupt stream raises
+Arithmetic-coded, lossless and hierarchical files, 12-bit samples and
+2- or 4-component (CMYK) images raise ``NotImplementedError`` naming the
+file and the SOF marker; a truncated or corrupt stream raises
 ``ValueError``. Neither is ever returned as a wrong image.
 
 The encoder writes the bytes of PIL's ``Image.save(format="JPEG",
@@ -85,7 +94,8 @@ _SOF_NAMES = {
 def _refuse(name: str, sof: str, what: str) -> NotImplementedError:
     return NotImplementedError(
         f"{name}: {what} ({sof}) is not decoded by the port's JPEG codec, which reads "
-        f"baseline and extended-sequential Huffman JPEG at 8 bits with 1 or 3 components: "
+        f"baseline, extended-sequential and progressive Huffman JPEG at 8 bits with 1 or 3 "
+        f"components: "
         f"{_UNSUPPORTED_ITEM}")
 
 
@@ -169,6 +179,13 @@ def _ac_lookup(bits: bytes, vals: bytes) -> List[Tuple[int, int, int]]:
     return list(zip(nb.tolist(), r.tolist(), v.tolist()))
 
 
+@functools.lru_cache(maxsize=32)
+def _symbol_lookup(bits: bytes, vals: bytes) -> Tuple[List[int], List[int]]:
+    """Per 16-bit peek: the code length (0 for no code) and the symbol."""
+    length, sym = _peek_tables(bits, vals)
+    return length.tolist(), sym.tolist()
+
+
 # ---------------------------------------------------------------------------
 # entropy decode
 # ---------------------------------------------------------------------------
@@ -181,9 +198,9 @@ def _bit_windows(segment: bytes) -> List[int]:
     return ((a[:-3] << 24) | (a[1:-2] << 16) | (a[2:-1] << 8) | a[3:]).tolist()
 
 
-def _decode_interval(win: List[int], nbits: int, comp: List[int], base: List[int],
+def _decode_interval(win: List[int], comp: List[int], base: List[int],
                      dc_luts: List, ac_luts: List, ncomp: int,
-                     out_idx: List[int], out_val: List[int]) -> None:
+                     out_idx: List[int], out_val: List[int]) -> int:
     """Entropy-decode the blocks of one restart interval, in scan order.
 
     ``comp[j]`` is block j's slot among the scan's components and
@@ -232,8 +249,138 @@ def _decode_interval(win: List[int], nbits: int, comp: List[int], base: List[int
                 k += 1
             else:
                 raise ValueError("corrupt JPEG data: bad Huffman code")
-    if pos > nbits:
-        raise ValueError("truncated JPEG: the entropy-coded data ends inside a block")
+    return pos
+
+
+def _dc_first_interval(win: List[int], comp: List[int], base: List[int], dc_luts: List,
+                       ncomp: int, al: int, out_idx: List[int], out_val: List[int]) -> int:
+    """A progressive DC-first interval (``decode_mcu_DC_first``): each
+    block's DC difference, predicted from its component's last, scaled by
+    the point transform ``al``. Returns the bits read."""
+    pred = [0] * ncomp
+    pos = 0
+    for c, b in zip(comp, base):
+        nb, v = dc_luts[c][(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+        if nb > 0:
+            pos += nb
+        elif nb < 0:
+            pos -= nb
+            s = v
+            bits = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+            v = bits if bits >> (s - 1) else bits - (1 << s) + 1
+            pos += s
+        else:
+            raise ValueError("corrupt JPEG data: bad Huffman code")
+        v += pred[c]
+        pred[c] = v
+        out_idx.append(b)
+        out_val.append(v << al)
+    return pos
+
+
+def _dc_refine_interval(win: List[int], base: List[int], out_idx: List[int]) -> int:
+    """A progressive DC-refine interval (``decode_mcu_DC_refine``): one bit
+    a block; the blocks whose bit is 1 are kept."""
+    for pos, b in enumerate(base):
+        if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
+            out_idx.append(b)
+    return len(base)
+
+
+def _ac_first_interval(win: List[int], base: List[int], length: List[int], symbol: List[int],
+                       ss: int, se: int, al: int, blocks: List[int]) -> int:
+    """A progressive AC-first interval of one component
+    (``decode_mcu_AC_first``): the band ``ss..se`` of each block, scaled
+    by ``al``, with end-of-band runs across blocks. Returns the bits read."""
+    zz = _ZIGZAG_PADDED
+    pos = 0
+    eobrun = 0
+    for b in base:
+        if eobrun:
+            eobrun -= 1
+            continue
+        k = ss
+        while k <= se:
+            peek = (win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF
+            n = length[peek]
+            if not n:
+                raise ValueError("corrupt JPEG data: bad Huffman code")
+            pos += n
+            r, s = symbol[peek] >> 4, symbol[peek] & 15
+            if s:
+                k += r
+                bits = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                pos += s
+                blocks[b + zz[k]] = (bits if bits >> (s - 1) else bits - (1 << s) + 1) << al
+            elif r == 15:  # ZRL
+                k += 15
+            else:  # EOBr: 2**r + r appended bits blocks end here
+                eobrun = 1 << r
+                if r:
+                    eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & ((1 << r) - 1)
+                    pos += r
+                eobrun -= 1
+                break
+            k += 1
+    return pos
+
+
+def _ac_refine_interval(win: List[int], base: List[int], length: List[int], symbol: List[int],
+                        ss: int, se: int, al: int, blocks: List[int]) -> int:
+    """A progressive AC-refine interval of one component
+    (``decode_mcu_AC_refine``): in the band ``ss..se``, a correction bit
+    for each coefficient already nonzero (1 adds ``1 << al`` away from
+    zero, once), and each new coefficient of magnitude ``1 << al`` placed
+    after skipping ``r`` zero ones. Returns the bits read."""
+    zz = _ZIGZAG_PADDED
+    p1, m1 = 1 << al, -1 << al
+    pos = 0
+    eobrun = 0
+    for b in base:
+        k = ss
+        if not eobrun:
+            while k <= se:
+                peek = (win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF
+                n = length[peek]
+                if not n:
+                    raise ValueError("corrupt JPEG data: bad Huffman code")
+                pos += n
+                r, s = symbol[peek] >> 4, symbol[peek] & 15
+                if s:  # a new coefficient: its sign bit
+                    s = p1 if (win[pos >> 3] >> (31 - (pos & 7))) & 1 else m1
+                    pos += 1
+                elif r != 15:
+                    eobrun = 1 << r
+                    if r:
+                        eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & ((1 << r) - 1)
+                        pos += r
+                    break
+                while True:  # over nonzero coefficients and r zero ones
+                    c = blocks[b + zz[k]]
+                    if c:
+                        if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                            blocks[b + zz[k]] = c + p1 if c >= 0 else c + m1
+                        pos += 1
+                    else:
+                        r -= 1
+                        if r < 0:
+                            break
+                    k += 1
+                    if k > se:
+                        break
+                if s:
+                    blocks[b + zz[k]] = s
+                k += 1
+        if eobrun:
+            while k <= se:
+                c = blocks[b + zz[k]]
+                if c:
+                    if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                        blocks[b + zz[k]] = c + p1 if c >= 0 else c + m1
+                    pos += 1
+                k += 1
+            eobrun -= 1
+    return pos
 
 
 def _scan_segments(data: bytes, start: int, name: str) -> Tuple[List[bytes], int]:
@@ -449,6 +596,7 @@ def _decode(data: bytes, name: str) -> np.ndarray:
     adobe_transform = 1
     sof = ""
     coef = None
+    coef_bits = None
     offsets: Dict[int, int] = {}
     grid: Dict[int, Tuple[int, int]] = {}
     i = 2
@@ -475,8 +623,8 @@ def _decode(data: bytes, name: str) -> np.ndarray:
         i += length
         if m in _SOF_NAMES:
             sof = _SOF_NAMES[m]
-            if m not in (0xC0, 0xC1):
-                what = {0xC2: "progressive JPEG", 0xC3: "lossless JPEG"}.get(
+            if m not in (0xC0, 0xC1, 0xC2):
+                what = {0xC3: "lossless JPEG"}.get(
                     m, "arithmetic-coded JPEG" if m >= 0xC9 else "hierarchical JPEG")
                 raise _refuse(name, sof, what)
             precision, height, width, nf = seg[0], _u16(seg, 1), _u16(seg, 3), seg[5]
@@ -502,6 +650,9 @@ def _decode(data: bytes, name: str) -> np.ndarray:
                 offsets[c.cid] = total
                 total += mcuy * c.v * mcux * c.h * 64
             coef = np.zeros(total, np.int32)
+            # progressive: the point transform each coefficient of each
+            # component has reached, -1 before its first scan (coef_bits)
+            coef_bits = {c.cid: [-1] * 64 for c in comps} if m == 0xC2 else None
         elif m == 0xC4:  # DHT
             j = 0
             while j < len(seg):
@@ -534,19 +685,24 @@ def _decode(data: bytes, name: str) -> np.ndarray:
             if coef is None:
                 raise ValueError(f"corrupt JPEG {name}: a scan before the frame header")
             i = _decode_scan(data, i, seg, comps, dht, qt, restart, coef, offsets, grid,
-                             width, height, name)
+                             width, height, name, coef_bits)
         # APPn, COM and other segments are skipped
     if coef is None:
         raise ValueError(f"corrupt JPEG {name}: no frame header")
+    if coef_bits is not None:
+        _refuse_block_smoothing(comps, coef_bits, sof, name)
     return _reconstruct(comps, coef, offsets, grid, width, height, saw_jfif, saw_adobe,
                         adobe_transform, name)
 
 
 def _decode_scan(data: bytes, i: int, seg: bytes, comps: List[_Component], dht, qt,
                  restart: int, coef: np.ndarray, offsets, grid, width: int, height: int,
-                 name: str) -> int:
-    """Entropy-decode one sequential scan into ``coef``; returns the offset
-    of the marker after it."""
+                 name: str, coef_bits: Optional[Dict[int, List[int]]] = None) -> int:
+    """Entropy-decode one scan into ``coef``; returns the offset of the
+    marker after it. ``coef_bits`` is given for a progressive file: the
+    scan is then one of its four kinds (DC first or refine, interleaved or
+    not; AC first or refine of one component's band), and it books the
+    point transform its band reaches."""
     ns = seg[0]
     by_id = {c.cid: c for c in comps}
     scan = []
@@ -555,22 +711,39 @@ def _decode_scan(data: bytes, i: int, seg: bytes, comps: List[_Component], dht, 
         if cid not in by_id:
             raise ValueError(f"corrupt JPEG {name}: a scan names an unknown component")
         scan.append((by_id[cid], tables >> 4, tables & 15))
-    ss, se = seg[1 + 2 * ns], seg[2 + 2 * ns]
-    if (ss, se) != (0, 63):
-        raise ValueError(f"corrupt JPEG {name}: a sequential scan with spectral range "
-                         f"{ss}..{se}")
+    ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+    if coef_bits is None:
+        if (ss, se) != (0, 63):
+            raise ValueError(f"corrupt JPEG {name}: a sequential scan with spectral range "
+                             f"{ss}..{se}")
+    elif (se != 0 if ss == 0 else (se < ss or se > 63 or ns != 1)) or (
+            ah and al != ah - 1) or al > 13:
+        # jdphuff.c start_pass_phuff_decoder's JERR_BAD_PROGRESSION
+        raise ValueError(f"corrupt JPEG {name}: a progressive scan of band {ss}..{se} "
+                         f"with Ah {ah}, Al {al} over {ns} components")
     hmax = max(c.h for c in comps)
     vmax = max(c.v for c in comps)
     dc_luts, ac_luts = [], []
     for c, td, ta in scan:
-        if (0, td) not in dht or (1, ta) not in dht:
+        if coef_bits is None:
+            needs = [(0, td), (1, ta)]
+        elif ss > 0:  # AC first or refine
+            needs = [(1, ta)]
+        else:  # DC first; a DC refinement reads raw bits
+            needs = [] if ah else [(0, td)]
+        if any(t not in dht for t in needs):
             raise ValueError(f"corrupt JPEG {name}: a scan uses an undefined Huffman table")
-        dc_luts.append(_dc_lookup(*dht[(0, td)]))
-        ac_luts.append(_ac_lookup(*dht[(1, ta)]))
+        if (0, td) in needs:
+            dc_luts.append(_dc_lookup(*dht[(0, td)]))
+        if (1, ta) in needs:
+            ac_luts.append(_ac_lookup(*dht[(1, ta)]) if coef_bits is None
+                           else _symbol_lookup(*dht[(1, ta)]))
         if c.quant is None:
             if c.tq not in qt:
                 raise ValueError(f"corrupt JPEG {name}: undefined quantisation table {c.tq}")
             c.quant = qt[c.tq]
+        if coef_bits is not None:
+            coef_bits[c.cid][ss:se + 1] = [al] * (se + 1 - ss)
     if ns == 1:
         # non-interleaved: the component's own blocks, one a unit
         c = scan[0][0]
@@ -602,21 +775,60 @@ def _decode_scan(data: bytes, i: int, seg: bytes, comps: List[_Component], dht, 
     if len(segments) < expected:
         raise ValueError(f"truncated JPEG {name}: {len(segments)} of {expected} restart "
                          f"intervals present")
+    if coef_bits is not None and ss > 0:
+        # an AC band of one component: its coefficients as a list, read
+        # and written in place by the refinement
+        lo = offsets[scan[0][0].cid]
+        hi = lo + grid[scan[0][0].cid][0] * grid[scan[0][0].cid][1] * 64
+        block_list = coef[lo:hi].tolist()
+        base = base - lo
     slot_l, base_l = slot.tolist(), base.tolist()
     out_idx: List[int] = []
     out_val: List[int] = []
     for j in range(expected):
-        lo, hi = j * interval * per_unit, min((j + 1) * interval, units) * per_unit
+        lo_u, hi_u = j * interval * per_unit, min((j + 1) * interval, units) * per_unit
         win = _bit_windows(segments[j])
         try:
-            _decode_interval(win, 8 * len(segments[j]), slot_l[lo:hi], base_l[lo:hi],
-                             dc_luts, ac_luts, len(scan), out_idx, out_val)
+            if coef_bits is None:
+                pos = _decode_interval(win, slot_l[lo_u:hi_u], base_l[lo_u:hi_u], dc_luts,
+                                       ac_luts, len(scan), out_idx, out_val)
+            elif ss == 0 and not ah:
+                pos = _dc_first_interval(win, slot_l[lo_u:hi_u], base_l[lo_u:hi_u], dc_luts,
+                                         len(scan), al, out_idx, out_val)
+            elif ss == 0:
+                pos = _dc_refine_interval(win, base_l[lo_u:hi_u], out_idx)
+            elif not ah:
+                pos = _ac_first_interval(win, base_l[lo_u:hi_u], *ac_luts[0], ss, se, al,
+                                         block_list)
+            else:
+                pos = _ac_refine_interval(win, base_l[lo_u:hi_u], *ac_luts[0], ss, se, al,
+                                          block_list)
         except IndexError:
+            pos = None
+        if pos is None or pos > 8 * len(segments[j]):
             raise ValueError(f"truncated JPEG {name}: the entropy-coded data ends inside "
-                             f"a block") from None
-    if out_idx:
+                             f"a block")
+    if coef_bits is not None and ss > 0:
+        coef[lo:hi] = np.asarray(block_list, np.int64).astype(np.int32)
+    elif coef_bits is not None and ah:
+        # DC refine: the bit Al of each block whose correction bit was 1
+        coef[np.asarray(out_idx, np.int64)] |= np.int32(1 << al)
+    elif out_idx:
         coef[np.asarray(out_idx, np.int64)] = np.asarray(out_val, np.int64).astype(np.int32)
     return end
+
+
+def _refuse_block_smoothing(comps: List[_Component], coef_bits, sof: str, name: str) -> None:
+    """libjpeg smooths the blocks of a progressive file whose DC or first
+    nine AC coefficients of a component never reach full precision
+    (``jdcoefct.c`` ``smoothing_ok`` and ``decompress_smooth_data``); the
+    port does not, so it refuses such a file rather than decode it unsmoothed."""
+    for c in comps:
+        short = [k for k in range(10) if coef_bits[c.cid][k] != 0]
+        if short:
+            raise _refuse(name, sof, f"a progressive JPEG whose component {c.cid} never "
+                                     f"receives all bits of coefficients {short} (libjpeg "
+                                     f"block smoothing)")
 
 
 def _reconstruct(comps: List[_Component], coef: np.ndarray, offsets, grid, width: int,

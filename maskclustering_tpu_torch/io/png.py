@@ -4,11 +4,14 @@ The scan layouts store depth and mask id-maps as PNG files. The JAX
 package reads them with cv2 or PIL; the port has neither (the card's
 machine ships only torch, numpy and scipy), so this module decodes and
 encodes the formats the layouts use: 8- and 16-bit samples, grey, grey
-with alpha, RGB and RGBA (colour types 0, 4, 2, 6), not interlaced. A
-palette, a bit depth below 8 or Adam7 interlacing raises ``ValueError``
-there; ``decode_png_rgb`` reads every colour type and bit depth (the
-palette and low-bit files a directory of debug images may hold) as RGB,
-and Adam7 alone raises.
+with alpha, RGB and RGBA (colour types 0, 4, 2, 6). A palette or a bit
+depth below 8 raises ``ValueError`` there. Two colour readers take every
+colour type and bit depth as RGB: ``decode_png_rgb`` gives PIL's
+``convert("RGB")`` (the debug images and GIF frames the JAX package reads
+with PIL), ``decode_png_cv2`` gives ``cv2.imread``'s pixels and the
+``eXIf`` block it turns them by (the JAX ``read_rgb``). Every reader
+takes Adam7-interlaced files: each of the seven passes is a small image of
+its own, unfiltered alone and scattered into place.
 
 The reader undoes all five row filters of the PNG specification (§9).
 None, Sub and Up need nothing but the row or the row above; Average and
@@ -39,7 +42,7 @@ from __future__ import annotations
 
 import struct
 import zlib
-from typing import Iterator, NamedTuple, Tuple
+from typing import Iterator, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -57,8 +60,9 @@ class PngHeader(NamedTuple):
     interlace: int
 
 
-def _chunks(data: bytes) -> Iterator[Tuple[bytes, bytes]]:
-    """(type, payload) of each chunk, CRC checked."""
+def _chunks(data: bytes, lenient: bool = False) -> Iterator[Tuple[bytes, bytes]]:
+    """(type, payload) of each chunk, CRC checked; ``lenient`` skips an
+    ancillary chunk (a lower-case first letter) whose CRC fails."""
     if data[:8] != SIGNATURE:
         raise ValueError("not a PNG file (bad signature)")
     pos = 8
@@ -71,8 +75,10 @@ def _chunks(data: bytes) -> Iterator[Tuple[bytes, bytes]]:
         payload = data[pos + 8:end]
         (crc,) = struct.unpack(">I", data[end:end + 4])
         if zlib.crc32(kind + payload) & 0xFFFFFFFF != crc:
-            raise ValueError(f"PNG chunk {kind!r} fails its CRC")
-        yield kind, payload
+            if not (lenient and kind[0] & 0x20):
+                raise ValueError(f"PNG chunk {kind!r} fails its CRC")
+        else:
+            yield kind, payload
         if kind == b"IEND":
             return
         pos = end + 4
@@ -222,34 +228,86 @@ def unfilter(scanlines: np.ndarray, bpp: int) -> np.ndarray:
     return out.reshape(h, stride)
 
 
-def _decode_rows(data: bytes, accept) -> Tuple[PngHeader, np.ndarray, bytes]:
-    """(header, unfiltered (H, stride) bytes, PLTE payload) of a PNG file
-    whose (colour type, bit depth) ``accept`` takes; a sample narrower than
-    a byte unfilters with one byte a pixel, as the specification says."""
+# Adam7's passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+# the four bytes libpng requires at the head of an eXIf chunk (PNG 3rd edition)
+_EXIF_HEADS = (b"II*\x00", b"MM\x00*")
+
+
+class PngImage(NamedTuple):
+    """A decoded PNG file: its header, its (H, W, C) samples (uint8, uint16
+    for 16-bit files, the unpacked values for samples narrower than a
+    byte), its PLTE payload and the eXIf payload libpng keeps (None)."""
+    hdr: PngHeader
+    samples: np.ndarray
+    palette: bytes
+    exif: Optional[bytes]
+
+
+def _unpack(hdr: PngHeader, rows: np.ndarray, width: int) -> np.ndarray:
+    """(h, w, C) samples of (h, stride) unfiltered rows ``width`` pixels wide."""
+    ch = 1 if hdr.color_type == 3 else _CHANNELS[hdr.color_type]
+    h = rows.shape[0]
+    if hdr.bit_depth < 8:
+        bits = hdr.bit_depth
+        shifts = (8 - bits * (1 + np.arange(8 // bits))).astype(np.uint8)
+        vals = (rows[:, :, None] >> shifts) & ((1 << bits) - 1)
+        return vals.reshape(h, -1)[:, :width, None]
+    if hdr.bit_depth == 16:
+        return rows.view(">u2").astype(np.uint16).reshape(h, width, ch)
+    return rows.reshape(h, width, ch)
+
+
+def _pass_samples(hdr: PngHeader, raw: np.ndarray, pos: int, h: int, w: int):
+    """(samples, next offset) of one h x w image of scanlines at ``raw[pos:]``."""
+    bits = (1 if hdr.color_type == 3 else _CHANNELS[hdr.color_type]) * hdr.bit_depth
+    stride = (w * bits + 7) // 8
+    end = pos + h * (stride + 1)
+    if end > raw.size:
+        raise ValueError(f"PNG image data holds {raw.size} bytes, fewer than its "
+                         f"{h} x {w} pixels need")
+    rows = unfilter(raw[pos:end].reshape(h, stride + 1), max(1, bits // 8))
+    return _unpack(hdr, rows, w), end
+
+
+def _parse(data: bytes, accept, lenient: bool = False) -> PngImage:
+    """Decode a PNG file whose (colour type, bit depth) ``accept`` takes,
+    Adam7-interlaced or not. A sample narrower than a byte unfilters with
+    one byte a pixel, as the specification says. ``lenient`` skips an
+    ancillary chunk that fails its CRC, as libpng does by default."""
     hdr = None
     idat = []
     palette = b""
-    for kind, payload in _chunks(data):
+    exif = None
+    for kind, payload in _chunks(data, lenient):
         if kind == b"IHDR":
             hdr = _parse_header(payload)
         elif kind == b"PLTE":
             palette = payload
         elif kind == b"IDAT":
             idat.append(payload)
+        elif kind == b"eXIf" and exif is None and payload[:4] in _EXIF_HEADS:
+            exif = payload
     if hdr is None:
         raise ValueError("PNG file has no IHDR chunk")
     accept(hdr)
-    if hdr.interlace:
-        raise ValueError("interlaced PNG files are not supported")
-    ch = 1 if hdr.color_type == 3 else _CHANNELS[hdr.color_type]
-    bits = ch * hdr.bit_depth
-    bpp = max(1, bits // 8)
-    stride = (hdr.width * bits + 7) // 8
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != hdr.height * (stride + 1):
-        raise ValueError(f"PNG image data holds {raw.size} bytes, expected "
-                         f"{hdr.height * (stride + 1)}")
-    return hdr, unfilter(raw.reshape(hdr.height, stride + 1), bpp), palette
+    if not hdr.interlace:
+        samples, end = _pass_samples(hdr, raw, 0, hdr.height, hdr.width)
+    else:
+        ch = 1 if hdr.color_type == 3 else _CHANNELS[hdr.color_type]
+        samples = np.zeros((hdr.height, hdr.width, ch),
+                           np.uint16 if hdr.bit_depth == 16 else np.uint8)
+        end = 0
+        for x0, y0, dx, dy in _ADAM7:
+            w = -(-(hdr.width - x0) // dx) if hdr.width > x0 else 0
+            h = -(-(hdr.height - y0) // dy) if hdr.height > y0 else 0
+            if w and h:  # an empty pass has no scanlines at all
+                samples[y0::dy, x0::dx], end = _pass_samples(hdr, raw, end, h, w)
+    if end != raw.size:
+        raise ValueError(f"PNG image data holds {raw.size} bytes, expected {end}")
+    return PngImage(hdr, samples, palette, exif)
 
 
 def _accept_8_16(hdr: PngHeader) -> None:
@@ -259,22 +317,15 @@ def _accept_8_16(hdr: PngHeader) -> None:
                          f"RGB or RGBA only)")
 
 
-def _samples(hdr: PngHeader, rows: np.ndarray) -> np.ndarray:
-    """(H, W, C) samples of unfiltered rows; uint16 for 16-bit files."""
-    ch = _CHANNELS[hdr.color_type]
-    img = rows.view(">u2").astype(np.uint16) if hdr.bit_depth == 16 else rows
-    return img.reshape(hdr.height, hdr.width, ch)
-
-
 def decode_png(data: bytes) -> np.ndarray:
     """A PNG file's pixels: (H, W) for grey, (H, W, C) otherwise; uint8 or
     uint16 (16-bit samples in native byte order)."""
-    hdr, rows, _ = _decode_rows(data, _accept_8_16)
-    img = _samples(hdr, rows)
+    img = _parse(data, _accept_8_16).samples
     return img[:, :, 0] if img.shape[2] == 1 else img
 
 
-# PIL's scaling of grey samples narrower than a byte to 8 bits ("1" is 0/255)
+# the scaling of grey samples narrower than a byte to 8 bits, PIL's and
+# libpng's alike ("1" is 0/255)
 _GREY_SCALE = {1: 255, 2: 85, 4: 17}
 
 
@@ -285,35 +336,47 @@ def _accept_any(hdr: PngHeader) -> None:
                          f"bit depth {hdr.bit_depth}")
 
 
-def decode_png_rgb(data: bytes) -> np.ndarray:
-    """A PNG file as (H, W, 3) uint8 RGB, what PIL's ``Image.open(f).convert(
-    "RGB")`` gives: any colour type and bit depth, not interlaced. A palette
-    is looked up (an index past it is black); grey narrower than a byte is
-    scaled to 8 bits, 16-bit grey is clipped to 255, other 16-bit samples
-    keep their high byte; alpha is dropped."""
-    hdr, rows, palette = _decode_rows(data, _accept_any)
-    if hdr.bit_depth < 8:
-        bits = hdr.bit_depth
-        per = 8 // bits
-        shifts = (8 - bits * (1 + np.arange(per))).astype(np.uint8)
-        vals = (rows[:, :, None] >> shifts) & ((1 << bits) - 1)
-        idx = vals.reshape(hdr.height, -1)[:, :hdr.width]
-    elif hdr.color_type == 3:
-        idx = rows
-    else:
-        img = _samples(hdr, rows)
-        if hdr.bit_depth == 16:
-            img = (np.minimum(img, 255) if hdr.color_type == 0 else img >> 8).astype(np.uint8)
-        if img.shape[2] >= 3:
-            return np.ascontiguousarray(img[:, :, :3])
-        return np.repeat(img[:, :, :1], 3, axis=2)
+def _rgb(png: PngImage, clip_grey16: bool) -> np.ndarray:
+    """(H, W, 3) uint8 RGB of decoded samples: a palette looked up (an
+    index past it is black), grey narrower than a byte scaled to 8 bits,
+    16-bit samples to their high byte (or, ``clip_grey16``, 16-bit grey
+    clipped to 255), alpha dropped."""
+    hdr, img = png.hdr, png.samples
     if hdr.color_type == 3:
         table = np.zeros((256, 3), np.uint8)
-        entries = np.frombuffer(palette[:len(palette) // 3 * 3], np.uint8).reshape(-1, 3)
+        entries = np.frombuffer(png.palette[:len(png.palette) // 3 * 3], np.uint8).reshape(-1, 3)
         table[:min(len(entries), 256)] = entries[:256]
-        return table[idx]
-    grey = (idx * _GREY_SCALE[hdr.bit_depth]).astype(np.uint8)
-    return np.repeat(grey[:, :, None], 3, axis=2)
+        return table[img[:, :, 0]]
+    if hdr.bit_depth < 8:
+        img = (img * _GREY_SCALE[hdr.bit_depth]).astype(np.uint8)
+    elif hdr.bit_depth == 16:
+        grey_clip = clip_grey16 and hdr.color_type == 0
+        img = (np.minimum(img, 255) if grey_clip else img >> 8).astype(np.uint8)
+    if img.shape[2] >= 3:
+        return np.ascontiguousarray(img[:, :, :3])
+    return np.repeat(img[:, :, :1], 3, axis=2)
+
+
+def decode_png_rgb(data: bytes) -> np.ndarray:
+    """A PNG file as (H, W, 3) uint8 RGB, what PIL's ``Image.open(f).convert(
+    "RGB")`` gives: any colour type and bit depth, interlaced or not. A
+    palette is looked up (an index past it is black); grey narrower than a
+    byte is scaled to 8 bits, 16-bit grey is clipped to 255, other 16-bit
+    samples keep their high byte; alpha is dropped."""
+    return _rgb(_parse(data, _accept_any), clip_grey16=True)
+
+
+def decode_png_cv2(data: bytes) -> PngImage:
+    """A PNG file as ``cv2.imread(path)`` reads it, before the EXIF turn:
+    ``samples`` is (H, W, 3) uint8 RGB through libpng's transforms
+    (palette to RGB, ``tRNS`` or not; grey narrower than a byte expanded;
+    every 16-bit sample to its high byte, ``png_set_strip_16``; alpha
+    stripped; grey to RGB), interlaced or not, and ``exif`` the payload of
+    the first ``eXIf`` chunk that libpng keeps: one whose CRC holds and
+    that starts with ``II*\0`` or ``MM\0*``. An ancillary chunk that fails
+    its CRC is skipped, as libpng does."""
+    png = _parse(data, _accept_any, lenient=True)
+    return png._replace(samples=_rgb(png, clip_grey16=False))
 
 
 def read_png(path: str) -> np.ndarray:

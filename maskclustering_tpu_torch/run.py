@@ -160,6 +160,8 @@ class RunReport:
         return not self.failed and not self.step_errors and not self.interrupted
 
     def save(self, path: str) -> None:
+        """The JAX report's file: the AP tables stay in memory (they are
+        in ``evaluation/`` on disk), as the JAX file has no such field."""
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
         with open(path, "w") as f:
             json.dump({
@@ -168,7 +170,6 @@ class RunReport:
                 "scenes": [dataclasses.asdict(s) for s in self.scenes],
                 "step_errors": self.step_errors,
                 "clip_checkpoint": self.clip_checkpoint,
-                "evaluation": self.evaluation,
                 "obs": self.obs,
                 "faults": self.faults,
             }, f, indent=2)

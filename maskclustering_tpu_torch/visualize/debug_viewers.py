@@ -22,10 +22,10 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
-from maskclustering_tpu_torch.io.image import resize_nearest
-from maskclustering_tpu_torch.io.jpeg import decode_jpeg, encode_jpeg
+from maskclustering_tpu_torch.io.image import read_rgb_pil, resize_nearest
+from maskclustering_tpu_torch.io.jpeg import encode_jpeg
 from maskclustering_tpu_torch.io.ply import write_ply_points
-from maskclustering_tpu_torch.io.png import decode_png_rgb, encode_png_pillow
+from maskclustering_tpu_torch.io.png import encode_png_pillow
 from maskclustering_tpu_torch.ops.geometry import backproject_depth_np
 
 log = logging.getLogger("maskclustering_tpu_torch")
@@ -95,18 +95,6 @@ def depth_preview(dataset, frame_id, out_dir: str) -> List[str]:
     return [png_path, ply_path]
 
 
-def _read_image_rgb(path: str) -> np.ndarray:
-    """An image file as (H, W, 3) uint8, as PIL's ``open(...).convert("RGB")``
-    gives it for PNG (any colour type and bit depth) and baseline JPEG;
-    raises ``ValueError`` for anything else."""
-    with open(path, "rb") as f:
-        data = f.read()
-    if data[:2] == b"\xff\xd8":
-        img = decode_jpeg(data, name=path)
-        return img if img.ndim == 3 else np.repeat(img[:, :, None], 3, axis=2)
-    return decode_png_rgb(data)
-
-
 def compare_mask_dirs(dir_a: str, dir_b: str, out_dir: str,
                       separator_height: int = 2) -> List[str]:
     """Stack same-named images from two directories with a black rule,
@@ -118,8 +106,8 @@ def compare_mask_dirs(dir_a: str, dir_b: str, out_dir: str,
     written = []
     for name in common:
         try:
-            a = _read_image_rgb(os.path.join(dir_a, name))
-            b = _read_image_rgb(os.path.join(dir_b, name))
+            a = read_rgb_pil(os.path.join(dir_a, name))
+            b = read_rgb_pil(os.path.join(dir_b, name))
         except (OSError, ValueError, NotImplementedError):
             # stray non-image entries must not abort the compare
             log.debug("compare_mask_dirs: skipping non-image entry %r", name)

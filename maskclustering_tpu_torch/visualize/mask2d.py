@@ -10,9 +10,9 @@ the Hershey font takes at scale 1 and thickness 2: 18 pixels of advance a
 digit, 21 rows above the text origin. Every pixel outside those boxes is
 the JAX package's; the glyphs inside differ by design (ROADMAP.md §C).
 
-``frames_to_gif`` needs Pillow's median-cut quantizer, its dither and its
-GIF writer, which the port does not have yet: it raises
-``NotImplementedError`` naming ROADMAP A14b.
+:func:`frames_to_gif` writes the JAX function's GIF bytes through the
+port's numpy copy of Pillow's quantizer, dither and GIF writer
+(``io/gif.py``).
 """
 
 from __future__ import annotations
@@ -22,10 +22,9 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
-from maskclustering_tpu_torch.io.image import resize_nearest
+from maskclustering_tpu_torch.io.gif import encode_gif
+from maskclustering_tpu_torch.io.image import read_rgb_pil, resize_nearest
 from maskclustering_tpu_torch.io.png import encode_png_pillow
-
-GIF_ITEM = "ROADMAP A14b"
 
 # Hershey simplex at scale 1: a digit's advance and the rows its strokes
 # span above the text origin (cv2's ``org``, the bottom-left of the text)
@@ -102,9 +101,15 @@ def vis_mask_frame(dataset, frame_id, vis_dir: str,
 
 
 def frames_to_gif(image_paths: Sequence[str], out_path: str, fps: int = 10) -> str:
-    """Stitch frame PNGs into an animated GIF: not ported yet (ROADMAP A14b:
-    Pillow's median-cut quantizer, its Floyd-Steinberg mapping onto the
-    first frame's palette and its GIF writer)."""
-    raise NotImplementedError(
-        f"frames_to_gif is not ported yet ({GIF_ITEM}: Pillow's median-cut quantize, "
-        f"its dither and its GIF writer)")
+    """Stitch frame images into an animated GIF, looping, ``fps`` frames a
+    second: the first frame's median-cut palette of 256 colours for every
+    frame (a GIF shows each frame with one palette), the later frames
+    dithered onto it. Returns ``out_path``."""
+    frames = [read_rgb_pil(p) for p in image_paths]
+    if not frames:
+        raise ValueError("no frames to animate")
+    data = encode_gif(frames, duration=max(1, int(1000 / fps)), loop=0)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    with open(out_path, "wb") as f:
+        f.write(data)
+    return out_path

@@ -11,6 +11,7 @@ Everything is compared for exact equality.
 """
 
 import io
+import struct
 import zlib
 
 import cv2
@@ -328,3 +329,280 @@ def test_feed_frames_equal_the_host_arrays(case):
     d_dev, s_dev = feed.to_device_frames(depths, segs, "cpu")
     np.testing.assert_array_equal(d_dev.numpy(), depths)
     np.testing.assert_array_equal(s_dev.numpy(), segs)
+
+
+# ---------------------------------------------------------------------------
+# read_rgb: cv2's EXIF orientation (C8) and PNG kinds (C9), held against the
+# JAX read_rgb (cv2.imread) on the same files
+# ---------------------------------------------------------------------------
+
+_PHOTO = np.random.default_rng(48).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+_TIFF_TYPES = {"short": 3, "long": 4, "ascii": 2, "rational": 5}
+
+
+def _tiff(entries, order="II", ifd1=(), tail=b""):
+    """A TIFF block by hand: IFD0's ``entries`` (tag, type name, count,
+    value: an int or four raw bytes), then IFD1's, then ``tail``."""
+    e = "<" if order == "II" else ">"
+
+    def ifd(ents, next_at):
+        out = struct.pack(e + "H", len(ents))
+        for tag, typ, count, value in ents:
+            head = struct.pack(e + "HHI", tag, _TIFF_TYPES[typ], count)
+            if isinstance(value, bytes):
+                out += head + value
+            elif typ == "short":
+                out += head + struct.pack(e + "HH", value, 0)
+            else:
+                out += head + struct.pack(e + "I", value)
+        return out + struct.pack(e + "I", next_at)
+
+    first = ifd(entries, 0)
+    if ifd1:
+        first = ifd(entries, 8 + len(first))
+    return order.encode() + struct.pack(e + "HI", 42, 8) + first + (
+        ifd(ifd1, 0) if ifd1 else b"") + tail
+
+
+def _orient(value, order="II"):
+    return _tiff([(0x0112, "short", 1, value)], order)
+
+
+def _jpeg_with(*app1s):
+    """PIL's JPEG of the photo with these APP1 payloads after SOI."""
+    buf = io.BytesIO()
+    Image.fromarray(_PHOTO).save(buf, format="JPEG", quality=95)
+    data = buf.getvalue()
+    return data[:2] + b"".join(b"\xff\xe1" + struct.pack(">H", len(p) + 2) + p
+                               for p in app1s) + data[2:]
+
+
+def _chunk(kind, payload, crc=None):
+    crc = zlib.crc32(kind + payload) & 0xFFFFFFFF if crc is None else crc
+    return struct.pack(">I", len(payload)) + kind + payload + struct.pack(">I", crc)
+
+
+def _png_with(*exifs, after=(), bad_crc=False):
+    """PIL's PNG of the photo with these ``eXIf`` payloads before IDAT (and
+    ``after`` it)."""
+    buf = io.BytesIO()
+    Image.fromarray(_PHOTO).save(buf, format="PNG")
+    data = buf.getvalue()
+    i, k = data.index(b"IDAT") - 4, data.index(b"IEND") - 4
+    before = b"".join(_chunk(b"eXIf", p, 0 if bad_crc else None) for p in exifs)
+    return data[:i] + before + data[i:k] + b"".join(_chunk(b"eXIf", p) for p in after) + data[k:]
+
+
+def _pil_oriented(fmt, value):
+    """PIL's own file of the photo with orientation ``value`` (its Exif
+    writer: little-endian, the tag in IFD0)."""
+    ex = Image.Exif()
+    ex[0x0112] = value
+    buf = io.BytesIO()
+    Image.fromarray(_PHOTO).save(buf, format=fmt, exif=ex.tobytes(), **(
+        {"quality": 95} if fmt == "JPEG" else {}))
+    return buf.getvalue()
+
+
+def _assert_read_rgb_like_jax(tmp_path, data, ext):
+    path = str(tmp_path / f"frame.{ext}")
+    with open(path, "wb") as f:
+        f.write(data)
+    want = jax_image.read_rgb(path)
+    got = image.read_rgb(path)
+    assert got.dtype == np.uint8 and got.shape == want.shape
+    np.testing.assert_array_equal(got, want)
+    return got
+
+
+@pytest.mark.parametrize("value", range(1, 9))
+@pytest.mark.parametrize("source", ["pil", "II", "MM"])
+@pytest.mark.parametrize("fmt", ["jpeg", "png"])
+def test_read_rgb_turns_by_the_exif_orientation_like_cv2(fmt, source, value, tmp_path):
+    """C8: each of the eight orientations, in PIL's own file and in a
+    hand-built block of either byte order, turns the frame as cv2 does."""
+    if source == "pil":
+        data = _pil_oriented(fmt.upper(), value)
+    elif fmt == "jpeg":
+        data = _jpeg_with(b"Exif\x00\x00" + _orient(value, source))
+    else:
+        data = _png_with(_orient(value, source))
+    got = _assert_read_rgb_like_jax(tmp_path, data, "jpg" if fmt == "jpeg" else "png")
+    assert got.shape == ((64, 48, 3) if value >= 5 else (48, 64, 3))
+    # the .sens route (decode_rgb) stays unturned, as PIL decodes
+    assert image.decode_rgb(data).shape == (48, 64, 3)
+
+
+_EXIF_FAULTS = {
+    # value out of range, or not a SHORT: cv2 reads 16 bits at byte 8
+    "zero": lambda o: [_orient(0, o)],
+    "nine": lambda o: [_orient(9, o)],
+    "65535": lambda o: [_orient(65535, o)],
+    "long": lambda o: [_tiff([(0x0112, "long", 1, 6)], o)],
+    "count-2": lambda o: [_tiff([(0x0112, "short", 2, 6)], o)],
+    # the tag only in IFD1, or twice in IFD0 (the first wins)
+    "ifd1-only": lambda o: [_tiff([(0x011A, "rational", 1, 8)], o, ifd1=[(0x0112, "short", 1, 6)])],
+    "duplicate": lambda o: [_tiff([(0x0112, "short", 1, 6), (0x0112, "short", 1, 3)], o)],
+    # malformed: a count past the data, a value read out of bounds before
+    # the tag (a string, a rational), an unknown tag before it, the block
+    # cut inside the value or just after it, IFD0 out of bounds, a bad mark
+    "count-past-data": lambda o: [_orient(6, o)[:8] + (b"\x00\x05" if o == "MM" else b"\x05\x00")
+                                  + _orient(6, o)[10:22]],
+    "bad-make-first": lambda o: [_tiff([(0x010F, "ascii", 20, 5000), (0x0112, "short", 1, 6)], o)],
+    "bad-xres-first": lambda o: [_tiff([(0x011A, "rational", 1, 5000),
+                                        (0x0112, "short", 1, 6)], o)],
+    "short-make-first": lambda o: [_tiff([(0x010F, "ascii", 3, b"ab\x00\x00"),
+                                          (0x0112, "short", 1, 7)], o)],
+    "unknown-first": lambda o: [_tiff([(0x9999, "rational", 1, 5000), (0x0112, "short", 1, 6)], o)],
+    "cut-inside-value": lambda o: [_orient(6, o)[:19]],
+    "cut-after-value": lambda o: [_orient(6, o)[:20]],
+    "ifd0-out-of-bounds": lambda o: [_orient(6, o)[:4] + b"\xff\xff\x00\x00" + _orient(6, o)[8:]],
+    "bad-mark": lambda o: [_orient(6, o).replace(b"*", b"+", 1)],
+    # several blocks: a JPEG's Exif segments feed one map (the first value
+    # wins); a PNG keeps its first valid eXIf chunk
+    "two-blocks": lambda o: [_orient(6, o), _orient(3, o)],
+    "bad-then-good": lambda o: [_orient(6, o).replace(b"*", b"+", 1), _orient(8, o)],
+    "no-tag-then-good": lambda o: [_tiff([(0x011A, "rational", 1, 8)], o), _orient(5, o)],
+}
+
+
+@pytest.mark.parametrize("order", ["II", "MM"])
+@pytest.mark.parametrize("case", sorted(_EXIF_FAULTS))
+@pytest.mark.parametrize("fmt", ["jpeg", "png"])
+def test_read_rgb_reads_malformed_exif_like_cv2(fmt, case, order, tmp_path):
+    """C8: a missing, malformed, out-of-range or repeated tag, and one
+    only IFD1 holds, give cv2's frame."""
+    blocks = _EXIF_FAULTS[case](order)
+    if fmt == "jpeg":
+        data = _jpeg_with(*[b"Exif\x00\x00" + b for b in blocks])
+    else:
+        data = _png_with(*blocks)
+    _assert_read_rgb_like_jax(tmp_path, data, "jpg" if fmt == "jpeg" else "png")
+
+
+@pytest.mark.parametrize("case", [
+    "xmp-first", "exif-header-wrong", "app1-empty-first", "png-after-idat",
+    "png-before-and-after", "png-bad-crc", "png-bad-byte-order-then-good"])
+def test_read_rgb_finds_the_exif_block_cv2_reads(case, tmp_path):
+    """C8: which APP1 segment or eXIf chunk cv2 takes the tag from."""
+    six = _orient(6)
+    data, ext = {
+        "xmp-first": (lambda: _jpeg_with(b"http://ns.adobe.com/xap/1.0/\x00<x/>",
+                                         b"Exif\x00\x00" + six), "jpg"),
+        "exif-header-wrong": (lambda: _jpeg_with(b"Exif\x00\x01" + six), "jpg"),
+        "app1-empty-first": (lambda: _jpeg_with(b"", b"Exif\x00\x00" + six), "jpg"),
+        "png-after-idat": (lambda: _png_with(after=[six]), "png"),
+        "png-before-and-after": (lambda: _png_with(six, after=[_orient(3)]), "png"),
+        "png-bad-crc": (lambda: _png_with(six, bad_crc=True), "png"),
+        "png-bad-byte-order-then-good": (lambda: _png_with(b"IM" + _orient(8, "MM")[2:], six),
+                                         "png"),
+    }[case]
+    _assert_read_rgb_like_jax(tmp_path, data(), ext)
+
+
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+          (0, 1, 1, 2))
+
+
+def _png_by_hand(samples, depth, ctype, interlace=0, plte=None, trns=None):
+    """A PNG assembled with ``struct`` and ``zlib``: (H, W, C) samples at
+    ``depth`` bits, Paeth rows, Adam7 when ``interlace``."""
+    def rows(s):
+        h, w, c = s.shape
+        if depth < 8:
+            per = 8 // depth
+            v = np.concatenate([s[:, :, 0], np.zeros((h, (-w) % per), np.uint8)], axis=1)
+            shifts = (8 - depth * (1 + np.arange(per))).astype(np.uint8)
+            raw = (v.reshape(h, -1, per).astype(np.uint8) << shifts).sum(axis=2).astype(np.uint8)
+            bpp = 1
+        elif depth == 16:
+            raw, bpp = s.astype(">u2").view(np.uint8).reshape(h, -1), 2 * c
+        else:
+            raw, bpp = s.astype(np.uint8).reshape(h, -1), c
+        return png._filter_rows(raw, bpp, 4).tobytes()
+
+    h, w = samples.shape[:2]
+    passes = [samples[y0::dy, x0::dx] for x0, y0, dx, dy in _ADAM7] if interlace else [samples]
+    stream = b"".join(rows(p) for p in passes if p.size)
+    out = png.SIGNATURE + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0,
+                                                      interlace))
+    out += (_chunk(b"PLTE", plte) if plte is not None else b"") + (
+        _chunk(b"tRNS", trns) if trns is not None else b"")
+    return out + _chunk(b"IDAT", zlib.compress(stream)) + _chunk(b"IEND", b"")
+
+
+def _pil_png(img, mode, **kw):
+    buf = io.BytesIO()
+    im = Image.fromarray(img)
+    (im.convert(mode) if mode else im).save(buf, format="PNG", **kw)
+    return buf.getvalue()
+
+
+def _cv2_png(img):
+    ok, buf = cv2.imencode(".png", img)
+    assert ok
+    return buf.tobytes()
+
+
+def _png_kind(kind, h, w):
+    rng = np.random.default_rng(sum(map(ord, kind)) + h * w)
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    wide = rng.integers(0, 65536, (h, w, 4), dtype=np.uint16)
+    interlace = int(kind.endswith("-adam7"))
+    base = kind.removesuffix("-adam7")
+    if base in ("grey1", "grey2", "grey4"):
+        depth = int(base[-1])
+        return _png_by_hand(rng.integers(0, 1 << depth, (h, w, 1), dtype=np.uint8), depth, 0,
+                            interlace)
+    if base in ("palette1", "palette4", "palette8", "palette8-trns"):
+        depth = int(base[7])
+        n = int(rng.integers(2, 1 << depth, endpoint=True))
+        idx = rng.integers(0, n, (h, w, 1), dtype=np.uint8)
+        plte = rng.integers(0, 256, 3 * n, dtype=np.uint8).tobytes()
+        trns = bytes(range(0, 255, 9))[:n] if base.endswith("trns") else None
+        return _png_by_hand(idx, depth, 3, interlace, plte, trns)
+    if interlace:
+        depth = 16 if "16" in base else 8
+        ctype, c = {"grey": (0, 1), "rgb": (2, 3), "grey-alpha": (4, 2), "rgba": (6, 4)}[
+            base.removesuffix("16").removesuffix("8")]
+        samples = wide[:, :, :c] if depth == 16 else rgb.repeat(2, axis=2)[:, :, :c]
+        return _png_by_hand(samples, depth, ctype, interlace)
+    return {
+        "palette-pil": lambda: _pil_png(rgb, "P"),
+        "palette-pil-trns": lambda: _pil_png(rgb, "P", transparency=3),
+        "bilevel-pil": lambda: _pil_png(rgb, "1"),
+        "grey-alpha-pil": lambda: _pil_png(rgb, "LA"),
+        "rgba-pil": lambda: _pil_png(rgb, "RGBA"),
+        "grey16": lambda: _cv2_png(wide[:, :, 0]),
+        "rgb16": lambda: _cv2_png(wide[:, :, :3]),
+        "rgba16": lambda: _cv2_png(wide),
+    }[base]()
+
+
+_PNG_KINDS = ["palette-pil", "palette-pil-trns", "bilevel-pil", "grey-alpha-pil", "rgba-pil",
+              "grey16", "rgb16", "rgba16", "grey1", "grey2", "grey4", "palette1", "palette4",
+              "palette8", "palette8-trns", "grey8-adam7", "grey16-adam7", "rgb8-adam7",
+              "rgb16-adam7", "grey-alpha8-adam7", "rgba16-adam7", "grey1-adam7",
+              "palette4-adam7", "palette8-trns-adam7"]
+
+
+@pytest.mark.parametrize("hw", [(13, 17), (1, 1), (3, 9)], ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", _PNG_KINDS)
+def test_read_rgb_reads_every_png_kind_like_cv2(kind, hw, tmp_path):
+    """C9: palette (with and without ``tRNS``), grey at 1, 2 and 4 bits,
+    16-bit grey, RGB and RGBA (the high byte), grey+alpha and Adam7 files
+    read as cv2 reads them; before C9 these raised."""
+    _assert_read_rgb_like_jax(tmp_path, _png_kind(kind, *hw), "png")
+
+
+def test_pil_route_keeps_pils_16_bit_grey_and_reads_adam7():
+    """``decode_png_rgb`` (the PIL call sites) clips 16-bit grey where
+    cv2 keeps the high byte; both read Adam7 files as their library does."""
+    for kind in ("grey16", "grey16-adam7", "rgb16-adam7", "palette4-adam7", "grey1-adam7"):
+        data = _png_kind(kind, 13, 17)
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+        np.testing.assert_array_equal(png.decode_png_rgb(data), want)
+    data = _png_kind("grey16", 13, 17)
+    wide = png.decode_png(data)
+    np.testing.assert_array_equal(png.decode_png_rgb(data)[:, :, 0], np.minimum(wide, 255))
+    np.testing.assert_array_equal(png.decode_png_cv2(data).samples[:, :, 0], wide >> 8)

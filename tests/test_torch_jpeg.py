@@ -4,8 +4,12 @@ The decoder must give PIL's and cv2's pixels exactly (both run
 libjpeg-turbo's default decode) on files written by PIL (qualities 50, 75
 and 95; 4:4:4, 4:2:2 and 4:2:0; greyscale; restart intervals; the Adobe
 RGB transform; odd sizes), by cv2 (its default, 4:4:4 and 4:4:0) and by
-the port's own encoder. Unsupported kinds raise ``NotImplementedError``,
-truncated files ``ValueError``. The encoder writes libjpeg's tables and
+the port's own encoder; progressive files (SOF2) by PIL (with and without
+``optimize``, 4:2:0, 4:4:4 and greyscale, restart markers) and cv2 (its
+default, 4:4:4, 4:2:2, restart intervals), odd sizes 1x1 to 64x96.
+Unsupported kinds raise ``NotImplementedError``, and so does a progressive
+file that libjpeg would block-smooth; truncated files raise
+``ValueError``. The encoder writes libjpeg's tables and
 stays within a PSNR floor of its source.
 """
 
@@ -163,13 +167,13 @@ def _patched_sof(data, marker):
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("progressive", "progressive"), ("cmyk", "4-component"),
+    ("arithmetic-progressive", "arithmetic"), ("cmyk", "4-component"),
     ("arithmetic", "arithmetic"), ("lossless", "lossless"), ("12-bit", "12-bit")])
 def test_unsupported_kinds_raise(kind, match):
     img = _photo(24, 32, seed=1)
     base = _pil(img)
     data = {
-        "progressive": lambda: _pil(img, progressive=True),
+        "arithmetic-progressive": lambda: _patched_sof(base, 0xCA),
         "cmyk": lambda: _pil_mode(img, "CMYK"),
         "arithmetic": lambda: _patched_sof(base, 0xC9),
         "lossless": lambda: _patched_sof(base, 0xC3),
@@ -228,3 +232,65 @@ def test_out_of_range_samples_saturate_like_pil_and_cv2():
     for quality in (100, 30):
         _assert_decodes_like_pil_and_cv2(_pil(np.stack([board, 255 - board, board], -1),
                                               quality=quality))
+
+
+_PROGRESSIVE_SIZES = [(1, 1), (7, 13), (17, 33), (64, 96)]
+
+
+def _progressive(kind, img):
+    if kind.startswith("pil"):
+        sub = 0 if "444" in kind else 2
+        src = img[:, :, 0] if kind == "pil-grey" else img
+        return _pil(src, quality=85, progressive=True, optimize="optimize" in kind,
+                    subsampling=sub, **({"restart_marker_blocks": 3} if "rst" in kind else {}))
+    params = [cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_QUALITY, 90]
+    if kind != "cv2":
+        params += {"cv2-444": [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                               cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444],
+                   "cv2-422": [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                               cv2.IMWRITE_JPEG_SAMPLING_FACTOR_422],
+                   "cv2-rst": [cv2.IMWRITE_JPEG_RST_INTERVAL, 2]}[kind]
+    return _cv2(img, *params)
+
+
+@pytest.mark.parametrize("hw", _PROGRESSIVE_SIZES, ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("kind", ["pil-420", "pil-420-optimize", "pil-444", "pil-444-optimize",
+                                  "pil-grey", "pil-420-rst", "cv2", "cv2-444", "cv2-422",
+                                  "cv2-rst"])
+def test_progressive_files_decode_like_pil_and_cv2(kind, hw):
+    """SOF2: DC first and refine scans, AC first scans with end-of-band
+    runs, AC refine scans, non-interleaved bands at a component's edge and
+    restart intervals, into the baseline path's coefficients and IDCT."""
+    data = _progressive(kind, _photo(*hw, seed=sum(hw)))
+    assert b"\xff\xc2" in data
+    _assert_decodes_like_pil_and_cv2(data)
+
+
+def test_progressive_full_size_frame_decodes_like_pil_and_cv2():
+    """A ScanNet-size colour frame (968x1296, quality 90)."""
+    _assert_decodes_like_pil_and_cv2(_pil(_photo(968, 1296, seed=5), quality=90,
+                                          progressive=True))
+
+
+@pytest.mark.parametrize("cut", [0.3, 0.6, 0.95])
+def test_truncated_progressive_files_raise(cut):
+    data = _pil(_photo(64, 96, seed=6), quality=90, progressive=True)
+    with pytest.raises(ValueError, match="truncated"):
+        jpeg.decode_jpeg(data[:int(len(data) * cut)], name="cut.jpg")
+
+
+def _scan_starts(data):
+    return [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
+
+
+@pytest.mark.parametrize("keep", [1, 3, 6, 9])
+def test_progressive_file_that_libjpeg_smooths_is_refused(keep):
+    """A file whose scans end before every coefficient 0-9 of a component
+    is whole: libjpeg block-smooths it (``jdcoefct.c``), so the port
+    refuses it naming A17 rather than decode it unsmoothed."""
+    data = _pil(_photo(40, 56, seed=7), quality=85, progressive=True)
+    starts = _scan_starts(data)
+    assert len(starts) == 10 and keep < len(starts)
+    with pytest.raises(NotImplementedError, match="smoothing") as err:
+        jpeg.decode_jpeg(data[:starts[keep]] + b"\xff\xd9", name="early.jpg")
+    assert "A17" in str(err.value) and "early.jpg" in str(err.value)

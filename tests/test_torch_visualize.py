@@ -582,11 +582,6 @@ def test_colormaps_equal_to_jax():
     assert np.array_equal(pv.colorize_id_map(seg, cmap), jm.colorize_id_map(seg, cmap))
 
 
-def test_frames_to_gif_raises_naming_a14b(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP A14b"):
-        pv.frames_to_gif([str(tmp_path / "0.png")], str(tmp_path / "a.gif"))
-
-
 def test_visualize_exports_every_jax_name():
     jax_names = {n for n in dir(_jax("visualize")) if not n.startswith("_")}
     jax_names -= {"debug_viewers", "mask2d", "scene", "top_images"}
