@@ -193,7 +193,8 @@ Imports nothing of JAX or of the JAX package. In order:
     maskclustering_tpu_torch.serve --isolate-worker`` subprocess over phase
     10's scans and config, files under a temporary directory. (a) One
     isolated worker warm on a scan: spawn to ready, the child's warm-up
-    and no build in it; the three scans served with phase 10's digests,
+    and no build in it; the first two scans served with phase 10's digests
+    (since PR 18; the third is the same scene again),
     their seconds beside phase 15's in-thread ones, polled for the
     heartbeat age, and the first again unpolled; the child holds a context and the
     daemon none (``nvidia-smi``, or the open ``/dev/nvidiaN`` files where
@@ -295,8 +296,23 @@ Imports nothing of JAX or of the JAX package. In order:
     ``splat_bbox`` launched on the card (``demo_launches``); each step's
     seconds on both devices.
 
+23. the JPEG kinds the port decodes since PR 18 (arithmetic sequential and
+    progressive with DAC and restarts, block-smoothed cuts of Huffman and
+    arithmetic progressive files, CMYK and YCCK, every integral sampling
+    ratio, lossless) and those it refuses with cv2 and PIL: a CPU child
+    started after phase 17 (``--jpeg-kinds``) makes every fixture of
+    ``tests/jpeg_writers.py`` (numpy, and two small files PIL wrote under
+    ``tests/jpeg_kinds/``) and holds ``read_rgb``, ``read_rgb_pil`` and
+    ``decode_rgb`` to the goldens recorded from cv2 and PIL
+    (``tests/jpeg_kinds/goldens.json``: the bytes, each route's pixels or
+    its refusal), timing each decode; joined here. Then the ``features``
+    step (``hash:64``) on the card over a small scan whose colour frames are
+    arithmetic transcodes of its Huffman frames equals, bit for bit, the
+    step over the Huffman frames.
+
 ``python3 chip_smoke.py --ingest-reference`` runs only that CPU route and
-needs no card.
+needs no card; ``--jpeg-kinds OUT`` runs only phase 23's fixture check and
+writes its decode times to OUT.
 
 Every perf-ledger row of the script goes to a temporary file
 (``MCT_PERF_LEDGER``). Any mismatch or failure exits non-zero. The last
@@ -335,6 +351,9 @@ FULL_NEIGHBOR_CAP = 1024
 # phase 10's scans on disk: the full-size scene under three names, the
 # mid-size one as a fourth
 BATCH_SCANS = ("scene0000_00", "scene0001_00", "scene0002_00")
+# phase 17(a)'s polled requests: two of the three names of one scene, the
+# third cut to pay for phase 23
+ISO_SCANS = BATCH_SCANS[:2]
 MID_SCAN = "scene0003_00"
 # phase 11: ScanNet's colour size and a photo-like quality, ViT-H-14's
 # feature width for the hash encoder
@@ -3404,7 +3423,7 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
             raise AssertionError(f"{label}: {scene} answered {term}, want digest {want_dg}")
 
     try:
-        # (a) one isolated worker: spawn to ready, three scans, the pipe's
+        # (a) one isolated worker: spawn to ready, two scans, the pipe's
         # cost beside phase 15's in-thread figures, the parent device-free
         d = spawn("one", ["--warm", first])
         w = d.ready["worker"]
@@ -3429,7 +3448,7 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
         th = threading.Thread(target=sampler, name="hb-sampler")
         th.start()
         try:
-            rows = [(scene, *_timed_request(d.sock, scene)) for scene in BATCH_SCANS]
+            rows = [(scene, *_timed_request(d.sock, scene)) for scene in ISO_SCANS]
         finally:
             stop_sampler.set()
             th.join(60.0)
@@ -3452,7 +3471,7 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
             for scene, term, _, wall in quiet))
         digest_line = d.stop()
         launches = digest_line["worker"]["cuda"]["launches"]
-        served = 1 + len(BATCH_SCANS) + len(quiet)  # the warm scan, then the requests
+        served = 1 + len(ISO_SCANS) + len(quiet)  # the warm scan, then the requests
         if any(launches.get(n) != served for n in ASSOCIATION_KERNELS):
             raise AssertionError(f"the child's bye launches {launches}, want {served} each")
         _say(f"[iso] the child's bye: launches {json.dumps(launches)} (the warm scan and "
@@ -5035,6 +5054,142 @@ def demo_phase(dev, card: str, cpu: dict) -> dict:
         shutil.rmtree(cpu["tmp"], ignore_errors=True)
 
 
+# phase 23: the scan whose colour frames become arithmetic transcodes
+KINDS_SCAN = "scene2300_00"
+
+
+def jpeg_kinds(out_path: str) -> int:
+    """``--jpeg-kinds OUT``: every fixture of ``tests/jpeg_writers.py``
+    through ``read_rgb``, ``read_rgb_pil`` and ``decode_rgb`` against the
+    goldens recorded from cv2 and PIL, each decode timed (best of 3); the
+    times go to OUT as JSON. Raises at the first difference."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, os.path.join(here, "tests"))
+    import jpeg_writers
+
+    with open(jpeg_writers.GOLDENS) as fh:
+        goldens = json.load(fh)
+    t0 = time.perf_counter()
+    ms = jpeg_writers.port_against_goldens(goldens, reps=3)
+    with open(out_path, "w") as fh:
+        json.dump({"ms": ms, "seconds": time.perf_counter() - t0}, fh)
+    return 0
+
+
+def start_jpeg_kinds_cpu() -> dict:
+    """Start ``python chip_smoke.py --jpeg-kinds OUT`` as a child process
+    on one thread; phase 23 joins it."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_kinds_")
+    out, log = os.path.join(tmp, "kinds.json"), os.path.join(tmp, "kinds.log")
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--jpeg-kinds", out],
+                                cwd=here, env=env, stdout=fh, stderr=subprocess.STDOUT,
+                                text=True)
+    _CHILDREN.append(proc)
+    return {"proc": proc, "t0": t0, "tmp": tmp, "out": out, "log": log}
+
+
+def jpeg_kinds_phase(dev, card: str, child: dict) -> dict:
+    """Phase 23: the JPEG kinds. The child's check of every fixture against
+    the goldens, then the features step on the card over a scan's
+    arithmetic-coded frames against the step over its Huffman frames."""
+    import shutil
+
+    import numpy as np
+
+    from maskclustering_tpu_torch.config import load_config
+    from maskclustering_tpu_torch.io import jpeg
+    from maskclustering_tpu_torch.run import run_pipeline
+    from maskclustering_tpu_torch.utils.synthetic import make_scene, write_scannet_layout
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import jpeg_writers
+
+    t_phase = time.perf_counter()
+    try:
+        child["proc"].wait(timeout=600)
+        with open(child["log"]) as fh:
+            text = fh.read()
+        if child["proc"].returncode != 0:
+            raise AssertionError(f"the JPEG kinds' check exited {child['proc'].returncode}:\n"
+                                 f"{text[-3000:]}")
+        with open(child["out"]) as fh:
+            result = json.load(fh)
+        ms = result["ms"]
+        refused = sorted(k for k, v in ms.items() if "refused" in v.values())
+        read = {k: v for k, v in ms.items() if k not in refused}
+        _say(f"[kinds] {len(ms)} fixtures equal to their cv2 and PIL goldens on read_rgb, "
+             f"read_rgb_pil and decode_rgb (bytes and pixels), {len(refused)} refused where "
+             f"the golden's library refuses ({', '.join(refused)}); the check's child took "
+             f"{result['seconds']:.1f} s beside phases 18-22")
+        _say(f"[kinds] {card}: host decode ms a frame (best of 3, a CPU child beside the card's "
+             f"phases), read_rgb / read_rgb_pil / decode_rgb: " + json.dumps(
+                 {k: [round(x, 2) if isinstance(x, float) else x for x in v.values()]
+                  for k, v in read.items()}))
+
+        # the features step over the same scan, Huffman then arithmetic frames
+        root = os.path.join(child["tmp"], "data")
+        write_scannet_layout(make_scene(num_boxes=3, num_frames=8, image_hw=(120, 160),
+                                        seed=2300), root, KINDS_SCAN)
+        cfg = load_config("scannet").replace(config_name="kinds_huffman", data_root=root,
+                                             step=1, distance_threshold=0.03,
+                                             mask_pad_multiple=64)
+        arith_cfg = cfg.replace(config_name="kinds_arithmetic")
+
+        def features(run_cfg, steps):
+            t0 = time.perf_counter()
+            rep = run_pipeline(run_cfg, [KINDS_SCAN], steps=steps, resume=False, journal=False,
+                               encoder_spec="hash:64", device=dev)
+            if not rep.ok:
+                raise AssertionError(f"phase 23's {steps} failed: {rep.step_errors}")
+            obj = os.path.join(root, "scannet", "processed", KINDS_SCAN, "output", "object",
+                               run_cfg.config_name)
+            return (np.load(os.path.join(obj, "open-vocabulary_features.npy"),
+                            allow_pickle=True).item(), time.perf_counter() - t0,
+                    rep.step_seconds)
+
+        huff, huff_s, huff_steps = features(cfg, ("cluster", "features"))
+        color = os.path.join(root, "scannet", "processed", KINDS_SCAN, "color")
+        t0 = time.perf_counter()
+        names = sorted(os.listdir(color))
+        for n, fname in enumerate(names):
+            path = os.path.join(color, fname)
+            with open(path, "rb") as fh:
+                data = fh.read()
+            arith = jpeg_writers.transcode_arith(data, progressive=bool(n % 2),
+                                                 restart=2 * (n % 3))
+            if not jpeg._parse(arith, fname).arithmetic:
+                raise AssertionError(f"{fname} was not transcoded")
+            with open(path, "wb") as fh:
+                fh.write(arith)
+        transcode_s = time.perf_counter() - t0
+        obj = os.path.join(root, "scannet", "processed", KINDS_SCAN, "output", "object")
+        os.makedirs(os.path.join(obj, arith_cfg.config_name), exist_ok=True)
+        shutil.copy(os.path.join(obj, cfg.config_name, "object_dict.npy"),
+                    os.path.join(obj, arith_cfg.config_name, "object_dict.npy"))
+        arith, arith_s, arith_steps = features(arith_cfg, ("features",))
+        if not huff or list(huff) != list(arith) or not all(
+                huff[k].dtype == arith[k].dtype and np.array_equal(huff[k], arith[k])
+                for k in huff):
+            raise AssertionError("the features over the arithmetic-coded frames differ from "
+                                 "those over the Huffman frames")
+        _say(f"[kinds] features (hash:64) on {dev} over {KINDS_SCAN} (8 frames at 120x160, 3 "
+             f"objects): {len(huff)} vectors over the arithmetic transcodes (sequential and "
+             f"progressive, restarts every 0, 2 or 4 MCUs; written in {transcode_s:.2f} s) "
+             f"equal to those over the Huffman frames bit for bit; features step "
+             f"{huff_steps['features']:.3f} s Huffman, {arith_steps['features']:.3f} s "
+             f"arithmetic (cluster + features {huff_s:.2f} s, features {arith_s:.2f} s); "
+             f"phase 23 in {time.perf_counter() - t_phase:.1f} s")
+        return {"ms": ms}
+    finally:
+        shutil.rmtree(child["tmp"], ignore_errors=True)
+
+
 def full_size_scene():
     """Phase 4's scene: 8 boxes, 32 frames at 480x640, 2 mm depth noise."""
     from maskclustering_tpu_torch.utils.synthetic import add_depth_noise, make_scene
@@ -5054,6 +5209,9 @@ def main() -> int:
     if sys.argv[1:] == ["--ingest-reference"]:
         sys.path.insert(0, here)
         return ingest_reference()
+    if sys.argv[1:2] == ["--jpeg-kinds"] and len(sys.argv) == 3:
+        sys.path.insert(0, here)
+        return jpeg_kinds(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -5234,6 +5392,8 @@ def main() -> int:
     iso = isolation_phase(dev, card, batch, serve)
 
     lap("17")
+    # 23's fixture check starts here, a child process beside phases 18-22
+    kinds_cpu = start_jpeg_kinds_cpu()
     # 18. the ingestion front: a .sens capture exported, masked, clustered
     ingest = ingest_phase(dev, card, scene)
 
@@ -5255,6 +5415,11 @@ def main() -> int:
     demo_run = demo_phase(dev, card, demo_cpu)
 
     lap("22")
+    # 23. the JPEG kinds: the child's goldens and refusals, then the
+    # features step over arithmetic-coded frames on the card
+    jpeg_kinds_phase(dev, card, kinds_cpu)
+
+    lap("23")
     _say(f"[done] {time.perf_counter() - t_start:.1f} s; phases (s): {json.dumps(laps)}")
     _say(card)
     rows = [{

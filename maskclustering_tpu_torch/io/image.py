@@ -56,12 +56,13 @@ def decode_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
     with no EXIF turn (the ``.sens`` reader's frames, which the JAX
     package decodes with PIL).
 
-    JPEG decodes through ``io/jpeg.py``, pixel for pixel what cv2 and PIL
-    give (libjpeg-turbo's defaults); a greyscale file is replicated to three
-    channels, as both do. PNG keeps its route through ``io/png.py``.
+    JPEG decodes through ``io/jpeg.py`` on PIL's route, pixel for pixel
+    what PIL's ``convert("RGB")`` gives (libjpeg-turbo's decode, PIL's CMYK
+    conversion); a greyscale file is replicated to three channels, as PIL
+    does. PNG keeps its route through ``io/png.py``.
     """
     if data[:2] == b"\xff\xd8":
-        return _grey_to_rgb(decode_jpeg(data, name=name))
+        return _grey_to_rgb(decode_jpeg(data, name=name, reader="pil"))
     if data[:8] != SIGNATURE:
         raise ValueError(f"{name}: neither a JPEG nor a PNG file")
     img = decode_png(data)
@@ -76,14 +77,16 @@ def decode_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
 def read_rgb(path: str) -> np.ndarray:
     """Read a colour frame as (H, W, 3) uint8 RGB, what the JAX package's
     ``cv2.imread`` gives (``io/image.py:49-56``): a JPEG through the port's
-    decoder, a PNG of any colour type, bit depth and interlace through
+    decoder on cv2's route (OpenCV's CMYK conversion; a lossless greyscale
+    file refused, as cv2 refuses it), a PNG of any colour type, bit depth
+    and interlace through
     libpng's transforms (``decode_png_cv2``), then turned by the EXIF
     orientation of the JPEG's ``Exif`` APP1 segments or the PNG's ``eXIf``
     chunk (``io/exif.py``)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
-        img = _grey_to_rgb(decode_jpeg(data, name=path))
+        img = _grey_to_rgb(decode_jpeg(data, name=path, reader="cv2"))
         blocks = exif.jpeg_exif_blocks(data)
     elif data[:8] == SIGNATURE:
         png = decode_png_cv2(data)
@@ -97,12 +100,13 @@ def read_rgb(path: str) -> np.ndarray:
 def read_rgb_pil(path: str) -> np.ndarray:
     """An image file as (H, W, 3) uint8, what PIL's ``Image.open(path).
     convert("RGB")`` gives (the JAX package's debug images and GIF frames):
-    a PNG of any colour type and bit depth, a baseline or progressive JPEG,
-    with no EXIF turn; ``ValueError`` for anything else."""
+    a PNG of any colour type and bit depth, any JPEG kind PIL reads, with
+    no EXIF turn; ``NotImplementedError`` for a JPEG kind PIL refuses,
+    ``ValueError`` for anything else."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:2] == b"\xff\xd8":
-        return _grey_to_rgb(decode_jpeg(data, name=path))
+        return _grey_to_rgb(decode_jpeg(data, name=path, reader="pil"))
     return decode_png_rgb(data)
 
 

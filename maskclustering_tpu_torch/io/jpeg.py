@@ -1,45 +1,60 @@
-"""Baseline JPEG codec in numpy: the colour frames of every scan layout.
+"""JPEG codec in numpy: every kind that cv2 and PIL read.
 
 The decoder is held pixel for pixel to libjpeg-turbo's default decode,
 which PIL and cv2 both run, so ``io/image.read_rgb`` gives the JAX
-package's pixels (``maskclustering_tpu/io/image.py:49-56``) without either
-library. It follows libjpeg-turbo's defaults step by step:
+package's pixels (``maskclustering_tpu/io/image.py:49-56``, cv2) and
+``read_rgb_pil``/``decode_rgb`` PIL's, without either library. It follows
+libjpeg-turbo step by step:
 
-- **entropy decode** of sequential Huffman scans (SOF0, SOF1) at 8 bits:
-  one or more scans, interleaved or not, restart intervals (DRI, RSTn),
-  byte stuffing and fill bytes. It is the one sequential part: a table of
-  all 65,536 16-bit peeks gives, in one lookup, the code length, the zero
-  run and, where it fits in the peek, the coefficient itself;
+- **sequential Huffman scans** (SOF0, SOF1) at 8 bits: one or more scans,
+  interleaved or not, restart intervals (DRI, RSTn), byte stuffing and
+  fill bytes. A table of all 65,536 16-bit peeks gives, in one lookup, the
+  code length, the zero run and, where it fits in the peek, the
+  coefficient itself;
 - **progressive Huffman scans** (SOF2, ``jdphuff.c``) into the same
   coefficient store: DC first (interleaved or not) and DC refine; AC first
   bands of one component with end-of-band runs across blocks; AC refine
   bands (a correction bit for each coefficient already nonzero, new
   coefficients of magnitude ``1 << Al`` placed past ``r`` zero ones); a
   non-interleaved band covers the component's own blocks, not its MCUs;
-  restart intervals in every scan. libjpeg block-smooths a component whose
-  DC or first nine AC coefficients never receive all their bits
-  (``jdcoefct.c``); such a file is refused, never decoded unsmoothed;
+  restart intervals in every scan;
+- **arithmetic-coded scans** (SOF9, SOF10; ``io/jpeg_arith.py``,
+  ``jdarith.c``), sequential and every progressive kind, DAC conditioning;
+- **block smoothing** of a progressive file whose scans leave some of a
+  component's coefficients 1-9 short (``io/jpeg_smooth.py``,
+  ``jdcoefct.c``);
+- **lossless** files (SOF3; ``io/jpeg_lossless.py``), which cv2's route
+  refuses in greyscale as ``cv2.imread`` does;
 - **dequantisation and the islow integer IDCT** (``jidctint.c``:
   ``CONST_BITS`` 13, ``PASS1_BITS`` 2), vectorised over all blocks of a
   component. The output saturates to 0..255 as the SIMD IDCT that PIL and
   cv2 run on x86 does, where the C code's range-limit table wraps. Blocks
   whose intermediates overflow 16 bits, which no encoder makes from 8-bit
   samples, are where the SIMD and C versions part further; the port
-  follows neither there;
-- **fancy upsampling** (``jdsample.c``): h2v1 with its alternating +1/+2
+  follows neither there. A component that no scan reached decodes to 128;
+- **upsampling** as ``jdsample.c`` chooses by each component's ratio to
+  the largest factors (1 to 4, integral): h2v1 with its alternating +1/+2
   bias, h2v2 as the triangle filter (vertical first, then horizontal with
-  +8/+7 and ``>> 4``), h1v2 with +1/+2; box replication where libjpeg
-  takes it (a chroma plane 2 or fewer samples wide). Edges replicate at
-  the component's own width and height; partial MCUs are cropped last;
-- **YCbCr to RGB** with ``jdcolor.c``'s fixed-point tables (``SCALEBITS``
-  16). The colour space is chosen as libjpeg does: JFIF means YCbCr, else
-  the Adobe APP14 transform flag, else the component ids ('R', 'G', 'B'
-  means RGB).
+  +8/+7 and ``>> 4``), h1v2 with +1/+2, box replication for every other
+  ratio, for a plane 2 or fewer samples wide in h2v1 and h2v2, and for
+  lossless files. Edges replicate at the component's own width and height;
+  partial MCUs are cropped last;
+- **colour** with ``jdcolor.c``'s fixed-point tables (``SCALEBITS`` 16).
+  Three components: JFIF means YCbCr, else the Adobe APP14 transform flag,
+  else the component ids ('R', 'G', 'B' means RGB; unknown ids mean YCbCr,
+  but RGB in a lossless file). Four components are CMYK, or YCCK under an
+  Adobe transform other than 0 (``ycck_cmyk_convert``); each reader then
+  turns CMYK into RGB its own way (:func:`cmyk_to_rgb_cv2`,
+  :func:`cmyk_to_rgb_pil`).
 
-Arithmetic-coded, lossless and hierarchical files, 12-bit samples and
-2- or 4-component (CMYK) images raise ``NotImplementedError`` naming the
-file and the SOF marker; a truncated or corrupt stream raises
-``ValueError``. Neither is ever returned as a wrong image.
+What both libraries refuse raises ``NotImplementedError`` naming the file,
+the SOF marker and the refusal: 12-bit and 16-bit samples, hierarchical
+frames (SOF5-7, SOF13-15), arithmetic-coded lossless (SOF11), a height
+left to a DNL marker, 2 or more than 4 components, a non-integral
+upsampling ratio, a lossless file that needs a lossy colour conversion
+(YCbCr, YCCK); and on cv2's route a lossless greyscale file. A truncated
+or corrupt stream raises ``ValueError``. Neither is ever returned as a
+wrong image.
 
 The encoder writes the bytes of PIL's ``Image.save(format="JPEG",
 quality=q)`` (libjpeg-turbo at PIL's defaults: baseline 4:2:0, islow DCT,
@@ -69,8 +84,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-# the ROADMAP item that would decode the JPEG kinds refused here
-_UNSUPPORTED_ITEM = "ROADMAP.md queue A, item A17"
+from maskclustering_tpu_torch.io import jpeg_arith, jpeg_lossless, jpeg_smooth
 
 # natural (row-major) index of zig-zag position k; positions past 63 (a
 # corrupt run) land on 63, as libjpeg's padded jpeg_natural_order does
@@ -89,14 +103,6 @@ _SOF_NAMES = {
     0xCB: "SOF11 (arithmetic lossless)", 0xCD: "SOF13 (arithmetic differential sequential)",
     0xCE: "SOF14 (arithmetic differential progressive)",
     0xCF: "SOF15 (arithmetic differential lossless)"}
-
-
-def _refuse(name: str, sof: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name}: {what} ({sof}) is not decoded by the port's JPEG codec, which reads "
-        f"baseline, extended-sequential and progressive Huffman JPEG at 8 bits with 1 or 3 "
-        f"components: "
-        f"{_UNSUPPORTED_ITEM}")
 
 
 # ---------------------------------------------------------------------------
@@ -383,10 +389,12 @@ def _ac_refine_interval(win: List[int], base: List[int], length: List[int], symb
     return pos
 
 
-def _scan_segments(data: bytes, start: int, name: str) -> Tuple[List[bytes], int]:
+def _scan_segments(data: bytes, start: int, name: str,
+                   spans: Optional[List[Tuple[int, int]]] = None) -> Tuple[List[bytes], int]:
     """Split a scan's entropy-coded data at its RSTn markers: the unstuffed
     bytes of each restart interval and the offset of the marker that ends
-    the scan."""
+    the scan. ``spans`` gets each interval's (offset of its first byte,
+    offset of the code of the marker after it)."""
     segments = []
     seg_start = i = start
     n = len(data)
@@ -404,6 +412,8 @@ def _scan_segments(data: bytes, start: int, name: str) -> Tuple[List[bytes], int
             i = k + 1
             continue
         segments.append(data[seg_start:j].replace(b"\xff\x00", b"\xff"))
+        if spans is not None:
+            spans.append((seg_start, k))
         if 0xD0 <= m <= 0xD7:
             seg_start = i = k + 1
             continue
@@ -501,33 +511,32 @@ def _interleave(even: np.ndarray, odd: np.ndarray, axis: int) -> np.ndarray:
     return out.reshape(shape)
 
 
-def upsample(plane: np.ndarray, h_ratio: int, v_ratio: int) -> np.ndarray:
-    """libjpeg-turbo's fancy upsampling of one component plane (cropped to
-    its own width and height) by (h_ratio, v_ratio) in {1, 2}."""
+def upsample(plane: np.ndarray, h_ratio: int, v_ratio: int, fancy: bool = True) -> np.ndarray:
+    """Upsample one component plane (cropped to its own width and height)
+    by integral ratios as ``jdsample.c`` chooses: h2v1 and h2v2 fancy
+    unless the plane is 2 or fewer samples wide, h1v2 fancy, every other
+    ratio (and all of a lossless file, which libjpeg never upsamples
+    fancily) by box replication (``int_upsample``)."""
     a = plane.astype(np.int64)
     width = a.shape[1]
     if (h_ratio, v_ratio) == (1, 1):
         return plane
-    if (h_ratio, v_ratio) == (2, 1):
-        if width <= 2:  # libjpeg takes box replication here
-            return np.repeat(plane, 2, axis=1)
+    if (h_ratio, v_ratio) == (2, 1) and fancy and width > 2:
         even = (3 * a + _shift_cols(a, -1) + 1) >> 2
         odd = (3 * a + _shift_cols(a, 1) + 2) >> 2
         return _interleave(even, odd, 1).astype(np.uint8)
-    if (h_ratio, v_ratio) == (1, 2):
+    if (h_ratio, v_ratio) == (1, 2) and fancy:
         top = (3 * a + _shift_rows(a, -1) + 1) >> 2
         bottom = (3 * a + _shift_rows(a, 1) + 2) >> 2
         return _interleave(top, bottom, 0).astype(np.uint8)
-    if (h_ratio, v_ratio) == (2, 2):
-        if width <= 2:
-            return np.repeat(np.repeat(plane, 2, axis=0), 2, axis=1)
+    if (h_ratio, v_ratio) == (2, 2) and fancy and width > 2:
         rows = []
         for near in (3 * a + _shift_rows(a, -1), 3 * a + _shift_rows(a, 1)):
             even = (3 * near + _shift_cols(near, -1) + 8) >> 4
             odd = (3 * near + _shift_cols(near, 1) + 7) >> 4
             rows.append(_interleave(even, odd, 1))
         return _interleave(rows[0], rows[1], 0).astype(np.uint8)
-    raise NotImplementedError(f"upsampling by ({h_ratio}, {v_ratio})")
+    return np.repeat(np.repeat(plane, v_ratio, axis=0), h_ratio, axis=1)
 
 
 _SCALEBITS = 16
@@ -571,34 +580,91 @@ class _Component:
         self.quant: Optional[np.ndarray] = None  # latched at its first scan
 
 
+class _Frame:
+    """A file's frame after its last scan: the coefficient store (or a
+    lossless file's samples) and the markers that choose its colour space."""
+
+    def __init__(self, marker: int, height: int, width: int, comps: List[_Component]):
+        self.marker, self.height, self.width, self.comps = marker, height, width, comps
+        self.hmax = max(c.h for c in comps)
+        self.vmax = max(c.v for c in comps)
+        self.progressive = marker in (0xC2, 0xCA)
+        self.arithmetic = marker in (0xC9, 0xCA)
+        self.lossless = marker == 0xC3
+        mcux = -(-width // (8 * self.hmax))
+        mcuy = -(-height // (8 * self.vmax))
+        self.grid: Dict[int, Tuple[int, int]] = {}
+        self.offsets: Dict[int, int] = {}
+        total = 0
+        for c in comps:
+            self.grid[c.cid] = (mcuy * c.v, mcux * c.h)
+            self.offsets[c.cid] = total
+            total += mcuy * c.v * mcux * c.h * 64
+        self.coef = np.zeros(0 if self.lossless else total, np.int32)
+        # progressive: the point transform each coefficient of each
+        # component has reached, -1 before its first scan (coef_bits)
+        self.coef_bits = {c.cid: [-1] * 64 for c in comps} if self.progressive else None
+        self.samples: Dict[int, np.ndarray] = {}  # lossless: each component's plane
+        # arithmetic: each interval's first and last byte read (_last_read)
+        self.arith_reads: List[Tuple[int, int]] = []
+        self.saw_jfif = self.saw_adobe = False
+        self.adobe_transform = 1
+
+    def own_size(self, c: _Component) -> Tuple[int, int]:
+        """The component's own (height, width) in samples."""
+        return -(-self.height * c.v // self.vmax), -(-self.width * c.h // self.hmax)
+
+
 def _u16(data: bytes, i: int) -> int:
     return (data[i] << 8) | data[i + 1]
 
 
-def decode_jpeg(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """Decode a JPEG file's bytes: (H, W) uint8 for one component, (H, W, 3)
-    uint8 RGB for three. ``name`` labels the errors."""
-    if data[:2] != b"\xff\xd8":
-        raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
-    try:
-        return _decode(data, name)
-    except IndexError:
-        raise ValueError(f"corrupt JPEG {name}: a segment is shorter than its fields") from None
+def _refuse(name: str, what: str, who: str = "cv2 and PIL refuse it too") -> NotImplementedError:
+    return NotImplementedError(f"{name}: {what}, which the port's JPEG codec does not decode: "
+                               f"{who}")
 
 
-def _decode(data: bytes, name: str) -> np.ndarray:
+def _read_sof(m: int, seg: bytes, name: str) -> _Frame:
+    """A frame header (``get_sof``), refusing what libjpeg, and so cv2 and
+    PIL, refuse."""
+    sof = _SOF_NAMES[m]
+    if m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF):
+        raise _refuse(name, f"a hierarchical JPEG ({sof})")
+    if m == 0xCB:
+        raise _refuse(name, f"an arithmetic-coded lossless JPEG ({sof})")
+    precision, height, width, nf = seg[0], _u16(seg, 1), _u16(seg, 3), seg[5]
+    if precision != 8:
+        raise _refuse(name, f"a {precision}-bit JPEG ({sof})",
+                      "cv2 and PIL read 8-bit samples only")
+    if height == 0 and width and nf:
+        raise _refuse(name, f"a JPEG whose height comes in a DNL marker ({sof})")
+    if not (width and nf):
+        raise ValueError(f"corrupt JPEG {name}: an empty frame ({width} wide, {nf} components)")
+    if nf not in (1, 3, 4):
+        raise _refuse(name, f"a {nf}-component JPEG ({sof})")
+    comps = [_Component(seg[6 + 3 * c], seg[7 + 3 * c] >> 4, seg[7 + 3 * c] & 15,
+                        seg[8 + 3 * c]) for c in range(nf)]
+    factors = [(c.h, c.v) for c in comps]
+    if not all(1 <= h <= 4 and 1 <= v <= 4 for h, v in factors):
+        raise ValueError(f"corrupt JPEG {name}: sampling factors {factors}")
+    hmax = max(h for h, _ in factors)
+    vmax = max(v for _, v in factors)
+    if any(hmax % h or vmax % v for h, v in factors):
+        # jdsample.c's JERR_FRACT_SAMPLE_NOTIMPL
+        raise _refuse(name, f"sampling factors {factors}, a non-integral upsampling ratio "
+                            f"({sof})")
+    return _Frame(m, height, width, comps)
+
+
+def _parse(data: bytes, name: str) -> _Frame:
+    """Read every segment and scan up to EOI into a :class:`_Frame`."""
     qt: Dict[int, np.ndarray] = {}
     dht: Dict[Tuple[int, int], Tuple[bytes, bytes]] = {}
-    comps: List[_Component] = []
-    width = height = 0
+    cond = jpeg_arith.Conditioning()
+    frame: Optional[_Frame] = None
     restart = 0
     saw_jfif = saw_adobe = False
     adobe_transform = 1
-    sof = ""
-    coef = None
-    coef_bits = None
-    offsets: Dict[int, int] = {}
-    grid: Dict[int, Tuple[int, int]] = {}
     i = 2
     n = len(data)
     while True:
@@ -622,37 +688,9 @@ def _decode(data: bytes, name: str) -> np.ndarray:
             raise ValueError(f"truncated JPEG {name}: a segment is cut")
         i += length
         if m in _SOF_NAMES:
-            sof = _SOF_NAMES[m]
-            if m not in (0xC0, 0xC1, 0xC2):
-                what = {0xC3: "lossless JPEG"}.get(
-                    m, "arithmetic-coded JPEG" if m >= 0xC9 else "hierarchical JPEG")
-                raise _refuse(name, sof, what)
-            precision, height, width, nf = seg[0], _u16(seg, 1), _u16(seg, 3), seg[5]
-            if precision != 8:
-                raise _refuse(name, sof, f"{precision}-bit JPEG")
-            if nf not in (1, 3):
-                raise _refuse(name, sof, f"a {nf}-component JPEG (CMYK/YCCK or other)")
-            if height == 0 or width == 0:
-                raise _refuse(name, sof, "a JPEG whose height comes in a DNL marker")
-            comps = [_Component(seg[6 + 3 * c], seg[7 + 3 * c] >> 4, seg[7 + 3 * c] & 15,
-                                seg[8 + 3 * c]) for c in range(nf)]
-            hmax = max(c.h for c in comps)
-            vmax = max(c.v for c in comps)
-            for c in comps:
-                if not (1 <= c.h <= 4 and 1 <= c.v <= 4) or hmax % c.h or vmax % c.v or (
-                        hmax // c.h, vmax // c.v) not in ((1, 1), (2, 1), (1, 2), (2, 2)):
-                    raise _refuse(name, sof, f"sampling factors {[(d.h, d.v) for d in comps]}")
-            mcux = -(-width // (8 * hmax))
-            mcuy = -(-height // (8 * vmax))
-            total = 0
-            for c in comps:
-                grid[c.cid] = (mcuy * c.v, mcux * c.h)
-                offsets[c.cid] = total
-                total += mcuy * c.v * mcux * c.h * 64
-            coef = np.zeros(total, np.int32)
-            # progressive: the point transform each coefficient of each
-            # component has reached, -1 before its first scan (coef_bits)
-            coef_bits = {c.cid: [-1] * 64 for c in comps} if m == 0xC2 else None
+            if frame is not None:
+                raise ValueError(f"corrupt JPEG {name}: a second frame header")
+            frame = _read_sof(m, seg, name)
         elif m == 0xC4:  # DHT
             j = 0
             while j < len(seg):
@@ -661,8 +699,8 @@ def _decode(data: bytes, name: str) -> np.ndarray:
                 count = sum(bits)
                 dht[(tc, th)] = (bits, bytes(seg[j + 17:j + 17 + count]))
                 j += 17 + count
-        elif m == 0xCC:
-            raise _refuse(name, sof or "DAC", "arithmetic-coded JPEG")
+        elif m == 0xCC:  # DAC
+            cond.read_dac(seg)
         elif m == 0xDB:  # DQT
             j = 0
             while j < len(seg):
@@ -682,29 +720,49 @@ def _decode(data: bytes, name: str) -> np.ndarray:
             saw_adobe = True
             adobe_transform = seg[11]
         elif m == 0xDA:  # SOS
-            if coef is None:
+            if frame is None:
                 raise ValueError(f"corrupt JPEG {name}: a scan before the frame header")
-            i = _decode_scan(data, i, seg, comps, dht, qt, restart, coef, offsets, grid,
-                             width, height, name, coef_bits)
+            i = _decode_scan(data, i, seg, frame, dht, qt, restart, cond, name)
         # APPn, COM and other segments are skipped
-    if coef is None:
+    if frame is None:
         raise ValueError(f"corrupt JPEG {name}: no frame header")
-    if coef_bits is not None:
-        _refuse_block_smoothing(comps, coef_bits, sof, name)
-    return _reconstruct(comps, coef, offsets, grid, width, height, saw_jfif, saw_adobe,
-                        adobe_transform, name)
+    frame.saw_jfif, frame.saw_adobe, frame.adobe_transform = saw_jfif, saw_adobe, adobe_transform
+    return frame
 
 
-def _decode_scan(data: bytes, i: int, seg: bytes, comps: List[_Component], dht, qt,
-                 restart: int, coef: np.ndarray, offsets, grid, width: int, height: int,
-                 name: str, coef_bits: Optional[Dict[int, List[int]]] = None) -> int:
-    """Entropy-decode one scan into ``coef``; returns the offset of the
-    marker after it. ``coef_bits`` is given for a progressive file: the
-    scan is then one of its four kinds (DC first or refine, interleaved or
-    not; AC first or refine of one component's band), and it books the
-    point transform its band reaches."""
+def _scan_layout(frame: _Frame, scan) -> Tuple[np.ndarray, np.ndarray, int]:
+    """(slot, coefficient offset) of every block the scan codes, in order,
+    and the blocks an MCU: a one-component scan covers the component's own
+    blocks, one an MCU; an interleaved scan the MCU grid's."""
+    if len(scan) == 1:
+        c = scan[0][0]
+        ch, cw = frame.own_size(c)
+        bh, bw = -(-ch // 8), -(-cw // 8)
+        rows, cols = np.meshgrid(np.arange(bh), np.arange(bw), indexing="ij")
+        base = frame.offsets[c.cid] + (rows.ravel() * frame.grid[c.cid][1] + cols.ravel()) * 64
+        return np.zeros(bh * bw, np.int64), base, 1
+    mcux = -(-frame.width // (8 * frame.hmax))
+    mcuy = -(-frame.height // (8 * frame.vmax))
+    slots, bases = [], []
+    my, mx = np.meshgrid(np.arange(mcuy), np.arange(mcux), indexing="ij")
+    for k, (c, _, _) in enumerate(scan):
+        for v in range(c.v):
+            for h in range(c.h):
+                r, q = my.ravel() * c.v + v, mx.ravel() * c.h + h
+                slots.append(np.full(r.shape, k))
+                bases.append(frame.offsets[c.cid] + (r * frame.grid[c.cid][1] + q) * 64)
+    # (units, blocks per unit) in the MCU's block order
+    return np.stack(slots, axis=1).ravel(), np.stack(bases, axis=1).ravel(), len(slots)
+
+
+def _decode_scan(data: bytes, i: int, seg: bytes, frame: _Frame, dht, qt, restart: int,
+                 cond, name: str) -> int:
+    """Entropy-decode one scan into the frame; returns the offset of the
+    marker after it. A progressive scan is one of its four kinds (DC first
+    or refine, interleaved or not; AC first or refine of one component's
+    band), and books the point transform its band reaches."""
     ns = seg[0]
-    by_id = {c.cid: c for c in comps}
+    by_id = {c.cid: c for c in frame.comps}
     scan = []
     for s in range(ns):
         cid, tables = seg[1 + 2 * s], seg[2 + 2 * s]
@@ -712,97 +770,105 @@ def _decode_scan(data: bytes, i: int, seg: bytes, comps: List[_Component], dht, 
             raise ValueError(f"corrupt JPEG {name}: a scan names an unknown component")
         scan.append((by_id[cid], tables >> 4, tables & 15))
     ss, se, ah, al = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns] >> 4, seg[3 + 2 * ns] & 15
+    if frame.lossless:
+        return _decode_lossless_scan(data, i, frame, scan, dht, restart, ss, se, ah, al, name)
+    coef_bits = frame.coef_bits
     if coef_bits is None:
         if (ss, se) != (0, 63):
             raise ValueError(f"corrupt JPEG {name}: a sequential scan with spectral range "
                              f"{ss}..{se}")
     elif (se != 0 if ss == 0 else (se < ss or se > 63 or ns != 1)) or (
             ah and al != ah - 1) or al > 13:
-        # jdphuff.c start_pass_phuff_decoder's JERR_BAD_PROGRESSION
+        # start_pass_phuff_decoder's and jdarith.c start_pass's JERR_BAD_PROGRESSION
         raise ValueError(f"corrupt JPEG {name}: a progressive scan of band {ss}..{se} "
                          f"with Ah {ah}, Al {al} over {ns} components")
-    hmax = max(c.h for c in comps)
-    vmax = max(c.v for c in comps)
+    if ns > 1 and sum(c.h * c.v for c, _, _ in scan) > 10:
+        raise ValueError(f"corrupt JPEG {name}: an MCU of "
+                         f"{sum(c.h * c.v for c, _, _ in scan)} blocks (at most 10)")
     dc_luts, ac_luts = [], []
     for c, td, ta in scan:
-        if coef_bits is None:
-            needs = [(0, td), (1, ta)]
-        elif ss > 0:  # AC first or refine
-            needs = [(1, ta)]
-        else:  # DC first; a DC refinement reads raw bits
-            needs = [] if ah else [(0, td)]
-        if any(t not in dht for t in needs):
-            raise ValueError(f"corrupt JPEG {name}: a scan uses an undefined Huffman table")
-        if (0, td) in needs:
-            dc_luts.append(_dc_lookup(*dht[(0, td)]))
-        if (1, ta) in needs:
-            ac_luts.append(_ac_lookup(*dht[(1, ta)]) if coef_bits is None
-                           else _symbol_lookup(*dht[(1, ta)]))
+        if not frame.arithmetic:
+            if coef_bits is None:
+                needs = [(0, td), (1, ta)]
+            elif ss > 0:  # AC first or refine
+                needs = [(1, ta)]
+            else:  # DC first; a DC refinement reads raw bits
+                needs = [] if ah else [(0, td)]
+            if any(t not in dht for t in needs):
+                raise ValueError(f"corrupt JPEG {name}: a scan uses an undefined Huffman "
+                                 f"table")
+            if (0, td) in needs:
+                dc_luts.append(_dc_lookup(*dht[(0, td)]))
+            if (1, ta) in needs:
+                ac_luts.append(_ac_lookup(*dht[(1, ta)]) if coef_bits is None
+                               else _symbol_lookup(*dht[(1, ta)]))
         if c.quant is None:
             if c.tq not in qt:
                 raise ValueError(f"corrupt JPEG {name}: undefined quantisation table {c.tq}")
             c.quant = qt[c.tq]
         if coef_bits is not None:
             coef_bits[c.cid][ss:se + 1] = [al] * (se + 1 - ss)
-    if ns == 1:
-        # non-interleaved: the component's own blocks, one a unit
-        c = scan[0][0]
-        bw = -(-(-(-width * c.h // hmax)) // 8)
-        bh = -(-(-(-height * c.v // vmax)) // 8)
-        rows, cols = np.meshgrid(np.arange(bh), np.arange(bw), indexing="ij")
-        slot = np.zeros(bh * bw, np.int64)
-        base = offsets[c.cid] + (rows.ravel() * grid[c.cid][1] + cols.ravel()) * 64
-        per_unit = 1
-    else:
-        mcux = -(-width // (8 * hmax))
-        mcuy = -(-height // (8 * vmax))
-        slots, bases = [], []
-        for k, (c, _, _) in enumerate(scan):
-            for v in range(c.v):
-                for h in range(c.h):
-                    my, mx = np.meshgrid(np.arange(mcuy), np.arange(mcux), indexing="ij")
-                    r, q = my.ravel() * c.v + v, mx.ravel() * c.h + h
-                    slots.append(np.full(r.shape, k))
-                    bases.append(offsets[c.cid] + (r * grid[c.cid][1] + q) * 64)
-        # (units, blocks per unit) in the MCU's block order
-        slot = np.stack(slots, axis=1).ravel()
-        base = np.stack(bases, axis=1).ravel()
-        per_unit = len(slots)
+    slot, base, per_unit = _scan_layout(frame, scan)
     units = len(base) // per_unit
-    segments, end = _scan_segments(data, i, name)
+    spans: List[Tuple[int, int]] = []
+    segments, end = _scan_segments(data, i, name, spans)
     interval = restart if restart > 0 else units
     expected = -(-units // interval)
     if len(segments) < expected:
         raise ValueError(f"truncated JPEG {name}: {len(segments)} of {expected} restart "
                          f"intervals present")
+    coef = frame.coef
     if coef_bits is not None and ss > 0:
         # an AC band of one component: its coefficients as a list, read
         # and written in place by the refinement
-        lo = offsets[scan[0][0].cid]
-        hi = lo + grid[scan[0][0].cid][0] * grid[scan[0][0].cid][1] * 64
+        cid = scan[0][0].cid
+        lo = frame.offsets[cid]
+        hi = lo + frame.grid[cid][0] * frame.grid[cid][1] * 64
         block_list = coef[lo:hi].tolist()
         base = base - lo
     slot_l, base_l = slot.tolist(), base.tolist()
+    dc_tab = [td for _, td, _ in scan]
+    ac_tab = [ta for _, _, ta in scan]
     out_idx: List[int] = []
     out_val: List[int] = []
     for j in range(expected):
         lo_u, hi_u = j * interval * per_unit, min((j + 1) * interval, units) * per_unit
+        slots_j, bases_j = slot_l[lo_u:hi_u], base_l[lo_u:hi_u]
+        if frame.arithmetic:
+            # the decoder reads zeros past an interval's data, as libjpeg
+            # does at a marker; a cut file has lost its markers instead
+            seg_j = segments[j]
+            if coef_bits is None:
+                pos = jpeg_arith.sequential_interval(seg_j, slots_j, bases_j, dc_tab, ac_tab,
+                                                     cond, _ZIGZAG_PADDED, out_idx, out_val)
+            elif ss == 0 and not ah:
+                pos = jpeg_arith.dc_first_interval(seg_j, slots_j, bases_j, dc_tab, cond, al,
+                                                   out_idx, out_val)
+            elif ss == 0:
+                pos = jpeg_arith.dc_refine_interval(seg_j, bases_j, out_idx)
+            elif not ah:
+                pos = jpeg_arith.ac_first_interval(seg_j, bases_j, ss, se, al,
+                                                   cond.kx[ac_tab[0]], _ZIGZAG_PADDED,
+                                                   block_list)
+            else:
+                pos = jpeg_arith.ac_refine_interval(seg_j, bases_j, ss, se, al, _ZIGZAG_PADDED,
+                                                    block_list)
+            frame.arith_reads.append(_last_read(seg_j, spans[j], pos))
+            continue
         win = _bit_windows(segments[j])
         try:
             if coef_bits is None:
-                pos = _decode_interval(win, slot_l[lo_u:hi_u], base_l[lo_u:hi_u], dc_luts,
-                                       ac_luts, len(scan), out_idx, out_val)
+                pos = _decode_interval(win, slots_j, bases_j, dc_luts, ac_luts, len(scan),
+                                       out_idx, out_val)
             elif ss == 0 and not ah:
-                pos = _dc_first_interval(win, slot_l[lo_u:hi_u], base_l[lo_u:hi_u], dc_luts,
-                                         len(scan), al, out_idx, out_val)
+                pos = _dc_first_interval(win, slots_j, bases_j, dc_luts, len(scan), al,
+                                         out_idx, out_val)
             elif ss == 0:
-                pos = _dc_refine_interval(win, base_l[lo_u:hi_u], out_idx)
+                pos = _dc_refine_interval(win, bases_j, out_idx)
             elif not ah:
-                pos = _ac_first_interval(win, base_l[lo_u:hi_u], *ac_luts[0], ss, se, al,
-                                         block_list)
+                pos = _ac_first_interval(win, bases_j, *ac_luts[0], ss, se, al, block_list)
             else:
-                pos = _ac_refine_interval(win, base_l[lo_u:hi_u], *ac_luts[0], ss, se, al,
-                                          block_list)
+                pos = _ac_refine_interval(win, bases_j, *ac_luts[0], ss, se, al, block_list)
         except IndexError:
             pos = None
         if pos is None or pos > 8 * len(segments[j]):
@@ -818,49 +884,216 @@ def _decode_scan(data: bytes, i: int, seg: bytes, comps: List[_Component], dht, 
     return end
 
 
-def _refuse_block_smoothing(comps: List[_Component], coef_bits, sof: str, name: str) -> None:
-    """libjpeg smooths the blocks of a progressive file whose DC or first
-    nine AC coefficients of a component never reach full precision
-    (``jdcoefct.c`` ``smoothing_ok`` and ``decompress_smooth_data``); the
-    port does not, so it refuses such a file rather than decode it unsmoothed."""
-    for c in comps:
-        short = [k for k in range(10) if coef_bits[c.cid][k] != 0]
-        if short:
-            raise _refuse(name, sof, f"a progressive JPEG whose component {c.cid} never "
-                                     f"receives all bits of coefficients {short} (libjpeg "
-                                     f"block smoothing)")
+def _last_read(segment: bytes, span: Tuple[int, int], pos: int) -> Tuple[int, int]:
+    """(offset of an arithmetic interval's first byte, offset of the last
+    byte libjpeg's decoder reads in it) after ``pos`` unstuffed bytes: a
+    0xFF data byte is read with its stuffed zero, and a decoder that ran
+    past the data read the marker's code."""
+    start, code = span
+    if pos > len(segment):
+        return start, code
+    u = pos - 1
+    last = start + u + segment.count(b"\xff", 0, u)
+    return start, last + (segment[u] == 0xFF)
 
 
-def _reconstruct(comps: List[_Component], coef: np.ndarray, offsets, grid, width: int,
-                 height: int, saw_jfif: bool, saw_adobe: bool, adobe_transform: int,
-                 name: str) -> np.ndarray:
-    hmax = max(c.h for c in comps)
-    vmax = max(c.v for c in comps)
+def _decode_lossless_scan(data: bytes, i: int, frame: _Frame, scan, dht, restart: int,
+                          psv: int, se: int, ah: int, pt: int, name: str) -> int:
+    """A lossless scan (``jdlhuff.c``, ``jddiffct.c``): its components'
+    samples, an MCU holding ``h`` x ``v`` of each (one sample of a
+    one-component scan)."""
+    if not 1 <= psv <= 7 or se or ah or pt >= 8:
+        raise ValueError(f"corrupt JPEG {name}: a lossless scan with predictor {psv}, Se {se}, "
+                         f"Ah {ah}, Pt {pt}")
+    if any((0, td) not in dht for _, td, _ in scan):
+        raise ValueError(f"corrupt JPEG {name}: a scan uses an undefined Huffman table")
+    if len(scan) > 1 and sum(c.h * c.v for c, _, _ in scan) > 10:
+        raise ValueError(f"corrupt JPEG {name}: an MCU of "
+                         f"{sum(c.h * c.v for c, _, _ in scan)} samples (at most 10)")
+    mcux = -(-frame.width // frame.hmax)
+    mcuy = -(-frame.height // frame.vmax)
+    slots, rows, cols, luts, shapes = [], [], [], [], []
+    if len(scan) == 1:
+        c, td, _ = scan[0]
+        ch, cw = frame.own_size(c)
+        r, q = np.meshgrid(np.arange(ch), np.arange(cw), indexing="ij")
+        slot, row, col = np.zeros(ch * cw, np.int64), r.ravel(), q.ravel()
+        per_unit, per_row, mcu_rows = 1, cw, ch
+        luts = [_symbol_lookup(*dht[(0, td)])]
+        shapes = [(ch, cw, ch, cw, 1, c.v)]
+    else:
+        my, mx = np.meshgrid(np.arange(mcuy), np.arange(mcux), indexing="ij")
+        for k, (c, td, _) in enumerate(scan):
+            for dv in range(c.v):
+                for dh in range(c.h):
+                    slots.append(np.full(my.size, k))
+                    rows.append(my.ravel() * c.v + dv)
+                    cols.append(mx.ravel() * c.h + dh)
+                    luts.append(_symbol_lookup(*dht[(0, td)]))
+            shapes.append((mcuy * c.v, mcux * c.h) + frame.own_size(c) + (c.v, c.v))
+        slot, row, col = (np.stack(a, axis=1).ravel() for a in (slots, rows, cols))
+        per_unit, per_row, mcu_rows = len(slots), mcux, mcuy
+    if restart % per_row:
+        raise ValueError(f"corrupt JPEG {name}: a lossless restart interval of {restart} MCUs "
+                         f"is not a whole number of {per_row}-MCU rows")
+    interval = restart if restart else per_row * mcu_rows
+    segments, end = _scan_segments(data, i, name)
+    expected = -(-mcu_rows * per_row // interval)
+    if len(segments) < expected:
+        raise ValueError(f"truncated JPEG {name}: {len(segments)} of {expected} restart "
+                         f"intervals present")
+    segments = segments[:expected]
+    try:
+        planes = jpeg_lossless.decode_scan([_bit_windows(s) for s in segments],
+                                           [8 * len(s) for s in segments], luts, slot, row,
+                                           col, per_unit, interval, shapes, psv, pt, 8,
+                                           interval // per_row)
+    except IndexError:
+        raise ValueError(f"truncated JPEG {name}: the entropy-coded data ends inside a "
+                         f"row") from None
+    for (c, _, _), plane in zip(scan, planes):
+        frame.samples[c.cid] = plane
+    return end
+
+
+def _color_space(frame: _Frame) -> str:
+    """libjpeg's ``jpeg_color_space`` (``default_decompress_parms``): JFIF
+    means YCbCr, else the Adobe transform, else the component ids (a
+    lossless file's unknown ids mean RGB); four components are CMYK unless
+    an Adobe transform other than 0 makes them YCCK."""
+    if len(frame.comps) == 1:
+        return "grey"
+    if len(frame.comps) == 4:
+        return "ycck" if frame.saw_adobe and frame.adobe_transform != 0 else "cmyk"
+    if frame.saw_jfif:
+        return "ycc"
+    if frame.saw_adobe:
+        return "rgb" if frame.adobe_transform == 0 else "ycc"
+    ids = [c.cid for c in frame.comps]
+    if ids == [82, 71, 66]:  # 'R', 'G', 'B'
+        return "rgb"
+    return "rgb" if frame.lossless else "ycc"
+
+
+def _planes(frame: _Frame, name: str) -> List[np.ndarray]:
+    """Each component's samples at the image's size: the IDCT of its
+    coefficients (block-smoothed where libjpeg smooths) or its lossless
+    samples, upsampled as ``jdsample.c`` chooses and cropped."""
+    comps = frame.comps
+    if frame.lossless and any(c.cid not in frame.samples for c in comps):
+        raise ValueError(f"corrupt JPEG {name}: a component of a lossless file has no scan")
+    # a component no scan reached keeps libjpeg's zeroed dequantisation
+    # table, so its samples are all 128, and nothing is smoothed
+    smooth = frame.progressive and all(c.quant is not None for c in comps) and \
+        jpeg_smooth.smoothing_ok([c.quant for c in comps],
+                                 [frame.coef_bits[c.cid][:10] for c in comps])
+    imcu_rows = -(-frame.height // (8 * frame.vmax))
     planes = []
     for c in comps:
-        if c.quant is None:
-            raise ValueError(f"corrupt JPEG {name}: component {c.cid} has no scan")
-        bh, bw = grid[c.cid]
-        n = bh * bw
-        blocks = idct_islow(coef[offsets[c.cid]:offsets[c.cid] + n * 64].reshape(n, 64),
-                            c.quant)
-        plane = blocks.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3).reshape(bh * 8, bw * 8)
-        # the component's own size, the edge the upsampler replicates
-        cw = -(-width * c.h // hmax)
-        ch = -(-height * c.v // vmax)
-        plane = upsample(plane[:ch, :cw], hmax // c.h, vmax // c.v)
-        planes.append(plane[:height, :width])
-    if len(planes) == 1:
+        ch, cw = frame.own_size(c)
+        if frame.lossless:
+            plane = frame.samples[c.cid]
+        else:
+            rows, cols = frame.grid[c.cid]
+            lo = frame.offsets[c.cid]
+            grid = frame.coef[lo:lo + rows * cols * 64].reshape(rows, cols, 64)
+            if smooth:
+                rows, cols = -(-ch // 8), -(-cw // 8)
+                grid = jpeg_smooth.smooth_component(grid, rows, cols, c.v, imcu_rows, c.quant,
+                                                    frame.coef_bits[c.cid][:10])
+            blocks = idct_islow(grid.reshape(-1, 64),
+                                c.quant if c.quant is not None else np.zeros(64, np.int64))
+            plane = blocks.reshape(rows, cols, 8, 8).transpose(0, 2, 1, 3).reshape(rows * 8,
+                                                                                    cols * 8)
+        # the component's own size is the edge the upsampler replicates
+        plane = upsample(plane[:ch, :cw], frame.hmax // c.h, frame.vmax // c.v,
+                         fancy=not frame.lossless)
+        planes.append(plane[:frame.height, :frame.width])
+    return planes
+
+
+def ycck_to_cmyk(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, k: np.ndarray) -> np.ndarray:
+    """``jdcolor.c``'s ``ycck_cmyk_convert``: the YCbCr to RGB tables, each
+    result inverted and clamped; K unchanged. (H, W, 4) uint8."""
+    y = y.astype(np.int64)
+    c = 255 - (y + _CR_R[cr])
+    m = 255 - (y + ((_CB_G[cb] + _CR_G[cr]) >> _SCALEBITS))
+    yy = 255 - (y + _CB_B[cb])
+    return np.stack([np.clip(c, 0, 255), np.clip(m, 0, 255), np.clip(yy, 0, 255),
+                     k.astype(np.int64)], axis=-1).astype(np.uint8)
+
+
+def cmyk_to_rgb_cv2(cmyk: np.ndarray) -> np.ndarray:
+    """OpenCV's ``icvCvt_CMYK2BGR_8u_C4C3R`` on libjpeg's CMYK output, as
+    RGB: each channel ``k - ((255 - x) * k >> 8)``."""
+    p = cmyk.astype(np.int64)
+    k = p[..., 3:]
+    return (k - (((255 - p[..., :3]) * k) >> 8)).astype(np.uint8)
+
+
+def cmyk_to_rgb_pil(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's route: the raw mode ``CMYK;I`` inverts libjpeg's output, then
+    ``Convert.c``'s ``cmyk2rgb``: ``nk - MULDIV255(x, nk)``, ``nk = 255 - K``."""
+    inv = 255 - cmyk.astype(np.int64)
+    nk = 255 - inv[..., 3:]
+    t = inv[..., :3] * nk + 128
+    return np.clip(nk - (((t >> 8) + t) >> 8), 0, 255).astype(np.uint8)
+
+
+# PIL's ImageFile.MAXBLOCK: the bytes it hands a decoder at a time
+_PIL_BLOCK = 65536
+
+
+def decode_jpeg(data: bytes, name: str = "<bytes>", reader: Optional[str] = None) -> np.ndarray:
+    """Decode a JPEG file's bytes to libjpeg's default output: (H, W)
+    uint8 for one component, (H, W, 3) RGB for three, (H, W, 4) CMYK for
+    four. ``reader`` "cv2" or "pil" gives instead what that library's
+    reader makes of the file before any grey-to-RGB step: a four-component
+    file converted to RGB as each converts CMYK (they differ by up to 2),
+    and on cv2's route, which asks libjpeg for BGR, a lossless greyscale
+    file refused. ``name`` labels the errors."""
+    if reader not in (None, "cv2", "pil"):
+        raise ValueError(f"decode_jpeg: reader {reader!r} is not 'cv2' or 'pil'")
+    if data[:2] != b"\xff\xd8":
+        raise ValueError(f"{name}: not a JPEG file (no SOI marker)")
+    try:
+        frame = _parse(data, name)
+    except IndexError:
+        raise ValueError(f"corrupt JPEG {name}: a segment is shorter than its fields") from None
+    space = _color_space(frame)
+    sof = _SOF_NAMES[frame.marker]
+    if reader == "pil" and frame.arithmetic:
+        # PIL hands libjpeg the file in blocks of 65536 bytes, the next only
+        # when libjpeg suspends for want of data; libjpeg's arithmetic
+        # decoder cannot suspend (JERR_CANT_SUSPEND), so PIL fails on a
+        # file whose arithmetic interval reads past the blocks it has
+        for start, last in frame.arith_reads:
+            if last >= -(-start // _PIL_BLOCK) * _PIL_BLOCK:
+                raise _refuse(name, f"an arithmetic-coded JPEG ({sof}) whose interval from "
+                                    f"byte {start} reads past byte "
+                                    f"{-(-start // _PIL_BLOCK) * _PIL_BLOCK}",
+                              "PIL gives libjpeg the file 65536 bytes at a time, and "
+                              "libjpeg's arithmetic decoder cannot wait for more; cv2 reads it")
+    if frame.lossless and space in ("ycc", "ycck"):
+        # jdcolor.c allows no lossy colour conversion of a lossless file
+        raise _refuse(name, f"a lossless {space.upper()} JPEG ({sof})")
+    if frame.lossless and space == "grey" and reader == "cv2":
+        raise _refuse(name, f"a lossless greyscale JPEG read as colour ({sof})",
+                      "cv2.imread asks libjpeg for BGR, which it refuses for a lossless "
+                      "greyscale file; PIL reads it")
+    planes = _planes(frame, name)
+    if space == "grey":
         return np.ascontiguousarray(planes[0])
-    if saw_jfif:
-        ycc = True
-    elif saw_adobe:
-        ycc = adobe_transform != 0
-    else:
-        ycc = [c.cid for c in comps] != [82, 71, 66]  # 'R', 'G', 'B'
-    if not ycc:
+    if space == "rgb":
         return np.ascontiguousarray(np.stack(planes, axis=-1))
-    return ycc_to_rgb(*planes)
+    if space == "ycc":
+        return ycc_to_rgb(*planes)
+    cmyk = ycck_to_cmyk(*planes) if space == "ycck" else np.stack(planes, axis=-1)
+    if reader == "cv2":
+        return cmyk_to_rgb_cv2(cmyk)
+    if reader == "pil":
+        return cmyk_to_rgb_pil(cmyk)
+    return np.ascontiguousarray(cmyk)
 
 
 # ---------------------------------------------------------------------------

@@ -6,11 +6,13 @@ and 95; 4:4:4, 4:2:2 and 4:2:0; greyscale; restart intervals; the Adobe
 RGB transform; odd sizes), by cv2 (its default, 4:4:4 and 4:4:0) and by
 the port's own encoder; progressive files (SOF2) by PIL (with and without
 ``optimize``, 4:2:0, 4:4:4 and greyscale, restart markers) and cv2 (its
-default, 4:4:4, 4:2:2, restart intervals), odd sizes 1x1 to 64x96.
-Unsupported kinds raise ``NotImplementedError``, and so does a progressive
-file that libjpeg would block-smooth; truncated files raise
-``ValueError``. The encoder writes libjpeg's tables and
-stays within a PSNR floor of its source.
+default, 4:4:4, 4:2:2, restart intervals), odd sizes 1x1 to 64x96. The
+kinds that cv2 and PIL both refuse raise ``NotImplementedError`` on both
+colour routes, each shown refused by both libraries on the same bytes;
+truncated files raise ``ValueError``. The encoder writes libjpeg's tables
+and stays within a PSNR floor of its source. Arithmetic coding, block
+smoothing and the other kinds have files of their own
+(``test_torch_jpeg_arith.py``, ``_smooth.py``, ``_kinds.py``).
 """
 
 import io
@@ -21,6 +23,7 @@ import pytest
 import torch
 from PIL import Image
 
+import jpeg_writers as W
 from maskclustering_tpu.io import image as jax_image
 from maskclustering_tpu_torch.io import image, jpeg
 
@@ -161,33 +164,96 @@ def test_read_rgb_decodes_jpeg_like_the_jax_reader(tmp_path):
         image.read_rgb(str(tmp_path / "x.gif"))
 
 
-def _patched_sof(data, marker):
+def _assert_refused(tmp_path, data, match):
+    """Both libraries refuse the bytes, and so does the port on each route."""
+    path = str(tmp_path / "refused.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    assert cv2.imread(path) is None
+    with pytest.raises(FileNotFoundError):
+        jax_image.read_rgb(path)
+    with pytest.raises(Exception):
+        Image.open(io.BytesIO(data)).convert("RGB")
+    for read in (lambda: image.read_rgb(path), lambda: image.read_rgb_pil(path),
+                 lambda: image.decode_rgb(data, name="refused.jpg")):
+        with pytest.raises(NotImplementedError, match=match) as err:
+            read()
+        assert "refused.jpg" in str(err.value) and "cv2 and PIL" in str(err.value)
+
+
+def _patch_sof(data, marker):
     i = data.index(b"\xff\xc0")
     return data[:i + 1] + bytes([marker]) + data[i + 2:]
 
 
 @pytest.mark.parametrize("kind,match", [
-    ("arithmetic-progressive", "arithmetic"), ("cmyk", "4-component"),
-    ("arithmetic", "arithmetic"), ("lossless", "lossless"), ("12-bit", "12-bit")])
-def test_unsupported_kinds_raise(kind, match):
-    img = _photo(24, 32, seed=1)
-    base = _pil(img)
+    ("12-bit", "12-bit"), ("sof5", "hierarchical"), ("sof6", "hierarchical"),
+    ("sof7", "hierarchical"), ("sof13", "hierarchical"), ("sof14", "hierarchical"),
+    ("sof15", "hierarchical"), ("dnl", "DNL"), ("2-component", "2-component"),
+    ("5-component", "5-component"), ("fractional", "non-integral"),
+    ("arithmetic-lossless", "arithmetic-coded lossless"), ("lossless-12-bit", "12-bit"),
+    ("lossless-16-bit", "16-bit"), ("lossless-ycc", "lossless YCC"),
+    ("lossless-ycck", "lossless YCCK")])
+def test_unsupported_kinds_raise(tmp_path, kind, match):
+    """Each kind still refused is refused by cv2 and PIL on the same bytes:
+    12-bit samples (a full 12-bit writer: SOF1, tables built for its
+    sizes), hierarchical frames, a height left to a DNL marker, 2 or 5
+    components, a non-integral upsampling ratio, arithmetic-coded lossless
+    and lossless files that would need a lossy colour conversion."""
+    grey = W.photo(24, 32, seed=1)[:, :, 0]
+    rgb = W.photo(24, 32, seed=2)
+    q = jpeg.quant_tables(75)
+    base = jpeg.encode_jpeg(rgb, 75)
+
+    def twelve():
+        f = W.frame_from_planes([grey], [(1, 1)], [q[0]])
+        f.precision = 12
+        f.coef = [c * 16 for c in f.coef]
+        return W.write_huffman(f)
+
+    def fractional():
+        fac = [(3, 1), (2, 1), (1, 1)]
+        return W.write_huffman(W.frame_from_planes(W.subsampled(rgb, fac), fac,
+                                                   [q[0], q[1], q[1]], size=(24, 32)))
+
+    i = base.index(b"\xff\xc0")
     data = {
-        "arithmetic-progressive": lambda: _patched_sof(base, 0xCA),
-        "cmyk": lambda: _pil_mode(img, "CMYK"),
-        "arithmetic": lambda: _patched_sof(base, 0xC9),
-        "lossless": lambda: _patched_sof(base, 0xC3),
-        "12-bit": lambda: base.replace(b"\xff\xc0\x00\x11\x08", b"\xff\xc0\x00\x11\x0c", 1),
-    }[kind]()
-    with pytest.raises(NotImplementedError, match=match) as err:
-        jpeg.decode_jpeg(data, name="frame.jpg")
-    assert "frame.jpg" in str(err.value) and "SOF" in str(err.value) and "A17" in str(err.value)
+        "12-bit": twelve,
+        "dnl": lambda: base[:i + 5] + b"\x00\x00" + base[i + 7:],
+        "2-component": lambda: W.write_huffman(W.frame_from_planes(
+            [grey, grey], [(1, 1)] * 2, [q[0], q[1]])),
+        "5-component": lambda: W.write_huffman(W.frame_from_planes(
+            [grey] * 5, [(1, 1)] * 5, [q[0]] * 5)),
+        "fractional": fractional,
+        "arithmetic-lossless": lambda: W.write_lossless([grey], 1, marker=0xCB),
+        "lossless-12-bit": lambda: W.write_lossless([grey.astype(np.int64) * 16], 2,
+                                                    precision=12),
+        "lossless-16-bit": lambda: W.write_lossless([grey.astype(np.int64) * 257], 3,
+                                                    precision=16),
+        "lossless-ycc": lambda: W.write_lossless([rgb[:, :, k] for k in range(3)], 1,
+                                                 head=W.JFIF),
+        "lossless-ycck": lambda: W.write_lossless([rgb[:, :, k] for k in (0, 1, 2, 0)], 1,
+                                                  head=W.adobe(2)),
+    }.get(kind, lambda: _patch_sof(base, 0xC0 + int(kind[3:])))()
+    _assert_refused(tmp_path, data, match)
 
 
-def _pil_mode(img, mode):
-    buf = io.BytesIO()
-    Image.fromarray(img).convert(mode).save(buf, format="JPEG")
-    return buf.getvalue()
+def test_mcu_of_more_than_ten_blocks_is_corrupt(tmp_path):
+    """libjpeg's JERR_BAD_MCU_SIZE, which the standard forbids: a
+    ``ValueError`` on both routes, and cv2 and PIL refuse it too."""
+    q = jpeg.quant_tables(75)
+    fac = [(3, 3), (1, 1), (1, 1)]
+    data = W.write_huffman(W.frame_from_planes(W.subsampled(W.photo(24, 32, seed=3), fac), fac,
+                                               [q[0], q[1], q[1]], size=(24, 32)))
+    path = str(tmp_path / "big.jpg")
+    with open(path, "wb") as f:
+        f.write(data)
+    assert cv2.imread(path) is None
+    with pytest.raises(Exception):
+        Image.open(io.BytesIO(data)).convert("RGB")
+    for read in (lambda: image.read_rgb(path), lambda: image.decode_rgb(data)):
+        with pytest.raises(ValueError, match="11 blocks"):
+            read()
 
 
 @pytest.mark.parametrize("cut", [0.3, 0.6, 0.95])
@@ -277,20 +343,3 @@ def test_truncated_progressive_files_raise(cut):
     data = _pil(_photo(64, 96, seed=6), quality=90, progressive=True)
     with pytest.raises(ValueError, match="truncated"):
         jpeg.decode_jpeg(data[:int(len(data) * cut)], name="cut.jpg")
-
-
-def _scan_starts(data):
-    return [i for i in range(len(data) - 1) if data[i:i + 2] == b"\xff\xda"]
-
-
-@pytest.mark.parametrize("keep", [1, 3, 6, 9])
-def test_progressive_file_that_libjpeg_smooths_is_refused(keep):
-    """A file whose scans end before every coefficient 0-9 of a component
-    is whole: libjpeg block-smooths it (``jdcoefct.c``), so the port
-    refuses it naming A17 rather than decode it unsmoothed."""
-    data = _pil(_photo(40, 56, seed=7), quality=85, progressive=True)
-    starts = _scan_starts(data)
-    assert len(starts) == 10 and keep < len(starts)
-    with pytest.raises(NotImplementedError, match="smoothing") as err:
-        jpeg.decode_jpeg(data[:starts[keep]] + b"\xff\xd9", name="early.jpg")
-    assert "A17" in str(err.value) and "early.jpg" in str(err.value)

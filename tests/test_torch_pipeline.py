@@ -278,8 +278,9 @@ def _write_port_clip_dir(d):
 
 def test_port_imports_no_jax_and_no_reference_package(tmp_path):
     """Every module of the port (the serving daemon, its subprocess
-    worker, supervisor and pool, the obs core, the visualisation and the
-    static checks included), imported in a fresh interpreter, pulls in
+    worker, supervisor and pool, the obs core, the visualisation, the
+    static checks and the JPEG codec's arithmetic, lossless and smoothing
+    modules included), imported in a fresh interpreter, pulls in
     neither jax nor anything of maskclustering_tpu, nor PIL, cv2, pyviz3d, or the
     libraries of HF's CLIP path (transformers, tokenizers, safetensors,
     msgpack, regex, flax, ftfy); nor does building the CLIP encoder on a
@@ -298,7 +299,7 @@ for name in names:
 for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.features",
              "semantics.query", "semantics.clip", "semantics.clip_config",
              "semantics.checkpoint", "semantics.tokenizer", "semantics.image_processor",
-             "io.jpeg", "obs.digest", "models.streaming", "utils.faults", "parallel",
+             "io.jpeg", "io.jpeg_arith", "io.jpeg_lossless", "io.jpeg_smooth", "obs.digest", "models.streaming", "utils.faults", "parallel",
              "parallel.mesh", "parallel.sharded", "parallel.batch", "obs", "obs.events",
              "obs.metrics", "obs.flight", "obs.tracer", "obs.telemetry", "obs.slo",
              "obs.report", "obs.ledger", "obs.trace", "obs.top", "obs.canary", "serve",
