@@ -310,16 +310,35 @@ Imports nothing of JAX or of the JAX package. In order:
     arithmetic transcodes of its Huffman frames equals, bit for bit, the
     step over the Huffman frames.
 
+24. the port's load generator and CI gate (``tools/``). (a) Inside phase
+    15, before its drain, against its warm in-thread daemon (no new
+    daemon): ``load_gen.run_load`` over the JAX tool's two buckets (24
+    requests, concurrency 4, tenants ``A:3,B:1``), then over phase 10's first
+    full-size scan as the one bucket (``BUCKET_SPECS`` overridden; 8
+    requests, concurrency 2): every request ok, one launch of each
+    association kernel a request, the verdict lines (p50, p95, requests a
+    second) printed; in phase 24 every served digest equal, bucket by
+    bucket, to ``run_scene``'s on the card and on the CPU (the full-size
+    scan's CPU run a child, ``--serve-reference``, started after phase 17).
+    (b) ``load_gen --smoke`` and ``--smoke --crash-drill`` as children on the
+    card beside phases 18-23: zero post-freeze builds and new launch keys,
+    and a respawned child with its three kernels restored from the build
+    cache and none built. (c) ``tools/ci.py --device cpu`` with tier-1 off,
+    a CPU child from the end of phase 2 at the lowest priority with no card
+    visible: exit 0 with every gate run.
+
 ``python3 chip_smoke.py --ingest-reference`` runs only that CPU route and
 needs no card; ``--jpeg-kinds OUT`` runs only phase 23's fixture check and
-writes its decode times to OUT.
+writes its decode times to OUT; ``--serve-reference OUT`` only phase 24(a)'s
+CPU run.
 
 Every perf-ledger row of the script goes to a temporary file
 (``MCT_PERF_LEDGER``). Any mismatch or failure exits non-zero. The last
 three lines are the card line, the per-kernel JSON (each association row
 with its launches in every path, ``isolated_launches`` read from the
 isolated child's ``bye``, ``ingest_launches`` phase 18's,
-``tasmap_launches`` phase 19d's, ``demo_launches`` phase 22's; the depth
+``tasmap_launches`` phase 19d's, ``demo_launches`` phase 22's,
+``load_gen_launches`` phase 24(a)'s; the depth
 and colour rows' ``launches`` phase 19e's, ``splat_bbox``'s the top_images
 step's, each beside its ``step_launches``, and ``splat_bbox``'s
 ``demo_launches`` phase 22's) and the result
@@ -380,13 +399,15 @@ CLIP_TOLERANCE = 1e-4
 # chunked; the mid-size drills'
 # watchdog and stall (the stall outlasts the watchdog, so the abandoned
 # attempt wakes while or after its retry runs); the CLI drill's watchdog,
-# which also covers its process's first device phase
+# which also covers its process's first device phase (CUDA's start
+# included) while the CPU gate child shares the host: 10 s let a healthy
+# first phase stall on a slow host
 STREAM_CHUNK = 8
 LONG_FRAMES = 48
 LONG_CHUNK = 16
 DRILL_WATCHDOG_S = 5.0
 DRILL_STALL_S = 8.0
-CLI_WATCHDOG_S = 10.0
+CLI_WATCHDOG_S = 30.0
 # phase 14: the second lane of the mesh batch (another seed, half the
 # frames), the meshes that repeat the one card, and the worker processes
 MESH_SECOND_SEED = 3
@@ -435,10 +456,79 @@ INGEST_CPU_DIGESTS = {
     "exact": {"objects": 23, "artifact": "b9f669d8", "plane": "0fa56ace"},
 }
 JPEG_PROBE_SHA256 = "1499cb8dc0cdff15ca0d935471e919a65603b6fb871b29b31f305cb0accfa903"
+# phase 24: the load generator's burst over its own two buckets against
+# phase 15's daemon (requests, client connections, the tenant mix), then
+# phase 4's full-size scene as the one bucket: phase 10's first scan,
+# requested by name with no synthetic parameters (with them the daemon
+# regenerates the full-size scene on the host once to classify it); the
+# children's intra-op threads, and the CPU children's
+# niceness (they take the cores the script leaves idle)
+LOAD_REQUESTS = 24
+LOAD_CONCURRENCY = 4
+LOAD_TENANT_MIX = "A:3,B:1"
+LOAD_FULL_REQUESTS = 8
+LOAD_FULL_CONCURRENCY = 2
+LOAD_CHILD_THREADS = 2
+CPU_CHILD_NICE = 19
 
 
-# processes started to run beside a phase, stopped when the script ends
-_CHILDREN: list = []
+def _adopt_orphans() -> None:
+    """Make this process the child subreaper of all it starts (Linux's
+    ``PR_SET_CHILD_SUBREAPER``): a process whose parent ends first (a CPU
+    gate step's daemon, in a session of its own) is adopted here, so
+    ``_stop_descendants`` still finds it."""
+    import ctypes
+
+    try:
+        ctypes.CDLL(None, use_errno=True).prctl(36, 1, 0, 0, 0)
+    except (OSError, AttributeError):
+        pass
+
+
+def _descendants() -> list:
+    """The live processes below this one, from ``/proc``."""
+    kids: dict = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                state, ppid = fh.read().rsplit(")", 1)[1].split()[:2]
+        except (OSError, ValueError):
+            continue
+        if state != "Z":
+            kids.setdefault(int(ppid), []).append(int(entry))
+    found, todo = [], [os.getpid()]
+    while todo:
+        for pid in kids.get(todo.pop(), []):
+            found.append(pid)
+            todo.append(pid)
+    return found
+
+
+def _stop_descendants(timeout_s: float = 30.0) -> list:
+    """SIGKILL every live process below this one and reap it, pass after
+    pass, until none is left (the orphans of one pass are adopted by the
+    next). Returns the pids it killed."""
+    import signal
+
+    killed = []
+    deadline = time.monotonic() + timeout_s
+    while True:
+        pids = _descendants()
+        for pid in pids:
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        killed += pids
+        while True:
+            try:
+                if os.waitpid(-1, os.WNOHANG)[0] == 0:
+                    break
+            except ChildProcessError:
+                break
+        if not pids or time.monotonic() > deadline:
+            return killed
+        time.sleep(0.05)
 
 
 def _say(msg: str) -> None:
@@ -1984,7 +2074,6 @@ def _start_drill_cli(dev, batch) -> dict:
              "--no-resume", "--fault-plan", spec, "--watchdog-device", str(CLI_WATCHDOG_S),
              "--report", report_path, "--no-obs", "--device", str(dev)],
             cwd=here, env=env, stdout=subprocess.DEVNULL, stderr=log, text=True)
-    _CHILDREN.append(proc)
     return {"proc": proc, "t0": t0, "names": names, "spec": spec, "report": report_path,
             "err": err}
 
@@ -2735,6 +2824,9 @@ def serve_phase(dev, card: str, dense, batch) -> dict:
          f"{json.dumps(st['latency'])}, {len(tele['windows'])} telemetry windows, slo ok "
          f"{st['slo']['ok']} ({', '.join(o['name'] + ' ' + o['state'] for o in st['slo']['objectives'])})")
 
+    # 24(a): the port's load generator against this warm daemon
+    load = load_gen_serve(card, sock)
+
     # (f) drain: one request held in flight, two queued, then stop
     plan = faults.FaultPlan.from_spec(f"stall:{first}.device:1", stall_s=SERVE_STALL_S)
     faults.set_plan(plan)
@@ -2838,14 +2930,18 @@ def serve_phase(dev, card: str, dense, batch) -> dict:
     _say(f"[serve] packed: warm-up {warm_s:.2f} s; {SERVE_BATCH} requests in one fused dispatch "
          f"(batch {SERVE_BATCH}, hist {bstats['hist']}), {per[0]:.3f} s a scene, client wall "
          f"{wall:.3f} s, digests == (b)'s, launches {json.dumps(d)}")
-    launches = {n: v - outside.get(n, 0) for n, v in counts().items()}
+    launches = {n: v - outside.get(n, 0) - load["launches"].get(n, 0)
+                for n, v in counts().items()}
     for s in (sock, sock2, sock3):
         shutil.rmtree(os.path.dirname(s), ignore_errors=True)
     _say(f"[serve] launches through the daemons over the phase {json.dumps(launches)} "
-         f"(the in-process reference stream's {json.dumps(outside)} left out)")
-    _say(f"[serve] phase 15 in {time.perf_counter() - t_phase:.1f} s")
+         f"(the in-process reference stream's {json.dumps(outside)} and phase 24(a)'s load "
+         f"{json.dumps(load['launches'])} left out)")
+    _say(f"[serve] phase 15 in {time.perf_counter() - t_phase:.1f} s, of it 24(a) "
+         f"{load['seconds']:.1f} s")
     return {"launches": launches, "cold_digest": c0["digest"]["artifact"],
-            "seq": [(scene, term["seconds"], wall) for scene, term, wall in rows]}
+            "seq": [(scene, term["seconds"], wall) for scene, term, wall in rows],
+            "load": load}
 
 
 def _wait_for(pred, timeout_s: float, what: str) -> None:
@@ -3589,24 +3685,29 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
              f"peak at ready (a full-size warm scan) "
              + ", ".join(f"worker {wk['worker_id']} {_peak(wk['cuda'])}"
                          for wk in st["pool"]["workers"]))
-        # quota: the slices' feeds and flights take 6 full-size scans, 2 more
-        # a queue in the pool, then b queues 2 and its third is refused
+        # quota: the slices' feeds and flights take 6 requests, 2 more a
+        # queue in the pool, then b queues 2 and its third is refused. cut
+        # (pays for phase 24): the burst is of the cold bucket's mid-size
+        # scan, not of full-size scans; all 11 are answered or acked within
+        # milliseconds, long before the first of them finishes
         conns = [ServeClient(d.sock, timeout_s=600.0) for _ in range(11)]
+        cold = jobs[1][0]
         try:
-            acks = [c.request_scene(BATCH_SCANS[i % 2], tenant="a")
-                    for i, c in enumerate(conns[:8])]
-            acks += [c.request_scene(BATCH_SCANS[i % 2], tenant="b")
-                     for i, c in enumerate(conns[8:])]
+            acks = [c.request_scene(cold, synthetic=SERVE_COLD_SPEC, tenant="a")
+                    for c in conns[:8]]
+            acks += [c.request_scene(cold, synthetic=SERVE_COLD_SPEC, tenant="b")
+                     for c in conns[8:]]
             kinds = [a.get("kind") for a in acks]
             if kinds != ["ack"] * 10 + ["reject"] or acks[-1].get("reason") != "quota":
                 raise AssertionError(f"quota burst answers {acks}")
-            for i, (c, a) in enumerate(zip(conns[:10], acks)):
-                check_ok(c.wait_result(), BATCH_SCANS[i % 2], "quota burst")
+            for c in conns[:10]:
+                check_ok(c.wait_result(), cold, "quota burst", serve["cold_digest"])
         finally:
             for c in conns:
                 c.close()
-        _say(f"[iso] quota: 8 a and 3 b requests at once: 10 ack, the third queued b a typed "
-             f"{acks[-1]['reason']!r} reject ({acks[-1]['detail']}); every admitted one ok")
+        _say(f"[iso] quota: 8 a and 3 b requests of the cold bucket at once: 10 ack, the "
+             f"third queued b a typed {acks[-1]['reason']!r} reject ({acks[-1]['detail']}); "
+             f"every admitted one ok with its digest")
         # a crash on slice 0 reroutes its victim to slice 1: with both
         # slices idle, a scene of no known bucket routes to slice 0
         _wait_for(lambda: not any(wk.get("inflight") or wk.get("feed_depth")
@@ -4948,7 +5049,6 @@ def start_demo_cpu() -> dict:
         proc = subprocess.Popen([sys.executable, "-m", "maskclustering_tpu_torch.demo",
                                  "--device", "cpu", "--out", root], cwd=here, env=env,
                                 stdout=fh, stderr=subprocess.STDOUT, text=True)
-    _CHILDREN.append(proc)
     return {"proc": proc, "t0": t0, "tmp": tmp, "root": root, "log": log}
 
 
@@ -5090,7 +5190,6 @@ def start_jpeg_kinds_cpu() -> dict:
         proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--jpeg-kinds", out],
                                 cwd=here, env=env, stdout=fh, stderr=subprocess.STDOUT,
                                 text=True)
-    _CHILDREN.append(proc)
     return {"proc": proc, "t0": t0, "tmp": tmp, "out": out, "log": log}
 
 
@@ -5190,6 +5289,224 @@ def jpeg_kinds_phase(dev, card: str, child: dict) -> dict:
         shutil.rmtree(child["tmp"], ignore_errors=True)
 
 
+def load_gen_serve(card: str, sock: str) -> dict:
+    """Phase 24(a), run inside phase 15 against its warm in-thread daemon
+    (no new daemon): the port's ``tools/load_gen.run_load`` over the JAX
+    tool's two buckets, then over phase 4's full-size scene as the one
+    bucket (``BUCKET_SPECS`` overridden as ``tests/test_serve.py`` does,
+    with phase 10's first scan on disk).
+    Every request must answer ok and launch each association kernel once;
+    phase 24 holds the digests to direct ``run_scene`` runs."""
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.tools import load_gen
+
+    t_part = time.perf_counter()
+    before = dict(kernels.LAUNCHES.counts)
+    mix = load_gen.parse_tenant_mix(LOAD_TENANT_MIX)
+    runs = (("buckets", load_gen.BUCKET_SPECS, LOAD_REQUESTS, LOAD_CONCURRENCY),
+            ("full", ((BATCH_SCANS[0], None),), LOAD_FULL_REQUESTS, LOAD_FULL_CONCURRENCY))
+    out = {"verdicts": {}, "rows": {}}
+    saved = load_gen.BUCKET_SPECS
+    try:
+        for label, specs, n, conc in runs:
+            load_gen.BUCKET_SPECS = specs
+            rows = []
+            v = load_gen.run_load(sock, requests=n, concurrency=conc, buckets=len(specs),
+                                  deadline_s=0.0, resume=False, tenant_mix=mix, collect=rows)
+            _say(f"[load] {card}: {label} verdict {json.dumps(v, sort_keys=True)}")
+            if v["ok"] != n or v["failed"] or len(rows) != n:
+                raise AssertionError(f"load_gen over {label}: {v}")
+            _say(f"[load] {label} ({', '.join(sorted({r['scene'] for r in rows}))}): {n} "
+                 f"requests at concurrency {conc}, p50 {v['value']} s, p95 {v['p95_s']} s, "
+                 f"{v['throughput_rps']} requests a second over {v['wall_s']} s")
+            out["verdicts"][label], out["rows"][label] = v, rows
+    finally:
+        load_gen.BUCKET_SPECS = saved
+    launches = {n: kernels.LAUNCHES.counts.get(n, 0) - before.get(n, 0)
+                for n in ASSOCIATION_KERNELS}
+    served = LOAD_REQUESTS + LOAD_FULL_REQUESTS
+    if any(v != served for v in launches.values()):
+        raise AssertionError(f"load_gen's {served} requests launched {launches}")
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t_part
+    _say(f"[load] launches {json.dumps(launches)} (one of each association kernel a request); "
+         f"24(a) in {out['seconds']:.1f} s inside phase 15")
+    return out
+
+
+def serve_reference(out_path: str) -> int:
+    """``--serve-reference OUT``: phase 10's first full-size scan loaded from
+    disk and clustered by ``run_scene`` on the CPU in phase 15's
+    configuration, on the host post-process rung (phase 10's ladder drill
+    holds its digest equal to the device rung's); the digest goes to OUT."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    from maskclustering_tpu_torch.config import load_config
+    from maskclustering_tpu_torch.datasets import get_dataset
+    from maskclustering_tpu_torch.models import run_scene
+
+    root = os.path.join(here, "build", "chip_smoke_scans")
+    cfg = load_config("scannet", data_root=root, step=1, distance_threshold=0.01,
+                      post_neighbor_cap=FULL_NEIGHBOR_CAP, config_name="chip_smoke_serve")
+    t0 = time.perf_counter()
+    tensors = get_dataset("scannet", BATCH_SCANS[0], data_root=root).load_scene_tensors(cfg.step)
+    res = run_scene(tensors, cfg.replace(device_postprocess=False), device="cpu")
+    with open(out_path, "w") as fh:
+        json.dump({"digest": res.digest, "objects": len(res.objects.point_ids_list),
+                   "seconds": time.perf_counter() - t0}, fh)
+    return 0
+
+
+def _start_child(tag: str, args, threads: int, env=None, nice: int = 0) -> dict:
+    """A child process from the checkout's root in a session of its own
+    (stopped with all it started at the script's end), its output in a log;
+    ``{out}`` in ``args`` names a file in its temporary directory; a
+    ``nice`` child (and all it starts) yields the cores to the script."""
+    import shutil
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{tag}_")
+    log = os.path.join(tmp, f"{tag}.log")
+    out = os.path.join(tmp, f"{tag}.json")
+    full_env = dict(os.environ, OMP_NUM_THREADS=str(threads), **(env or {}))
+    prefix = ["nice", "-n", str(nice)] if nice and shutil.which("nice") else []
+    t0, t0_clock = time.perf_counter(), time.time()
+    with open(log, "w") as fh:
+        proc = subprocess.Popen([*prefix, sys.executable, *[a.format(out=out) for a in args]],
+                                cwd=here, env=full_env, stdout=fh, stderr=subprocess.STDOUT,
+                                text=True, start_new_session=True)
+    return {"proc": proc, "t0": t0, "t0_clock": t0_clock, "tmp": tmp, "log": log, "out": out}
+
+
+def start_ci_cpu() -> dict:
+    """Phase 24(c): ``python -m maskclustering_tpu_torch.tools.ci --device
+    cpu`` with tier-1 off, a CPU child from the head of the script (no card
+    visible to it) at the lowest priority; phase 24 joins it."""
+    return _start_child("ci", ["-m", "maskclustering_tpu_torch.tools.ci", "--device", "cpu"],
+                        LOAD_CHILD_THREADS, env={"MCT_TIER1": "0", "CUDA_VISIBLE_DEVICES": ""},
+                        nice=CPU_CHILD_NICE)
+
+
+def start_load_children() -> dict:
+    """Phase 24(b) and the reference of (a): the load generator's smoke and
+    crash drill as children on the card, and phase 10's first scan through
+    ``run_scene`` in a CPU child (``--serve-reference``), all started after
+    phase 17 (whose drills read the card's memory) and joined in phase 24."""
+    lg = ["-m", "maskclustering_tpu_torch.tools.load_gen", "--no-ledger", "--device", "cuda"]
+    smoke = _start_child("smoke", [*lg, "--smoke", "--requests", "6", "--concurrency", "3"],
+                         LOAD_CHILD_THREADS)
+    crash = _start_child("crash", [*lg, "--smoke", "--crash-drill", "--requests", "4",
+                                   "--concurrency", "2"], LOAD_CHILD_THREADS)
+    ref = _start_child("ref", [os.path.abspath(__file__), "--serve-reference", "{out}"],
+                       LOAD_CHILD_THREADS, env={"CUDA_VISIBLE_DEVICES": ""},
+                       nice=CPU_CHILD_NICE)
+    return {"smoke": smoke, "crash": crash, "ref": ref}
+
+
+def _join(child: dict, label: str, timeout_s: float = 900) -> tuple:
+    """Wait for a child; (its log, its own seconds: from its start to its
+    log's last write)."""
+    child["proc"].wait(timeout=timeout_s)
+    wall = os.path.getmtime(child["log"]) - child["t0_clock"]
+    with open(child["log"]) as fh:
+        text = fh.read()
+    if child["proc"].returncode != 0:
+        raise AssertionError(f"{label} exited {child['proc'].returncode}:\n{text[-4000:]}")
+    return text, wall
+
+
+def _verdict_line(text: str) -> dict:
+    """The last JSON object line of a tool's output."""
+    for line in reversed(text.splitlines()):
+        if line.startswith("{"):
+            return json.loads(line)
+    raise AssertionError(f"no verdict line in:\n{text[-3000:]}")
+
+
+def load_gen_phase(dev, card: str, batch, load: dict, ci_cpu: dict, children: dict) -> dict:
+    """Phase 24: the port's load generator and CI gate. (a) the digests of
+    phase 15's load against direct ``run_scene`` runs on the card and on the
+    CPU, bucket by bucket; (b) the smoke and the crash drill on the card;
+    (c) the gate on the CPU."""
+    import shutil
+
+    from maskclustering_tpu_torch.datasets import get_dataset
+    from maskclustering_tpu_torch.models import run_scene
+    from maskclustering_tpu_torch.tools import load_gen
+
+    t_phase = time.perf_counter()
+    try:
+        # (a) every served digest, bucket by bucket, against run_scene
+        root = batch["root"]
+        cfg = batch["cfg"].replace(config_name="chip_smoke_serve")
+        served = {}
+        for rows in load["rows"].values():
+            for r in rows:
+                served.setdefault(r["scene"], set()).add(r["digest"]["artifact"])
+        ref_text, ref_wall = _join(children["ref"], "the CPU reference run")
+        with open(children["ref"]["out"]) as fh:
+            ref = json.load(fh)
+        direct = {BATCH_SCANS[0]: {str(dev): batch["scans"][BATCH_SCANS[0]][0]["artifact"],
+                                   "cpu": ref["digest"]["artifact"]}}
+        for name, _ in load_gen.BUCKET_SPECS:
+            tensors = get_dataset("scannet", name, data_root=root).load_scene_tensors(cfg.step)
+            direct[name] = {str(d): run_scene(tensors, cfg, device=d).digest["artifact"]
+                            for d in (dev, "cpu")}
+        if set(served) != set(direct):
+            raise AssertionError(f"served buckets {sorted(served)}, want {sorted(direct)}")
+        for name, digests in sorted(served.items()):
+            if len(digests) != 1 or set(direct[name].values()) != digests:
+                raise AssertionError(f"{name}: served digests {sorted(digests)}, run_scene "
+                                     f"{direct[name]}")
+        _say(f"[load] every served digest == run_scene's on {dev} and on cpu: "
+             f"{json.dumps({k: sorted(v)[0] for k, v in sorted(served.items())})} (the "
+             f"full-size scan's on {dev} from phase 10, on cpu from a child started after "
+             f"phase 17: {ref['seconds']:.1f} s, {ref['objects']} objects)")
+
+        # (b) the smoke and the crash drill, children on the card
+        walls = {}
+        for key, label in (("smoke", "--smoke"), ("crash", "--smoke --crash-drill")):
+            text, walls[key] = _join(children[key], f"load_gen {label} on the card")
+            v = _verdict_line(text)
+            keys = v.get("retrace_launch_keys") or 0
+            bad = (v.get("ok") != v.get("requests") or v.get("failed")
+                   or v.get("retrace_post_freeze") != 0 or v.get("retrace_repeats") != 0
+                   or keys < len(ASSOCIATION_KERNELS)
+                   or v.get("device", "").split(":")[0] != dev.type)
+            if key == "crash":
+                # the respawned child built nothing: on the card its kernels
+                # came from the build cache the first child filled
+                aot = v.get("worker_aot") or {}
+                bad = bad or not v.get("worker_respawns") or v.get("retrace_compiles") != 0 \
+                    or aot.get("built") or (dev.type == "cuda" and not aot.get("restored"))
+            if bad:
+                raise AssertionError(f"load_gen {label} on the card: {json.dumps(v)}")
+            _say(f"[load] {card}: load_gen {label} on {v['device']} in {walls[key]:.1f} s: "
+                 f"{v['ok']} ok, p50 {v['value']} s, p95 {v['p95_s']} s, warm-up "
+                 f"{v.get('warmup_s')} s; after the freeze 0 builds and 0 new launch keys "
+                 f"({keys} keys, {v.get('retrace_compiles')} builds in the last worker)"
+                 + (f"; crash {v.get('worker_crashes')}, respawn {v.get('worker_respawns')}, "
+                    f"the respawned child's warm-up {v.get('worker_warmup_s')} s with its "
+                    f"kernels from the build cache ({json.dumps(v.get('worker_aot'))})"
+                    if key == "crash" else ""))
+
+        # (c) the gate on the CPU, a child from the head of the script
+        text, walls["ci"] = _join(ci_cpu, "tools/ci.py --device cpu")
+        doc = _verdict_line(text)
+        if doc.get("kind") != "ci" or doc.get("rc") != 0 or len(doc.get("steps", ())) < 11:
+            raise AssertionError(f"tools/ci.py --device cpu: {text[-4000:]}")
+        _say(f"[load] tools/ci.py --device cpu (tier-1 off, {LOAD_CHILD_THREADS} threads at "
+             f"nice {CPU_CHILD_NICE}, a child beside phases 3-23) exit 0 in "
+             f"{walls['ci']:.1f} s: " + ", ".join(
+                 f"{st['name']} {st['seconds']} s" for st in doc["steps"]))
+        _say(f"[load] phase 24 in {time.perf_counter() - t_phase:.1f} s (its (a) "
+             f"{load['seconds']:.1f} s inside phase 15)")
+        return {"launches": load["launches"], "walls": walls}
+    finally:
+        for child in (ci_cpu, *children.values()):
+            shutil.rmtree(child["tmp"], ignore_errors=True)
+
+
 def full_size_scene():
     """Phase 4's scene: 8 boxes, 32 frames at 480x640, 2 mm depth noise."""
     from maskclustering_tpu_torch.utils.synthetic import add_depth_noise, make_scene
@@ -5212,6 +5529,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--jpeg-kinds"] and len(sys.argv) == 3:
         sys.path.insert(0, here)
         return jpeg_kinds(sys.argv[2])
+    if sys.argv[1:2] == ["--serve-reference"] and len(sys.argv) == 3:
+        sys.path.insert(0, here)
+        return serve_reference(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -5257,6 +5577,8 @@ def main() -> int:
          f"(nvcc per source: {json.dumps({k: round(v, 2) for k, v in built.items()})})")
 
     lap("2")
+    # 24(c)'s CPU gate starts here, a child process beside phases 3-23
+    ci_cpu = start_ci_cpu()
     # 3. kernels against their plain versions on edge cases
     _say("[kernels] edge cases")
     check_ball_query_edges(dev)
@@ -5394,6 +5716,8 @@ def main() -> int:
     lap("17")
     # 23's fixture check starts here, a child process beside phases 18-22
     kinds_cpu = start_jpeg_kinds_cpu()
+    # 24(b)'s children on the card and (a)'s CPU reference, beside 18-23
+    load_children = start_load_children()
     # 18. the ingestion front: a .sens capture exported, masked, clustered
     ingest = ingest_phase(dev, card, scene)
 
@@ -5420,6 +5744,11 @@ def main() -> int:
     jpeg_kinds_phase(dev, card, kinds_cpu)
 
     lap("23")
+    # 24. the load generator and the CI gate: (a)'s digests, (b)'s children
+    # on the card, (c)'s gate on the CPU
+    load = load_gen_phase(dev, card, batch, serve["load"], ci_cpu, load_children)
+
+    lap("24")
     _say(f"[done] {time.perf_counter() - t_start:.1f} s; phases (s): {json.dumps(laps)}")
     _say(card)
     rows = [{
@@ -5451,7 +5780,8 @@ def main() -> int:
             "isolated_launches": iso["launches"][name],
             "ingest_launches": ingest["launches"][name],
             "tasmap_launches": vis["tasmap_launches"][name],
-            "demo_launches": demo_run["launches"][name]})
+            "demo_launches": demo_run["launches"][name],
+            "load_gen_launches": load["launches"][name]})
     # the render entry's kernels count project_zbuffer's launches over the
     # scan's (object, frame) pairs; the box counts the top_images step's
     for name, t in vis["timed"].items():
@@ -5477,10 +5807,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    _adopt_orphans()
     try:
         rc = main()
     finally:
-        for child in _CHILDREN:
-            if child.poll() is None:
-                child.kill()
+        # every child, the ones in sessions of their own and all they
+        # started, whether the run passed or failed
+        _stop_descendants()
     sys.exit(rc)

@@ -184,7 +184,7 @@ def run_row(report: Dict, **extra) -> Dict:
 
 
 def serve_row(verdict: Dict, **extra) -> Dict:
-    """Ledger row from a load_gen serve verdict (scripts/load_gen.py).
+    """Ledger row from a load generator serve verdict (``tools/load_gen.py``).
 
     The metric is serve-specific ("serve s/request ..."), so --regress
     never gates a serve row against a bench/run baseline (or vice versa):

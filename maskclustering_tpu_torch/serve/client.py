@@ -1,8 +1,8 @@
 """Minimal mct-serve client: one connection, blocking request/response (the port's
 copy of ``maskclustering_tpu/serve/client.py``).
 
-Stdlib-only (socket + json via serve/protocol): load_gen, the CI smoke
-gate and the tests all talk to the daemon through this one client, so the
+Stdlib-only (socket + json via serve/protocol): the load generator and
+its CI drills (``tools/load_gen.py``) and the tests all talk to the daemon through this one client, so the
 wire shapes have exactly one reader implementation. A ``ServeClient`` is
 single-threaded by design — concurrent load uses one client (one
 connection) per in-flight request, which keeps event demultiplexing out
@@ -168,7 +168,7 @@ class ServeClient:
         """Drive a whole scan: stream_chunk until ``done``, then
         stream_end. Returns the final result plus EVERY per-chunk
         terminal event (the partial-instance trajectory) — the one
-        streaming flow load_gen, CI and the tests share."""
+        streaming flow ``tools/load_gen.py``, its drills and the tests share."""
         chunk_events: List[Dict] = []
         for _ in range(max_chunks):
             ev, _st = self.stream_chunk(scene, chunk=chunk,

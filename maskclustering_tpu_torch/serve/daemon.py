@@ -367,8 +367,9 @@ class ServeDaemon:
         goldens = _canary.load_goldens(path)
         if goldens is None:
             log.warning("mct-serve: canary sentinel requested but no usable "
-                        "goldens at %s — sentinel disabled; the JAX package's "
-                        "scripts/load_gen.py --write-goldens regenerates them", path)
+                        "goldens at %s — sentinel disabled; python -m "
+                        "maskclustering_tpu_torch.tools.load_gen --write-goldens "
+                        "regenerates them", path)
             return
         self.sentinel = _canary.CanarySentinel(
             run_round=self.worker.run_canary,

@@ -131,6 +131,10 @@ class ServeWorker:
                  poll_s: float = 0.25, device: DeviceLike = None):
         self.cfg = cfg
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            # the thread pins its card by index (set_device): a bare "cuda"
+            # (``--device cuda``) names the current card
+            self.device = torch.device("cuda", torch.cuda.current_device())
         self.queue = queue
         self.router = router
         self.journal_dir = journal_dir

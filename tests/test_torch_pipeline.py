@@ -279,8 +279,8 @@ def _write_port_clip_dir(d):
 def test_port_imports_no_jax_and_no_reference_package(tmp_path):
     """Every module of the port (the serving daemon, its subprocess
     worker, supervisor and pool, the obs core, the visualisation, the
-    static checks and the JPEG codec's arithmetic, lossless and smoothing
-    modules included), imported in a fresh interpreter, pulls in
+    static checks, the JPEG codec's arithmetic, lossless and smoothing
+    modules and the operational tools under ``tools/`` included), imported in a fresh interpreter, pulls in
     neither jax nor anything of maskclustering_tpu, nor PIL, cv2, pyviz3d, or the
     libraries of HF's CLIP path (transformers, tokenizers, safetensors,
     msgpack, regex, flax, ftfy); nor does building the CLIP encoder on a
@@ -311,7 +311,8 @@ for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.fea
              "visualize.scene", "visualize.mask2d", "visualize.top_images",
              "visualize.debug_viewers", "ops.splat_cases", "analysis", "analysis.__main__",
              "analysis.findings", "analysis.ast_checks", "analysis.concurrency",
-             "analysis.lock_sanitizer"):
+             "analysis.lock_sanitizer", "tools", "tools.load_gen", "tools.fault_smoke",
+             "tools.stream_smoke", "tools.ci"):
     assert pkg.__name__ + "." + name in names, name
 from maskclustering_tpu_torch.config import load_config
 from maskclustering_tpu_torch.models.streaming import stream_scene
