@@ -72,8 +72,11 @@ Imports nothing of JAX or of the JAX package. In order:
 11. the plane digest lane and the semantic steps. Phase 8's full-size scene
     on ``cuda`` carries the digest dict (``plane`` lane included) of a
     ``cpu`` run (on the host post-process rung, whose digest the tests hold
-    equal to the device rung's), and phase 9's mid-size scene the same on
-    both devices; the digest program and its pull are timed on the card.
+    equal to the device rung's; it, the other CPU references of phases 11
+    and 13 and the host renders of 13c and 14 run in three spawned
+    processes started at the end of phase 8, two threads each at ``nice``
+    10, no card visible), and phase 9's mid-size scene the same on both
+    devices; the digest program and its pull are timed on the card.
     Phase 10's first
     full-size scan gets textured 968x1296 colour frames (ScanNet's colour
     size; the port's JPEG encoder, quality 90, 4:2:0), then ``features,
@@ -99,13 +102,15 @@ Imports nothing of JAX or of the JAX package. In order:
     198 x 1024 label file of unit vectors, classes in the vocabulary.
 13. streaming (``models.stream_scene``) and the fault drills. (a) Phase 8's
     scene and config in one chunk of 32: the digest dict and artifacts of
-    phase 8. (b) Four chunks of 8 on ``cuda`` and on ``cpu``: every chunk's
+    phase 8. (b) Four chunks of 8 on ``cuda`` and on ``cpu`` (a CPU-reference
+    process): every chunk's
     digest, partial-instance count, mask count and plane bytes equal, and
     the objects, assignment and digest; each association kernel launched
     once a chunk; per chunk its seconds, plane bytes and launches, the
     three streaming programs timed again on each chunk's inputs, and the
     finalize with its host DBSCAN. (c) Peak device memory and wall, batch
-    against chunks of 16, on a 48-frame render of the full-size scene.
+    against chunks of 16, on a 48-frame render of the full-size scene
+    (rendered in a CPU-reference process).
     (d) Drills: on a mid-size scene streamed in three
     chunks, ``flaky:<scene>.chunk:1`` heals and
     ``stall:<scene>.chunk:1`` under a 5 s watchdog is retried while the
@@ -115,13 +120,14 @@ Imports nothing of JAX or of the JAX package. In order:
     with the JAX drill's four faults (load, a device stall, flaky twice, a
     post-process overflow): statuses, attempts and rungs of the port's
     two-rung ladder, every healed scan's artifacts equal to phase 10's (the
-    CLI runs beside (a)-(d) from the head of the phase: it reads the scans
-    and writes under its own config name).
+    CLI starts at the end of phase 10 and runs beside phases 11-13: it
+    reads the scans and writes under its own config name).
     (e) ``streaming_chunk`` 8 through the batch driver over phase 10's
     three scans: cluster seconds and AP beside the batch run's.
 14. the fused multi-device path (``parallel/``). (a) ``cluster_scene_batch``
     on a (1, 1) mesh of the card over two 480x640 lanes, phase 8's scene
-    and a render of 16 frames from another seed, phase 8's config: each
+    and a render of 16 frames from another seed (a CPU-reference process),
+    phase 8's config: each
     lane's artifact digest equals ``run_scene``'s (the first is phase 8's),
     each association kernel launched once a lane; the batch's seconds a
     scene beside phase 8's ``run_scene`` wall, and the peak device memory
@@ -134,10 +140,10 @@ Imports nothing of JAX or of the JAX package. In order:
     10's scans: the CLI with ``mesh_shape`` [1, 1] and ``--point-shards 1``,
     ``run_pipeline`` on a (2, 1) mesh with two point shards over the card
     four times (``mesh_devices``; the short last batch has a pad lane), and
-    the CLI with ``--workers 2`` over the four scans, the two CLIs' processes
-    beside the in-process run: npz, object dicts and AP equal to phase
-    10's (the mid-size scan to an in-process run), the seconds a scan
-    beside phase 10's.
+    the CLI with ``--workers 2`` over the four scans, the two CLIs'
+    processes started at the head of the phase beside (a)-(d)'s in-process
+    runs: npz, object dicts and AP equal to phase 10's (the mid-size scan
+    to an in-process run), the seconds a scan beside phase 10's.
 15. the scene-serving daemon (``serve/``) in this process, one in-thread
     worker on the card, over phase 10's scans and config on a Unix socket.
     (a) Start with one scan warm, obs events armed: the warm-up seconds.
@@ -188,11 +194,13 @@ Imports nothing of JAX or of the JAX package. In order:
     chunks of 8 with obs armed: ``stream.chunks`` and the ``stream.chunk``
     spans equal to the chunks, one ``stream.finalize``, the digest of the
     same stream unarmed. ``PERF_LEDGER.jsonl`` and ``canary_goldens.json``
-    keep their bytes.
+    keep their bytes. Phase 17(a)'s daemon starts once the two timed runs
+    of phase 8's scene are done, beside (a)-(f).
 17. the crash-contained topology, every daemon a ``python -m
     maskclustering_tpu_torch.serve --isolate-worker`` subprocess over phase
     10's scans and config, files under a temporary directory. (a) One
-    isolated worker warm on a scan: spawn to ready, the child's warm-up
+    isolated worker warm on a scan (its daemon started in phase 16): spawn
+    to ready, the child's warm-up
     and no build in it; the first two scans served with phase 10's digests
     (since PR 18; the third is the same scene again),
     their seconds beside phase 15's in-thread ones, polled for the
@@ -206,13 +214,13 @@ Imports nothing of JAX or of the JAX package. In order:
     back within 64 MiB after the drain. (c) ``wedge:<scan>.device:1`` with
     a 5 s heartbeat, in a child with no warm scan: detected, SIGKILLed,
     respawned, ``ok``; (d)'s daemon starts and warms beside it, and (e)'s
-    beside (d)'s order burst. (d) A pool of two on the one card, tenants
+    daemon, the ``--carve 2x1`` daemon and the order burst's pool beside
+    (d). (d) A pool of two on the one card, tenants
     ``a:3,b:1:2``: three clients, a request each, over two buckets, both
     slices dispatching, affinity hits; a burst in which the
     third queued ``b`` request gets a typed ``quota`` reject; a crash on
     slice 0 rerouted to slice 1; ``recarve`` to one worker with a request
-    in flight; ``--carve 2x1`` refused at start (while the order burst
-    below runs); in this process, a pool
+    in flight; ``--carve 2x1`` refused at start; in this process, a pool
     of two real children dispatching a held burst in the 3:1 order of the
     stride scheduler. (e) A stream in chunks of 8 on a pool with
     ``--stream-state``: its owner SIGKILLed with the second chunk in
@@ -229,7 +237,8 @@ Imports nothing of JAX or of the JAX package. In order:
     seconds; the first frame exported again at ``image_size=(480, 640)``
     (the bilinear path). (c) The cloud written, the masks step with
     ``cropformer_path`` ``"grid"`` on the card; every id-map byte-equal
-    through ``device="cpu"``; ms a frame on each, sweeps, the largest id.
+    through ``device="cpu"`` (a thread beside (d)); ms a frame on each,
+    sweeps, the largest id.
     (d) ``run_pipeline`` (masks, cluster) over the exported scan on the card
     in the default configuration and the exact one: objects, digests,
     seconds, each kernel's launches (``ingest_launches``); each run's
@@ -268,9 +277,9 @@ Imports nothing of JAX or of the JAX package. In order:
     card (CUDA events) and its share of the roofline; the association
     kernels' bytes in the census equal to phase 8's bound bytes. (d) Beside
     the rest, in child processes: ``python -m maskclustering_tpu_torch.run
-    --aot-cache DIR`` over phase 10's first scan, cold (the three libraries
-    built), again (all three restored, no ``nvcc``, the same digest) and on
-    a copy of the cache whose entries carry another stamp (three
+    --aot-cache DIR`` over phase 10's first scan, cold (every kernel
+    library built), again (all restored, no ``nvcc``, the same digest) and
+    on a copy of the cache whose entries carry another stamp (all
     invalidated and rebuilt, the same digest); ``prune`` removes the stale
     files. (f) Beside it too: ``python -m maskclustering_tpu_torch.analysis
     --families ir,retrace`` exits 0. (a) ``run_pipeline(profile_dir=...)``
@@ -287,7 +296,7 @@ Imports nothing of JAX or of the JAX package. In order:
 22. the zero-download demo (``python -m maskclustering_tpu_torch.demo``)
     at the JAX demo's default size (32 frames, 6 objects, 240x320, the nine
     steps on the hash encoder), in this process on the card (``demo.main``)
-    and as a ``--device cpu`` child started before phase 17 and joined
+    and as a ``--device cpu`` child started after phase 17 and joined
     here: every file of the two roots equal, byte for byte (the vis and
     top-image PNGs, both evaluation files, the npz, object dict and PLY)
     but ``report.json`` and ``run_journal.jsonl``, field for field with
@@ -327,6 +336,26 @@ Imports nothing of JAX or of the JAX package. In order:
     a CPU child from the end of phase 2 at the lowest priority with no card
     visible: exit 0 with every gate run.
 
+25. the device scene generator and the exact path's tool. The bench's
+    scene (``utils/synthetic.make_scene_device``: 36 boxes, 250 frames of
+    480x640, spacing 0.025, seed 0, rendered on the card by one
+    ``render_depth_seg`` launch, ``ops/cuda/render.cu``), its cloud resized
+    to 196,608 points, through ``run_scene`` in the default configuration at
+    ``k_max`` 63 with the frames on the card: one warm run and 3 timed runs
+    (walls, ``timings``, peak memory), counts set to 0 before the render and
+    read after the runs; the same frames pulled to the host and fed through
+    the feed on the card give the same digest and assignment. (a) The
+    kernel bit-equal to its plain version (the JAX program in torch) on all
+    250 frames on the card, on inputs rebuilt from the generator's host
+    draws, and on the first 8 against the CPU's plain version (a thread
+    beside the runs), and on the cases of ``ops/render_cases.py`` against
+    both; timed with CUDA events beside the plain version and its operation
+    bound. (c) ``python -m maskclustering_tpu_torch.tools.parity_ab`` on one
+    shallow scene on the card, a child started after phase 17 at ``nice``
+    10: exit 0, PASS, and its exact path launched the ball query. The other
+    measurement tools' exits are held by their CPU tests and by their
+    full-size runs through the chip tool (``PERF.md`` section 5).
+
 ``python3 chip_smoke.py --ingest-reference`` runs only that CPU route and
 needs no card; ``--jpeg-kinds OUT`` runs only phase 23's fixture check and
 writes its decode times to OUT; ``--serve-reference OUT`` only phase 24(a)'s
@@ -341,8 +370,9 @@ isolated child's ``bye``, ``ingest_launches`` phase 18's,
 ``load_gen_launches`` phase 24(a)'s; the depth
 and colour rows' ``launches`` phase 19e's, ``splat_bbox``'s the top_images
 step's, each beside its ``step_launches``, and ``splat_bbox``'s
-``demo_launches`` phase 22's) and the result
-JSON. ``[done]`` gives each phase's seconds.
+``demo_launches`` phase 22's; the ball query's ``parity_launches`` phase
+25(c)'s; ``render_depth_seg``'s ``launches`` phase 25's)
+and the result JSON. ``[done]`` gives each phase's seconds.
 """
 
 from __future__ import annotations
@@ -1071,20 +1101,10 @@ def dense_default_full(dev, tensors, distance_threshold: float = 0.01):
 def busy_seconds(trace_path: str):
     """(seconds the card was busy, {kernel name: (ms, launches)}) from a
     chrome trace: the union of its kernel, copy and fill intervals."""
-    with open(trace_path) as fh:
-        events = json.load(fh)["traceEvents"]
-    spans, by_name = [], {}
-    for ev in events:
-        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in ev:
-            spans.append((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])))
-            if ev["cat"] == "kernel":
-                ms, cnt = by_name.get(ev["name"], (0.0, 0))
-                by_name[ev["name"]] = (ms + float(ev["dur"]) / 1e3, cnt + 1)
-    busy, end = 0.0, float("-inf")
-    for lo, hi in sorted(spans):
-        busy += max(0.0, hi - max(lo, end))
-        end = max(end, hi)
-    return busy / 1e6, by_name
+    from maskclustering_tpu_torch.obs.xprof import trace_busy
+
+    busy, _, by_name = trace_busy(trace_path)
+    return busy, by_name
 
 
 def profile_dense(dev, tensors, cfg, wall: float) -> None:
@@ -1546,29 +1566,108 @@ def jpeg_decode_ms(path: str) -> float:
     return min(times)
 
 
-def plane_digest_lane(dev, tensors, dense, mid_digests) -> None:
-    """Phase 11a: the plane lane. Phase 8's full-size scene on cuda against
-    a cpu run, full digest dicts; phase 9's mid-size dicts; the digest
-    program and its pull timed on the card."""
+# the CPU references of phases 11 and 13 and the scenes of 13c and 14 run in
+# this many spawned processes from the end of phase 8, beside phases 9-12,
+# each with this many threads at this niceness
+CPU_REF_THREADS = 2
+CPU_REF_NICE = 10
+CPU_REF_PROCESSES = 3
+
+
+def _cpu_ref_init() -> None:
+    """A CPU-reference child: no card visible, few threads, low priority."""
+    os.environ["CUDA_VISIBLE_DEVICES"] = ""
+    os.environ["OMP_NUM_THREADS"] = str(CPU_REF_THREADS)
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    os.nice(CPU_REF_NICE)
     import torch
 
+    torch.set_num_threads(CPU_REF_THREADS)
+
+
+def start_cpu_references(tensors, cfg):
+    """Phases 11a's and 13b's CPU runs, 13c's longer scene and 14's second
+    scene, submitted at the end of phase 8 to a pool of spawned processes
+    (11b's CPU run takes the first free one once its colour frames exist);
+    their phases read the futures."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    pool = ProcessPoolExecutor(CPU_REF_PROCESSES,
+                               mp_context=multiprocessing.get_context("spawn"),
+                               initializer=_cpu_ref_init)
+    return {"pool": pool, "digest": pool.submit(_digest_cpu_reference, tensors, cfg),
+            "stream": pool.submit(_stream_cpu_reference, tensors,
+                                  cfg.replace(streaming_chunk=STREAM_CHUNK,
+                                              config_name="chip_smoke_stream")),
+            "long": pool.submit(_long_scene_tensors),
+            "second": pool.submit(_mesh_second_tensors)}
+
+
+def _digest_cpu_reference(tensors, cfg):
+    """Phase 11a's cpu run of phase 8's scene (in the CPU-reference child):
+    (digest, seconds, stage walls). It takes the host post-process rung: the
+    plane lane reads only the device phase, and both rungs give the same
+    digest dict (the tests hold them equal); the device rung's plain torch
+    DBSCAN is the slow part of a full-size scene on the host."""
     from maskclustering_tpu_torch.models import run_scene
+
+    t0 = time.perf_counter()
+    res = run_scene(tensors, cfg.replace(device_postprocess=False), k_max=63,
+                    seq_name="chip_smoke_dense", device="cpu")
+    return res.digest, time.perf_counter() - t0, res.timings
+
+
+def _stream_cpu_reference(tensors, cfg8):
+    """Phase 13b's four-chunk stream on the cpu (in the CPU-reference
+    child): its chunk dicts, digest, assignment, artifact digest, wall and
+    timings."""
+    from maskclustering_tpu_torch.models.streaming import stream_scene
+    from maskclustering_tpu_torch.obs.digest import artifact_digest
+
+    records = []
+    with recording_stream_chunks(records):
+        t0 = time.perf_counter()
+        res = stream_scene(tensors, cfg8, seq_name="chip_smoke_stream", device="cpu")
+        wall = time.perf_counter() - t0
+    return {"chunks": _stream_chunks(records), "digest": res.digest,
+            "assignment": res.assignment, "artifact": artifact_digest(res.objects),
+            "wall": wall, "timings": res.timings}
+
+
+def _semantic_cpu_reference(cfg, names, prediction_root):
+    """Phase 11b's semantic steps on the cpu (in the CPU-reference child):
+    (step seconds, the class-aware AP table)."""
+    from maskclustering_tpu_torch.run import run_pipeline
+
+    rep = run_pipeline(cfg, names, steps=SEMANTIC_STEPS, resume=False, journal=False,
+                       prediction_root=prediction_root, encoder_spec=SEMANTIC_ENCODER,
+                       device="cpu")
+    if not rep.ok:
+        raise AssertionError(f"semantic steps on cpu failed: {rep.step_errors}")
+    return rep.step_seconds, rep.evaluation["eval"]
+
+
+def plane_digest_lane(dev, tensors, dense, mid_digests, cpu_refs) -> None:
+    """Phase 11a: the plane lane. Phase 8's full-size scene on cuda against
+    a cpu run (in the CPU-reference child), full digest dicts; phase 9's
+    mid-size dicts; the digest program and its pull timed on the card."""
+    import torch
+
     from maskclustering_tpu_torch.models.pipeline import run_scene_device
     from maskclustering_tpu_torch.obs.digest import digest_scene_device, vector_host
 
     cfg = dense["cfg"]
-    # the cpu run takes the host post-process rung: the plane lane reads only
-    # the device phase, and both rungs give the same digest dict (the tests
-    # hold them equal); the device rung's plain torch DBSCAN is the slow part
-    # of a full-size scene on the host
     t0 = time.perf_counter()
-    on_cpu = run_scene(tensors, cfg.replace(device_postprocess=False), k_max=63,
-                       seq_name="chip_smoke_dense", device="cpu")
-    cpu_s = time.perf_counter() - t0
+    cpu_digest, cpu_s, cpu_timings = cpu_refs["digest"].result(timeout=900)
     _say(f"[digest] full-size scene: cuda {json.dumps(dense['scene_digest'])}, cpu "
-         f"{json.dumps(on_cpu.digest)} (cpu run, host post-process rung, {cpu_s:.1f} s; stage "
-         f"walls {json.dumps({k: round(v, 3) for k, v in on_cpu.timings.items()})})")
-    if not dense["scene_digest"]["plane"] or dense["scene_digest"] != on_cpu.digest:
+         f"{json.dumps(cpu_digest)} (cpu run, host post-process rung, {cpu_s:.1f} s in the "
+         f"CPU-reference child from the end of phase 8, {time.perf_counter() - t0:.1f} s of it "
+         f"waited for; stage walls "
+         f"{json.dumps({k: round(v, 3) for k, v in cpu_timings.items()})})")
+    if not dense["scene_digest"]["plane"] or dense["scene_digest"] != cpu_digest:
         raise AssertionError("the full-size scene's digest differs between cuda and cpu")
     card, cpu = mid_digests
     _say(f"[digest] mid-size scene: cuda {json.dumps(card)}, cpu {json.dumps(cpu)}")
@@ -1589,10 +1688,11 @@ def plane_digest_lane(dev, tensors, dense, mid_digests) -> None:
          f"(8,) pull {min(pulls):.4f} ms (host clock, best of 5)")
 
 
-def semantic_steps(dev, scene, batch) -> None:
+def semantic_steps(dev, scene, batch, cpu_refs) -> None:
     """Phase 11b: features, label_features, query and eval over phase 10's
     first full-size scan, its colour frames rewritten at 968x1296, on cuda
-    and on cpu; equal features, class-aware npz and AP."""
+    and on cpu (in the CPU-reference child, beside the cuda run); equal
+    features, class-aware npz and AP."""
     import shutil
 
     import numpy as np
@@ -1622,20 +1722,23 @@ def semantic_steps(dev, scene, batch) -> None:
             raise AssertionError(f"semantic steps on {device} failed: {rep.step_errors}")
         return rep
 
-    card = semantic_run(cfg, names, pred, dev)
     cpu_cfg = cfg.replace(config_name="chip_smoke_semantic_cpu")
     obj_dir = os.path.join(root, "scannet", "processed", BATCH_SCANS[0], "output", "object")
     os.makedirs(os.path.join(obj_dir, cpu_cfg.config_name), exist_ok=True)
     shutil.copy(os.path.join(obj_dir, cfg.config_name, "object_dict.npy"),
                 os.path.join(obj_dir, cpu_cfg.config_name, "object_dict.npy"))
     cpu_pred = os.path.join(root, "prediction_semantic_cpu")
-    cpu = semantic_run(cpu_cfg, names, cpu_pred, "cpu")
+    cpu_job = cpu_refs["pool"].submit(_semantic_cpu_reference, cpu_cfg, names, cpu_pred)
+    card = semantic_run(cfg, names, pred, dev)
+    t0 = time.perf_counter()
+    cpu_seconds, cpu_eval = cpu_job.result(timeout=900)
     _say(f"[semantic] cuda over {len(names)} scan (encoder {SEMANTIC_ENCODER}): step "
          f"seconds {json.dumps({k: round(v, 3) for k, v in card.step_seconds.items()})}; "
          f"distinct colour frames decoded {json.dumps(frames)} "
          f"(of {scene.segmentations.shape[0]} a scan)")
-    _say(f"[semantic] cpu over {BATCH_SCANS[0]}: step seconds "
-         f"{json.dumps({k: round(v, 3) for k, v in cpu.step_seconds.items()})}")
+    _say(f"[semantic] cpu over {BATCH_SCANS[0]} (the CPU-reference child, beside the cuda run; "
+         f"{time.perf_counter() - t0:.1f} s waited for): step seconds "
+         f"{json.dumps({k: round(v, 3) for k, v in cpu_seconds.items()})}")
 
     name = BATCH_SCANS[0]
     feats = {}
@@ -1656,7 +1759,7 @@ def semantic_steps(dev, scene, batch) -> None:
         if x["pred_masks"].shape != (scene.scene_points.shape[0], len(od[name])):
             raise AssertionError(f"{name}: pred_masks {x['pred_masks'].shape}")
         classes = x["pred_classes"].tolist()
-    if not _ap_equal(card.evaluation["eval"], cpu.evaluation["eval"]):
+    if not _ap_equal(card.evaluation["eval"], cpu_eval):
         raise AssertionError(f"{name}: the class-aware AP of the cuda and cpu runs differ")
     ap = card.evaluation["eval"]
     _say(f"[semantic] {name}: cuda == cpu (features {len(a)} x 1024 bit for bit, class-aware "
@@ -2031,8 +2134,8 @@ def _check_stream_result(res, num_points: int, label: str) -> None:
 
 def _long_scene_tensors():
     """Phase 13c's scan: phase 4's scene rendered with LONG_FRAMES frames,
-    as SceneTensors, and the seconds the render took (runs in a process of
-    its own; numpy only)."""
+    as SceneTensors, and the seconds the render took (in a CPU-reference
+    process; numpy only)."""
     here = os.path.dirname(os.path.abspath(__file__))
     if here not in sys.path:
         sys.path.insert(0, here)
@@ -2049,10 +2152,28 @@ def _long_scene_tensors():
     return to_scene_tensors(scene), time.perf_counter() - t0
 
 
+def _mesh_second_tensors():
+    """Phase 14's second lane: a 480x640 scene of MESH_SECOND_FRAMES frames,
+    as SceneTensors (in a CPU-reference process; numpy only)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    from maskclustering_tpu_torch.utils.synthetic import (
+        add_depth_noise,
+        make_scene,
+        to_scene_tensors,
+    )
+
+    second = make_scene(num_boxes=8, num_frames=MESH_SECOND_FRAMES, image_hw=(480, 640),
+                        spacing=0.008, floor_spacing=0.016, seed=MESH_SECOND_SEED)
+    add_depth_noise(second, sigma=0.002, seed=1000 + MESH_SECOND_SEED)
+    return to_scene_tensors(second)
+
+
 def _start_drill_cli(dev, batch) -> dict:
     """Start the batch driver's CLI under the JAX drill's four faults over
-    phase 10's scans (a config file with phase 10's knobs); phase 13 joins
-    it after its in-process drills."""
+    phase 10's scans (a config file with phase 10's knobs), at the end of
+    phase 10; phase 13 joins it after its in-process drills."""
     root = batch["root"]
     here = os.path.dirname(os.path.abspath(__file__))
     knobs = {k: v for k, v in dataclasses.asdict(batch["cfg"]).items()
@@ -2078,8 +2199,9 @@ def _start_drill_cli(dev, batch) -> dict:
             "err": err}
 
 
-def streaming_phase(dev, tensors, dense, batch) -> dict:
-    """Phase 13: the streaming entry point and the fault drills on the card."""
+def streaming_phase(dev, tensors, dense, batch, cpu_refs, drill) -> dict:
+    """Phase 13: the streaming entry point and the fault drills on the card
+    (``drill``: the CLI drill started at the end of phase 10)."""
     import numpy as np
     import torch
 
@@ -2094,15 +2216,6 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
 
     t_phase = time.perf_counter()
     cfg = dense["cfg"]
-    # 13d's CLI drill runs beside 13a-13d from the start: a process of its own
-    # that reads phase 10's scans and writes under its own config name
-    drill = _start_drill_cli(dev, batch)
-    # and 13c's longer scan renders in a process of its own from the start
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
-
-    long_pool = ProcessPoolExecutor(1, mp_context=multiprocessing.get_context("spawn"))
-    long_f = long_pool.submit(_long_scene_tensors)
 
     # 13a: one chunk covering the scene is the batch path, digest dict and all
     kernels.LAUNCHES.reset()
@@ -2121,25 +2234,24 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
         raise AssertionError("the single-chunk stream did not launch each association "
                              "kernel once")
 
-    # 13b: four chunks of 8 frames, cuda against cpu, chunk by chunk
+    # 13b: four chunks of 8 frames, cuda against cpu (the CPU-reference
+    # child's run from the end of phase 8), chunk by chunk
     cfg8 = cfg.replace(streaming_chunk=STREAM_CHUNK, config_name="chip_smoke_stream")
-    runs = []
     programs = []
-    for d in (dev, "cpu"):
-        records = []
-        with recording_stream_chunks(records), \
-                recording_stream_programs(programs if d == dev else []):
-            kernels.LAUNCHES.reset()
-            torch.cuda.reset_peak_memory_stats(dev)
-            t0 = time.perf_counter()
-            res = stream_scene(tensors, cfg8, seq_name="chip_smoke_stream", device=d)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            launches = dict(kernels.LAUNCHES.counts)
-        runs.append({"res": res, "chunks": _stream_chunks(records), "records": records,
-                     "wall": wall, "launches": launches,
-                     "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20})
-    cuda, cpu = runs
+    records = []
+    with recording_stream_chunks(records), recording_stream_programs(programs):
+        kernels.LAUNCHES.reset()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        res = stream_scene(tensors, cfg8, seq_name="chip_smoke_stream", device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES.counts)
+    cuda = {"res": res, "chunks": _stream_chunks(records), "records": records, "wall": wall,
+            "launches": launches, "peak_mib": torch.cuda.max_memory_allocated(dev) / 2**20}
+    t0 = time.perf_counter()
+    cpu = cpu_refs["stream"].result(timeout=900)
+    cpu_wait = time.perf_counter() - t0
     n_chunks = -(-tensors.num_frames // STREAM_CHUNK)
     prev = {}
     for c in cuda["records"]:
@@ -2154,10 +2266,11 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
         want = [c[key] for c in cpu["chunks"]]
         if got != want:
             raise AssertionError(f"chunk {key} cuda {got} != cpu {want}")
-    rc, rh = cuda["res"], cpu["res"]
-    if (rc.digest != rh.digest or not np.array_equal(rc.assignment, rh.assignment)
-            or artifact_digest(rc.objects) != artifact_digest(rh.objects)):
-        raise AssertionError(f"the four-chunk stream differs: cuda {rc.digest} cpu {rh.digest}")
+    rc = cuda["res"]
+    if (rc.digest != cpu["digest"] or not np.array_equal(rc.assignment, cpu["assignment"])
+            or artifact_digest(rc.objects) != cpu["artifact"]):
+        raise AssertionError(f"the four-chunk stream differs: cuda {rc.digest} cpu "
+                             f"{cpu['digest']}")
     _check_stream_result(rc, tensors.num_points, "four-chunk stream")
     for name in ASSOCIATION_KERNELS:
         if cuda["launches"].get(name, 0) != n_chunks:
@@ -2165,10 +2278,11 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
                                  f"{n_chunks} chunks, not once a chunk")
     if cuda["launches"].get("ball_query", 0):
         raise AssertionError("the stream launched the ball query")
-    tm_c, tm_h = rc.timings, rh.timings
+    tm_c, tm_h = rc.timings, cpu["timings"]
     _say(f"[stream] {n_chunks} chunks of {STREAM_CHUNK}: cuda == cpu (every chunk digest and "
          f"partial count, objects {len(rc.objects.point_ids_list)}, assignment, digest "
-         f"{json.dumps(rc.digest)}); wall cuda {cuda['wall']:.2f} s cpu {cpu['wall']:.2f} s; "
+         f"{json.dumps(rc.digest)}); wall cuda {cuda['wall']:.2f} s cpu {cpu['wall']:.2f} s "
+         f"(the CPU-reference child, {cpu_wait:.1f} s of it waited for); "
          f"chunks cuda {tm_c['stream.chunks']:.3f} s cpu {tm_h['stream.chunks']:.3f} s; "
          f"finalize cuda {tm_c['stream.finalize']:.3f} s (host DBSCAN "
          f"{tm_c['stream.dbscan']:.3f} s, "
@@ -2186,11 +2300,10 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
     # afresh (repeating the 32 frames would repeat their claims, and the
     # batch's post-process grows with the distinct views)
     t0 = time.perf_counter()
-    lt, built_s = long_f.result(900)
-    long_pool.shutdown()
-    _say(f"[stream] {LONG_FRAMES}-frame scene built in {built_s:.1f} s in a process of its "
-         f"own beside 13a-13b ({time.perf_counter() - t0:.1f} s of it waited for; "
-         f"N={lt.num_points})")
+    lt, built_s = cpu_refs["long"].result(900)
+    _say(f"[stream] {LONG_FRAMES}-frame scene built in {built_s:.1f} s in a CPU-reference "
+         f"process from the end of phase 8 ({time.perf_counter() - t0:.1f} s of it waited "
+         f"for; N={lt.num_points})")
     mem = {}
     for label, c in (("batch", cfg), ("chunked", cfg.replace(streaming_chunk=LONG_CHUNK))):
         records = []
@@ -2269,7 +2382,7 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
          f"{DRILL_STALL_S:.0f} s and raised {stale[0]['error']} on its thread "
          f"{stale[0]['thread']}")
 
-    # the drill CLI started at the head of the phase: its result
+    # the drill CLI started at the end of phase 10: its result
     root = batch["root"]
     names, spec, report_path = drill["names"], drill["spec"], drill["report"]
     proc = drill["proc"]
@@ -2291,8 +2404,8 @@ def streaming_phase(dev, tensors, dense, batch) -> dict:
         _say(f"[drill] {n}: {by[n]['status']}, attempts {by[n]['attempts']}, rung "
              f"{by[n]['degradation_rung']}, last error class {by[n]['error_class'] or '-'}, "
              f"{by[n]['seconds']:.2f} s")
-    _say(f"[drill] CLI --fault-plan '{spec}': rc {proc.returncode}, {wall:.1f} s (beside "
-         f"13a-13d), faults "
+    _say(f"[drill] CLI --fault-plan '{spec}': rc {proc.returncode}, {wall:.1f} s (started "
+         f"after phase 10, beside phases 11-13), faults "
          f"{json.dumps(rep['faults'])}")
     if (got != want or by[MID_SCAN]["error_class"] != "retryable"
             or "InjectedFault" not in by[MID_SCAN]["error"]
@@ -2404,8 +2517,10 @@ def _run_cli(here: str, args, timeout: int = 600):
         raise AssertionError(f"CLI {args} rc {rc}\n{err[-3000:]}")
 
 
-def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
+def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch, cpu_refs) -> dict:
     """Phase 14: the fused multi-device path on the card."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
     import torch
 
@@ -2415,18 +2530,41 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
     from maskclustering_tpu_torch.ops import cuda as kernels
     from maskclustering_tpu_torch.parallel import cluster_scene_batch, make_mesh
     from maskclustering_tpu_torch.run import evaluate_step, run_pipeline
-    from maskclustering_tpu_torch.utils.synthetic import (
-        add_depth_noise,
-        make_scene,
-        to_scene_tensors,
-    )
+    from maskclustering_tpu_torch.utils.synthetic import make_scene, to_scene_tensors
 
     t_phase = time.perf_counter()
     cfg = dense["cfg"]
-    second = make_scene(num_boxes=8, num_frames=MESH_SECOND_FRAMES, image_hw=(480, 640),
-                        spacing=0.008, floor_spacing=0.016, seed=MESH_SECOND_SEED)
-    add_depth_noise(second, sigma=0.002, seed=1000 + MESH_SECOND_SEED)
-    lanes = [tensors, to_scene_tensors(second)]
+    root, ov_cfg, ov_pred, here = batch["root"], batch["cfg"], batch["pred"], os.path.dirname(
+        os.path.abspath(__file__))
+    knobs = {k: v for k, v in dataclasses.asdict(ov_cfg).items()
+             if k not in ("config_name", "data_root")}
+
+    def write_cfg(name: str, **kw) -> str:
+        path = os.path.join(root, f"{name}.json")
+        with open(path, "w") as fh:
+            json.dump({**knobs, **kw}, fh)
+        return path
+
+    # 14d's two CLI runs (their processes on the card) start here, beside
+    # 14a-14d's in-process runs: each checks its artifacts, none of their
+    # seconds feeds the kernels line, and the launches counted are this
+    # process's
+    t_cli = time.perf_counter()
+    report_path = os.path.join(root, "mesh_cli_report.json")
+    wreport_path = os.path.join(root, "workers_report.json")
+    names4 = list(BATCH_SCANS) + [MID_SCAN]
+    cli_args = [
+        ["--config", write_cfg("chip_smoke_mesh_cli", mesh_shape=[1, 1]), "--point-shards", "1",
+         "--data_root", root, "--seq_name_list", "+".join(BATCH_SCANS), "--steps",
+         "cluster,eval_ca", "--no-resume", "--report", report_path, "--no-obs"],
+        ["--config", write_cfg("chip_smoke_workers"), "--workers", str(MESH_WORKERS),
+         "--data_root", root, "--seq_name_list", "+".join(names4), "--steps", "cluster",
+         "--no-resume", "--report", wreport_path, "--no-obs"]]
+    cli_pool = ThreadPoolExecutor(len(cli_args))
+    clis = [cli_pool.submit(_run_cli, here, args) for args in cli_args]
+    # the second lane, rendered in a CPU-reference process from the end of
+    # phase 8
+    lanes = [tensors, cpu_refs["second"].result(timeout=900)]
     names = ["chip_smoke_mesh_a", "chip_smoke_mesh_b"]
     ref_b = run_scene(lanes[1], cfg, k_max=63, seq_name=names[1], device=dev)
     refs = [dense["digest"], artifact_digest(ref_b.objects)]
@@ -2498,17 +2636,6 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
         raise AssertionError("the mid-size mesh batch differs between cuda, cpu and run_scene")
 
     # 14d: the batch driver on phase 10's scans
-    root, ov_cfg, ov_pred, here = batch["root"], batch["cfg"], batch["pred"], os.path.dirname(
-        os.path.abspath(__file__))
-    knobs = {k: v for k, v in dataclasses.asdict(ov_cfg).items()
-             if k not in ("config_name", "data_root")}
-
-    def write_cfg(name: str, **kw) -> str:
-        path = os.path.join(root, f"{name}.json")
-        with open(path, "w") as fh:
-            json.dump({**knobs, **kw}, fh)
-        return path
-
     def check_run(label: str, pred: str, cfg_name: str, scenes, seconds: float,
                   coord: str) -> None:
         """The run's full-size scans: ok at ``coord``, phase 10's artifacts
@@ -2526,34 +2653,17 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
         _say(f"[mesh] {label}: npz and object dicts == phase 10's, AP {ap['all_ap']:.4f} AP50 "
              f"{ap['all_ap_50%']:.4f}; cluster {seconds:.3f} s; digest coord {coord}")
 
-    # the two CLI runs (their processes on the card) go beside the in-process
-    # mesh_devices run: each checks its artifacts, none of their seconds
-    # feeds the kernels line, and the launches counted are this process's
-    from concurrent.futures import ThreadPoolExecutor
-
-    t0 = time.perf_counter()
-    report_path = os.path.join(root, "mesh_cli_report.json")
-    wreport_path = os.path.join(root, "workers_report.json")
-    names4 = list(BATCH_SCANS) + [MID_SCAN]
-    cli_args = [
-        ["--config", write_cfg("chip_smoke_mesh_cli", mesh_shape=[1, 1]), "--point-shards", "1",
-         "--data_root", root, "--seq_name_list", "+".join(BATCH_SCANS), "--steps",
-         "cluster,eval_ca", "--no-resume", "--report", report_path, "--no-obs"],
-        ["--config", write_cfg("chip_smoke_workers"), "--workers", str(MESH_WORKERS),
-         "--data_root", root, "--seq_name_list", "+".join(names4), "--steps", "cluster",
-         "--no-resume", "--report", wreport_path, "--no-obs"]]
-    with ThreadPoolExecutor(len(cli_args)) as pool:
-        clis = [pool.submit(_run_cli, here, args) for args in cli_args]
-        mcfg = ov_cfg.replace(config_name="chip_smoke_mesh_devices", mesh_shape=(2, 1),
-                              point_shards=2)
-        pred = os.path.join(root, "prediction_mesh_devices")
-        kernels.LAUNCHES.reset()
-        rep = run_pipeline(mcfg, BATCH_SCANS, steps=("cluster",), resume=False, journal=False,
-                           prediction_root=pred, device=dev, mesh_devices=[dev] * 4)
-        counts = dict(kernels.LAUNCHES.counts)
-        for f in clis:
-            f.result(timeout=900.0)
-    both = time.perf_counter() - t0
+    mcfg = ov_cfg.replace(config_name="chip_smoke_mesh_devices", mesh_shape=(2, 1),
+                          point_shards=2)
+    pred = os.path.join(root, "prediction_mesh_devices")
+    kernels.LAUNCHES.reset()
+    rep = run_pipeline(mcfg, BATCH_SCANS, steps=("cluster",), resume=False, journal=False,
+                       prediction_root=pred, device=dev, mesh_devices=[dev] * 4)
+    counts = dict(kernels.LAUNCHES.counts)
+    for f in clis:
+        f.result(timeout=900.0)
+    cli_pool.shutdown()
+    both = time.perf_counter() - t_cli
     lanes_run = 2 * -(-len(BATCH_SCANS) // 2)  # the short last batch has a pad lane
     if any(counts.get(n, 0) != lanes_run * 2 for n in ASSOCIATION_KERNELS):
         raise AssertionError(f"mesh_devices run launches {counts}, want {lanes_run * 2} each")
@@ -2563,7 +2673,8 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
               "fused|bf16|2x1|r0|c0")
     with open(report_path) as fh:
         crep = json.load(fh)
-    check_run(f"CLI mesh_shape [1, 1] (beside the next two runs, {both:.1f} s for the three)",
+    check_run(f"CLI mesh_shape [1, 1] (started at the head of the phase beside the "
+              f"in-process runs, {both:.1f} s to the last of the two CLIs)",
               os.path.join(root, "prediction"), "chip_smoke_mesh_cli", crep["scenes"],
               crep["step_seconds"]["cluster"], "fused|bf16|1x1|r0|c0")
 
@@ -2574,7 +2685,7 @@ def mesh_phase(dev, card: str, tensors, dense, mid_digests, batch) -> dict:
     bucket = wrep["scenes"][0]["digest_coord"].split("|")[0]
     if [s["status"] for s in wrep["scenes"]] != ["ok"] * len(names4):
         raise AssertionError(f"workers run statuses {[s['status'] for s in wrep['scenes']]}")
-    check_run(f"CLI --workers {MESH_WORKERS} over {len(names4)} scans (beside the other two "
+    check_run(f"CLI --workers {MESH_WORKERS} over {len(names4)} scans (beside the other "
               f"runs)", os.path.join(root, "prediction"), "chip_smoke_workers", wrep["scenes"],
               wrep["step_seconds"]["cluster"], f"{bucket}|bf16|single|r0|c0")
     inproc = os.path.join(root, "prediction_mid_inproc")
@@ -2953,9 +3064,11 @@ def _wait_for(pred, timeout_s: float, what: str) -> None:
     raise AssertionError(f"timed out after {timeout_s:.0f} s waiting for {what}")
 
 
-def obs_phase(dev, card: str, tensors, dense, batch) -> dict:
+def obs_phase(dev, card: str, tensors, dense, batch, after_timing=None) -> dict:
     """Phase 16: the run report, the perf ledger, the request trace, live top
-    and the canary sentinel on the card, and the stage spans they read."""
+    and the canary sentinel on the card, and the stage spans they read;
+    ``after_timing()`` is called once its timed runs of phase 8's scene are
+    done."""
     import shutil
     import tempfile
 
@@ -3006,6 +3119,8 @@ def obs_phase(dev, card: str, tensors, dense, batch) -> dict:
          + json.dumps({k: [round(again.timings[k], 4), round(armed8.timings[k], 4)]
                        for k in ("associate", "graph", "cluster", "postprocess")})
          + f"; pulls {again.timings['pulls']}")
+    if after_timing is not None:
+        after_timing()
 
     # (a) a reported scan through the CLI: events, obs digest, one ledger row
     cfg_path = os.path.join(tmp, "chip_smoke_obs.json")
@@ -3480,13 +3595,25 @@ def _daemon_counters(events_path: str) -> dict:
     return rows[-1]["metrics"]["counters"] if rows else {}
 
 
-def isolation_phase(dev, card: str, batch, serve) -> dict:
+def start_isolated(batch) -> dict:
+    """Phase 17(a)'s daemon (its directory and ``_IsoDaemon``), started in
+    phase 16 once its timed runs are done, so that its start and its
+    child's warm scan run beside the rest of phase 16."""
+    import tempfile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_iso_", dir="/tmp")
+    return {"tmp": tmp, "one": _IsoDaemon(here, tmp, "one", batch["cfg"],
+                                          ["--warm", BATCH_SCANS[0]], wait=False)}
+
+
+def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
     """Phase 17: the crash-contained topology on the card. Every daemon is
     a ``python -m maskclustering_tpu_torch.serve --isolate-worker``
-    subprocess serving phase 10's scans with phase 10's config."""
+    subprocess serving phase 10's scans with phase 10's config; ``early``
+    holds (a)'s daemon, started in phase 16 (``start_isolated``)."""
     import shutil
     import signal
-    import tempfile
 
     import torch
 
@@ -3500,13 +3627,13 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
 
     t_phase = time.perf_counter()
     here = os.path.dirname(os.path.abspath(__file__))
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_iso_", dir="/tmp")
+    tmp = early["tmp"]
     cfg = batch["cfg"]
     want = {scene: dg["artifact"] for scene, (dg, _) in batch["scans"].items()}
     first = BATCH_SCANS[0]
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # this process's cached blocks out of the readings
-    daemons = []
+    daemons = [early["one"]]
 
     def spawn(name, args, **kw):
         daemons.append(_IsoDaemon(here, tmp, name, cfg, args, **kw))
@@ -3521,7 +3648,8 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
     try:
         # (a) one isolated worker: spawn to ready, two scans, the pipe's
         # cost beside phase 15's in-thread figures, the parent device-free
-        d = spawn("one", ["--warm", first])
+        d = early["one"]
+        d.wait_ready()
         w = d.ready["worker"]
         if w["cuda"]["build_s"]:
             raise AssertionError(f"the child built kernels: {w['cuda']}")
@@ -3529,7 +3657,8 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
         if held != {w["pid"], os.getpid()}:
             raise AssertionError(f"contexts held by {held} ({how}): child {w['pid']}, "
                                  f"daemon {d.proc.pid}, this process {os.getpid()}")
-        _say(f"[iso] {card}: daemon pid {d.proc.pid} up in {d.ready_s:.2f} s, spawn to ready "
+        _say(f"[iso] {card}: daemon pid {d.proc.pid} started in phase 16 (answered here "
+             f"{d.ready_s:.2f} s after its start), spawn to ready "
              f"{d.ready['warmup_s']:.2f} s, the child's own warm-up {w['warmup_s']:.2f} s, no "
              f"build in the child ({json.dumps(w['cuda'])}); the child {w['pid']} holds a "
              f"context and the daemon holds none ({how})")
@@ -3641,6 +3770,34 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
         # (d) a pool of two on the one card: both slices share cuda:0
         d = pool_d
         d.wait_ready()
+        # beside (d), which reads no memory or context: a carve the one card
+        # cannot hold, refused at start (checked after the order burst);
+        # (e)'s pool, started and warmed; and the order burst's pool in this
+        # process, its children started with dispatch held
+        bad = spawn("carve", ["--workers", "2", "--carve", "2x1"], expect_fail=True)
+        sdir = os.path.join(tmp, "stream_state")
+        stream_d = spawn("stream", ["--workers", "2", "--stream-state", sdir,
+                                    "--fault-plan", f"stall:{MID_SCAN}.chunk:2"],
+                         env={"MCT_FAULT_STALL_S": str(ISO_STREAM_STALL_S)}, wait=False)
+        ocfg = cfg.replace(config_name="chip_smoke_iso_order", serve_workers=2,
+                           serve_tenants="a:3,b:1")
+        pool = WorkerPool(ocfg, AdmissionQueue(32), Router(ocfg), device="cuda",
+                          start_timeout_s=600.0, poll_s=0.1)
+        order, answers = [], {}
+        book = pool._book_dispatch
+        pool._book_dispatch = lambda req, wid: (order.append(req.tenant), book(req, wid))[1]
+        pool._pause.set()
+        pool_start = {}
+
+        def start_order_pool():
+            try:
+                pool.start()
+                pool_start["ok"] = True
+            except BaseException as e:  # noqa: BLE001 — raised in this thread after (d)
+                pool_start["error"] = e
+
+        starter = threading.Thread(target=start_order_pool, name="order-pool-start")
+        starter.start()
         jobs = [(BATCH_SCANS[0], None), ("chip_smoke_serve_cold", SERVE_COLD_SPEC),
                 (BATCH_SCANS[1], None)]
         results, errors = [], []
@@ -3744,28 +3901,14 @@ def isolation_phase(dev, card: str, batch, serve) -> dict:
              f"answered in {recarve_s:.2f} s; after it the one slice's bye: launches "
              f"{json.dumps(final['pool']['workers'][0]['cuda']['launches'])}, peak "
              f"{_peak(final['pool']['workers'][0]['cuda'])}")
-        # a carve the one card cannot hold is refused at start; checked
-        # after the order burst below, which runs while it starts and fails
-        bad = spawn("carve", ["--workers", "2", "--carve", "2x1"], expect_fail=True)
-        # (e)'s pool starts and warms beside the order burst, which checks
-        # only the order of dispatch
-        sdir = os.path.join(tmp, "stream_state")
-        stream_d = spawn("stream", ["--workers", "2", "--stream-state", sdir,
-                                    "--fault-plan", f"stall:{MID_SCAN}.chunk:2"],
-                         env={"MCT_FAULT_STALL_S": str(ISO_STREAM_STALL_S)}, wait=False)
-
-        # the stride scheduler's dispatch order on real children: a pool in
-        # this process, dispatch held until the whole burst is queued
-        ocfg = cfg.replace(config_name="chip_smoke_iso_order", serve_workers=2,
-                           serve_tenants="a:3,b:1")
-        pool = WorkerPool(ocfg, AdmissionQueue(32), Router(ocfg), device="cuda",
-                          start_timeout_s=600.0, poll_s=0.1)
-        order, answers = [], {}
-        book = pool._book_dispatch
-        pool._book_dispatch = lambda req, wid: (order.append(req.tenant), book(req, wid))[1]
-        pool._pause.set()
-        pool.start()
+        # the stride scheduler's dispatch order on real children: the pool
+        # in this process, started beside (d), dispatch held until the whole
+        # burst is queued
+        starter.join(600.0)
         try:
+            if not pool_start.get("ok"):
+                raise AssertionError(f"the order burst's pool did not start: "
+                                     f"{pool_start.get('error')!r}")
             n = 0
             for tenant, count in ORDER_BURST.items():
                 for _ in range(count):
@@ -3975,6 +4118,7 @@ def ingest_phase(dev, card: str, scene) -> dict:
     scan is clustered on the card."""
     import shutil
     import tempfile
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -4067,21 +4211,17 @@ def ingest_phase(dev, card: str, scene) -> dict:
         regions = card_seg(rgb)[0].shape[0]
         synchronize(dev)
         card_ms = (time.perf_counter() - t0) * 1e3
+        # the cpu's id-maps, on a thread beside (d)
         cpu_dir = os.path.join(tmp, "cpu_masks")
-        t0 = time.perf_counter()
-        predict_scene_masks(ds, GridSegmenter(device="cpu"), stride=INGEST_FRAME_SKIP,
-                            output_dir=cpu_dir)
-        cpu_s = time.perf_counter() - t0
-        for f in kept:
-            with open(os.path.join(cpu_dir, f"{f}.png"), "rb") as a, \
-                    open(os.path.join(ds.segmentation_dir, f"{f}.png"), "rb") as b:
-                if a.read() != b.read():
-                    raise AssertionError(f"frame {f}: the cuda id-map != the cpu id-map")
-        _say(f"[ingest] masks step ('grid' on {dev}): {len(kept)} id-maps in {masks_s:.2f} s; "
-             f"the segmenter {card_ms:.1f} ms a frame on the card; the cpu's "
-             f"{len(kept)} id-maps in {cpu_s:.2f} s, {1e3 * cpu_s / len(kept):.1f} ms a frame, "
-             f"byte-equal to cuda's; {card_seg.last_sweeps} sweeps, {regions} regions kept; "
-             f"largest id {largest}")
+
+        def cpu_masks():
+            t0 = time.perf_counter()
+            predict_scene_masks(ds, GridSegmenter(device="cpu"), stride=INGEST_FRAME_SKIP,
+                                output_dir=cpu_dir)
+            return time.perf_counter() - t0
+
+        cpu_pool = ThreadPoolExecutor(1)
+        cpu_job = cpu_pool.submit(cpu_masks)
 
         # (d) the exported scan clustered on the card, default and exact,
         # each held to the CPU route's digest; the launches of both runs are
@@ -4102,6 +4242,20 @@ def ingest_phase(dev, card: str, scene) -> dict:
         for k in ASSOCIATION_KERNELS + ("ball_query",):
             if not launches.get(k):
                 raise AssertionError(f"clustering the exported scan launched no {k}")
+        t0 = time.perf_counter()
+        cpu_s = cpu_job.result(timeout=600)
+        cpu_pool.shutdown()
+        for f in kept:
+            with open(os.path.join(cpu_dir, f"{f}.png"), "rb") as a, \
+                    open(os.path.join(ds.segmentation_dir, f"{f}.png"), "rb") as b:
+                if a.read() != b.read():
+                    raise AssertionError(f"frame {f}: the cuda id-map != the cpu id-map")
+        _say(f"[ingest] masks step ('grid' on {dev}): {len(kept)} id-maps in {masks_s:.2f} s; "
+             f"the segmenter {card_ms:.1f} ms a frame on the card; the cpu's "
+             f"{len(kept)} id-maps in {cpu_s:.2f} s (a thread beside the clustering above, "
+             f"{time.perf_counter() - t0:.1f} s of it waited for), "
+             f"{1e3 * cpu_s / len(kept):.1f} ms a frame, byte-equal to cuda's; "
+             f"{card_seg.last_sweeps} sweeps, {regions} regions kept; largest id {largest}")
         _say(f"[ingest] ingest launches {json.dumps(launches)}; phase 18 in "
              f"{time.perf_counter() - t_phase:.1f} s ({card})")
         return {"launches": launches}
@@ -4992,16 +5146,17 @@ def tooling_phase(dev, card: str, tensors, dense, batch) -> dict:
         bg.shutdown()
         cold, warm_run, stamped = drill["cold"], drill["warm"], drill["stamp"]
         libs = sorted(kernels.KERNELS)
-        if (cold[0] != {"restored": 0, "built": 3, "invalidated": 0} or cold[1] != libs
-                or warm_run[0] != {"restored": 3, "built": 0, "invalidated": 0}
+        n_libs = len(libs)
+        if (cold[0] != {"restored": 0, "built": n_libs, "invalidated": 0} or cold[1] != libs
+                or warm_run[0] != {"restored": n_libs, "built": 0, "invalidated": 0}
                 or warm_run[1] != [] or warm_run[2] != cold[2]
-                or stamped[0] != {"restored": 0, "built": 3, "invalidated": 3}
+                or stamped[0] != {"restored": 0, "built": n_libs, "invalidated": n_libs}
                 or stamped[1] != libs or stamped[2] != cold[2]
                 or cold[2] != want[BATCH_SCANS[0]]):
             raise AssertionError(f"build cache drill: {drill}")
         removed = aot_cache.AotCache(cache_b).prune()
         left = sorted(f for f in os.listdir(cache_b) if f.endswith(".so"))
-        if sorted(removed) != drill["stale"] or len(left) != 3 or set(left) & set(removed):
+        if sorted(removed) != drill["stale"] or len(left) != n_libs or set(left) & set(removed):
             raise AssertionError(f"prune removed {removed}, left {left}")
         _say(f"[tooling] build cache: a cold child built {cold[1]} "
              f"({json.dumps(cold[0])}), a second child restored all ({json.dumps(warm_run[0])}, "
@@ -5029,8 +5184,8 @@ DEMO_SEQ = "demo0001_00"
 # journal's stamp, pid and seconds. Every other file is compared byte for byte.
 DEMO_TIME_FIELDS = {"report.json": ("step_seconds", "seconds", "timings"),
                     "run_journal.jsonl": ("ts", "pid", "seconds")}
-# the CPU demo's intra-op threads: it runs beside phase 17's daemons, so
-# it leaves them most of the host's cores
+# the CPU demo's intra-op threads: it runs beside phases 18-21, so it
+# leaves them most of the host's cores
 DEMO_CPU_THREADS = 2
 
 
@@ -5086,7 +5241,7 @@ def demo_differences(root_a: str, root_b: str) -> list:
 
 def demo_phase(dev, card: str, cpu: dict) -> dict:
     """Phase 22: the zero-download demo on the card against the CPU child
-    started in phase 17, file for file."""
+    started after phase 17, file for file."""
     import io
     import re
     import shutil
@@ -5140,7 +5295,7 @@ def demo_phase(dev, card: str, cpu: dict) -> dict:
                 _say(ln)
         cpu_s = re.search(r"pipeline finished in ([0-9.]+)s", cpu_text).group(1)
         _say(f"[demo] {card}: the demo (32 frames, 6 objects, 240x320, nine steps) on {dev} in "
-             f"{wall:.2f} s; on cpu, a child started in phase 17 with {DEMO_CPU_THREADS} "
+             f"{wall:.2f} s; on cpu, a child started after phase 17 with {DEMO_CPU_THREADS} "
              f"threads, its pipeline {cpu_s} s by its own clock (waited {waited:.1f} s for it "
              f"here); "
              f"{len(files)} files equal ({len(pngs)} PNGs under vis/, both evaluation files, "
@@ -5359,8 +5514,9 @@ def serve_reference(out_path: str) -> int:
 def _start_child(tag: str, args, threads: int, env=None, nice: int = 0) -> dict:
     """A child process from the checkout's root in a session of its own
     (stopped with all it started at the script's end), its output in a log;
-    ``{out}`` in ``args`` names a file in its temporary directory; a
-    ``nice`` child (and all it starts) yields the cores to the script."""
+    ``{out}`` in ``args`` names a file in its temporary directory and
+    ``{dir}`` that directory; a ``nice`` child (and all it starts) yields
+    the cores to the script."""
     import shutil
     import tempfile
 
@@ -5372,7 +5528,8 @@ def _start_child(tag: str, args, threads: int, env=None, nice: int = 0) -> dict:
     prefix = ["nice", "-n", str(nice)] if nice and shutil.which("nice") else []
     t0, t0_clock = time.perf_counter(), time.time()
     with open(log, "w") as fh:
-        proc = subprocess.Popen([*prefix, sys.executable, *[a.format(out=out) for a in args]],
+        proc = subprocess.Popen([*prefix, sys.executable,
+                                 *[a.format(out=out, dir=tmp) for a in args]],
                                 cwd=here, env=full_env, stdout=fh, stderr=subprocess.STDOUT,
                                 text=True, start_new_session=True)
     return {"proc": proc, "t0": t0, "t0_clock": t0_clock, "tmp": tmp, "log": log, "out": out}
@@ -5507,6 +5664,195 @@ def load_gen_phase(dev, card: str, batch, load: dict, ci_cpu: dict, children: di
             shutil.rmtree(child["tmp"], ignore_errors=True)
 
 
+# 25. the device scene generator and the measurement tools: the bench's
+# scene (ROADMAP A11), rendered on the card
+BENCH_SCENE = {"num_boxes": 36, "num_frames": 250, "image_hw": (480, 640), "spacing": 0.025,
+               "seed": 0}
+BENCH_POINTS = 196608
+BENCH_RUNS = 3
+RENDER_CPU_FRAMES = 8
+# 25(c): parity_ab on one shallow scene, its exact path the ball query's
+PARITY_ARGS = ("--points", "shallow", "--scenes", "1")
+PARITY_NICE = 10
+
+
+def start_parity_child() -> dict:
+    """Phase 25(c)'s child: ``python -m maskclustering_tpu_torch.tools.parity_ab``
+    on one shallow scene on the card, started after phase 17 (whose drills
+    read the card's memory) at ``nice`` PARITY_NICE and joined in phase 25."""
+    return _start_child("parity", ["-m", "maskclustering_tpu_torch.tools.parity_ab",
+                                   *PARITY_ARGS, "--out", "{dir}/PARITY.md", "--device", "cuda"],
+                        LOAD_CHILD_THREADS, nice=PARITY_NICE)
+
+
+def _render_inputs(boxes, poses, intrinsics, perms, on):
+    """The renderer's host arrays as the tensors its kernel and plain
+    version take, on ``on``."""
+    import numpy as np
+    import torch
+
+    return (*(torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(on)
+              for a in (boxes, poses, intrinsics)),
+            torch.from_numpy(np.ascontiguousarray(perms, dtype=np.int32)).to(on))
+
+
+def _render_differs(got, want) -> int:
+    """Cells where two (depth, id) renders differ: depth bits or id."""
+    import torch
+
+    return int((got[0].view(torch.int32) != want[0].view(torch.int32)).sum()
+               + (got[1] != want[1]).sum())
+
+
+def device_scene_phase(dev, card: str, parity_child: dict) -> dict:
+    """Phase 25: (a) the renderer kernel against its plain version; (b) the
+    bench scene's ``run_scene`` on card-resident frames against the same
+    frames fed from the host; (c) ``parity_ab``'s child on the card."""
+    import dataclasses
+    import re
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from maskclustering_tpu_torch.config import PipelineConfig
+    from maskclustering_tpu_torch.models import run_scene
+    from maskclustering_tpu_torch.ops import cuda as kernels
+    from maskclustering_tpu_torch.ops.render_cases import RENDER_CASES
+    from maskclustering_tpu_torch.utils import synthetic
+
+    t_phase = time.perf_counter()
+    try:
+        # the slice's main path: the scene rendered on the card, then run_scene
+        kernels.LAUNCHES.reset()
+        t0 = time.perf_counter()
+        tensors, _, object_of_mask = synthetic.make_scene_device(**BENCH_SCENE, device=dev)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        tensors.scene_points = synthetic.resize_scene_points(tensors.scene_points, BENCH_POINTS)
+        # the renderer's inputs, from the generator's host draws: the boxes
+        # are the first draws of its seed (at its default room), the poses
+        # and intrinsics the scene's, and frame f's id of box k the mask
+        # whose object is k + 1
+        boxes_np = np.array([[lo, hi] for lo, hi in synthetic._place_boxes(
+            BENCH_SCENE["num_boxes"], 4.0, np.random.default_rng(BENCH_SCENE["seed"]))[0]])
+        perms_np = np.argsort(object_of_mask[:, 1:], axis=1) + 1
+        host_in = (boxes_np, tensors.cam_to_world, tensors.intrinsics, perms_np)
+        hw = BENCH_SCENE["image_hw"]
+        f, k = perms_np.shape
+        # 8 frames on the CPU's plain version, beside the runs on the card
+        pool = ThreadPoolExecutor(1)
+        cpu_job = pool.submit(lambda: synthetic.render_depth_seg_device(
+            boxes_np, *(a[:RENDER_CPU_FRAMES] for a in host_in[1:]), hw, device="cpu"))
+        cfg = PipelineConfig(config_name="chip_smoke_bench", dataset="demo",
+                             distance_threshold=0.01, few_points_threshold=25, point_chunk=8192)
+        t0 = time.perf_counter()
+        run_scene(tensors, cfg, k_max=63, device=dev)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats(dev)
+        walls, results = [], []
+        for _ in range(BENCH_RUNS):
+            t0 = time.perf_counter()
+            results.append(run_scene(tensors, cfg, k_max=63, device=dev))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+        launches = dict(kernels.LAUNCHES.counts)
+        want = {"render_depth_seg": 1, **{n: BENCH_RUNS + 1 for n in ASSOCIATION_KERNELS}}
+        if launches != want:
+            raise AssertionError(f"phase 25's path launched {launches}, want {want}")
+        res = results[-1]
+        if len({json.dumps(r.digest, sort_keys=True) for r in results}) != 1:
+            raise AssertionError("the bench scene's digest changed between runs")
+
+        # (b) the same frames pulled to the host and fed through the feed
+        host = dataclasses.replace(tensors, depths=tensors.depths.cpu().numpy(),
+                                   segmentations=tensors.segmentations.cpu().numpy())
+        fed = run_scene(host, cfg, k_max=63, device=dev)
+        if fed.digest != res.digest or not np.array_equal(fed.assignment, res.assignment):
+            raise AssertionError(f"card-resident digest {res.digest} != host-fed {fed.digest}")
+        n_obj = len(res.objects.point_ids_list)
+        if n_obj == 0 or not res.digest.get("artifact"):
+            raise AssertionError(f"the bench scene produced {n_obj} objects")
+        tm = {key: round(float(np.median([r.timings[key] for r in results])), 4)
+              for key in res.timings}
+        _say(f"[bench-scene] {card}: make_scene_device {BENCH_SCENE} rendered on {dev} in "
+             f"{gen_s:.2f} s (one render_depth_seg launch); cloud resized to {BENCH_POINTS} "
+             f"points; run_scene (default configuration, k_max 63, frames on the card): warm "
+             f"{warm_s:.3f} s, then {[round(w, 3) for w in walls]} s (median "
+             f"{float(np.median(walls)):.3f} s), peak {peak_mib:.1f} MiB, M_pad "
+             f"{res.table.m_pad}, masks {res.table.num_masks}, {n_obj} objects, digest "
+             f"{json.dumps(res.digest)} == the host-fed frames' on {dev}")
+        _say(f"[bench-scene] timings (median of {BENCH_RUNS}, s): {json.dumps(tm)}; "
+             f"launches {json.dumps(launches)}")
+
+        # (a) the kernel against its plain version: all frames on the card
+        on_card_in = _render_inputs(*host_in, dev)
+        kernel_out = (tensors.depths, tensors.segmentations)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        plain_out = synthetic.render_depth_seg_reference(*on_card_in, hw)
+        t1.record()
+        torch.cuda.synchronize()
+        plain_ms = t0.elapsed_time(t1)
+        bad = _render_differs(kernel_out, plain_out)
+        if bad:
+            raise AssertionError(f"render_depth_seg differs from its plain version in {bad} cells")
+        err = float((kernel_out[0] - plain_out[0]).abs().max())
+        ms = cuda_time_ms(lambda: kernels.render_depth_seg_cuda(*on_card_in, height=hw[0],
+                                                                width=hw[1]), 5)
+        ops, nbytes = kernels.render_ops(f, k, *hw), kernels.render_bytes(f, k, *hw)
+        b_ms, b_by = bound_ms(ops, nbytes)
+        cpu_out = cpu_job.result(timeout=600)
+        pool.shutdown()
+        head = (kernel_out[0][:RENDER_CPU_FRAMES].cpu(), kernel_out[1][:RENDER_CPU_FRAMES].cpu())
+        if _render_differs(head, cpu_out):
+            raise AssertionError("render_depth_seg on the card differs from the CPU's plain "
+                                 "version on the first frames")
+        for name, c in RENDER_CASES.items():
+            args = (c["boxes"], c["poses"], c["intrinsics"], c["perms"])
+            on_card = synthetic.render_depth_seg_device(*args, c["image_hw"], device=dev)
+            on_cpu = synthetic.render_depth_seg_device(*args, c["image_hw"], device="cpu")
+            card_plain = synthetic.render_depth_seg_reference(*_render_inputs(*args, dev),
+                                                              c["image_hw"])
+            got = (on_card[0].cpu(), on_card[1].cpu())
+            if _render_differs(got, on_cpu) or _render_differs(on_card, card_plain):
+                raise AssertionError(f"render_depth_seg differs from its plain version on "
+                                     f"the case {name!r}")
+        _say(f"[render] render_depth_seg == plain on all {f} frames of the bench scene on the "
+             f"card, on its first {RENDER_CPU_FRAMES} frames against the CPU's plain version, "
+             f"and on the {len(RENDER_CASES)} cases of ops/render_cases.py "
+             f"({sorted(RENDER_CASES)}) against both")
+        _say(f"[render] {card}: render_depth_seg ({f} frames of {hw[0]}x{hw[1]}, {k} boxes, "
+             f"one launch): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
+             f"({b_by}: {ops} FP32 ops, {nbytes} bytes), {100 * b_ms / ms:.1f} % of the bound")
+
+        # (c) parity_ab on one shallow scene, a child beside phases 18-24
+        text, wall = _join(parity_child, "parity_ab")
+        verdict = [ln for ln in text.splitlines() if ln.startswith("**Overall: ")]
+        if not verdict or "PASS" not in verdict[-1]:
+            raise AssertionError(f"parity_ab on one shallow scene: {verdict}\n{text[-4000:]}")
+        m = re.search(r"kernel launches (\{.*\})", text)
+        parity_launches = json.loads(m.group(1)) if m else {}
+        if not parity_launches.get("ball_query"):
+            raise AssertionError(f"parity_ab launched no ball query: {parity_launches}")
+        rows = [ln for ln in text.splitlines() if ln.startswith("| shallow")]
+        _say(f"[tools] parity_ab {' '.join(PARITY_ARGS)} on the card (a child started after "
+             f"phase 17 at nice {PARITY_NICE}, {wall:.1f} s): exit 0, {verdict[-1]}; "
+             f"{' '.join(rows)}; kernel launches (the exact path's ball queries) "
+             f"{json.dumps(parity_launches)}")
+        _say(f"[tools] phase 25 in {time.perf_counter() - t_phase:.1f} s")
+        return {"launches": launches, "render": {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "max_abs_err": err}, "parity_launches": parity_launches,
+            "walls": walls, "timings": tm}
+    finally:
+        shutil.rmtree(parity_child["tmp"], ignore_errors=True)
+
+
 def full_size_scene():
     """Phase 4's scene: 8 boxes, 32 frames at 480x640, 2 mm depth noise."""
     from maskclustering_tpu_torch.utils.synthetic import add_depth_noise, make_scene
@@ -5569,6 +5915,12 @@ def main() -> int:
     _say(f"[card] {card} | torch {torch.__version__} cuda {torch.version.cuda} | {kind}")
 
     lap("1")
+    # phase 4's host-rendered scene, built beside phases 2-3
+    from concurrent.futures import ThreadPoolExecutor
+
+    scene_pool = ThreadPoolExecutor(1)
+    t_scene = time.perf_counter()
+    scene_job = scene_pool.submit(lambda: (full_size_scene(), time.perf_counter()))
     # 2. build
     t0 = time.perf_counter()
     built = kernels.build()
@@ -5586,9 +5938,11 @@ def main() -> int:
     lap("3")
     # 4. the slice at full size
     t0 = time.perf_counter()
-    scene = full_size_scene()
+    scene, t_built = scene_job.result(timeout=600)
+    scene_pool.shutdown()
     tensors = to_scene_tensors(scene)
-    _say(f"[slice] scene built in {time.perf_counter() - t0:.1f} s: "
+    _say(f"[slice] scene built in {t_built - t_scene:.1f} s beside phases 2-3 "
+         f"({time.perf_counter() - t0:.1f} s of it waited for here): "
          f"N={tensors.num_points} F={tensors.num_frames} HxW={tensors.depths.shape[1:]}")
     cfg = load_config("scannet", config_name="chip_smoke", distance_threshold=0.01,
                       use_exact_ball_query=True, device_postprocess=False)
@@ -5672,6 +6026,8 @@ def main() -> int:
     lap("7")
     # 8. the default configuration at full size
     dense = dense_default_full(dev, tensors)
+    # 11a's, 11b's and 13b's CPU runs, a spawned process beside phases 9-12
+    cpu_refs = start_cpu_references(tensors, dense["cfg"])
 
     lap("8")
     # 9. the default configuration, card against cpu, on the mid-size scene
@@ -5683,9 +6039,12 @@ def main() -> int:
                                                 image_hw=(240, 320), seed=1))
 
     lap("10")
+    # 13d's CLI drill, a process of its own beside phases 11-13: it reads
+    # phase 10's scans and writes under its own config name
+    drill = _start_drill_cli(dev, batch)
     # 11. the plane digest lane and the semantic steps
-    plane_digest_lane(dev, tensors, dense, mid_digests)
-    semantic_steps(dev, scene, batch)
+    plane_digest_lane(dev, tensors, dense, mid_digests, cpu_refs)
+    semantic_steps(dev, scene, batch, cpu_refs)
 
     lap("11")
     # 12. the CLIP encoder at ViT-H-14's full width
@@ -5693,31 +6052,37 @@ def main() -> int:
 
     lap("12")
     # 13. streaming and the fault drills
-    stream = streaming_phase(dev, tensors, dense, batch)
+    stream = streaming_phase(dev, tensors, dense, batch, cpu_refs, drill)
 
     lap("13")
     # 14. the fused multi-device path
-    mesh = mesh_phase(dev, card, tensors, dense, mid_digests, batch)
+    mesh = mesh_phase(dev, card, tensors, dense, mid_digests, batch, cpu_refs)
+    cpu_refs["pool"].shutdown()
 
     lap("14")
     # 15. the scene-serving daemon
     serve = serve_phase(dev, card, dense, batch)
 
     lap("15")
-    # 16. the run report, ledger, trace, top and the canary sentinel
-    obs_run = obs_phase(dev, card, tensors, dense, batch)
+    # 16. the run report, ledger, trace, top and the canary sentinel; 17(a)'s
+    # daemon starts once its timed runs are done, beside the rest of it
+    iso_early = {}
+    obs_run = obs_phase(dev, card, tensors, dense, batch,
+                        after_timing=lambda: iso_early.update(start_isolated(batch)))
 
     lap("16")
-    # 22's cpu run starts here, a child process beside phases 17-21
-    demo_cpu = start_demo_cpu()
     # 17. the crash-contained topology: isolated worker, drills, the pool
-    iso = isolation_phase(dev, card, batch, serve)
+    iso = isolation_phase(dev, card, batch, serve, iso_early)
 
     lap("17")
+    # 22's cpu run starts here, a child process beside phases 18-21
+    demo_cpu = start_demo_cpu()
     # 23's fixture check starts here, a child process beside phases 18-22
     kinds_cpu = start_jpeg_kinds_cpu()
     # 24(b)'s children on the card and (a)'s CPU reference, beside 18-23
     load_children = start_load_children()
+    # 25(c)'s parity_ab on the card, beside 18-24
+    parity_child = start_parity_child()
     # 18. the ingestion front: a .sens capture exported, masked, clustered
     ingest = ingest_phase(dev, card, scene)
 
@@ -5749,6 +6114,11 @@ def main() -> int:
     load = load_gen_phase(dev, card, batch, serve["load"], ci_cpu, load_children)
 
     lap("24")
+    # 25. the device scene generator (the renderer kernel and the bench
+    # scene on card-resident frames) and the measurement tools
+    bench = device_scene_phase(dev, card, parity_child)
+
+    lap("25")
     _say(f"[done] {time.perf_counter() - t_start:.1f} s; phases (s): {json.dumps(laps)}")
     _say(card)
     rows = [{
@@ -5759,7 +6129,8 @@ def main() -> int:
         "ms": bq["ms"], "plain_ms": bq["plain_ms"], "bound_ms": bq["bound_ms"],
         "bound_by": bq["bound_by"], "library_ms": None, "scene_kernel_ms": bq["scene_ms"],
         "ingest_launches": ingest["launches"]["ball_query"],
-        "tasmap_launches": vis["tasmap_launches"].get("ball_query", 0)}]
+        "tasmap_launches": vis["tasmap_launches"].get("ball_query", 0),
+        "parity_launches": bench["parity_launches"].get("ball_query", 0)}]
     # the JAX lines each association kernel computes (associate_frame, :191)
     replaces = {"associate_table": "maskclustering_tpu/models/backprojection.py:264",
                 "associate_claim": "maskclustering_tpu/models/backprojection.py:229",
@@ -5799,6 +6170,13 @@ def main() -> int:
             "step_launches": vis["launches"].get(name, 0),
             "tasmap_launches": vis["tasmap_launches"].get(name, 0),
             **({"demo_launches": demo_run["launches"][name]} if name == "splat_bbox" else {})})
+    # the renderer of the device scene generator (phase 25's main path)
+    rows.append({
+        "name": "render_depth_seg", "route": "cuda", "kind": "xla_program",
+        "source": "maskclustering_tpu_torch/ops/cuda/render.cu",
+        "replaces": "maskclustering_tpu/utils/synthetic.py:257",
+        "launches": bench["launches"]["render_depth_seg"], **bench["render"],
+        "library_ms": None, "scene_kernel_ms": bench["render"]["ms"]})
     shutil.rmtree(ledger_dir, ignore_errors=True)
     _say(json.dumps({"kernels": rows}))
     _say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

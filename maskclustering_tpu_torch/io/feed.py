@@ -8,7 +8,10 @@ decodes on the device with one cast and one float32 multiply, the same
 operation the loader's ``read_depth_png`` made (``io/image.py``). The
 decoded tensor therefore has the host float32 array's bits, and every
 stage downstream is unchanged. Depth that never was quantised (synthetic
-scenes with noise) passes through as float32.
+scenes with noise) passes through as float32. Frames that already are
+tensors (``device_resident``: the device scene generator renders them on
+the card) are not encoded: they move to the target device, if they are not
+there, with one cast each.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from maskclustering_tpu_torch.analysis.transfer_guard import sanctioned_pull
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
 
 # depth quantisation steps tried in order: millimetres (ScanNet, demo and
@@ -86,13 +90,41 @@ def encode_seg(segs: np.ndarray) -> np.ndarray:
     return np.asarray(segs, np.int32)
 
 
-def to_device_frames(depths: np.ndarray, segs: np.ndarray, device: DeviceLike = None
+def device_resident(arr) -> bool:
+    """Is ``arr`` a tensor (``feed.py:111-121``) rather than host numpy?
+
+    The ownership predicate of the feed: host frames are encoded and
+    uploaded into fresh tensors; frames that already are tensors belong to
+    the caller and pass through."""
+    return isinstance(arr, torch.Tensor)
+
+
+def host_frames(arr, what: str) -> np.ndarray:
+    """``arr`` as host numpy: a tensor is pulled with ``.cpu()`` in the named
+    ``sanctioned_pull`` window ``what`` (the host paths that take card
+    frames: the exact association and the mesh batch's stacking; the JAX
+    package pulls them implicitly through ``np.asarray``)."""
+    if not device_resident(arr):
+        return np.asarray(arr)
+    with sanctioned_pull(what):
+        return arr.cpu().numpy()
+
+
+def to_device_frames(depths, segs, device: DeviceLike = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Upload host (depths, segs) compactly; returns the decoded float32
-    depth and int32 id tensors on ``device``."""
+    depth and int32 id tensors on ``device``. A stack that already is a
+    tensor (``device_resident``) takes one cast onto ``device`` and no host
+    encode (``feed.py:130-146``)."""
     dev = resolve_device(device)
-    enc, scale = encode_depth(depths)
-    d_dev = decode_depth(torch.from_numpy(np.ascontiguousarray(enc)).to(dev), scale)
-    # torch has no uint16 arithmetic on every device; the cast is exact
-    s_dev = torch.from_numpy(np.ascontiguousarray(encode_seg(segs))).to(dev).to(torch.int32)
+    if device_resident(depths):
+        d_dev = depths.to(device=dev, dtype=torch.float32)
+    else:
+        enc, scale = encode_depth(depths)
+        d_dev = decode_depth(torch.from_numpy(np.ascontiguousarray(enc)).to(dev), scale)
+    if device_resident(segs):
+        s_dev = segs.to(device=dev, dtype=torch.int32)
+    else:
+        # torch has no uint16 arithmetic on every device; the cast is exact
+        s_dev = torch.from_numpy(np.ascontiguousarray(encode_seg(segs))).to(dev).to(torch.int32)
     return d_dev, s_dev

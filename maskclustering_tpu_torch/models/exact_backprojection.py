@@ -28,6 +28,7 @@ import torch
 from scipy.spatial import cKDTree
 
 from maskclustering_tpu_torch.device import DeviceLike, resolve_device
+from maskclustering_tpu_torch.io.feed import host_frames
 from maskclustering_tpu_torch.models.backprojection import SceneAssociation
 from maskclustering_tpu_torch.ops.dbscan import dbscan_labels
 from maskclustering_tpu_torch.ops.geometry import backproject_depth_np, voxel_downsample_np
@@ -222,6 +223,9 @@ def associate_scene_exact(tensors, cfg, k_max: int = 127, *, device: DeviceLike 
     """
     device = resolve_device(device)
     scene_points = np.asarray(tensors.scene_points, dtype=np.float64)
+    # host numpy around the ball query: frames on a card come back once
+    depths = host_frames(tensors.depths, "exact.frames")
+    segs = host_frames(tensors.segmentations, "exact.frames")
     f = len(tensors.frame_ids)
     n = len(scene_points)
     mop = np.zeros((f, n), dtype=np.int32)
@@ -236,8 +240,8 @@ def associate_scene_exact(tensors, cfg, k_max: int = 127, *, device: DeviceLike 
             continue
         mask_info = frame_backprojection_exact(
             scene_points,
-            np.asarray(tensors.depths[fi]),
-            np.asarray(tensors.segmentations[fi]),
+            depths[fi],
+            segs[fi],
             np.asarray(tensors.intrinsics[fi]),
             np.asarray(tensors.cam_to_world[fi]),
             distance_threshold=cfg.distance_threshold,

@@ -149,6 +149,9 @@ def pad_scene_tensors(tensors: SceneTensors, f_pad: int, n_pad: int) -> SceneTen
 
     Padded frames are invalid (no claims); padded points sit at the far
     sentinel coordinate 1.0e4, which no frustum reaches within depth_trunc.
+    Frame stacks pad where they live: tensors (the device scene generator's
+    frames) with ``torch.cat`` on their device, host numpy with ``np.pad``,
+    so host frames still reach the feed's encoder (``io/feed.py``).
     """
     f, n = tensors.num_frames, tensors.num_points
     if f == f_pad and n == n_pad:
@@ -160,6 +163,10 @@ def pad_scene_tensors(tensors: SceneTensors, f_pad: int, n_pad: int) -> SceneTen
     df = f_pad - f
 
     def pad_frames(arr, constant_values=0.0):
+        if isinstance(arr, torch.Tensor):
+            fill = torch.full((df, *arr.shape[1:]), constant_values, dtype=arr.dtype,
+                              device=arr.device)
+            return torch.cat([arr, fill])
         widths = ((0, df),) + ((0, 0),) * (np.ndim(arr) - 1)
         return np.pad(np.asarray(arr), widths, constant_values=constant_values)
 

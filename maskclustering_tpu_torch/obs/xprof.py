@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import logging
 import os
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 log = logging.getLogger("maskclustering_tpu_torch")
 
@@ -107,3 +107,31 @@ def parse_spans(spec: str) -> Sequence[str]:
     """CLI form: comma-joined span names, e.g. ``cluster,associate``
     (``*`` = every span)."""
     return tuple(s for s in spec.split(",") if s)
+
+
+def trace_busy(trace_path: str) -> Tuple[float, float, Dict[str, Tuple[float, int]]]:
+    """(seconds the card was busy, seconds the trace spans, {kernel name:
+    (ms, launches)}) of a Chrome trace ``torch.profiler`` exported: busy is
+    the union of its kernel, copy and fill intervals, the span from the
+    first event's start to the last one's end."""
+    import json
+
+    with open(trace_path) as fh:
+        events = json.load(fh)["traceEvents"]
+    spans, by_name = [], {}
+    lo_all, hi_all = float("inf"), float("-inf")
+    for ev in events:
+        if "dur" not in ev or "ts" not in ev:
+            continue
+        lo, hi = float(ev["ts"]), float(ev["ts"]) + float(ev["dur"])
+        lo_all, hi_all = min(lo_all, lo), max(hi_all, hi)
+        if ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            spans.append((lo, hi))
+        if ev.get("cat") == "kernel":
+            ms, cnt = by_name.get(ev["name"], (0.0, 0))
+            by_name[ev["name"]] = (ms + float(ev["dur"]) / 1e3, cnt + 1)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in sorted(spans):
+        busy += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    return busy / 1e6, max(hi_all - lo_all, 0.0) / 1e6, by_name

@@ -11,8 +11,8 @@ and PyTorch's current stream on that card, and return
 
 No fallback: a failed build or launch raises. The plain torch versions
 live beside the callers (``ops/neighbor.py``, ``models/backprojection.py``,
-``visualize/top_images.py``)
-and run only for CPU tensors.
+``visualize/top_images.py``, ``utils/synthetic.py``) and run only for CPU
+tensors.
 
 Each wrapper adds one to ``LAUNCHES`` under its entry's name
 (``ENTRIES``) where it launches its kernel, so a run can show that its
@@ -58,10 +58,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 # one shared library per source file
-KERNELS = ("ball_query", "associate", "splat")
+KERNELS = ("ball_query", "associate", "splat", "render")
 # the launch counts' names: one per kernel entry
 ENTRIES = ("ball_query", "associate_table", "associate_claim", "associate_assign",
-           "splat_depth", "splat_color", "splat_bbox")
+           "splat_depth", "splat_color", "splat_bbox", "render_depth_seg")
 
 
 class LaunchLog:
@@ -107,6 +107,13 @@ BALL_QUERY_OPS_PER_PAIR = 9
 TABLE_OPS_PER_PIXEL = 6
 CLAIM_OPS_PER_POINT = 24
 CLAIM_OPS_PER_PIXEL = 8
+# The renderer: per pixel the ray (2 subtractions and 2 divisions for the
+# camera direction, 3 rows of a multiply, an FMA and an addition = 12) and
+# the floor (a division) = 17; per (pixel, box) the slab test's 6 divisions;
+# per (frame, box) the 6 corner-minus-centre subtractions
+RENDER_OPS_PER_PIXEL = 17
+RENDER_OPS_PER_PIXEL_BOX = 6
+RENDER_OPS_PER_FRAME_BOX = 6
 
 
 def note_plain(name: str, shape: Tuple[int, ...]) -> None:
@@ -260,6 +267,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.mc_splat_bbox.argtypes = [p, i, p, i, i, i, p, i, p]
         for entry in (lib.mc_splat_depth, lib.mc_splat_color, lib.mc_splat_bbox):
             entry.restype = ctypes.c_int
+    elif name == "render":
+        lib.mc_render_depth_seg.argtypes = [p, i, p, p, p, i, i, i, p, p, i, p]
+        lib.mc_render_depth_seg.restype = ctypes.c_int
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -595,3 +605,65 @@ def splat_bbox_cuda(points: torch.Tensor, params: torch.Tensor, *, height: int,
     _launched("splat_bbox", (f, n, height, width), 0,
               splat_bytes("splat_bbox", n, f, height, width))
     return box
+
+
+# boxes the renderer takes in one launch (their corners sit in shared memory)
+RENDER_MAX_BOXES = 2048
+
+
+def render_ops(f: int, k: int, height: int, width: int) -> int:
+    """FP32 operations of one render of F frames of K boxes (the counts
+    above: comparisons, minima and maxima not counted)."""
+    return (f * height * width * (RENDER_OPS_PER_PIXEL + k * RENDER_OPS_PER_PIXEL_BOX)
+            + f * k * RENDER_OPS_PER_FRAME_BOX)
+
+
+def render_bytes(f: int, k: int, height: int, width: int) -> int:
+    """Bytes a render must move: the boxes (24 B each), poses (64 B),
+    intrinsics (36 B) and id permutations (4 B a box) a frame read once, the
+    float32 depth and int32 id of every pixel written once."""
+    return 24 * k + f * (64 + 36 + 4 * k) + 8 * f * height * width
+
+
+def render_depth_seg_cuda(boxes: torch.Tensor, poses: torch.Tensor, intrinsics: torch.Tensor,
+                          perms: torch.Tensor, *, height: int, width: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA box-and-floor renderer of F frames, one launch (see
+    ``render.cu``): ``(depths (F, H, W) float32, segs (F, H, W) int32)``, as
+    ``utils.synthetic.render_depth_seg_reference``. ``boxes`` (K, 2, 3) are
+    the real boxes only (a padded box never hits)."""
+    name = "render_depth_seg_cuda"
+    _check(boxes.dim() == 3 and boxes.shape[1:] == (2, 3) and boxes.dtype == torch.float32
+           and boxes.is_contiguous(),
+           f"{name}: boxes must be contiguous float32 (K, 2, 3), got {tuple(boxes.shape)}")
+    k = boxes.shape[0]
+    _check(k <= RENDER_MAX_BOXES, f"{name}: at most {RENDER_MAX_BOXES} boxes, got {k}")
+    _check(poses.dim() == 3 and poses.shape[1:] == (4, 4) and poses.dtype == torch.float32
+           and poses.is_contiguous(),
+           f"{name}: poses must be contiguous float32 (F, 4, 4), got {tuple(poses.shape)}")
+    f = poses.shape[0]
+    _check(f <= 65535, f"{name}: at most 65535 frames (grid y), got {f}")
+    _check(tuple(intrinsics.shape) == (f, 3, 3) and intrinsics.dtype == torch.float32
+           and intrinsics.is_contiguous(),
+           f"{name}: intrinsics must be contiguous float32 ({f}, 3, 3), "
+           f"got {tuple(intrinsics.shape)}")
+    _check(tuple(perms.shape) == (f, k) and perms.dtype == torch.int32 and perms.is_contiguous(),
+           f"{name}: perms must be contiguous int32 ({f}, {k}), got {tuple(perms.shape)}")
+    _check(height > 0 and width > 0 and height * width < 2 ** 31,
+           f"{name}: need a positive image size under 2**31 pixels, got {height}x{width}")
+    dev = _on_one_card(name, (boxes, poses, intrinsics, perms))
+    depths = torch.empty((f, height, width), dtype=torch.float32, device=dev)
+    segs = torch.empty((f, height, width), dtype=torch.int32, device=dev)
+    if f == 0:
+        return depths, segs
+    lib = load("render")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mc_render_depth_seg(boxes.data_ptr(), k, poses.data_ptr(), intrinsics.data_ptr(),
+                                      perms.data_ptr(), f, height, width, depths.data_ptr(),
+                                      segs.data_ptr(), dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"render_depth_seg kernel launch failed: CUDA error {err}")
+    _launched("render_depth_seg", (f, k, height, width), render_ops(f, k, height, width),
+              render_bytes(f, k, height, width))
+    return depths, segs

@@ -25,7 +25,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from maskclustering_tpu_torch.datasets.base import PAD_COORD, SceneTensors
-from maskclustering_tpu_torch.io.feed import FUSED_FEED_DEPTH_SCALE, encode_depth, encode_seg
+from maskclustering_tpu_torch.io.feed import (
+    FUSED_FEED_DEPTH_SCALE,
+    encode_depth,
+    encode_seg,
+    host_frames,
+)
 from maskclustering_tpu_torch.models.postprocess import SceneObjects
 from maskclustering_tpu_torch.models.postprocess_device import run_postprocess
 from maskclustering_tpu_torch.parallel.mesh import Mesh, make_mesh, point_axis_size
@@ -61,7 +66,8 @@ def pad_scene_batch(tensors_list: Sequence[SceneTensors], f_pad: int, n_pad: int
     them. Padded frames are invalid with identity poses, padded points sit
     at the sentinel. Depth ships as uint16 when the millimetre quantisation
     is bit-exact (the only scale the fused step decodes), ids as uint16
-    when they fit. Returns the 6-tuple of (S, ...) arrays.
+    when they fit; frames on a card are pulled to the host for the stack
+    (``batch.frames``). Returns the 6-tuple of (S, ...) arrays.
     """
     h, w = tensors_list[0].depths.shape[1:3]
     s = num_scenes
@@ -78,8 +84,8 @@ def pad_scene_batch(tensors_list: Sequence[SceneTensors], f_pad: int, n_pad: int
             t = tensors_list[min(i, len(tensors_list) - 1)]
         f, n = t.num_frames, t.num_points
         pts[i, :n] = t.scene_points
-        depths[i, :f] = t.depths
-        segs[i, :f] = t.segmentations
+        depths[i, :f] = host_frames(t.depths, "batch.frames")
+        segs[i, :f] = host_frames(t.segmentations, "batch.frames")
         intr[i, :f] = t.intrinsics
         c2w[i, :f] = t.cam_to_world
         fv[i, :f] = t.frame_valid

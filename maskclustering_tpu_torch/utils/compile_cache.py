@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import logging
 import math
+import sys
 import threading
 from typing import Set, Tuple
 
@@ -65,7 +66,17 @@ def scene_pads(cfg, frames: int, points: int) -> Tuple[int, int]:
 
 
 def max_seg_id(segmentations) -> int:
-    """Largest mask id in a scene's id-maps (0 for an empty stack)."""
+    """Largest mask id in a scene's id-maps (0 for an empty stack). A stack
+    that is a tensor (frames rendered on the card) is reduced where it lies
+    and only the scalar is read, in a named ``frames.max_id`` pull."""
+    torch = sys.modules.get("torch")  # no tensor exists before torch is imported
+    if torch is not None and isinstance(segmentations, torch.Tensor):
+        from maskclustering_tpu_torch.analysis.transfer_guard import sanctioned_pull
+
+        if segmentations.numel() == 0:
+            return 0
+        with sanctioned_pull("frames.max_id"):
+            return int(segmentations.max())
     return int(np.max(segmentations)) if np.size(segmentations) else 0
 
 

@@ -280,7 +280,8 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
     """Every module of the port (the serving daemon, its subprocess
     worker, supervisor and pool, the obs core, the visualisation, the
     static checks, the JPEG codec's arithmetic, lossless and smoothing
-    modules and the operational tools under ``tools/`` included), imported in a fresh interpreter, pulls in
+    modules, the operational and measurement tools under ``tools/`` and the
+    device scene generator included), imported in a fresh interpreter, pulls in
     neither jax nor anything of maskclustering_tpu, nor PIL, cv2, pyviz3d, or the
     libraries of HF's CLIP path (transformers, tokenizers, safetensors,
     msgpack, regex, flax, ftfy); nor does building the CLIP encoder on a
@@ -312,7 +313,10 @@ for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.fea
              "visualize.debug_viewers", "ops.splat_cases", "analysis", "analysis.__main__",
              "analysis.findings", "analysis.ast_checks", "analysis.concurrency",
              "analysis.lock_sanitizer", "tools", "tools.load_gen", "tools.fault_smoke",
-             "tools.stream_smoke", "tools.ci"):
+             "tools.stream_smoke", "tools.ci", "tools.profile_scene",
+             "tools.profile_postprocess", "tools.claims_diag", "tools.fb_identity",
+             "tools.northstar", "tools.parity_ab", "tools.mesh_bench", "tools.hbm_analysis",
+             "tools.micro"):
     assert pkg.__name__ + "." + name in names, name
 from maskclustering_tpu_torch.config import load_config
 from maskclustering_tpu_torch.models.streaming import stream_scene
@@ -324,6 +328,9 @@ res = stream_scene(scan, load_config("scannet", step=1, distance_threshold=0.05,
                                      point_chunk=2048, streaming_chunk=2),
                    seq_name="iso", device="cpu")
 assert res.timings["stream.num_chunks"] == 3 and res.digest["artifact"], res.timings
+from maskclustering_tpu_torch.utils.synthetic import make_scene_device
+dev_scan, _, _ = make_scene_device(num_boxes=3, num_frames=2, image_hw=(24, 32), device="cpu")
+assert dev_scan.depths.shape == (2, 24, 32), dev_scan.depths.shape
 from maskclustering_tpu_torch.parallel import cluster_scene_batch, make_mesh
 objs = cluster_scene_batch(load_config("scannet", step=1, distance_threshold=0.05,
                                        frame_pad_multiple=4, point_chunk=2048,
