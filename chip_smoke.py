@@ -206,9 +206,11 @@ Imports nothing of JAX or of the JAX package. In order:
     their seconds beside phase 15's in-thread ones, polled for the
     heartbeat age, and the first again unpolled; the child holds a context and the
     daemon none (``nvidia-smi``, or the open ``/dev/nvidiaN`` files where
-    its pids are not this namespace's); the child's ``bye`` counts one
+    its pids are not this namespace's); the child's ``bye`` (after (b)'s
+    readings: its warm child holds the same memory through them) counts one
     launch of each association kernel a scan. (b) ``crash:<scan>.device:1``
-    with a 10 s heartbeat: ``worker_crash`` then ``ok`` at rung 1 with phase
+    with a 10 s heartbeat, its daemon spawned and warmed beside (a)'s
+    requests: ``worker_crash`` then ``ok`` at rung 1 with phase
     10's digest, the respawn's seconds, the crash, requeue and respawn
     counters 1 each, the dead child's context gone and the card's memory
     back within 64 MiB after the drain. (c) ``wedge:<scan>.device:1`` with
@@ -222,10 +224,13 @@ Imports nothing of JAX or of the JAX package. In order:
     slice 0 rerouted to slice 1; ``recarve`` to one worker with a request
     in flight; ``--carve 2x1`` refused at start; in this process, a pool
     of two real children dispatching a held burst in the 3:1 order of the
-    stride scheduler. (e) A stream in chunks of 8 on a pool with
-    ``--stream-state``: its owner SIGKILLed with the second chunk in
-    flight, the stream resumed on the survivor from the snapshot, its
-    digest that of the in-process ``stream_scene``.
+    stride scheduler (a thread beside (d)). (e) A stream in chunks of 8 on
+    a pool with ``--stream-state`` (a thread beside (d)): its owner
+    SIGKILLed with the second chunk in flight, the stream resumed on the
+    survivor from the snapshot, its digest that of the in-process
+    ``stream_scene``. The quota and order bursts (ten and eight requests of
+    one scene on two slices exporting into one root) see 0 export retries.
+    The phase prints its count of checks and its parts' seconds.
 18. the ingestion front, files under a temporary directory. (a) A
     version-4 ``.sens`` capture of phase 4's scene through
     ``preprocess.write_sens``: its 32 frames' zlib depth and phase 11's
@@ -349,8 +354,13 @@ Imports nothing of JAX or of the JAX package. In order:
     250 frames on the card, on inputs rebuilt from the generator's host
     draws, and on the first 8 against the CPU's plain version (a thread
     beside the runs), and on the cases of ``ops/render_cases.py`` against
-    both; timed with CUDA events beside the plain version and its operation
-    bound. (c) ``python -m maskclustering_tpu_torch.tools.parity_ab`` on one
+    both, and on 64 random 480x640 frames of 36 boxes (random poses and focal
+    lengths, extreme ones included); its division form (``render.cu``'s
+    test entry) equal to torch's division on the card on 10^8 pairs; timed
+    with CUDA events in turns against the IEEE-division loop (the exact-only entry),
+    beside the plain version and its operation bound; its SASS a (pixel,
+    box) and (warp, box) from ``cuobjdump`` of the built library, with its
+    registers and local memory. (c) ``python -m maskclustering_tpu_torch.tools.parity_ab`` on one
     shallow scene on the card, a child started after phase 17 at ``nice``
     10: exit 0, PASS, and its exact path launched the ball query. The other
     measurement tools' exits are held by their CPU tests and by their
@@ -3611,7 +3621,10 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
     """Phase 17: the crash-contained topology on the card. Every daemon is
     a ``python -m maskclustering_tpu_torch.serve --isolate-worker``
     subprocess serving phase 10's scans with phase 10's config; ``early``
-    holds (a)'s daemon, started in phase 16 (``start_isolated``)."""
+    holds (a)'s daemon, started in phase 16 (``start_isolated``). Every
+    check goes through ``expect``, which counts it; the phase prints the
+    count, its parts' seconds and the export retries it saw (0: two workers
+    exporting one scene at once write temporary files of their own)."""
     import shutil
     import signal
 
@@ -3634,38 +3647,68 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()  # this process's cached blocks out of the readings
     daemons = [early["one"]]
+    parts, t_part = {}, [t_phase]
+    counted = {"checks": 0, "retries": 0}
+    count_lock = threading.Lock()
+
+    def part(name):
+        now = time.perf_counter()
+        parts[name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    def expect(ok, msg):
+        """One check of the phase: counted, and raised when it fails
+        (``msg`` a string, or a callable that makes one)."""
+        with count_lock:
+            counted["checks"] += 1
+        if not ok:
+            raise AssertionError(msg() if callable(msg) else msg)
 
     def spawn(name, args, **kw):
         daemons.append(_IsoDaemon(here, tmp, name, cfg, args, **kw))
         return daemons[-1]
 
-    def check_ok(term, scene, label, digest=None):
+    def check_ok(term, scene, label, digest=None, export_race=False):
+        """A served scan: ok with its digest. ``export_race``: one of
+        several requests of one scene that two slices export into one
+        prediction root at once; its retries (attempts past the first) are
+        booked as export retries."""
         want_dg = digest or want[scene]
-        if term.get("kind") != "result" or term.get("status") != "ok" \
-                or term["digest"]["artifact"] != want_dg:
-            raise AssertionError(f"{label}: {scene} answered {term}, want digest {want_dg}")
+        expect(term.get("kind") == "result" and term.get("status") == "ok"
+               and term["digest"]["artifact"] == want_dg,
+               lambda: f"{label}: {scene} answered {term}, want digest {want_dg}")
+        if export_race:
+            with count_lock:
+                counted["retries"] += int(term.get("attempts", 1)) - 1
 
     try:
         # (a) one isolated worker: spawn to ready, two scans, the pipe's
         # cost beside phase 15's in-thread figures, the parent device-free
-        d = early["one"]
-        d.wait_ready()
-        w = d.ready["worker"]
-        if w["cuda"]["build_s"]:
-            raise AssertionError(f"the child built kernels: {w['cuda']}")
-        held, how = _context_holders({w["pid"], d.proc.pid, os.getpid()})
-        if held != {w["pid"], os.getpid()}:
-            raise AssertionError(f"contexts held by {held} ({how}): child {w['pid']}, "
-                                 f"daemon {d.proc.pid}, this process {os.getpid()}")
-        _say(f"[iso] {card}: daemon pid {d.proc.pid} started in phase 16 (answered here "
-             f"{d.ready_s:.2f} s after its start), spawn to ready "
-             f"{d.ready['warmup_s']:.2f} s, the child's own warm-up {w['warmup_s']:.2f} s, no "
+        one = early["one"]
+        one.wait_ready()
+        w = one.ready["worker"]
+        expect(not w["cuda"]["build_s"], f"the child built kernels: {w['cuda']}")
+        held, how = _context_holders({w["pid"], one.proc.pid, os.getpid()})
+        expect(held == {w["pid"], os.getpid()},
+               f"contexts held by {held} ({how}): child {w['pid']}, daemon {one.proc.pid}, "
+               f"this process {os.getpid()}")
+        _say(f"[iso] {card}: daemon pid {one.proc.pid} started in phase 16 (answered here "
+             f"{one.ready_s:.2f} s after its start), spawn to ready "
+             f"{one.ready['warmup_s']:.2f} s, the child's own warm-up {w['warmup_s']:.2f} s, no "
              f"build in the child ({json.dumps(w['cuda'])}); the child {w['pid']} holds a "
              f"context and the daemon holds none ({how})")
+        # (b)'s daemon spawns and warms beside (a)'s requests. Its memory
+        # readings take (a)'s child as it is now, warm: serving the scene it
+        # warmed on reuses its cached blocks, so it holds the same memory
+        # until (a)'s daemon stops, after (b)'s last reading
+        victim = BATCH_SCANS[1]
+        mem0 = _used_mib()
+        crash_d = spawn("crash", ["--warm", first, "--fault-plan", f"crash:{victim}.device:1",
+                                  "--set", f"worker_heartbeat_s={ISO_CRASH_HB_S:g}"], wait=False)
         gaps, stop_sampler = [], threading.Event()
 
         def sampler():
-            with ServeClient(d.sock, timeout_s=60.0) as c:
+            with ServeClient(one.sock, timeout_s=60.0) as c:
                 while not stop_sampler.is_set():
                     gaps.append(c.stats()["worker"]["hb_age_s"])
                     time.sleep(HB_SAMPLE_S)
@@ -3673,75 +3716,74 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
         th = threading.Thread(target=sampler, name="hb-sampler")
         th.start()
         try:
-            rows = [(scene, *_timed_request(d.sock, scene)) for scene in ISO_SCANS]
+            rows = [(scene, *_timed_request(one.sock, scene)) for scene in ISO_SCANS]
         finally:
             stop_sampler.set()
             th.join(60.0)
         in_thread = {scene: (secs, wall) for scene, secs, wall in serve["seq"]}
         for scene, term, seen, wall in rows:
             check_ok(term, scene, "isolated")
-            if _states(seen) != ["running"]:
-                raise AssertionError(f"isolated {scene}: {seen}")
-            _say(f"[iso] {scene}: ok in {term['seconds']:.3f} s (client wall {wall:.3f} s) "
-                 f"against phase 15's in-thread {in_thread[scene][0]:.3f} s (wall "
-                 f"{in_thread[scene][1]:.3f} s); digest {term['digest']['artifact']} == "
-                 f"phase 10's")
+            expect(_states(seen) == ["running"], f"isolated {scene}: {seen}")
+            _say(f"[iso] {scene}: ok in {term['seconds']:.3f} s (client wall {wall:.3f} s, "
+                 f"(b)'s daemon warming beside it) against phase 15's in-thread "
+                 f"{in_thread[scene][0]:.3f} s (wall {in_thread[scene][1]:.3f} s); digest "
+                 f"{term['digest']['artifact']} == phase 10's")
         max_gap = max(gaps)
         # the first scan again with no status polling beside it
-        quiet = [(scene, *_timed_request(d.sock, scene)) for scene in BATCH_SCANS[:1]]
+        quiet = [(scene, *_timed_request(one.sock, scene)) for scene in BATCH_SCANS[:1]]
         for scene, term, _, wall in quiet:
             check_ok(term, scene, "isolated, unpolled")
         _say("[iso] the first scan with no status polling: " + ", ".join(
             f"{scene} {term['seconds']:.3f} s (wall {wall:.3f} s)"
             for scene, term, _, wall in quiet))
-        digest_line = d.stop()
-        launches = digest_line["worker"]["cuda"]["launches"]
-        served = 1 + len(ISO_SCANS) + len(quiet)  # the warm scan, then the requests
-        if any(launches.get(n) != served for n in ASSOCIATION_KERNELS):
-            raise AssertionError(f"the child's bye launches {launches}, want {served} each")
-        _say(f"[iso] the child's bye: launches {json.dumps(launches)} (the warm scan and "
-             f"{served - 1} requests: one of each association kernel a scan), peak "
-             f"{_peak(digest_line['worker']['cuda'])}; the "
-             f"longest heartbeat age sampled while it served ({len(gaps)} samples every "
-             f"{HB_SAMPLE_S} s) {max_gap:.3f} s, {ISO_WEDGE_HB_S - max_gap:.3f} s under the "
-             f"{ISO_WEDGE_HB_S:g} s wedge budget")
-        if max_gap >= ISO_WEDGE_HB_S:
-            raise AssertionError(f"a healthy busy child went {max_gap:.3f} s silent")
+        expect(max_gap < ISO_WEDGE_HB_S, f"a healthy busy child went {max_gap:.3f} s silent")
+        part("a")
 
         # (b) crash drill: the child SIGKILLs itself at the device seam
-        victim = BATCH_SCANS[1]
-        mem0 = _used_mib()
-        d = spawn("crash", ["--warm", first, "--fault-plan", f"crash:{victim}.device:1",
-                            "--set", f"worker_heartbeat_s={ISO_CRASH_HB_S:g}"])
+        d = crash_d
+        d.wait_ready()
         pid1, mem1 = d.ready["worker"]["pid"], _used_mib()
         term, seen, wall = _timed_request(d.sock, victim)
         check_ok(term, victim, "crash drill")
-        if _states(seen) != ["running", "worker_crash", "running"] or term["rung"] != 1:
-            raise AssertionError(f"crash drill events {seen}")
+        expect(_states(seen) == ["running", "worker_crash", "running"] and term["rung"] == 1,
+               f"crash drill events {seen}")
         t_crash = next(t for t, ev in seen if ev.get("state") == "worker_crash")
         t_again = [t for t, ev in seen if ev.get("state") == "running"][1]
         st = d.stats()
         pid2, mem2 = st["worker"]["pid"], _used_mib()
         held, how = _context_holders({pid1, pid2})
         # the dead child's context is gone: only one child's memory is held
-        if pid2 == pid1 or held != {pid2} or mem2 - mem0 > 1.5 * (mem1 - mem0):
-            raise AssertionError(f"after the crash: pids {pid1} -> {pid2}, contexts {held} "
-                                 f"({how}), used {mem0} / {mem1} -> {mem2} MiB")
+        expect(pid2 != pid1 and held == {pid2} and mem2 - mem0 <= 1.5 * (mem1 - mem0),
+               f"after the crash: pids {pid1} -> {pid2}, contexts {held} ({how}), used "
+               f"{mem0} / {mem1} -> {mem2} MiB")
         d.stop()
         mem3 = _used_mib()
         counters = _daemon_counters(d.events)
         drill = {k: counters.get(f"serve.{k}") for k in
                  ("worker_crashes", "requests_requeued", "worker_respawns")}
-        if drill != {k: 1.0 for k in drill} or abs(mem3 - mem0) > MEM_SLACK_MIB:
-            raise AssertionError(f"crash drill counters {drill}, used {mem0} -> {mem3} MiB")
+        expect(drill == {k: 1.0 for k in drill} and abs(mem3 - mem0) <= MEM_SLACK_MIB,
+               f"crash drill counters {drill}, used {mem0} -> {mem3} MiB")
         _say(f"[iso] crash:{victim}.device:1 (heartbeat {ISO_CRASH_HB_S:g} s): running, "
              f"worker_crash at {t_crash:.2f} s, running again at {t_again:.2f} s (the respawn, "
              f"kill to ready and re-dispatch, {t_again - t_crash:.2f} s), ok at rung "
              f"{term['rung']} in {wall:.2f} s, digest == phase 10's; counters "
              f"{json.dumps(drill)}; the dead pid {pid1} holds no context, the respawned {pid2} "
-             f"does ({how.split(' (')[0]}); "
-             f"card used {mem0:.0f} MiB before the spawn, {mem1:.0f} with the child, "
-             f"{mem2:.0f} after the respawn, {mem3:.0f} after the drain")
+             f"does ({how.split(' (')[0]}); card used {mem0:.0f} MiB before the spawn ((a)'s "
+             f"warm child in it), {mem1:.0f} with the child, {mem2:.0f} after the respawn, "
+             f"{mem3:.0f} after the drain")
+        # (a)'s daemon stops now that (b)'s readings are done
+        digest_line = one.stop()
+        launches = digest_line["worker"]["cuda"]["launches"]
+        served = 1 + len(ISO_SCANS) + len(quiet)  # the warm scan, then the requests
+        expect(all(launches.get(n) == served for n in ASSOCIATION_KERNELS),
+               f"the child's bye launches {launches}, want {served} each")
+        _say(f"[iso] (a)'s child's bye: launches {json.dumps(launches)} (the warm scan and "
+             f"{served - 1} requests: one of each association kernel a scan), peak "
+             f"{_peak(digest_line['worker']['cuda'])}; the "
+             f"longest heartbeat age sampled while it served ({len(gaps)} samples every "
+             f"{HB_SAMPLE_S} s) {max_gap:.3f} s, {ISO_WEDGE_HB_S - max_gap:.3f} s under the "
+             f"{ISO_WEDGE_HB_S:g} s wedge budget")
+        part("b")
 
         # (c) wedge drill: the child silences its heartbeat and hangs
         victim = BATCH_SCANS[2]
@@ -3757,8 +3799,8 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
                                 "--set", f"worker_heartbeat_s={ISO_CRASH_HB_S:g}"], wait=False)
         term, seen, wall = _timed_request(d.sock, victim)
         check_ok(term, victim, "wedge drill")
-        if _states(seen) != ["running", "worker_crash", "running"]:
-            raise AssertionError(f"wedge drill events {seen}")
+        expect(_states(seen) == ["running", "worker_crash", "running"],
+               f"wedge drill events {seen}")
         t_run = next(t for t, ev in seen if ev.get("state") == "running")
         t_crash = next(t for t, ev in seen if ev.get("state") == "worker_crash")
         detail = next(ev for _, ev in seen if ev.get("state") == "worker_crash")["detail"]
@@ -3766,14 +3808,15 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
         _say(f"[iso] wedge:{victim}.device:1 (heartbeat {ISO_WEDGE_HB_S:g} s): detected "
              f"{t_crash - t_run:.2f} s after the request started ({detail!r}), SIGKILL, "
              f"respawn, ok in {wall:.2f} s, digest == phase 10's")
+        part("c")
 
         # (d) a pool of two on the one card: both slices share cuda:0
         d = pool_d
         d.wait_ready()
         # beside (d), which reads no memory or context: a carve the one card
-        # cannot hold, refused at start (checked after the order burst);
-        # (e)'s pool, started and warmed; and the order burst's pool in this
-        # process, its children started with dispatch held
+        # cannot hold, refused at start (checked after (d)); (e)'s stream
+        # failover and the order burst's pool in this process, each in a
+        # thread of its own once started
         bad = spawn("carve", ["--workers", "2", "--carve", "2x1"], expect_fail=True)
         sdir = os.path.join(tmp, "stream_state")
         stream_d = spawn("stream", ["--workers", "2", "--stream-state", sdir,
@@ -3783,21 +3826,104 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
                            serve_tenants="a:3,b:1")
         pool = WorkerPool(ocfg, AdmissionQueue(32), Router(ocfg), device="cuda",
                           start_timeout_s=600.0, poll_s=0.1)
-        order, answers = [], {}
-        book = pool._book_dispatch
-        pool._book_dispatch = lambda req, wid: (order.append(req.tenant), book(req, wid))[1]
-        pool._pause.set()
-        pool_start = {}
+        side = {}
 
-        def start_order_pool():
+        def beside(name, fn):
+            """Run ``fn`` in a thread beside (d); its error is raised after."""
+            def run():
+                t0 = time.perf_counter()
+                try:
+                    side[name] = {"out": fn()}
+                except BaseException as e:  # noqa: BLE001 — raised after (d)
+                    side[name] = {"error": e}
+                side[name]["s"] = time.perf_counter() - t0
+            # a daemon thread: a failure of (d) ends the script without it
+            th = threading.Thread(  # mct-thread: abandon(joined with a bound by the phase after (d); on a failure of (d) the script ends without it)
+                target=run, name=f"iso-{name}", daemon=True)
+            th.start()
+            return th
+
+        def order_burst():
+            """The stride scheduler's dispatch order on real children: the
+            pool in this process, dispatch held until the whole burst is
+            queued."""
+            order, answers = [], {}
+            book = pool._book_dispatch
+            pool._book_dispatch = lambda req, wid: (order.append(req.tenant), book(req, wid))[1]
+            pool._pause.set()
             try:
-                pool.start()
-                pool_start["ok"] = True
-            except BaseException as e:  # noqa: BLE001 — raised in this thread after (d)
-                pool_start["error"] = e
+                try:
+                    pool.start()
+                    failed = None
+                except Exception as e:  # noqa: BLE001 — the check below
+                    failed = e
+                expect(failed is None, f"the order burst's pool did not start: {failed!r}")
+                n = 0
+                for tenant, count in ORDER_BURST.items():
+                    for _ in range(count):
+                        req = protocol.build_request({"op": "scene", "scene": MID_SCAN,
+                                                      "tenant": tenant}, f"o-{n:03d}")
+                        req.send = lambda ev, rid=req.id: (
+                            answers.__setitem__(rid, ev)
+                            if ev.get("kind") in ("result", "reject") else None)
+                        pool.admit(req)
+                        n += 1
+                pool._pause.clear()
+                _wait_for(lambda: len(answers) == n, 600, "the order burst's answers")
+            finally:
+                pool.stop(timeout_s=120.0)
+            expect(all(a.get("status") == "ok" for a in answers.values()),
+                   f"order burst answers {answers}")
+            for a in answers.values():  # eight of one scene on two slices
+                with count_lock:
+                    counted["retries"] += int(a.get("attempts", 1)) - 1
+            windows = [order[:4 * k].count("a") for k in range(1, n // 4 + 1)]
+            expect(windows == [3 * k for k in range(1, n // 4 + 1)], f"dispatch order {order}")
+            return order, n
 
-        starter = threading.Thread(target=start_order_pool, name="order-pool-start")
-        starter.start()
+        def stream_failover():
+            """(e): a stream in chunks on a pool with ``--stream-state``,
+            its owner SIGKILLed with the second chunk in flight."""
+            sd = stream_d
+            sd.wait_ready()
+            with ServeClient(sd.sock, timeout_s=600.0) as c:
+                one_chunk, _ = c.stream_chunk(MID_SCAN, chunk=STREAM_CHUNK)
+            expect(one_chunk.get("status") == "ok" and not one_chunk.get("done"),
+                   f"stream chunk 1: {one_chunk}")
+            owners = [wk for wk in sd.stats()["pool"]["workers"] if wk["open_streams"]]
+            expect(len(owners) == 1 and owners[0]["worker_id"] == 0, f"stream owners {owners}")
+            owner_pid = owners[0]["pid"]
+            with ServeClient(sd.sock, timeout_s=600.0) as c:
+                c.send({"op": "stream_chunk", "scene": MID_SCAN, "chunk": STREAM_CHUNK})
+                seen = [c.recv_event()]
+                while seen[-1].get("state") != "running":
+                    seen.append(c.recv_event())
+                os.kill(owner_pid, signal.SIGKILL)
+                t_kill = time.perf_counter()
+                while seen[-1].get("kind") not in ("result", "reject"):
+                    seen.append(c.recv_event())
+                resume_s = time.perf_counter() - t_kill
+                two = seen[-1]
+                end, _ = c.stream_end(MID_SCAN)
+            crash_ev = [ev for ev in seen if ev.get("state") == "worker_crash"]
+            st = sd.stats()
+            expect(two.get("status") == "ok" and two.get("done") and crash_ev
+                   and crash_ev[0].get("resuming") and end.get("status") == "ok",
+                   f"stream failover: {seen} {end}")
+            final = sd.stop()
+            ds = get_dataset("scannet", MID_SCAN, data_root=cfg.data_root)
+            tensors = ds.load_scene_tensors(cfg.step)
+            ref = stream_scene(tensors, cfg.replace(streaming_chunk=STREAM_CHUNK),
+                               seq_name=MID_SCAN, device=dev)
+            served_dg = _served_artifact_digest(cfg.data_root, MID_SCAN, sd.cfg_name,
+                                                tensors.num_points)
+            expect(served_dg == artifact_digest(ref.objects),
+                   f"failed-over stream {served_dg} != in-process "
+                   f"{artifact_digest(ref.objects)}")
+            return owner_pid, seen, resume_s, final, st, served_dg
+
+        threads = [beside("order", order_burst), beside("stream", stream_failover)]
+        t_d = time.perf_counter()
         jobs = [(BATCH_SCANS[0], None), ("chip_smoke_serve_cold", SERVE_COLD_SPEC),
                 (BATCH_SCANS[1], None)]
         results, errors = [], []
@@ -3811,15 +3937,14 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
             except Exception as e:  # noqa: BLE001 — surfaced below
                 errors.append(repr(e))
 
-        threads = [threading.Thread(target=client, args=(i,)) for i in range(3)]
+        clients = [threading.Thread(target=client, args=(i,)) for i in range(3)]
         t0 = time.perf_counter()
-        for th in threads:
+        for th in clients:
             th.start()
-        for th in threads:
+        for th in clients:
             th.join(600.0)
         wall = time.perf_counter() - t0
-        if errors or len(results) != len(jobs):
-            raise AssertionError(f"pool clients: {errors} {results}")
+        expect(not errors and len(results) == len(jobs), f"pool clients: {errors} {results}")
         for scene, term in results:
             check_ok(term, scene, "pool", serve["cold_digest"] if scene.endswith("cold")
                      else None)
@@ -3832,8 +3957,8 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
         st = d.stats()
         per = [wk["dispatched"] for wk in st["pool"]["workers"]]
         sched = st["pool"]["scheduler"]
-        if len(per) != 2 or not all(per) or not sched["affinity_hits"]:
-            raise AssertionError(f"pool slices dispatched {per}, scheduler {sched}")
+        expect(len(per) == 2 and all(per) and sched["affinity_hits"],
+               f"pool slices dispatched {per}, scheduler {sched}")
         _say(f"[iso] pool of 2 on one card ({card}; both slices share cuda:0, so seconds a "
              f"request are not a throughput figure): 3 clients x 1 request over two buckets "
              f"in {wall:.2f} s and the cold bucket twice more, every digest == its "
@@ -3855,10 +3980,11 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
             acks += [c.request_scene(cold, synthetic=SERVE_COLD_SPEC, tenant="b")
                      for c in conns[8:]]
             kinds = [a.get("kind") for a in acks]
-            if kinds != ["ack"] * 10 + ["reject"] or acks[-1].get("reason") != "quota":
-                raise AssertionError(f"quota burst answers {acks}")
-            for c in conns[:10]:
-                check_ok(c.wait_result(), cold, "quota burst", serve["cold_digest"])
+            expect(kinds == ["ack"] * 10 + ["reject"] and acks[-1].get("reason") == "quota",
+                   f"quota burst answers {acks}")
+            for c in conns[:10]:  # ten of one scene on two slices
+                check_ok(c.wait_result(), cold, "quota burst", serve["cold_digest"],
+                         export_race=True)
         finally:
             for c in conns:
                 c.close()
@@ -3872,9 +3998,9 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
         term, seen, wall = _timed_request(d.sock, crash_scene, tenant="a")
         check_ok(term, crash_scene, "pool crash")
         st = d.stats()
-        if "worker_crash" not in _states(seen) \
-                or st["pool"]["scheduler"]["crash_reroutes"] != 1:
-            raise AssertionError(f"pool crash: {seen} {st['pool']['scheduler']}")
+        expect("worker_crash" in _states(seen)
+               and st["pool"]["scheduler"]["crash_reroutes"] == 1,
+               f"pool crash: {seen} {st['pool']['scheduler']}")
         _say(f"[iso] crash:{crash_scene}.device:1 on slice 0: states {_states(seen)}, "
              f"crash_reroutes {st['pool']['scheduler']['crash_reroutes']}, ok in {wall:.2f} s "
              f"on the neighbour, digest == phase 10's")
@@ -3894,95 +4020,47 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
         recarve_s = time.perf_counter() - t0
         th.join(600.0)
         check_ok(inflight["term"][0], BATCH_SCANS[0], "in flight across the recarve")
-        if out.get("kind") != "recarve" or not out.get("ok") or d.stats()["worker"]["pool"] != 1:
-            raise AssertionError(f"recarve: {out}")
+        expect(out.get("kind") == "recarve" and out.get("ok")
+               and d.stats()["worker"]["pool"] == 1, f"recarve: {out}")
         final = d.stop()
         _say(f"[iso] recarve to 1 worker with a request in flight: it drained ok, recarve "
              f"answered in {recarve_s:.2f} s; after it the one slice's bye: launches "
              f"{json.dumps(final['pool']['workers'][0]['cuda']['launches'])}, peak "
              f"{_peak(final['pool']['workers'][0]['cuda'])}")
-        # the stride scheduler's dispatch order on real children: the pool
-        # in this process, started beside (d), dispatch held until the whole
-        # burst is queued
-        starter.join(600.0)
-        try:
-            if not pool_start.get("ok"):
-                raise AssertionError(f"the order burst's pool did not start: "
-                                     f"{pool_start.get('error')!r}")
-            n = 0
-            for tenant, count in ORDER_BURST.items():
-                for _ in range(count):
-                    req = protocol.build_request({"op": "scene", "scene": MID_SCAN,
-                                                  "tenant": tenant}, f"o-{n:03d}")
-                    req.send = lambda ev, rid=req.id: (
-                        answers.__setitem__(rid, ev)
-                        if ev.get("kind") in ("result", "reject") else None)
-                    pool.admit(req)
-                    n += 1
-            pool._pause.clear()
-            _wait_for(lambda: len(answers) == n, 600, "the order burst's answers")
-        finally:
-            pool.stop(timeout_s=120.0)
-        if any(a.get("status") != "ok" for a in answers.values()):
-            raise AssertionError(f"order burst answers {answers}")
-        windows = [order[:4 * k].count("a") for k in range(1, n // 4 + 1)]
-        if windows != [3 * k for k in range(1, n // 4 + 1)]:
-            raise AssertionError(f"dispatch order {order}")
-        _say(f"[iso] weighted-fair a:3 b:1 on two real slices: dispatch order "
-             f"{''.join(order)} (3 a to 1 b in every window of 4, as the JAX stride "
-             f"scheduler gives), {n} ok")
         bad.proc.wait(600)
         msg = "serve_carve 2x1 needs 2 chips but the backend has 1"
-        if bad.proc.returncode == 0 or msg not in bad.log_tail(20000):
-            raise AssertionError(f"carve 2x1: rc {bad.proc.returncode}\n{bad.log_tail()}")
+        expect(bad.proc.returncode != 0 and msg in bad.log_tail(20000),
+               lambda: f"carve 2x1: rc {bad.proc.returncode}\n{bad.log_tail()}")
         _say(f"[iso] --workers 2 --carve 2x1 refused at start (rc {bad.proc.returncode}): {msg}")
-
-        # (e) stream failover: kill the owner slice with its second chunk in
-        # flight; the survivor resumes from the snapshot
-        d = stream_d
-        d.wait_ready()
-        with ServeClient(d.sock, timeout_s=600.0) as c:
-            one, _ = c.stream_chunk(MID_SCAN, chunk=STREAM_CHUNK)
-        if one.get("status") != "ok" or one.get("done"):
-            raise AssertionError(f"stream chunk 1: {one}")
-        owners = [wk for wk in d.stats()["pool"]["workers"] if wk["open_streams"]]
-        if len(owners) != 1 or owners[0]["worker_id"] != 0:
-            raise AssertionError(f"stream owners {owners}")
-        owner_pid = owners[0]["pid"]
-        with ServeClient(d.sock, timeout_s=600.0) as c:
-            c.send({"op": "stream_chunk", "scene": MID_SCAN, "chunk": STREAM_CHUNK})
-            seen = [c.recv_event()]
-            while seen[-1].get("state") != "running":
-                seen.append(c.recv_event())
-            os.kill(owner_pid, signal.SIGKILL)
-            t_kill = time.perf_counter()
-            while seen[-1].get("kind") not in ("result", "reject"):
-                seen.append(c.recv_event())
-            resume_s = time.perf_counter() - t_kill
-            two = seen[-1]
-            end, _ = c.stream_end(MID_SCAN)
-        crash_ev = [ev for ev in seen if ev.get("state") == "worker_crash"]
-        st = d.stats()
-        if two.get("status") != "ok" or not two.get("done") or not crash_ev \
-                or not crash_ev[0].get("resuming") or end.get("status") != "ok":
-            raise AssertionError(f"stream failover: {seen} {end}")
-        final = d.stop()
-        ds = get_dataset("scannet", MID_SCAN, data_root=cfg.data_root)
-        tensors = ds.load_scene_tensors(cfg.step)
-        ref = stream_scene(tensors, cfg.replace(streaming_chunk=STREAM_CHUNK),
-                           seq_name=MID_SCAN, device=dev)
-        served = _served_artifact_digest(cfg.data_root, MID_SCAN, d.cfg_name,
-                                         tensors.num_points)
-        if served != artifact_digest(ref.objects):
-            raise AssertionError(f"failed-over stream {served} != in-process "
-                                 f"{artifact_digest(ref.objects)}")
-        _say(f"[iso] stream {MID_SCAN} in chunks of {STREAM_CHUNK} on the pool: owner slice 0 "
-             f"(pid {owner_pid}) SIGKILLed with chunk 2 in flight, resumed from the snapshot on "
-             f"the survivor (states {[ev.get('state') for ev in seen if ev.get('kind') == 'status']}, "
+        part("d")
+        for th in threads:
+            th.join(900.0)
+        for name in ("order", "stream"):
+            res = side.get(name) or {"error": AssertionError(f"{name} beside (d) never ended")}
+            if "error" in res:
+                raise res["error"]
+        order, n = side["order"]["out"]
+        _say(f"[iso] weighted-fair a:3 b:1 on two real slices (beside (d), "
+             f"{side['order']['s']:.1f} s): dispatch order {''.join(order)} (3 a to 1 b in "
+             f"every window of 4, as the JAX stride scheduler gives), {n} ok")
+        # (e) stream failover, beside (d)
+        owner_pid, seen, resume_s, final, st, served_dg = side["stream"]["out"]
+        _say(f"[iso] stream {MID_SCAN} in chunks of {STREAM_CHUNK} on the pool (beside (d), "
+             f"{side['stream']['s']:.1f} s): owner slice 0 (pid {owner_pid}) SIGKILLed with "
+             f"chunk 2 in flight, resumed from the snapshot on the survivor (states "
+             f"{[ev.get('state') for ev in seen if ev.get('kind') == 'status']}, "
              f"{resume_s:.2f} s to its answer, streams_resumed "
              f"{final['worker']['streams_resumed']}, crash_reroutes "
-             f"{st['pool']['scheduler']['crash_reroutes']}); final digest {served} == the "
+             f"{st['pool']['scheduler']['crash_reroutes']}); final digest {served_dg} == the "
              f"in-process stream_scene's")
+        # two slices exporting one scene into one root at once (the quota
+        # burst and the order burst) write temporary files of their own
+        expect(counted["retries"] == 0,
+               f"{counted['retries']} export retries: two workers raced on one artifact")
+        part("d+e waits")
+        _say(f"[iso] export retries seen over the quota and order bursts (ten and eight "
+             f"requests of one scene on two slices exporting into one root): "
+             f"{counted['retries']}")
     except BaseException:
         for dmn in daemons:
             _say(f"[iso] {dmn.name} daemon's log, last lines:\n{dmn.log_tail()}")
@@ -3991,7 +4069,9 @@ def isolation_phase(dev, card: str, batch, serve, early: dict) -> dict:
         for dmn in daemons:
             dmn.kill()
         shutil.rmtree(tmp, ignore_errors=True)
-    _say(f"[iso] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    _say(f"[iso] phase 17 in {time.perf_counter() - t_phase:.1f} s: {counted['checks']} checks "
+         f"held; parts (s) {json.dumps(parts)} ((b)'s daemon spawned beside (a), (e) and the "
+         f"order burst beside (d))")
     return {"launches": launches}
 
 
@@ -5568,7 +5648,13 @@ def _join(child: dict, label: str, timeout_s: float = 900) -> tuple:
     with open(child["log"]) as fh:
         text = fh.read()
     if child["proc"].returncode != 0:
-        raise AssertionError(f"{label} exited {child['proc'].returncode}:\n{text[-4000:]}")
+        # the lines that say why, wherever they are in a long log (a gate's
+        # failing step runs long before its tail), printed after the tail so
+        # that they end the error
+        why = [ln for ln in text.splitlines() if "FAIL" in ln or "Error" in ln][-20:]
+        raise AssertionError(f"{label} exited {child['proc'].returncode}:\n...\n"
+                             f"{text[-4000:]}\n{label}: the lines that say why:\n"
+                             + "\n".join(why))
     return text, wall
 
 
@@ -5676,6 +5762,206 @@ PARITY_ARGS = ("--points", "shallow", "--scenes", "1")
 PARITY_NICE = 10
 
 
+# 25(a): random frames at the bench size (random poses and focal lengths,
+# extreme ones included, ops/render_cases.random_frames), and the pairs the
+# renderer's division form is held against torch's division on, in chunks
+RENDER_RANDOM_FRAMES = 64
+RENDER_QUOTIENT_PAIRS = 10 ** 8
+RENDER_QUOTIENT_CHUNK = 10 ** 7
+
+
+def _sass_functions(sass: str) -> dict:
+    """{mangled name: [(address, instruction)]} of a ``cuobjdump -sass`` dump."""
+    import re
+
+    out = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        out[block.split("\n", 1)[0].strip()] = [
+            (int(a, 16), ins.strip())
+            for a, ins in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+    return out
+
+
+def _sass_target(ins: str):
+    import re
+
+    m = re.search(r"BRA\s+(?:`\(\.L_x_\d+\)\s*)?0x([0-9a-f]+)", ins)
+    return int(m.group(1), 16) if m else None
+
+
+def _sass_loops(instrs) -> list:
+    """Each backward branch's loop: (head, back-branch address, body)."""
+    loops = []
+    for a, ins in instrs:
+        head = _sass_target(ins)
+        if head is not None and head < a:
+            loops.append((head, a, [(x, i) for x, i in instrs if head <= x <= a]))
+    return loops
+
+
+def _sass_per_box(body, inner=()) -> float:
+    """Instructions of a loop body a box: the body less its cold blocks (the
+    range a forward conditional branch skips when it holds a call: the IEEE
+    division's slow path) and less an inner loop, over the boxes an
+    iteration tests (two 16-byte shared loads each)."""
+    cold = set()
+    for a, ins in body:
+        end = _sass_target(ins)
+        if ins.startswith("@") and end is not None and end > a:
+            skipped = [(x, i) for x, i in body if a < x < end]
+            if any(i.startswith("CALL") for _, i in skipped):
+                cold.update(x for x, _ in skipped)
+    cold.update(x for head, back, _ in inner for x, _ in body if head <= x <= back)
+    hot = [i for a, i in body if a not in cold]
+    return len(hot) / max(1, sum(i.startswith("LDS.128") for i in hot) // 2)
+
+
+def render_sass(lib_path: str) -> dict:
+    """The built renderer library's SASS (``cuobjdump -sass``) a (pixel, box)
+    or (warp, box), on the hot path, and its kernels' registers, stack and
+    local memory (``cuobjdump -res-usage``; spills land in local memory).
+    The IEEE-division loop is the exact-only instantiation's; the kernel's are the
+    warp's cull (one box a lane), the surviving boxes' test a pixel, and the
+    per-lane loop of warps the cull does not take."""
+    import re
+
+    from maskclustering_tpu_torch.ops import cuda as kernels
+
+    tool = os.path.join(os.path.dirname(kernels.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    res = subprocess.run([tool, "-res-usage", lib_path], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    fns = _sass_functions(sass)
+    old = _sass_loops(next(v for k, v in fns.items() if "render_kernelILb1E" in k))
+    new = _sass_loops(next(v for k, v in fns.items() if "render_kernelILb0E" in k))
+
+    def holding(loops, op):
+        return [lp for lp in loops if any(op in i for _, i in lp[2])]
+
+    (old_loop,), (group,) = holding(old, "FCHK"), holding(new, "VOTE")
+    (inner,) = [lp for lp in new if group[0] < lp[0] and lp[1] < group[1]]
+    lane = [lp for lp in holding(new, "LDS.128") if lp is not inner
+            and not holding([lp], "FCHK") and not holding([lp], "VOTE")]
+    usage = {("exact" if "ILb1E" in name else "new"): dict(
+        zip(("reg", "stack", "local"), map(int, regs)))
+        for name, *regs in re.findall(
+            r"Function (\S*render_kernel\S*):\s*REG:(\d+) STACK:(\d+) SHARED:\d+ LOCAL:(\d+)",
+            res)}
+    return {"exact_pair": _sass_per_box(old_loop[2]),
+            "survivor_pair": _sass_per_box(inner[2]),
+            "cull_warp_box": _sass_per_box(group[2], (inner,)),
+            "lane_pair": _sass_per_box(lane[0][2]) if lane else None,
+            "usage": usage or res[:600]}
+
+
+def render_exact_only(boxes, poses, intrinsics, perms, hw):
+    """``render.cu``'s exact-only entry (every pixel on the IEEE-division loop), for
+    timing the redesign against it in one call; on no path of the program."""
+    import torch
+
+    from maskclustering_tpu_torch.ops import cuda as kernels
+
+    f, k = perms.shape
+    dev = poses.device
+    depths = torch.empty((f, *hw), dtype=torch.float32, device=dev)
+    segs = torch.empty((f, *hw), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        err = kernels.load("render").mc_render_depth_seg_exact(
+            boxes.data_ptr(), k, poses.data_ptr(), intrinsics.data_ptr(), perms.data_ptr(), f,
+            hw[0], hw[1], depths.data_ptr(), segs.data_ptr(), dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"render_depth_seg_exact launch failed: CUDA error {err}")
+    return depths, segs
+
+
+def render_cull_shares(boxes, poses, intrinsics, hw, frames: int = 8) -> dict:
+    """What the renderer's two rejections leave on ``frames`` frames, from
+    the plain version's rays in torch (IEEE division gives the kernel's
+    quotients in its range): the share of (pixel, box) pairs whose far
+    planes give tmax > 0 (the pairs the per-lane loop divides on for their
+    near planes), and the share of (warp, box) pairs the warp cull skips
+    (its end-ray bounds, as ``render.cu``'s ``slab_warp`` takes them)."""
+    import torch
+
+    from maskclustering_tpu_torch.ops.geometry import fma
+
+    h, w = hw
+    dev = poses.device
+    v, u = torch.meshgrid(torch.arange(h, device=dev), torch.arange(w, device=dev),
+                          indexing="ij")
+    u, v = u.reshape(-1).float(), v.reshape(-1).float()
+    kept = warps = live = pairs = 0
+    for f in range(min(frames, poses.shape[0])):
+        k, c2w = intrinsics[f], poses[f]
+        dx, dy = (u - k[0, 2]) / k[0, 0], (v - k[1, 2]) / k[1, 1]
+        d = torch.stack([fma(dy, c2w[i, 1], dx * c2w[i, 0]) + c2w[i, 2] for i in range(3)], 1)
+        sd = torch.where(d.abs() < 1e-12, torch.full_like(d, 1e-12), d)
+        eye = c2w[:3, 3]
+        r0, r1 = boxes[:, 0] - eye, boxes[:, 1] - eye
+        lo, hi = torch.minimum(r0, r1), torch.maximum(r0, r1)  # (K, 3)
+        pos = (sd > 0)[:, None, :]
+        far = torch.where(pos, hi[None], lo[None]) / sd[:, None, :]
+        live += int((far.amin(dim=2) > 0).sum())
+        pairs += far.shape[0] * far.shape[1]
+        ends = d.reshape(-1, 32, 3)[:, [0, 31]]  # (W, 2, 3), one row a warp at w % 32 == 0
+        clear = ((ends >= 1e-12).all(dim=1) | (ends <= -1e-12).all(dim=1)).all(dim=1)
+        e = ends[clear]  # (W', 2, 3)
+        epos = (e[:, 0] > 0)[:, None, None, :]
+        fr = torch.where(epos, hi[None, None], lo[None, None])  # (W', 1, K, 3)
+        nr = torch.where(epos, lo[None, None], hi[None, None])
+        q_far, q_near = fr / e[:, :, None, :], nr / e[:, :, None, :]  # (W', 2, K, 3)
+        far_hi = q_far.amax(dim=1).amin(dim=2)
+        near_lo = q_near.amin(dim=1).amax(dim=2)
+        kept += int(((far_hi > 0) & (far_hi >= near_lo)).sum()) + int((~clear).sum()) * len(lo)
+        warps += ends.shape[0] * len(lo)
+    return {"pairs_past_far_planes": live / pairs, "warp_boxes_kept": kept / warps,
+            "frames": min(frames, poses.shape[0])}
+
+
+def check_render_quotients(dev) -> dict:
+    """The renderer's division form (``render_quotients_cuda``) against
+    torch's division on the card over RENDER_QUOTIENT_PAIRS pairs, half drawn
+    over its whole range (numerators 2^-32..2^32 and 0, divisors
+    2^-40..2^40, every mantissa and sign), half scene-like (corners minus
+    eye in -20..20 m, ray components in -3..3, 1e-12 at least). A zero may
+    differ in sign only (render.cu: no zero's sign reaches an output)."""
+    import torch
+
+    from maskclustering_tpu_torch.ops import cuda as kernels
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    n = RENDER_QUOTIENT_CHUNK
+
+    def floats(lo_exp, hi_exp):
+        bits = (torch.randint(0, 2 ** 23, (n,), device=dev, generator=gen)
+                | ((torch.randint(lo_exp, hi_exp, (n,), device=dev, generator=gen) + 127) << 23))
+        v = bits.to(torch.int32).view(torch.float32)
+        return torch.where(torch.rand(n, device=dev, generator=gen) < 0.5, -v, v)
+
+    counts = {}
+    for draw in ("whole", "scene"):
+        bad = pairs = 0
+        for _ in range(RENDER_QUOTIENT_PAIRS // (2 * n)):
+            if draw == "whole":
+                num, sd = floats(-32, 32), floats(-40, 40)
+                num[:1024] = 0.0
+            else:
+                num = torch.rand(n, device=dev, generator=gen) * 40 - 20
+                sd = torch.rand(n, device=dev, generator=gen) * 6 - 3
+                sd = torch.where(sd.abs() < 1e-12, torch.full_like(sd, 1e-12), sd)
+            got, want = kernels.render_quotients_cuda(num, sd), num / sd
+            bad += int(((got.view(torch.int32) != want.view(torch.int32))
+                        & ~((got == 0) & (want == 0))).sum())
+            pairs += n
+        counts[draw] = (pairs, bad)
+    if any(bad for _, bad in counts.values()):
+        raise AssertionError(f"the renderer's division form differs from torch's: {counts}")
+    return counts
+
+
 def start_parity_child() -> dict:
     """Phase 25(c)'s child: ``python -m maskclustering_tpu_torch.tools.parity_ab``
     on one shallow scene on the card, started after phase 17 (whose drills
@@ -5719,7 +6005,7 @@ def device_scene_phase(dev, card: str, parity_child: dict) -> dict:
     from maskclustering_tpu_torch.config import PipelineConfig
     from maskclustering_tpu_torch.models import run_scene
     from maskclustering_tpu_torch.ops import cuda as kernels
-    from maskclustering_tpu_torch.ops.render_cases import RENDER_CASES
+    from maskclustering_tpu_torch.ops.render_cases import RENDER_CASES, random_frames
     from maskclustering_tpu_torch.utils import synthetic
 
     t_phase = time.perf_counter()
@@ -5802,8 +6088,16 @@ def device_scene_phase(dev, card: str, parity_child: dict) -> dict:
         if bad:
             raise AssertionError(f"render_depth_seg differs from its plain version in {bad} cells")
         err = float((kernel_out[0] - plain_out[0]).abs().max())
-        ms = cuda_time_ms(lambda: kernels.render_depth_seg_cuda(*on_card_in, height=hw[0],
-                                                                width=hw[1]), 5)
+        # the kernel against the IEEE-division loop (the exact-only entry), in turns
+        if _render_differs(render_exact_only(*on_card_in, hw), plain_out):
+            raise AssertionError("render.cu's exact-only entry differs from the plain version")
+        times = {"exact": [], "new": []}
+        for which in ("exact", "new", "new", "exact"):
+            times[which].append(cuda_time_ms(
+                (lambda: render_exact_only(*on_card_in, hw)) if which == "exact" else
+                (lambda: kernels.render_depth_seg_cuda(*on_card_in, height=hw[0],
+                                                       width=hw[1])), 5))
+        ms, old_ms = min(times["new"]), min(times["exact"])
         ops, nbytes = kernels.render_ops(f, k, *hw), kernels.render_bytes(f, k, *hw)
         b_ms, b_by = bound_ms(ops, nbytes)
         cpu_out = cpu_job.result(timeout=600)
@@ -5822,13 +6116,39 @@ def device_scene_phase(dev, card: str, parity_child: dict) -> dict:
             if _render_differs(got, on_cpu) or _render_differs(on_card, card_plain):
                 raise AssertionError(f"render_depth_seg differs from its plain version on "
                                      f"the case {name!r}")
+        rand = random_frames(RENDER_RANDOM_FRAMES, image_hw=hw, num_boxes=k, seed=21)
+        rand_in = _render_inputs(rand["boxes"], rand["poses"], rand["intrinsics"],
+                                 rand["perms"], dev)
+        rand_out = kernels.render_depth_seg_cuda(*rand_in, height=hw[0], width=hw[1])
+        if _render_differs(rand_out, synthetic.render_depth_seg_reference(*rand_in, hw)):
+            raise AssertionError("render_depth_seg differs from its plain version on the "
+                                 "random frames")
+        quot = check_render_quotients(dev)
+        sass = render_sass(kernels.library_path("render"))
+        cull = render_cull_shares(on_card_in[0], on_card_in[1], on_card_in[2], hw)
         _say(f"[render] render_depth_seg == plain on all {f} frames of the bench scene on the "
              f"card, on its first {RENDER_CPU_FRAMES} frames against the CPU's plain version, "
-             f"and on the {len(RENDER_CASES)} cases of ops/render_cases.py "
-             f"({sorted(RENDER_CASES)}) against both")
+             f"on the {len(RENDER_CASES)} cases of ops/render_cases.py "
+             f"({sorted(RENDER_CASES)}) against both, and on {RENDER_RANDOM_FRAMES} random "
+             f"{hw[0]}x{hw[1]} frames of {k} boxes (random poses and focal lengths, 1e-10 to "
+             f"1e9 px); its division form == torch's division on "
+             + ", ".join(f"{n} {draw} pairs ({bad} differ)" for draw, (n, bad) in quot.items()))
         _say(f"[render] {card}: render_depth_seg ({f} frames of {hw[0]}x{hw[1]}, {k} boxes, "
-             f"one launch): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.5f} ms "
-             f"({b_by}: {ops} FP32 ops, {nbytes} bytes), {100 * b_ms / ms:.1f} % of the bound")
+             f"one launch): kernel {ms:.4f} ms (turns {[round(t, 4) for t in times['new']]}), "
+             f"the IEEE-division loop (the exact-only entry) {old_ms:.4f} ms (turns "
+             f"{[round(t, 4) for t in times['exact']]}), {old_ms / ms:.2f}x; plain "
+             f"{plain_ms:.3f} ms, bound {b_ms:.5f} ms ({b_by}: {ops} FP32 ops, {nbytes} bytes), "
+             f"{100 * b_ms / ms:.1f} % of the bound (the IEEE-division loop {100 * b_ms / old_ms:.1f} %)")
+        _say(f"[render] SASS (cuobjdump of the built library), hot-path instructions: the "
+             f"IEEE-division loop {sass['exact_pair']:.1f} a (pixel, box); the kernel's cull "
+             f"{sass['cull_warp_box']:.1f} a (warp, box), its test of a box the cull keeps "
+             f"{sass['survivor_pair']:.1f} a (pixel, box), the per-lane loop of warps off the "
+             f"cull {sass['lane_pair']} a (pixel, box); registers, stack and local memory "
+             f"(spills) {json.dumps(sass['usage'])}")
+        _say(f"[render] on the bench scene's first {cull['frames']} frames: "
+             f"{100 * cull['pairs_past_far_planes']:.1f} % of (pixel, box) pairs have far planes "
+             f"giving tmax > 0 (the rest skip their near planes), and the warp cull keeps "
+             f"{100 * cull['warp_boxes_kept']:.1f} % of (warp, box) pairs")
 
         # (c) parity_ab on one shallow scene, a child beside phases 18-24
         text, wall = _join(parity_child, "parity_ab")
@@ -5847,7 +6167,9 @@ def device_scene_phase(dev, card: str, parity_child: dict) -> dict:
         _say(f"[tools] phase 25 in {time.perf_counter() - t_phase:.1f} s")
         return {"launches": launches, "render": {
             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "max_abs_err": err}, "parity_launches": parity_launches,
+            "max_abs_err": err, "exact_loop_ms": old_ms, "sass_pair": sass["survivor_pair"],
+            "sass_exact_pair": sass["exact_pair"], "sass_cull_warp_box": sass["cull_warp_box"]},
+            "parity_launches": parity_launches,
             "walls": walls, "timings": tm}
     finally:
         shutil.rmtree(parity_child["tmp"], ignore_errors=True)

@@ -23,6 +23,7 @@ import numpy as np
 from maskclustering_tpu_torch import obs
 from maskclustering_tpu_torch.ops.dbscan import dbscan_labels
 from maskclustering_tpu_torch.ops.geometry import bboxes_overlap
+from maskclustering_tpu_torch.utils import atomic_write
 
 
 class _PhaseTimer:
@@ -340,24 +341,23 @@ def _export_artifacts(objects: SceneObjects, seq_name: str, config_name: str,
             "repre_mask_list": representative_masks(mlist, top_k_repre),
         }
 
-    # tmp + rename: an artifact file appears atomically, so no reader (or
-    # later resume check) ever sees a truncated one
+    # a temporary file of this writer's own, then a rename: an artifact
+    # appears whole (no reader or resume check sees a truncated one), and
+    # two workers exporting into one root at once never share a file
     ca_dir = os.path.join(prediction_root, config_name + "_class_agnostic")
     os.makedirs(ca_dir, exist_ok=True)
     npz_path = os.path.join(ca_dir, f"{seq_name}.npz")
-    tmp = npz_path + ".tmp.npz"  # np.savez appends .npz to unknown suffixes
-    np.savez(
-        tmp,
-        pred_masks=masks,
-        pred_score=np.ones(num_instance),
-        pred_classes=np.zeros(num_instance, dtype=np.int32),
-    )
-    os.replace(tmp, npz_path)
+    with atomic_write.replacing(npz_path, ".npz") as tmp:
+        np.savez(
+            tmp,
+            pred_masks=masks,
+            pred_score=np.ones(num_instance),
+            pred_classes=np.zeros(num_instance, dtype=np.int32),
+        )
 
     od_dir = os.path.join(object_dict_dir, config_name)
     os.makedirs(od_dir, exist_ok=True)
     od_path = os.path.join(od_dir, "object_dict.npy")
-    tmp = od_path + ".tmp.npy"  # np.save likewise appends .npy
-    np.save(tmp, object_dict, allow_pickle=True)
-    os.replace(tmp, od_path)
+    with atomic_write.replacing(od_path, ".npy") as tmp:
+        np.save(tmp, object_dict, allow_pickle=True)
     return {"npz": npz_path, "object_dict": od_path}

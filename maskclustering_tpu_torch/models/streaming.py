@@ -95,7 +95,7 @@ from maskclustering_tpu_torch.models.postprocess import (
 from maskclustering_tpu_torch.obs import digest as sentinel
 from maskclustering_tpu_torch.ops import counting
 from maskclustering_tpu_torch.ops.dbscan import dbscan_labels_parallel
-from maskclustering_tpu_torch.utils import faults
+from maskclustering_tpu_torch.utils import atomic_write, faults
 from maskclustering_tpu_torch.utils.compile_cache import (
     bucket_k_max,
     bucket_size,
@@ -724,8 +724,10 @@ class StreamAccumulator:
         if self.single:
             return
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-        tmp = path + ".tmp.npz"
-        with sanctioned_pull("stream.state_journal"):
+        # a temporary file of this writer's own: two slices that journal one
+        # scene into one state directory never share a file
+        with atomic_write.replacing(path, ".npz") as tmp, \
+                sanctioned_pull("stream.state_journal"):
             np.savez(
                 tmp,
                 version=STREAM_STATE_VERSION,
@@ -752,7 +754,6 @@ class StreamAccumulator:
                 rep_votes=self.rep_votes.cpu().numpy(),
                 scene_points=self.scene_points,
             )
-        os.replace(tmp, path)
         obs.count("stream.state_saves")
 
     def load_state(self, path: str) -> bool:

@@ -90,6 +90,7 @@ def write_goldens(path: str, goldens: Dict[str, Dict], *,
         "config": config or {},
         "goldens": {k: goldens[k] for k in sorted(goldens)},
     }
+    # one writer: the --write-goldens run, the one process that names path
     tmp = path + ".tmp"
     with open(tmp, "w", encoding="utf-8") as f:
         json.dump(doc, f, indent=2, sort_keys=True)

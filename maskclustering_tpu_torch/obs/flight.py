@@ -164,6 +164,9 @@ class FlightRecorder:
         header = {"v": FLIGHT_SCHEMA_VERSION, "kind": KIND_META,
                   "ts": time.time(), "pid": pid, "reason": reason,
                   "events": len(events) + len(extra_rows or ())}
+        # one writer: a dump's own name holds its pid and a number taken
+        # under the lock, so no other dump shares it or its temporary; a
+        # caller that passes ``path`` owns that file
         tmp = target + ".tmp"
         try:
             d = os.path.dirname(target)

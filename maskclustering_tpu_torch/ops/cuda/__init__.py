@@ -268,8 +268,11 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         for entry in (lib.mc_splat_depth, lib.mc_splat_color, lib.mc_splat_bbox):
             entry.restype = ctypes.c_int
     elif name == "render":
-        lib.mc_render_depth_seg.argtypes = [p, i, p, p, p, i, i, i, p, p, i, p]
-        lib.mc_render_depth_seg.restype = ctypes.c_int
+        for entry in (lib.mc_render_depth_seg, lib.mc_render_depth_seg_exact):
+            entry.argtypes = [p, i, p, p, p, i, i, i, p, p, i, p]
+            entry.restype = ctypes.c_int
+        lib.mc_render_quotients.argtypes = [p, p, p, ctypes.c_longlong, i, p]
+        lib.mc_render_quotients.restype = ctypes.c_int
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -667,3 +670,27 @@ def render_depth_seg_cuda(boxes: torch.Tensor, poses: torch.Tensor, intrinsics: 
     _launched("render_depth_seg", (f, k, height, width), render_ops(f, k, height, width),
               render_bytes(f, k, height, width))
     return depths, segs
+
+
+def render_quotients_cuda(num: torch.Tensor, sd: torch.Tensor) -> torch.Tensor:
+    """The renderer's division form (``render.cu``'s ``quotient``, a
+    reciprocal taken per divisor) applied to pairs: ``num / sd`` rounded as
+    IEEE division rounds it, for pairs in the range ``render.cu`` states.
+    A test entry, on no path of the program: it counts no launch."""
+    name = "render_quotients_cuda"
+    _check(num.shape == sd.shape and num.dim() == 1,
+           f"{name}: need two 1-D tensors of one shape, got {tuple(num.shape)} and "
+           f"{tuple(sd.shape)}")
+    for t in (num, sd):
+        _check(t.dtype == torch.float32 and t.is_contiguous(),
+               f"{name}: inputs must be contiguous float32")
+    dev = _on_one_card(name, (num, sd))
+    out = torch.empty_like(num)
+    lib = load("render")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.mc_render_quotients(num.data_ptr(), sd.data_ptr(), out.data_ptr(),
+                                      num.shape[0], dev.index, stream)
+    if err != 0:
+        raise RuntimeError(f"render_quotients kernel launch failed: CUDA error {err}")
+    return out

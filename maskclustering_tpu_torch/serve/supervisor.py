@@ -610,7 +610,10 @@ class WorkerSupervisor:
         telemetry.record_queue_wait(
             req, max(time.monotonic() - req.admitted_at, 0.0))
         if req.expired():
-            obs.count("serve.requests")
+            if not req.crashes:
+                # a requeued attempt's arrival was booked by the dead
+                # child (ServeWorker._book_arrival)
+                obs.count("serve.requests")
             obs.count("serve.rejects.deadline")
             telemetry.record_reject(req.tenant)
             with self._lock:

@@ -151,6 +151,8 @@ def compact(path: str, state: WalState) -> None:
     intact; failure is logged and ignored — compaction is an optimization,
     never a correctness step (replay already happened from the old file).
     """
+    # one writer: the daemon that owns the journal directory compacts its
+    # WAL once, at its start, before its acceptor admits anything
     tmp = path + ".tmp"
     try:
         sink = EventSink(tmp, truncate=True)

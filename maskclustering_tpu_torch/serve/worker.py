@@ -49,7 +49,7 @@ import os
 import threading
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import torch
 
@@ -161,6 +161,11 @@ class ServeWorker:
         self._latencies: Deque[float] = deque(maxlen=4096)
         self._counts = {"requests": 0, "ok": 0, "failed": 0, "deadline": 0,
                         "skipped": 0, "interrupted": 0}
+        # called right after a request's arrival is booked: the isolated
+        # worker subprocess ships its counters to the parent there, so the
+        # count reaches the parent before anything that request runs can
+        # crash the process (serve/worker_main.py)
+        self.after_arrival: Optional[Callable[[], None]] = None
         # live-scan streams (stream_chunk/stream_end ops), keyed by scene
         # name; worker-thread-only (see _StreamSession). Bounded: a
         # session pins the scene's host tensors AND the O(M^2) device
@@ -335,10 +340,18 @@ class ServeWorker:
         """Per-request arrival bookkeeping (request count, queue wait,
         deadline cutoff) — shared by the solo and the packed paths so
         admission accounting cannot drift between them. False when the
-        request was answered with a typed ``deadline`` reject."""
-        obs.count("serve.requests")
+        request was answered with a typed ``deadline`` reject.
+
+        ``serve.requests`` counts a request once, however many workers
+        ran it: an attempt requeued after its worker died (``req.crashes``)
+        was booked by the dead worker, whose ``after_arrival`` had shipped
+        the count to the parent already."""
+        if not req.crashes:
+            obs.count("serve.requests")
         with self._lock:
             self._counts["requests"] += 1
+        if self.after_arrival is not None:
+            self.after_arrival()
         # ack->dequeue wait: the telemetry window's queue_wait histogram
         # and the trace CLI's queue-wait segment (no-op without a daemon
         # aggregator — e.g. inside the isolated worker subprocess, where

@@ -301,6 +301,13 @@ def main(argv=None) -> int:
                          prediction_root=args.prediction_root,
                          stream_state_dir=args.stream_state,
                          device=device)
+    # a booked arrival ships at once: if this request then kills the
+    # process, the parent has its count, and the respawned child that
+    # reruns it books none (``req.crashes``), so it counts once. Left to
+    # the heartbeat's cadence, the count of a crashed attempt reached the
+    # parent or not by timing, and the parent's request counter and its
+    # per-tenant sums disagreed when it had
+    worker.after_arrival = flush_telem
 
     # warm-up mirrors the daemon's _prewarm: drills are suspended so they
     # land on the serving path

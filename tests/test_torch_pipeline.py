@@ -300,7 +300,7 @@ for name in names:
 for name in ("semantics", "semantics.crops", "semantics.encoder", "semantics.features",
              "semantics.query", "semantics.clip", "semantics.clip_config",
              "semantics.checkpoint", "semantics.tokenizer", "semantics.image_processor",
-             "io.jpeg", "io.jpeg_arith", "io.jpeg_lossless", "io.jpeg_smooth", "obs.digest", "models.streaming", "utils.faults", "parallel",
+             "io.jpeg", "io.jpeg_arith", "io.jpeg_lossless", "io.jpeg_smooth", "obs.digest", "models.streaming", "utils.faults", "utils.atomic_write", "parallel",
              "parallel.mesh", "parallel.sharded", "parallel.batch", "obs", "obs.events",
              "obs.metrics", "obs.flight", "obs.tracer", "obs.telemetry", "obs.slo",
              "obs.report", "obs.ledger", "obs.trace", "obs.top", "obs.canary", "serve",

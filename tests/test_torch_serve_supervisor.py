@@ -438,6 +438,41 @@ def test_real_worker_crash_respawn_byte_identical(tmp_path, monkeypatch):
             os.path.join(od, other, "object_dict.npy"))
 
 
+def test_a_request_its_worker_died_under_is_counted_once(tmp_path, monkeypatch):
+    """A real child SIGKILLed under a request (``crash:<scene>.device:1``),
+    its heartbeat and telemetry relay every 50 ms so that the dead child's
+    counters reach the parent before the kill: the parent's
+    ``serve.requests`` grows by one for the one request, though the dead
+    child and the respawned one each booked its arrival."""
+    from maskclustering_tpu_torch import obs
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    root = str(tmp_path / "data")
+    write_scannet_layout(make_scene(**SPEC), root, SCENE)
+    cmd = supervisor.WorkerSupervisor._child_cmd
+    monkeypatch.setattr(supervisor.WorkerSupervisor, "_child_cmd", lambda self, first: [
+        *cmd(self, first), "--hb-interval", "0.05", "--telem-interval", "0.05"])
+    cfg = load_config("scannet", data_root=root, config_name="once", worker_heartbeat_s=30.0,
+                      retry_backoff_s=0.1, step=1, distance_threshold=0.05,
+                      mask_pad_multiple=32)
+    queue = AdmissionQueue(4)
+    sup = supervisor.WorkerSupervisor(cfg, queue, Router(cfg),
+                                      fault_plan_spec=f"crash:{SCENE}.device:1",
+                                      start_timeout_s=120.0, poll_s=0.1, device="cpu")
+    before = obs.registry().snapshot(include_histograms=False)["counters"]
+    try:
+        sup.start()
+        c = submit(PKGS["torch"], queue, SCENE, "r-000001")
+        assert c.done.wait(120.0), "request never answered"
+        assert "worker_crash" in c.states() and c.terminal["status"] == "ok", c.events
+    finally:
+        sup.stop(timeout_s=60.0)
+    after = obs.registry().snapshot(include_histograms=False)["counters"]
+    assert sup.crashes == 1 and sup.respawns == 1
+    assert after.get("serve.requests", 0) - before.get("serve.requests", 0) == 1
+    assert after.get("serve.requests_ok", 0) - before.get("serve.requests_ok", 0) == 1
+
+
 NOISY_CHILD = """
 import os, sys, warnings
 sys.path.insert(0, {root!r})

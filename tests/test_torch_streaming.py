@@ -515,6 +515,47 @@ def test_journal_refuses_another_chunking(scene_pack, tmp_path):
     assert not make_port().load_state(str(tmp_path / "absent.npz"))
 
 
+def test_two_threads_journal_one_scene_into_one_path(scene_pack, tmp_path):
+    """``save_state`` writes through a temporary file of its own: two
+    threads snapshotting one scene into one path at once (two slices on one
+    state directory) never share a file. Neither raises, the snapshot holds
+    a single save's members byte for byte (``np.savez`` stamps the time into
+    each member's zip header), no temporary file is left, and it resumes."""
+    import zipfile
+
+    _, make_port = _accumulators(scene_pack)
+    acc = make_port()
+    acc.push_chunk(_chunks(scene_pack["tensors"], 4)[0])
+    single = str(tmp_path / "single" / "s.stream.npz")
+    acc.save_state(single)
+    path = str(tmp_path / "shared" / "s.stream.npz")
+    errors = []
+    for _ in range(20):
+        start = threading.Barrier(2)
+
+        def save():
+            try:
+                start.wait(10.0)
+                acc.save_state(path)
+            except Exception as e:  # noqa: BLE001 — asserted below
+                errors.append(repr(e))
+
+        threads = [threading.Thread(target=save) for _ in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60.0)
+    assert errors == []
+
+    def members(p):
+        with zipfile.ZipFile(p) as zf:
+            return {name: zf.read(name) for name in zf.namelist()}
+
+    assert members(path) == members(single)
+    assert os.listdir(os.path.dirname(path)) == ["s.stream.npz"]
+    assert make_port().load_state(path)
+
+
 def test_stream_scene_resumes_and_removes_its_journal(scene_pack, port_stream4, tmp_path,
                                                      caplog):
     _, make_port = _accumulators(scene_pack)
